@@ -1,0 +1,349 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (image_restoration_tpu_torch).
+
+Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
+
+    python3 chip_smoke.py [--profile DIR]
+
+Phases, any failure ends the run with a nonzero exit code:
+1. device and build: the card's name and power limit; the CUDA kernels are
+   built from ``image_restoration_tpu_torch/kernels/csrc`` (timed);
+2. kernels vs plain versions: both passes of the block kernel at every block
+   shape of Restormer-base serving a 512x512 image, in bf16, against their
+   plain PyTorch versions, with the fp32 plain version as the oracle. The
+   kernel passes if its max relative error is below
+   max(3 x the plain bf16 version's, 4e-3). Times are CUDA-event medians;
+3. the serving slice: Restormer-base from ``build_model`` (bf16, fused
+   blocks, seeded random weights) restores three images through
+   ``make_restore_fn``. The outputs must be finite; each forward must launch
+   44 + 44 block kernels; the fused bf16 model must agree with the fp32
+   plain model within 3x the bf16 plain model's own error. ms/img and MP/s
+   at 512x512 follow.
+
+The line before the last is a JSON object of the kernels; before it, the
+card's name and power limit as nvidia-smi gives them. The last line is
+``{"ok": true, "device": {...}}``. Without CUDA the script exits nonzero
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# Block shapes of Restormer-base at a 512x512 input: (H, W, C, heads, blocks
+# per forward). Level 1 has two widths: the 4 encoder blocks at 48 and the
+# 4 decoder + 4 refinement blocks at 96 after the skip concat.
+LEVELS = [
+    (512, 512, 48, 1, 4),
+    (256, 256, 96, 2, 12),
+    (128, 128, 192, 4, 12),
+    (64, 64, 384, 8, 8),
+    (512, 512, 96, 1, 8),
+]
+BLOCKS_PER_FORWARD = sum(lv[-1] for lv in LEVELS)  # 44
+KERNELS = {
+    "block_front": ("image_restoration_tpu_torch/kernels/csrc/block_front.cu",
+                    "image_restoration_tpu/kernels/block_pallas.py:80"),
+    "block_apply_gdfn": (
+        "image_restoration_tpu_torch/kernels/csrc/block_apply_gdfn.cu",
+        "image_restoration_tpu/kernels/block_pallas.py:223"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def gpu_name_and_limit() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def time_cuda(fn, reps=15, warmup=3, head_start_ms=2.0):
+    """Median device ms of the GPU work ``fn`` enqueues, by CUDA events.
+
+    The L2 cache is flushed before each rep, and a spin kernel holds the GPU
+    for ``head_start_ms`` (at ~2 GHz) while the host enqueues ``fn``, so the
+    events time the device work, not the host's launch gaps.
+    """
+    import torch
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(int(head_start_ms * 2e6))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def random_block(c, heads, seed):
+    """A TransformerBlock's parameters on the GPU, from ``seed``: the
+    module's own init, with LN affine and temperature perturbed so every
+    term of the kernels is exercised."""
+    import torch
+
+    from image_restoration_tpu_torch.models.restormer import TransformerBlock
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        blk = TransformerBlock(c, heads)
+    with torch.no_grad():
+        for mod in (blk.norm1.body, blk.norm2.body):
+            mod.weight.add_(0.2 * torch.randn(c, generator=gen))
+            mod.bias.add_(0.2 * torch.randn(c, generator=gen))
+        blk.attn.temperature.copy_(
+            0.5 + torch.rand(heads, 1, 1, generator=gen))
+    return blk.cuda().block_params()
+
+
+def rel_err(got, oracle):
+    scale = oracle.float().abs().max().item() + 1e-12
+    return (got.float() - oracle.float()).abs().max().item() / scale
+
+
+def phase_kernels():
+    import torch
+
+    from image_restoration_tpu_torch.kernels import block as K
+
+    bound = lambda plain: max(3.0 * plain, 4e-3)  # noqa: E731
+    report = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                     "per_shape": []} for name in KERNELS}
+    for i, (h, w, c, heads, n_blocks) in enumerate(LEVELS):
+        p = random_block(c, heads, seed=100 + i)
+        gen = torch.Generator().manual_seed(200 + i)
+        x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
+
+        oracle = K.block_front_ref(x.float(), p, heads)
+        plain = K.block_front_ref(x, p, heads)
+        kern = K.block_front(x, p, heads)
+        torch.cuda.synchronize()
+        errs = []
+        for name, o, pl, kn in zip(("v", "gram", "sumsq"), oracle, plain, kern):
+            ek, ep = rel_err(kn, o), rel_err(pl, o)
+            errs.append(f"{name} {ek:.3e} (plain {ep:.3e})")
+            check(torch.isfinite(kn).all().item(), f"block_front {name} "
+                  f"not finite at {h}x{w}x{c}")
+            check(ek < bound(ep), f"block_front {name} at {h}x{w}x{c}: "
+                  f"rel err {ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
+        abs_front = (kern[0].float() - plain[0].float()).abs().max().item()
+        t_k = time_cuda(lambda: K.block_front(x, p, heads))
+        t_p = time_cuda(lambda: K.block_front_ref(x, p, heads))
+        print(f"block_front {h}x{w}x{c} heads {heads}: rel err "
+              f"{'; '.join(errs)}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
+              flush=True)
+        report["block_front"]["per_shape"].append(
+            {"shape": [1, h, w, c], "ms": t_k, "plain_ms": t_p})
+        report["block_front"]["max_abs_err"] = max(
+            report["block_front"]["max_abs_err"], abs_front)
+        report["block_front"]["ms"] += n_blocks * t_k
+        report["block_front"]["plain_ms"] += n_blocks * t_p
+
+        v, gram, ss = plain
+        atw = K.finalize(gram, ss, p.temperature, p.proj_w, torch.bfloat16)
+        oracle2 = K.block_apply_gdfn_ref(v.float(), x.float(), atw.float(), p)
+        plain2 = K.block_apply_gdfn_ref(v, x, atw, p)
+        kern2 = K.block_apply_gdfn(v, x, atw, p)
+        torch.cuda.synchronize()
+        ek, ep = rel_err(kern2, oracle2), rel_err(plain2, oracle2)
+        check(torch.isfinite(kern2).all().item(),
+              f"block_apply_gdfn not finite at {h}x{w}x{c}")
+        check(ek < bound(ep), f"block_apply_gdfn at {h}x{w}x{c}: rel err "
+              f"{ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
+        t_k = time_cuda(lambda: K.block_apply_gdfn(v, x, atw, p))
+        t_p = time_cuda(lambda: K.block_apply_gdfn_ref(v, x, atw, p))
+        print(f"block_apply_gdfn {h}x{w}x{c} heads {heads}: rel err "
+              f"{ek:.3e} (plain {ep:.3e}); kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms", flush=True)
+        report["block_apply_gdfn"]["per_shape"].append(
+            {"shape": [1, h, w, c], "ms": t_k, "plain_ms": t_p})
+        report["block_apply_gdfn"]["max_abs_err"] = max(
+            report["block_apply_gdfn"]["max_abs_err"],
+            (kern2.float() - plain2.float()).abs().max().item())
+        report["block_apply_gdfn"]["ms"] += n_blocks * t_k
+        report["block_apply_gdfn"]["plain_ms"] += n_blocks * t_p
+    return report
+
+
+def phase_slice(gpu, profile_dir):
+    import torch
+
+    from image_restoration_tpu_torch.cli.infer import make_restore_fn
+    from image_restoration_tpu_torch.cli.test import load_params
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.kernels import block as K
+    from image_restoration_tpu_torch.utils.options import parse_options
+
+    cfg = parse_options(["--device", "cuda", "--seed", "0"])
+    check(cfg["bf16"] and cfg["model_kwargs"]["fused_block"],
+          "serving defaults are not bf16 + fused blocks")
+    model = load_params(cfg, build_model(cfg))
+    restore = make_restore_fn(cfg, model)
+    rng = np.random.default_rng(0)
+    images = [rng.random((512, 512, 3), dtype=np.float32),
+              rng.random((512, 512, 3), dtype=np.float32),
+              rng.random((500, 376, 3), dtype=np.float32)]
+    restore(images[0])  # warm-up: cuDNN algorithm choice, allocator
+    torch.cuda.synchronize()
+
+    K.block_front.launches = 0
+    K.block_apply_gdfn.launches = 0
+    outs = [restore(img) for img in images]
+    torch.cuda.synchronize()
+    launches = {"block_front": K.block_front.launches,
+                "block_apply_gdfn": K.block_apply_gdfn.launches}
+    print(f"serving: {len(images)} images, launches {launches}", flush=True)
+    for img, out in zip(images, outs):
+        check(out.shape == img.shape, f"output {out.shape} for {img.shape}")
+        check(np.isfinite(out).all(), "non-finite restored image")
+    for name, n in launches.items():
+        check(n == len(images) * BLOCKS_PER_FORWARD,
+              f"{name}: {n} launches for {len(images)} forwards, expected "
+              f"{BLOCKS_PER_FORWARD} each")
+
+    # agreement: fused bf16 vs plain fp32 (oracle), against plain bf16
+    x = torch.from_numpy(images[0]).permute(2, 0, 1)[None].cuda()
+    sd = model.state_dict()
+
+    def variant(bf16):
+        c2 = dict(cfg, bf16=bf16,
+                  model_kwargs=dict(cfg["model_kwargs"], fused_block=False))
+        m = build_model(c2)
+        m.load_state_dict(sd)
+        return m
+
+    with torch.inference_mode():
+        out_fused = model(x)
+        out_ref = variant(False)(x)
+        out_plain = variant(True)(x)
+    err_fused = (out_fused - out_ref).abs().max().item()
+    err_plain = (out_plain - out_ref).abs().max().item()
+    print(f"serving: max |fused bf16 - plain fp32| {err_fused:.4e}, "
+          f"max |plain bf16 - plain fp32| {err_plain:.4e}", flush=True)
+    check(np.isfinite(err_fused) and err_fused <= 3.0 * err_plain,
+          f"fused model error {err_fused:.4e} above 3 x {err_plain:.4e}")
+
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore(images[0])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    with torch.inference_mode():
+        fwd_ms = time_cuda(lambda: model(x), reps=10, head_start_ms=150.0)
+    print(f"serving 512x512 bf16 batch 1 on {gpu}: {ms:.3f} ms/img "
+          f"(restore, host clock, median of 10; min {min(times):.3f}, max "
+          f"{max(times):.3f}), {0.262144 / (ms / 1e3):.4f} MP/s; forward "
+          f"{fwd_ms:.3f} ms (device, CUDA events)", flush=True)
+
+    if profile_dir:
+        import os
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(profile_dir, exist_ok=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for img in images[:2]:
+                restore(img)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 2
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   ) / 2e3  # us -> ms per image
+        table = events.table(sort_by="cuda_time_total", row_limit=40)
+        with open(os.path.join(profile_dir, "profile_2img.txt"), "w") as f:
+            f.write(f"{gpu}\n{table}\n")
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace_2img.json"))
+        print(f"profile of 2 restores at 512x512: device busy {busy:.3f} ms "
+              f"per image of {wall:.3f} ms (host clock, under the profiler), "
+              f"{100 * (1 - busy / wall):.2f}% idle; table and trace in "
+              f"{profile_dir}", flush=True)
+    return launches
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", default=None,
+                    help="directory for a torch.profiler table and trace of "
+                         "two 512x512 restores")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    try:
+        from image_restoration_tpu_torch.kernels.build import load_library
+    except ImportError as e:
+        print(f"chip_smoke: run from the repository root ({e})",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    gpu = gpu_name_and_limit()
+    print(f"device: {torch.cuda.get_device_name(0)} ({gpu}), torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    lib = load_library()
+    print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s", flush=True)
+    for line in lib.compiler_log.splitlines():
+        if "Used" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    report = phase_kernels()
+    launches = phase_slice(gpu, args.profile)
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        r = report[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "ms_is": "sum over the 44 blocks of one 512x512 "
+                                 "forward of per-call CUDA-event medians",
+                        "per_shape": r["per_shape"]})
+    print(json.dumps({"kernels": kernels}))
+    print(gpu)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,1 @@
+"""Entry points: build_model, load_params, infer."""

@@ -1,0 +1,67 @@
+"""MDTA: multi-Dconv-head transposed attention (Restormer.py:99-132), NCHW.
+
+The attention matrix is (C/heads x C/heads), contracted over all HW pixels,
+so its cost is linear in resolution. The per-channel L2 normalization over
+HW commutes with the contraction,
+normalize(q)^T normalize(k) = (q^T k) / (||q_c|| ||k_d||), so the logits are
+the raw product rescaled by the norms (ops/attention.py in the JAX package):
+no normalized copy of q or k is made.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from image_restoration_tpu_torch.ops.common import Conv
+
+
+def l2_normalize(x, dim: int, eps: float = 1e-12):
+    """torch F.normalize semantics: x / max(||x||_2, eps)."""
+    n = torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True))
+    return x / torch.clamp(n, min=eps)
+
+
+def mdta_attention(q, k, v, temperature, num_heads: int):
+    """Core MDTA contraction on NCHW q, k, v; returns NCHW in v's dtype.
+
+    Channels are head-major ('b (head c) h w', Restormer.py:117). Products
+    take operands in the activation dtype and accumulate in fp32; the norms,
+    temperature and softmax are fp32, as in the JAX ``mdta_attention``.
+    """
+    b, c, h, w = q.shape
+    ch = c // num_heads
+    dt = v.dtype
+
+    def heads(t):  # (b, heads, ch, hw); exact widening of the activations
+        return t.reshape(b, num_heads, ch, h * w).float()
+
+    qf, kf, vf = heads(q), heads(k), heads(v)
+    qn = torch.clamp(torch.sqrt((qf * qf).sum(-1)), min=1e-12)
+    kn = torch.clamp(torch.sqrt((kf * kf).sum(-1)), min=1e-12)
+    attn = torch.matmul(qf, kf.transpose(-1, -2))
+    attn = attn / (qn[..., :, None] * kn[..., None, :])
+    attn = attn * temperature.reshape(-1, num_heads, 1, 1).float()
+    attn = torch.softmax(attn, dim=-1)
+    out = torch.matmul(attn.to(dt).float(), vf).to(dt)
+    return out.reshape(b, c, h, w)
+
+
+class MDTA(nn.Module):
+    """1x1 qkv conv -> 3x3 depthwise -> per-head L2-normalized channel
+    attention with a learned temperature -> 1x1 projection."""
+
+    def __init__(self, dim: int, num_heads: int, bias: bool = False,
+                 dtype=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
+        self.qkv = Conv(dim, dim * 3, 1, bias=bias, dtype=dtype)
+        self.qkv_dwconv = Conv(dim * 3, dim * 3, 3, padding=1,
+                               groups=dim * 3, bias=bias, dtype=dtype)
+        self.project_out = Conv(dim, dim, 1, bias=bias, dtype=dtype)
+
+    def forward(self, x):
+        q, k, v = self.qkv_dwconv(self.qkv(x)).chunk(3, dim=1)
+        out = mdta_attention(q, k, v, self.temperature, self.num_heads)
+        return self.project_out(out)

@@ -1,0 +1,67 @@
+"""Channel LayerNorms of the Restormer family.
+
+The bodies normalize the last axis, as the reference's bodies do after its
+``to_3d`` reshape (Restormer.py:19-70). ``LayerNorm`` takes NCHW and views it
+as NHWC, which is free for the ``channels_last`` activations the models run.
+Statistics are fp32 whatever the activation dtype, the variance is the biased
+estimator, and the result is cast back to the input dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def layer_norm_f32(x, weight, bias=None, eps: float = 1e-5):
+    """LayerNorm over the last axis in fp32, returned in fp32.
+
+    ``(x - mu) / sqrt(var + eps) * w + b``; with ``bias`` None the BiasFree
+    form ``x / sqrt(var + eps) * w``, which rescales and never shifts (x is
+    not centered, the variance is still taken around the mean).
+    """
+    xf = x.float()
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    inv = torch.rsqrt(var + eps)
+    if bias is None:
+        return xf * inv * weight.float()
+    return (xf - xf.mean(dim=-1, keepdim=True)) * inv * weight.float() + bias.float()
+
+
+class BiasFreeLayerNorm(nn.Module):
+    """``x / sqrt(var(x) + eps) * w``."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        return layer_norm_f32(x, self.weight, None, self.eps).to(x.dtype)
+
+
+class WithBiasLayerNorm(nn.Module):
+    """``(x - mu) / sqrt(var + eps) * w + b``."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        return layer_norm_f32(x, self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """The reference's ``LayerNorm(dim, LayerNorm_type)`` wrapper: the norm
+    lives under ``body`` and runs over the channels of an NCHW tensor."""
+
+    def __init__(self, dim: int, ln_type: str = "WithBias", eps: float = 1e-5):
+        super().__init__()
+        self.ln_type = ln_type
+        cls = BiasFreeLayerNorm if ln_type == "BiasFree" else WithBiasLayerNorm
+        self.body = cls(dim, eps)
+
+    def forward(self, x):
+        return self.body(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)

@@ -1,0 +1,64 @@
+"""Options of the port's inference surface.
+
+The subset of image_restoration_tpu/utils/options.py that ``cli/infer.py``
+reads: the model and its defaults, the checkpoint, padding, the precision
+and the input/output paths, with dotted ``--set a.b=c`` overrides. The
+training options come with the training port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import copy
+from typing import Any, Dict
+
+MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
+    # Restormer-base (Restormer.py defaults); serving runs every block as
+    # the two-kernel pair on the GPU (plain passes on the CPU)
+    "restormer": dict(dim=48, num_blocks=[4, 6, 6, 8], heads=[1, 2, 4, 8],
+                      num_refinement_blocks=4, ffn_expansion_factor=2.66,
+                      fused_block=True),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("image_restoration_tpu_torch")
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   metavar="KEY=VAL", help="dotted config override")
+    p.add_argument("--model", type=str, default="restormer")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random init when no --ckpt is given")
+    p.add_argument("--bf16", action="store_true", default=True)
+    p.add_argument("--fp32", dest="bf16", action="store_false")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: cuda if available, else cpu)")
+    p.add_argument("--ckpt", type=str, default=None,
+                   help="checkpoint: torch .pth/.pt/.ckpt, or a JAX .npz")
+    p.add_argument("--prefer_ema", action="store_true")
+    p.add_argument("--pad_multiple", type=int, default=8)
+    p.add_argument("--output_dir", type=str, default="results")
+    p.add_argument("--input", type=str, default=None,
+                   help="image file or folder to restore")
+    return p
+
+
+def _set_dotted(cfg: dict, key: str, value: str):
+    node = cfg
+    parts = key.split(".")
+    for k in parts[:-1]:
+        node = node.setdefault(k, {})
+    try:
+        node[parts[-1]] = ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        node[parts[-1]] = value
+
+
+def parse_options(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    cfg = {k: v for k, v in vars(args).items() if k != "overrides"}
+    cfg["model_kwargs"] = copy.deepcopy(MODEL_DEFAULTS.get(cfg["model"].lower(), {}))
+    for ov in args.overrides:
+        k, _, v = ov.partition("=")
+        _set_dotted(cfg, k, v)
+    return cfg

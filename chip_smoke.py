@@ -8,17 +8,24 @@ Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
 Phases, any failure ends the run with a nonzero exit code:
 1. device and build: the card's name and power limit; the CUDA kernels are
    built from ``image_restoration_tpu_torch/kernels/csrc`` (timed);
-2. kernels vs plain versions: both passes of the block kernel at every block
-   shape of Restormer-base serving a 512x512 image, in bf16, against their
-   plain PyTorch versions, with the fp32 plain version as the oracle. The
-   kernel passes if its max relative error is below
+2. kernels vs plain versions: both passes of the Restormer block kernel (K1,
+   K2) at every block shape of Restormer-base serving a 512x512 image, in
+   bf16, against their plain PyTorch versions, with the fp32 plain version
+   as the oracle. The kernel passes if its max relative error is below
    max(3 x the plain bf16 version's, 4e-3). Times are CUDA-event medians;
-3. the serving slice: Restormer-base from ``build_model`` (bf16, fused
-   blocks, seeded random weights) restores three images through
+2b. the same for DRSformer's kernels: the MSFN pass (K7) at the five block
+   shapes of DRSformer serving a 512x512 image, and the MEFC step (K8) at
+   512x512 x 48 and x 96, four steps each;
+3. the Restormer serving slice: Restormer-base from ``build_model`` (bf16,
+   fused blocks, seeded random weights) restores three images through
    ``make_restore_fn``. The outputs must be finite; each forward must launch
    44 + 44 block kernels; the fused bf16 model must agree with the fp32
    plain model within 3x the bf16 plain model's own error. ms/img and MP/s
-   at 512x512 follow.
+   at 512x512 follow;
+3b. the DRSformer serving slice, the same way: each forward must launch 40
+   K1, 40 K7 and 8 K8 (two MEFC Subnets of four steps).
+Each serving phase sets the launch counts to 0 just before its three
+restores and reads them just after.
 
 The line before the last is a JSON object of the kernels; before it, the
 card's name and power limit as nvidia-smi gives them. The last line is
@@ -48,12 +55,30 @@ LEVELS = [
     (512, 512, 96, 1, 8),
 ]
 BLOCKS_PER_FORWARD = sum(lv[-1] for lv in LEVELS)  # 44
+# DRSformer at a 512x512 input: the same levels, 40 blocks (no refinement
+# blocks: the refinement is an MEFC Subnet at 96 channels, as level 0's is
+# at 48), decoder level 1 at 96 channels with heads[0].
+DRS_LEVELS = [
+    (512, 512, 48, 1, 4),
+    (256, 256, 96, 2, 12),
+    (128, 128, 192, 4, 12),
+    (64, 64, 384, 8, 8),
+    (512, 512, 96, 1, 4),
+]
+DRS_BLOCKS_PER_FORWARD = sum(lv[-1] for lv in DRS_LEVELS)  # 40
+MEFC_STEPS = [(512, 512, 48, 4), (512, 512, 96, 4)]  # (H, W, C, steps)
+MEFC_STEPS_PER_FORWARD = sum(lv[-1] for lv in MEFC_STEPS)  # 8
 KERNELS = {
     "block_front": ("image_restoration_tpu_torch/kernels/csrc/block_front.cu",
                     "image_restoration_tpu/kernels/block_pallas.py:80"),
     "block_apply_gdfn": (
         "image_restoration_tpu_torch/kernels/csrc/block_apply_gdfn.cu",
         "image_restoration_tpu/kernels/block_pallas.py:223"),
+    "drs_apply_msfn": (
+        "image_restoration_tpu_torch/kernels/csrc/drs_apply_msfn.cu",
+        "image_restoration_tpu/kernels/drs_block_pallas.py:387"),
+    "mefc_step": ("image_restoration_tpu_torch/kernels/csrc/mefc_step.cu",
+                  "image_restoration_tpu/kernels/mefc_pallas.py:129"),
 }
 
 
@@ -126,14 +151,29 @@ def rel_err(got, oracle):
     return (got.float() - oracle.float()).abs().max().item() / scale
 
 
+def _new_report(names):
+    return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                   "per_shape": []} for name in names}
+
+
+def _record(report, name, shape, n_calls, t_k, t_p, abs_err):
+    r = report[name]
+    r["per_shape"].append({"shape": shape, "ms": t_k, "plain_ms": t_p})
+    r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+    r["ms"] += n_calls * t_k
+    r["plain_ms"] += n_calls * t_p
+
+
+def _bound(plain):
+    return max(3.0 * plain, 4e-3)
+
+
 def phase_kernels():
     import torch
 
     from image_restoration_tpu_torch.kernels import block as K
 
-    bound = lambda plain: max(3.0 * plain, 4e-3)  # noqa: E731
-    report = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                     "per_shape": []} for name in KERNELS}
+    report = _new_report(("block_front", "block_apply_gdfn"))
     for i, (h, w, c, heads, n_blocks) in enumerate(LEVELS):
         p = random_block(c, heads, seed=100 + i)
         gen = torch.Generator().manual_seed(200 + i)
@@ -149,7 +189,7 @@ def phase_kernels():
             errs.append(f"{name} {ek:.3e} (plain {ep:.3e})")
             check(torch.isfinite(kn).all().item(), f"block_front {name} "
                   f"not finite at {h}x{w}x{c}")
-            check(ek < bound(ep), f"block_front {name} at {h}x{w}x{c}: "
+            check(ek < _bound(ep), f"block_front {name} at {h}x{w}x{c}: "
                   f"rel err {ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
         abs_front = (kern[0].float() - plain[0].float()).abs().max().item()
         t_k = time_cuda(lambda: K.block_front(x, p, heads))
@@ -157,12 +197,8 @@ def phase_kernels():
         print(f"block_front {h}x{w}x{c} heads {heads}: rel err "
               f"{'; '.join(errs)}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
               flush=True)
-        report["block_front"]["per_shape"].append(
-            {"shape": [1, h, w, c], "ms": t_k, "plain_ms": t_p})
-        report["block_front"]["max_abs_err"] = max(
-            report["block_front"]["max_abs_err"], abs_front)
-        report["block_front"]["ms"] += n_blocks * t_k
-        report["block_front"]["plain_ms"] += n_blocks * t_p
+        _record(report, "block_front", [1, h, w, c], n_blocks, t_k, t_p,
+                abs_front)
 
         v, gram, ss = plain
         atw = K.finalize(gram, ss, p.temperature, p.proj_w, torch.bfloat16)
@@ -173,35 +209,168 @@ def phase_kernels():
         ek, ep = rel_err(kern2, oracle2), rel_err(plain2, oracle2)
         check(torch.isfinite(kern2).all().item(),
               f"block_apply_gdfn not finite at {h}x{w}x{c}")
-        check(ek < bound(ep), f"block_apply_gdfn at {h}x{w}x{c}: rel err "
+        check(ek < _bound(ep), f"block_apply_gdfn at {h}x{w}x{c}: rel err "
               f"{ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
         t_k = time_cuda(lambda: K.block_apply_gdfn(v, x, atw, p))
         t_p = time_cuda(lambda: K.block_apply_gdfn_ref(v, x, atw, p))
         print(f"block_apply_gdfn {h}x{w}x{c} heads {heads}: rel err "
               f"{ek:.3e} (plain {ep:.3e}); kernel {t_k:.4f} ms, plain "
               f"{t_p:.4f} ms", flush=True)
-        report["block_apply_gdfn"]["per_shape"].append(
-            {"shape": [1, h, w, c], "ms": t_k, "plain_ms": t_p})
-        report["block_apply_gdfn"]["max_abs_err"] = max(
-            report["block_apply_gdfn"]["max_abs_err"],
-            (kern2.float() - plain2.float()).abs().max().item())
-        report["block_apply_gdfn"]["ms"] += n_blocks * t_k
-        report["block_apply_gdfn"]["plain_ms"] += n_blocks * t_p
+        _record(report, "block_apply_gdfn", [1, h, w, c], n_blocks, t_k, t_p,
+                (kern2.float() - plain2.float()).abs().max().item())
     return report
 
 
-def phase_slice(gpu, profile_dir):
+def random_drs_block(c, heads, seed):
+    """A DRSformer TransformerBlock's parameters on the GPU, from ``seed``:
+    the module's own init, with LN affines, temperature and attn1..4
+    perturbed so every term of the kernels is exercised."""
+    import torch
+
+    from image_restoration_tpu_torch.models.drsformer import TransformerBlock
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        blk = TransformerBlock(c, heads)
+    with torch.no_grad():
+        for mod in (blk.norm1.body, blk.norm2.body):
+            mod.weight.add_(0.2 * torch.randn(c, generator=gen))
+            mod.bias.add_(0.2 * torch.randn(c, generator=gen))
+        blk.attn.temperature.copy_(0.5 + torch.rand(heads, 1, 1, generator=gen))
+        for i in range(4):
+            getattr(blk.attn, f"attn{i + 1}").add_(
+                0.1 * torch.randn(1, generator=gen))
+    return blk.cuda().block_params()
+
+
+def random_mefc_steps(c, n_steps, seed):
+    """``n_steps`` MEFC steps' parameters on the GPU (the module's own init,
+    from ``seed``) and their (1, n_steps, 8) bf16 mix weights."""
+    import torch
+
+    from image_restoration_tpu_torch.models.drsformer import OperationLayer
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        steps = [OperationLayer(c).cuda().step_params() for _ in range(n_steps)]
+        logits = torch.randn(1, n_steps, 8)
+    return steps, torch.softmax(logits, -1).to("cuda", torch.bfloat16)
+
+
+def phase_drs_kernels():
+    import torch
+
+    from image_restoration_tpu_torch.kernels import block as KB
+    from image_restoration_tpu_torch.kernels import drs_block as K
+    from image_restoration_tpu_torch.kernels import mefc as M
+
+    report = _new_report(("drs_apply_msfn", "mefc_step"))
+    for i, (h, w, c, heads, n_blocks) in enumerate(DRS_LEVELS):
+        p = random_drs_block(c, heads, seed=300 + i)
+        gen = torch.Generator().manual_seed(400 + i)
+        x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
+        v, gram, ss = KB.block_front_ref(x, p.front(), heads)
+        atw = K.tksa_finalize(gram, ss, p.temperature, p.mix, p.proj_w,
+                              torch.bfloat16)
+        oracle = K.drs_apply_msfn_ref(v.float(), x.float(), atw.float(), p)
+        plain = K.drs_apply_msfn_ref(v, x, atw, p)
+        kern = K.drs_apply_msfn(v, x, atw, p)
+        torch.cuda.synchronize()
+        ek, ep = rel_err(kern, oracle), rel_err(plain, oracle)
+        check(torch.isfinite(kern).all().item(),
+              f"drs_apply_msfn not finite at {h}x{w}x{c}")
+        check(ek < _bound(ep), f"drs_apply_msfn at {h}x{w}x{c}: rel err "
+              f"{ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
+        del oracle
+        t_k = time_cuda(lambda: K.drs_apply_msfn(v, x, atw, p))
+        t_p = time_cuda(lambda: K.drs_apply_msfn_ref(v, x, atw, p))
+        print(f"drs_apply_msfn {h}x{w}x{c} heads {heads}: rel err {ek:.3e} "
+              f"(plain {ep:.3e}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
+              flush=True)
+        _record(report, "drs_apply_msfn", [1, h, w, c], n_blocks, t_k, t_p,
+                (kern.float() - plain.float()).abs().max().item())
+
+    for i, (h, w, c, n_steps) in enumerate(MEFC_STEPS):
+        steps, mix = random_mefc_steps(c, n_steps, seed=500 + i)
+        gen = torch.Generator().manual_seed(600 + i)
+        x = torch.randn((1, h, w, c), generator=gen).abs()
+        x = x.to("cuda", torch.bfloat16)
+        errs, t_ks, t_ps, abs_err = [], [], [], 0.0
+        for st, sp in enumerate(steps):  # each step on the plain chain's input
+            m = M.fold_step(sp, mix[:, st], torch.bfloat16)
+            oracle = M.mefc_step_ref(
+                x.float(), sp, M.fold_step(sp, mix[:, st], torch.float32))
+            plain = M.mefc_step_ref(x, sp, m)
+            kern = M.mefc_step(x, sp, m)
+            torch.cuda.synchronize()
+            ek, ep = rel_err(kern, oracle), rel_err(plain, oracle)
+            check(torch.isfinite(kern).all().item(),
+                  f"mefc_step not finite at {h}x{w}x{c} step {st}")
+            check(ek < _bound(ep), f"mefc_step at {h}x{w}x{c} step {st}: rel "
+                  f"err {ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
+            errs.append(f"{ek:.3e} (plain {ep:.3e})")
+            abs_err = max(abs_err,
+                          (kern.float() - plain.float()).abs().max().item())
+            t_ks.append(time_cuda(lambda: M.mefc_step(x, sp, m)))
+            t_ps.append(time_cuda(lambda: M.mefc_step_ref(x, sp, m)))
+            x = plain
+        t_k, t_p = statistics.median(t_ks), statistics.median(t_ps)
+        print(f"mefc_step {h}x{w}x{c}, {n_steps} steps: rel err "
+              f"{'; '.join(errs)}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms "
+              f"(median over the steps)", flush=True)
+        _record(report, "mefc_step", [1, h, w, c], n_steps, t_k, t_p, abs_err)
+    return report
+
+
+def _profile(restore, images, profile_dir, tag, gpu):
+    import os
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for img in images[:2]:
+            restore(img)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 2
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               ) / 2e3  # us -> ms per image
+    table = events.table(sort_by="cuda_time_total", row_limit=40)
+    with open(os.path.join(profile_dir, f"{tag}_profile_2img.txt"), "w") as f:
+        f.write(f"{gpu}\n{table}\n")
+    prof.export_chrome_trace(os.path.join(profile_dir, f"{tag}_trace_2img.json"))
+    print(f"{tag}: profile of 2 restores at 512x512: device busy {busy:.3f} "
+          f"ms per image of {wall:.3f} ms (host clock, under the profiler), "
+          f"{100 * (1 - busy / wall):.2f}% idle; table and trace in "
+          f"{profile_dir}", flush=True)
+
+
+def phase_slice(gpu, profile_dir, model_name, counters, expected):
+    """Serve ``model_name`` from ``build_model`` with its serving defaults:
+    three restores with the ``counters`` (name -> wrapper) set to 0 just
+    before and read just after, each expected to count ``expected[name]``
+    per forward; then the agreement with the plain fp32 model and the
+    timings. Returns the launch counts."""
     import torch
 
     from image_restoration_tpu_torch.cli.infer import make_restore_fn
     from image_restoration_tpu_torch.cli.test import load_params
     from image_restoration_tpu_torch.cli.train import build_model
-    from image_restoration_tpu_torch.kernels import block as K
     from image_restoration_tpu_torch.utils.options import parse_options
 
-    cfg = parse_options(["--device", "cuda", "--seed", "0"])
+    cfg = parse_options(["--model", model_name, "--device", "cuda",
+                         "--seed", "0"])
     check(cfg["bf16"] and cfg["model_kwargs"]["fused_block"],
-          "serving defaults are not bf16 + fused blocks")
+          f"{model_name} serving defaults are not bf16 + fused blocks")
     model = load_params(cfg, build_model(cfg))
     restore = make_restore_fn(cfg, model)
     rng = np.random.default_rng(0)
@@ -211,20 +380,20 @@ def phase_slice(gpu, profile_dir):
     restore(images[0])  # warm-up: cuDNN algorithm choice, allocator
     torch.cuda.synchronize()
 
-    K.block_front.launches = 0
-    K.block_apply_gdfn.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     outs = [restore(img) for img in images]
     torch.cuda.synchronize()
-    launches = {"block_front": K.block_front.launches,
-                "block_apply_gdfn": K.block_apply_gdfn.launches}
-    print(f"serving: {len(images)} images, launches {launches}", flush=True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"{model_name} serving: {len(images)} images, launches {launches}",
+          flush=True)
     for img, out in zip(images, outs):
         check(out.shape == img.shape, f"output {out.shape} for {img.shape}")
         check(np.isfinite(out).all(), "non-finite restored image")
     for name, n in launches.items():
-        check(n == len(images) * BLOCKS_PER_FORWARD,
-              f"{name}: {n} launches for {len(images)} forwards, expected "
-              f"{BLOCKS_PER_FORWARD} each")
+        check(n == len(images) * expected[name],
+              f"{model_name} {name}: {n} launches for {len(images)} forwards,"
+              f" expected {expected[name]} each")
 
     # agreement: fused bf16 vs plain fp32 (oracle), against plain bf16
     x = torch.from_numpy(images[0]).permute(2, 0, 1)[None].cuda()
@@ -243,10 +412,13 @@ def phase_slice(gpu, profile_dir):
         out_plain = variant(True)(x)
     err_fused = (out_fused - out_ref).abs().max().item()
     err_plain = (out_plain - out_ref).abs().max().item()
-    print(f"serving: max |fused bf16 - plain fp32| {err_fused:.4e}, "
-          f"max |plain bf16 - plain fp32| {err_plain:.4e}", flush=True)
+    del out_ref, out_plain
+    print(f"{model_name} serving: max |fused bf16 - plain fp32| "
+          f"{err_fused:.4e}, max |plain bf16 - plain fp32| {err_plain:.4e}",
+          flush=True)
     check(np.isfinite(err_fused) and err_fused <= 3.0 * err_plain,
-          f"fused model error {err_fused:.4e} above 3 x {err_plain:.4e}")
+          f"{model_name}: fused model error {err_fused:.4e} above 3 x "
+          f"{err_plain:.4e}")
 
     times = []
     for _ in range(10):
@@ -258,47 +430,20 @@ def phase_slice(gpu, profile_dir):
     ms = statistics.median(times)
     with torch.inference_mode():
         fwd_ms = time_cuda(lambda: model(x), reps=10, head_start_ms=150.0)
-    print(f"serving 512x512 bf16 batch 1 on {gpu}: {ms:.3f} ms/img "
-          f"(restore, host clock, median of 10; min {min(times):.3f}, max "
-          f"{max(times):.3f}), {0.262144 / (ms / 1e3):.4f} MP/s; forward "
+    print(f"{model_name} serving 512x512 bf16 batch 1 on {gpu}: {ms:.3f} "
+          f"ms/img (restore, host clock, median of 10; min {min(times):.3f}, "
+          f"max {max(times):.3f}), {0.262144 / (ms / 1e3):.4f} MP/s; forward "
           f"{fwd_ms:.3f} ms (device, CUDA events)", flush=True)
-
     if profile_dir:
-        import os
-
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        os.makedirs(profile_dir, exist_ok=True)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for img in images[:2]:
-                restore(img)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / 2
-        events = prof.key_averages()
-        busy = sum(e.self_device_time_total for e in events
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   ) / 2e3  # us -> ms per image
-        table = events.table(sort_by="cuda_time_total", row_limit=40)
-        with open(os.path.join(profile_dir, "profile_2img.txt"), "w") as f:
-            f.write(f"{gpu}\n{table}\n")
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace_2img.json"))
-        print(f"profile of 2 restores at 512x512: device busy {busy:.3f} ms "
-              f"per image of {wall:.3f} ms (host clock, under the profiler), "
-              f"{100 * (1 - busy / wall):.2f}% idle; table and trace in "
-              f"{profile_dir}", flush=True)
+        _profile(restore, images, profile_dir, model_name, gpu)
     return launches
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
-                    help="directory for a torch.profiler table and trace of "
-                         "two 512x512 restores")
+                    help="directory for torch.profiler tables and traces of "
+                         "two 512x512 restores per model")
     args = ap.parse_args(argv)
 
     import torch
@@ -312,6 +457,10 @@ def main(argv=None):
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
+    from image_restoration_tpu_torch.kernels import block as KB
+    from image_restoration_tpu_torch.kernels import drs_block as KD
+    from image_restoration_tpu_torch.kernels import mefc as KM
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -325,18 +474,43 @@ def main(argv=None):
             print(f"  ptxas: {line.strip()}")
 
     report = phase_kernels()
-    launches = phase_slice(gpu, args.profile)
+    report.update(phase_drs_kernels())
+    by_path = {
+        "restormer": phase_slice(
+            gpu, args.profile, "restormer",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": BLOCKS_PER_FORWARD}),
+        "drsformer": phase_slice(
+            gpu, args.profile, "drsformer",
+            {"block_front": KB.block_front,
+             "drs_apply_msfn": KD.drs_apply_msfn,
+             "mefc_step": KM.mefc_step},
+            {"block_front": DRS_BLOCKS_PER_FORWARD,
+             "drs_apply_msfn": DRS_BLOCKS_PER_FORWARD,
+             "mefc_step": MEFC_STEPS_PER_FORWARD}),
+    }
+    ms_is = {"block_front": "sum over the 44 blocks of one Restormer-base "
+                            "512x512 forward of per-call CUDA-event medians",
+             "block_apply_gdfn": "the same, 44 blocks",
+             "drs_apply_msfn": "sum over the 40 blocks of one DRSformer "
+                               "512x512 forward of per-call CUDA-event medians",
+             "mefc_step": "sum over the 8 steps of one DRSformer 512x512 "
+                          "forward of per-shape medians of per-call "
+                          "CUDA-event medians"}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = report[name]
+        per_path = {path: n[name] for path, n in by_path.items() if name in n}
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": sum(per_path.values()),
+                        "launches_by_path": per_path,
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "ms_is": "sum over the 44 blocks of one 512x512 "
-                                 "forward of per-call CUDA-event medians",
-                        "per_shape": r["per_shape"]})
+                        "ms_is": ms_is[name], "per_shape": r["per_shape"]})
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

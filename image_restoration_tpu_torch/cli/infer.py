@@ -4,10 +4,15 @@ Usage:
   python -m image_restoration_tpu_torch.cli.infer --model restormer \
       --ckpt restormer.pth --input photos/ --output_dir restored/
 
+  python -m image_restoration_tpu_torch.cli.infer --model drsformer \
+      --ckpt drsformer_rain.pth --input rainy/ --output_dir derained/
+
 Each image is reflect-padded to a multiple of ``--pad_multiple`` (8), run
 through the model and cropped back, as the JAX ``cli/infer.py`` does. On a
 GPU the default Restormer runs every TransformerBlock through the two CUDA
-kernels of ``kernels/block.py``.
+kernels of ``kernels/block.py``; DRSformer runs every block through pass 1
+of ``kernels/block.py`` and ``kernels/drs_block.py``'s MSFN pass, and its
+two MEFC Subnets step by step through ``kernels/mefc.py``.
 """
 
 from __future__ import annotations

@@ -25,21 +25,24 @@ def load_params(cfg, model):
 
     Torch ``.pth/.pt/.ckpt/.state`` files go through the envelope handling of
     ``utils.torch_import``; a ``.npz`` exported by the JAX package goes
-    through ``utils.jax_bridge``. Without ``--ckpt`` the model keeps its
-    random init. Returns the model.
+    through ``utils.jax_bridge``, with the key map ``cfg["model"]`` was
+    registered with. Without ``--ckpt`` the model keeps its random init.
+    Returns the model.
     """
     path = cfg.get("ckpt")
     if not path:
         print("WARNING: no --ckpt given; using random init")
         return model
     if path.endswith(".npz"):
+        from image_restoration_tpu_torch.models import KEY_MAPS
         from image_restoration_tpu_torch.utils.jax_bridge import (
             state_dict_from_jax,
         )
 
         with np.load(path) as data:
             tree = _unflatten(dict(data))
-        sd = state_dict_from_jax(tree, model.state_dict())
+        key_map = KEY_MAPS.get(str(cfg.get("model", "")).lower())
+        sd = state_dict_from_jax(tree, model.state_dict(), key_map)
     elif path.endswith((".pth", ".pt", ".ckpt", ".state")):
         from image_restoration_tpu_torch.utils.torch_import import (
             load_torch_checkpoint,

@@ -33,6 +33,19 @@ from image_restoration_tpu_torch.ops.layernorm import layer_norm_f32
 Tensor = torch.Tensor
 
 
+class FrontParams(NamedTuple):
+    """The parameters pass 1 reads (torch layout, fp32): LN1, the qkv 1x1
+    and the 3x3 depthwise. Restormer's MDTA and DRSformer's TKSA share
+    them, so both blocks run the same pass 1."""
+
+    ln1_w: Tensor
+    ln1_b: Optional[Tensor]
+    qkv_w: Tensor              # (3C, C, 1, 1), output channels [q | k | v]
+    qkv_b: Optional[Tensor]
+    dw_w: Tensor               # (3C, 1, 3, 3)
+    dw_b: Optional[Tensor]
+
+
 class BlockParams(NamedTuple):
     """One TransformerBlock's parameters in torch layout (fp32).
 
@@ -57,6 +70,9 @@ class BlockParams(NamedTuple):
     out_w: Tensor              # (C, hidden, 1, 1)
     out_b: Optional[Tensor]
 
+    def front(self) -> FrontParams:
+        return FrontParams(*self[:len(FrontParams._fields)])
+
 
 # ------------------------------------------------------------ plain parts ---
 
@@ -79,7 +95,7 @@ def _dwconv3(t, w, b):
     return y.permute(0, 2, 3, 1)
 
 
-def block_front_ref(x, p: BlockParams, num_heads: int, eps: float = 1e-5):
+def block_front_ref(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
     """Plain version of :func:`block_front`.
 
     Returns v (B, H, W, C) in x's dtype, the per-head Gram q^T k
@@ -218,10 +234,11 @@ def _tiles(b, h, w, th):
     return b * -(-h // th) * -(-w // 16)
 
 
-def block_front(x, p: BlockParams, num_heads: int, eps: float = 1e-5):
+def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
     """Pass 1: (v, gram, ss) as :func:`block_front_ref` documents.
 
     x: (B, H, W, C) bf16 on the GPU, C and C / num_heads multiples of 16.
+    p: FrontParams (``BlockParams.front()``, ``DRSBlockParams.front()``).
     """
     if x.device.type == "cpu":
         return block_front_ref(x, p, num_heads, eps)
@@ -329,6 +346,6 @@ block_apply_gdfn.launches = 0
 
 def fused_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5):
     """One whole TransformerBlock on (B, H, W, C): pass 1, finalize, pass 2."""
-    v, gram, ss = block_front(x, p, num_heads, eps)
+    v, gram, ss = block_front(x, p.front(), num_heads, eps)
     atw = finalize(gram, ss, p.temperature, p.proj_w, x.dtype)
     return block_apply_gdfn(v, x, atw, p, eps)

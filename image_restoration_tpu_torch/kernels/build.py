@@ -1,8 +1,9 @@
 """Builds the CUDA kernels of ``kernels/csrc`` into one shared library.
 
 The sources have a plain C interface (no PyTorch headers), so ``nvcc``
-builds them in seconds. The library goes to ``kernels/build/`` (ignored by
-git) under a name that hashes the sources and flags: a changed source gets a
+builds them in seconds: one ``nvcc -c`` per source, all started together,
+then one link. The library goes to ``kernels/build/`` (ignored by git)
+under a name that hashes the sources and flags: a changed source gets a
 fresh build, an unchanged one is reused. Nothing is built at import; the
 first kernel launch calls :func:`load_library`.
 """
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -29,6 +30,10 @@ _SIGNATURES = {
     "ir_block_front": (_I, [_P] * 12 + [_I] * 7 + [_F, _P]),
     "ir_block_apply_gdfn_smem": (_I, [_I, _I]),
     "ir_block_apply_gdfn": (_I, [_P] * 13 + [_I] * 6 + [_F, _P]),
+    "ir_drs_apply_msfn_smem": (_I, [_I, _I, _I]),
+    "ir_drs_apply_msfn": (_I, [_P] * 19 + [_I] * 8 + [_F, _P]),
+    "ir_mefc_step_smem": (_I, [_I, _I]),
+    "ir_mefc_step": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "ir_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -64,6 +69,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _build(sources, tmp: Path, path: Path) -> str:
+    """Compile every source at once, link them into ``path``; returns the
+    compiler's output."""
+    nvcc = _nvcc()
+    objs = [tmp / f"{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    failed = [src.name for src, p in zip(sources, procs) if p.returncode]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    lib = tmp / path.name
+    res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib),
+                          *map(str, objs)],
+                         capture_output=True, text=True)
+    log += res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+    os.replace(lib, path)
+    return log
+
+
 def load_library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; cached per process."""
     global _LIBRARY
@@ -77,16 +107,9 @@ def load_library() -> KernelLibrary:
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            log = _build(sources, Path(tmp), path)
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-        os.replace(tmp, path)
     _LIBRARY = KernelLibrary(path, seconds, log)
     return _LIBRARY

@@ -1,6 +1,7 @@
-// Shared helpers of the Restormer block kernels (block_front.cu,
-// block_apply_gdfn.cu). Built for sm_90a with nvcc into one shared library
-// with a plain C interface; see kernels/build.py.
+// Shared helpers of the port's CUDA kernels (block_front.cu,
+// block_apply_gdfn.cu, drs_apply_msfn.cu, mefc_step.cu). Built for sm_90a
+// with nvcc into one shared library with a plain C interface; see
+// kernels/build.py.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +39,21 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
+
+// 16-byte asynchronous copy from device to shared memory (cp.async, L2
+// only); with `valid` false nothing is read and the 16 bytes become zeros.
+// Both addresses 16-byte aligned; `src` must still be a device address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// Waits for this thread's outstanding cp_async16 copies.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
 
 // Where a halo pixel of a tile lies in the image. Tiles start at image
 // (r0, c0); halo pixel p is at halo row p / (TILE_W + 2), column

@@ -2,14 +2,19 @@
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 MODELS: Dict[str, Callable[..., Any]] = {}
+# reference torch key -> the key the JAX importer walks, where a model's
+# torch names need rewriting before utils.jax_bridge can place them
+KEY_MAPS: Dict[str, Callable[[str], str]] = {}
 
 
-def register_model(name: str):
+def register_model(name: str, key_map: Optional[Callable[[str], str]] = None):
     def deco(ctor):
         MODELS[name.lower()] = ctor
+        if key_map is not None:
+            KEY_MAPS[name.lower()] = key_map
         return ctor
 
     return deco

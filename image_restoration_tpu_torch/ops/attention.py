@@ -65,3 +65,49 @@ class MDTA(nn.Module):
         q, k, v = self.qkv_dwconv(self.qkv(x)).chunk(3, dim=1)
         out = mdta_attention(q, k, v, self.temperature, self.num_heads)
         return self.project_out(out)
+
+
+# Sparsity levels of DRSformer's top-k attention (DRSformer_arch.py:101-173):
+# each row keeps its int(ch * frac) largest logits.
+TOPK_FRACS = (1 / 2, 2 / 3, 3 / 4, 4 / 5)
+
+
+def topk_mixture(logits, mix):
+    """sum_i mix_i * softmax(top-k_i masked logits), fp32 (.., ch, ch).
+
+    A row keeps the logits at or above its kk-th largest, so ties keep more
+    than kk, as the JAX package's threshold mask does (torch's reference
+    scatters the top-k indices instead; the two agree on distinct logits).
+    """
+    ch = logits.shape[-1]
+    out = 0.0
+    for i, frac in enumerate(TOPK_FRACS):
+        kk = int(ch * frac)
+        thresh = torch.topk(logits, kk, dim=-1).values[..., -1:]
+        masked = logits.masked_fill(logits < thresh, float("-inf"))
+        out = out + torch.softmax(masked, dim=-1) * mix[i].float()
+    return out
+
+
+def tksa_attention(q, k, v, temperature, mix, num_heads: int):
+    """Core of DRSformer's TKSA on NCHW q, k, v; returns NCHW in v's dtype.
+
+    Logits as in :func:`mdta_attention`; the four top-k softmaxes are mixed
+    by ``mix`` (attn1..attn4) before v is applied once, which is exact.
+    """
+    b, c, h, w = q.shape
+    ch = c // num_heads
+    dt = v.dtype
+
+    def heads(t):
+        return t.reshape(b, num_heads, ch, h * w).float()
+
+    qf, kf, vf = heads(q), heads(k), heads(v)
+    qn = torch.clamp(torch.sqrt((qf * qf).sum(-1)), min=1e-12)
+    kn = torch.clamp(torch.sqrt((kf * kf).sum(-1)), min=1e-12)
+    logits = torch.matmul(qf, kf.transpose(-1, -2))
+    logits = logits / (qn[..., :, None] * kn[..., None, :])
+    logits = logits * temperature.reshape(1, num_heads, 1, 1).float()
+    attn = topk_mixture(logits, mix)
+    out = torch.matmul(attn.to(dt).float(), vf).to(dt)
+    return out.reshape(b, c, h, w)

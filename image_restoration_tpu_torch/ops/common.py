@@ -30,9 +30,11 @@ class Conv(nn.Conv2d):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 0,
-                 groups: int = 1, bias: bool = True, dtype=None):
+                 groups: int = 1, bias: bool = True, dtype=None,
+                 dilation: int = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=padding, groups=groups, bias=bias)
+                         padding=padding, dilation=dilation, groups=groups,
+                         bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):

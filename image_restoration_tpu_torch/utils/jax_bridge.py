@@ -17,7 +17,7 @@ too (``norm1.body.weight``, ``down1_2.body.0.weight``).
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -99,9 +99,15 @@ def _to_torch_layout(key: str, arr: np.ndarray, leaf: str, shape):
 
 
 def state_dict_from_jax(params: Mapping[str, Any],
-                        like: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                        like: Mapping[str, torch.Tensor],
+                        key_map: Optional[Callable[[str], str]] = None,
+                        ) -> Dict[str, torch.Tensor]:
     """Build a state_dict for the model whose ``state_dict()`` is ``like``
     from a JAX param tree (nested dicts of arrays, loop layout).
+
+    ``key_map`` rewrites each torch key before the walk, as the same
+    argument of ``import_state_dict`` does (DRSformer's
+    ``drsformer_key_map``); the state_dict keeps the torch keys.
 
     Raises KeyError when a torch key finds no JAX leaf or a JAX leaf is not
     placed under any torch key, and ValueError on a shape that does not fit:
@@ -110,7 +116,7 @@ def state_dict_from_jax(params: Mapping[str, Any],
     tree = _plain(params)
     out, placed, missing = {}, set(), []
     for key, ref in like.items():
-        path = _locate(tree, key)
+        path = _locate(tree, key if key_map is None else key_map(key))
         if path is None:
             missing.append(key)
             continue

@@ -22,10 +22,28 @@ Phases, any failure ends the run with a nonzero exit code:
    44 + 44 block kernels; the fused bf16 model must agree with the fp32
    plain model within 3x the bf16 plain model's own error. ms/img and MP/s
    at 512x512 follow;
+2c. the SKA dynamic conv (K9) at LSNet-B's three shapes at batch 64,
+   224x224, in bf16 (the same rule, fp32 plain version as the oracle) and
+   in fp32 (max relative error 1e-5);
 3b. the DRSformer serving slice, the same way: each forward must launch 40
-   K1, 40 K7 and 8 K8 (two MEFC Subnets of four steps).
+   K1, 40 K7 and 8 K8 (two MEFC Subnets of four steps);
+3c. LSNet-B classification serving: ``build_model`` (bf16, the SKA kernel,
+   seeded random weights and BatchNorm statistics) scores three seeded
+   normalised batches of 64 at 224x224 through ``eval/robustness.py``
+   ``batch_hits``. Each forward must launch 9 SKA kernels, the logits must
+   be finite, and the kernel model's max |logit error| against the plain
+   fp32 model must stay within 3x the plain bf16 model's; top-1 agreement,
+   images/s and forward ms follow.
 Each serving phase sets the launch counts to 0 just before its three
-restores and reads them just after.
+forwards and reads them just after.
+
+Every kernel's row carries its bound: the larger of the bytes it must move
+(inputs read once, outputs written once) over 3.35 TB/s and its
+operations over their peak (products' multiply-adds at the 989 TFLOP/s of
+bf16 tensor cores, depthwise and SKA taps at the 67 TFLOP/s of fp32; the
+elementwise work is left out, so it stays a lower bound), summed over the
+forward's calls like its time. No single PyTorch call computes any of these
+functions, so ``library_ms`` is null throughout.
 
 The line before the last is a JSON object of the kernels; before it, the
 card's name and power limit as nvidia-smi gives them. The last line is
@@ -68,6 +86,14 @@ DRS_LEVELS = [
 DRS_BLOCKS_PER_FORWARD = sum(lv[-1] for lv in DRS_LEVELS)  # 40
 MEFC_STEPS = [(512, 512, 48, 4), (512, 512, 96, 4)]  # (H, W, C, steps)
 MEFC_STEPS_PER_FORWARD = sum(lv[-1] for lv in MEFC_STEPS)  # 8
+# LSNet-B (lsnet.py:221-222) classifying a batch of 64 at 224x224: SKA runs
+# in every LSConv, at (H, W, C, wc, calls per forward); stage 3's odd
+# blocks are attention, so 2 + 3 + 4 = 9 calls.
+LSNET_B = ["--set", "model_kwargs.embed_dim=(128,256,384,512)",
+           "--set", "model_kwargs.depth=(4,6,8,10)"]
+LSNET_BATCH = 64
+SKA_SHAPES = [(28, 28, 128, 16, 2), (14, 14, 256, 32, 3), (7, 7, 384, 48, 4)]
+SKA_PER_FORWARD = sum(lv[-1] for lv in SKA_SHAPES)  # 9
 KERNELS = {
     "block_front": ("image_restoration_tpu_torch/kernels/csrc/block_front.cu",
                     "image_restoration_tpu/kernels/block_pallas.py:80"),
@@ -79,7 +105,13 @@ KERNELS = {
         "image_restoration_tpu/kernels/drs_block_pallas.py:387"),
     "mefc_step": ("image_restoration_tpu_torch/kernels/csrc/mefc_step.cu",
                   "image_restoration_tpu/kernels/mefc_pallas.py:129"),
+    "ska": ("image_restoration_tpu_torch/kernels/csrc/ska.cu",
+            "image_restoration_tpu/kernels/ska_pallas.py:30"),
 }
+# The card's published peaks (NVIDIA H100 SXM data sheet), per ms.
+HBM_BYTES_PER_MS = 3.35e9
+BF16_TC_FLOP_PER_MS = 989e9
+FP32_FLOP_PER_MS = 67e9
 
 
 class SmokeFailure(RuntimeError):
@@ -153,15 +185,78 @@ def rel_err(got, oracle):
 
 def _new_report(names):
     return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                   "bound_ms": 0.0, "bound_by_ms": {"bytes": 0.0,
+                                                    "operations": 0.0},
                    "per_shape": []} for name in names}
 
 
-def _record(report, name, shape, n_calls, t_k, t_p, abs_err):
+def _record(report, name, shape, n_calls, t_k, t_p, abs_err, bound,
+            **extra):
+    """One shape's numbers; ``bound`` = (ms, "bytes" or "operations") of
+    one call. The per-forward bound is the sum of the calls' bounds."""
     r = report[name]
-    r["per_shape"].append({"shape": shape, "ms": t_k, "plain_ms": t_p})
+    r["per_shape"].append({"shape": shape, "calls": n_calls, "ms": t_k,
+                           "plain_ms": t_p, "bound_ms": bound[0],
+                           "bound_by": bound[1], **extra})
     r["max_abs_err"] = max(r["max_abs_err"], abs_err)
     r["ms"] += n_calls * t_k
     r["plain_ms"] += n_calls * t_p
+    r["bound_ms"] += n_calls * bound[0]
+    r["bound_by_ms"][bound[1]] += n_calls * bound[0]
+
+
+def roofline(nbytes, tc_flops=0.0, fp32_flops=0.0):
+    """(least ms, what bounds it) for work that moves ``nbytes`` of device
+    memory and does ``tc_flops`` on bf16 tensor cores and ``fp32_flops``
+    on the fp32 units."""
+    t_bytes = nbytes / HBM_BYTES_PER_MS
+    t_ops = tc_flops / BF16_TC_FLOP_PER_MS + fp32_flops / FP32_FLOP_PER_MS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_block_front(h, w, c, heads):
+    """K1: read x, write v (bf16), the fp32 Gram and sums of squares; the
+    qkv 1x1 and q^T k on the tensor cores, the 3x3 depthwise in fp32."""
+    n, ch = h * w, c // heads
+    nbytes = 2 * n * c * 2 + 4 * (heads * ch * ch + 2 * c) \
+        + 2 * 3 * c * c + 4 * (27 * c + 2 * c)
+    return roofline(nbytes, 2 * n * c * 3 * c + 2 * n * c * ch,
+                    2 * 9 * 3 * c * n)
+
+
+def bound_block_apply_gdfn(h, w, c):
+    """K2: read v and x, write out (bf16), A^T W_proj and the GDFN
+    weights; v A^T W, the content|gate 1x1 and the out 1x1 on the tensor
+    cores, the 3x3 depthwise over 2 hidden in fp32."""
+    n, hid = h * w, int(c * 2.66)
+    nbytes = 3 * 2 * n * c + 2 * c * c + 2 * 3 * hid * c + 4 * 18 * hid
+    tc = 2 * n * c * c + 2 * n * c * 2 * hid + 2 * n * hid * c
+    return roofline(nbytes, tc, 2 * 9 * 2 * hid * n)
+
+
+def bound_drs_apply_msfn(h, w, c):
+    """K7: as K2 with MSFN: project_in to 2H, the 3x3 and 5x5 banks over
+    2H and the grouped 3x3 and 5x5 over H pairs in fp32, project_out."""
+    n, hid = h * w, int(c * 2.66)
+    nbytes = 3 * 2 * n * c + 2 * c * c + 2 * 4 * hid * c \
+        + 4 * (2 * hid * 34 + 2 * hid * 34)
+    tc = 2 * n * c * c + 2 * 2 * n * c * 2 * hid
+    return roofline(nbytes, tc, 2 * n * (2 * hid * 34 + 2 * hid * 34))
+
+
+def bound_mefc_step(h, w, c):
+    """K8: read x, write out (bf16), the 8 folded C x C mix matrices and
+    the 4 inner 1x1s; 12 C x C products per pixel on the tensor cores; the
+    84 + 84 + 83 depthwise taps and the 9-tap pool per channel in fp32."""
+    n = h * w
+    nbytes = 2 * 2 * n * c + 2 * 12 * c * c + 4 * 251 * c
+    return roofline(nbytes, 12 * 2 * n * c * c, 2 * n * c * 251 + 9 * n * c)
+
+
+def bound_ska(b, h, w, c, wc, esize):
+    """K9: read x and w, write out; 9 fp32 multiply-adds per output."""
+    n = b * h * w
+    return roofline(esize * (2 * n * c + n * wc * 9), 0.0, 2 * 9 * n * c)
 
 
 def _bound(plain):
@@ -198,7 +293,7 @@ def phase_kernels():
               f"{'; '.join(errs)}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
               flush=True)
         _record(report, "block_front", [1, h, w, c], n_blocks, t_k, t_p,
-                abs_front)
+                abs_front, bound_block_front(h, w, c, heads))
 
         v, gram, ss = plain
         atw = K.finalize(gram, ss, p.temperature, p.proj_w, torch.bfloat16)
@@ -217,7 +312,8 @@ def phase_kernels():
               f"{ek:.3e} (plain {ep:.3e}); kernel {t_k:.4f} ms, plain "
               f"{t_p:.4f} ms", flush=True)
         _record(report, "block_apply_gdfn", [1, h, w, c], n_blocks, t_k, t_p,
-                (kern2.float() - plain2.float()).abs().max().item())
+                (kern2.float() - plain2.float()).abs().max().item(),
+                bound_block_apply_gdfn(h, w, c))
     return report
 
 
@@ -289,7 +385,8 @@ def phase_drs_kernels():
               f"(plain {ep:.3e}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
               flush=True)
         _record(report, "drs_apply_msfn", [1, h, w, c], n_blocks, t_k, t_p,
-                (kern.float() - plain.float()).abs().max().item())
+                (kern.float() - plain.float()).abs().max().item(),
+                bound_drs_apply_msfn(h, w, c))
 
     for i, (h, w, c, n_steps) in enumerate(MEFC_STEPS):
         steps, mix = random_mefc_steps(c, n_steps, seed=500 + i)
@@ -319,11 +416,14 @@ def phase_drs_kernels():
         print(f"mefc_step {h}x{w}x{c}, {n_steps} steps: rel err "
               f"{'; '.join(errs)}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms "
               f"(median over the steps)", flush=True)
-        _record(report, "mefc_step", [1, h, w, c], n_steps, t_k, t_p, abs_err)
+        _record(report, "mefc_step", [1, h, w, c], n_steps, t_k, t_p, abs_err,
+                bound_mefc_step(h, w, c))
     return report
 
 
-def _profile(restore, images, profile_dir, tag, gpu):
+def _profile(fn, inputs, profile_dir, tag, gpu, what):
+    """torch.profiler over ``fn`` on the first two ``inputs``: device busy
+    time per input against the host clock, a table and a trace."""
     import os
 
     import torch
@@ -335,21 +435,21 @@ def _profile(restore, images, profile_dir, tag, gpu):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for img in images[:2]:
-            restore(img)
+        for a in inputs[:2]:
+            fn(a)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / 2
     events = prof.key_averages()
     busy = sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               ) / 2e3  # us -> ms per image
+               ) / 2e3  # us -> ms per input
     table = events.table(sort_by="cuda_time_total", row_limit=40)
-    with open(os.path.join(profile_dir, f"{tag}_profile_2img.txt"), "w") as f:
+    with open(os.path.join(profile_dir, f"{tag}_profile_2.txt"), "w") as f:
         f.write(f"{gpu}\n{table}\n")
-    prof.export_chrome_trace(os.path.join(profile_dir, f"{tag}_trace_2img.json"))
-    print(f"{tag}: profile of 2 restores at 512x512: device busy {busy:.3f} "
-          f"ms per image of {wall:.3f} ms (host clock, under the profiler), "
+    prof.export_chrome_trace(os.path.join(profile_dir, f"{tag}_trace_2.json"))
+    print(f"{tag}: profile of 2 {what}: device busy {busy:.3f} ms per one of "
+          f"{wall:.3f} ms (host clock, under the profiler), "
           f"{100 * (1 - busy / wall):.2f}% idle; table and trace in "
           f"{profile_dir}", flush=True)
 
@@ -435,7 +535,177 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected):
           f"max {max(times):.3f}), {0.262144 / (ms / 1e3):.4f} MP/s; forward "
           f"{fwd_ms:.3f} ms (device, CUDA events)", flush=True)
     if profile_dir:
-        _profile(restore, images, profile_dir, model_name, gpu)
+        _profile(restore, images, profile_dir, model_name, gpu,
+                 "restores at 512x512")
+    return launches
+
+
+def phase_ska_kernels():
+    """K9 against ska_plain at LSNet-B's shapes, bf16 and fp32."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import ska as K
+    from image_restoration_tpu_torch.ops.ska import ska_plain
+
+    report = _new_report(("ska",))
+    b = LSNET_BATCH
+    for i, (h, w, c, wc, calls) in enumerate(SKA_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(800 + i)
+        x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        wt = torch.randn((b, h, w, wc, 9), generator=gen, device="cuda")
+        xb, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+        oracle = ska_plain(x, wt)
+        kern32 = K.ska(x, wt)
+        plain = ska_plain(xb, wb)
+        kern = K.ska(xb, wb)
+        torch.cuda.synchronize()
+        e32 = rel_err(kern32, oracle)
+        ek, ep = rel_err(kern, oracle), rel_err(plain, oracle)
+        check(torch.isfinite(kern).all().item(),
+              f"ska not finite at {h}x{w}x{c}")
+        check(e32 <= 1e-5,
+              f"ska fp32 at {h}x{w}x{c}: rel err {e32:.3e} above 1e-5")
+        check(ek < _bound(ep), f"ska at {h}x{w}x{c}: rel err {ek:.3e} above "
+              f"max(3 x {ep:.3e}, 4e-3)")
+        t_k = time_cuda(lambda: K.ska(xb, wb))
+        t_p = time_cuda(lambda: ska_plain(xb, wb))
+        t_k32 = time_cuda(lambda: K.ska(x, wt))
+        t_p32 = time_cuda(lambda: ska_plain(x, wt))
+        bound = bound_ska(b, h, w, c, wc, 2)
+        bound32 = bound_ska(b, h, w, c, wc, 4)
+        print(f"ska {b}x{h}x{w}x{c} wc {wc}: bf16 rel err {ek:.3e} (plain "
+              f"{ep:.3e}), kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); fp32 rel err {e32:.3e}, "
+              f"kernel {t_k32:.4f} ms, plain {t_p32:.4f} ms, bound "
+              f"{bound32[0]:.4f} ms", flush=True)
+        _record(report, "ska", [b, h, w, c, wc], calls, t_k, t_p,
+                (kern.float() - plain.float()).abs().max().item(), bound,
+                fp32_ms=t_k32, fp32_plain_ms=t_p32, fp32_bound_ms=bound32[0],
+                fp32_max_rel_err=e32)
+    return report
+
+
+def perturb_lsnet(model, seed):
+    """Seeded, non-trivial BatchNorm statistics and affines and LeViT
+    attention biases, so no BN is the identity and every bias counts."""
+    import torch
+    from torch import nn
+
+    from image_restoration_tpu_torch.models.lsnet import LeViTAttention
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(like):
+        return torch.randn(like.shape, generator=gen).to(like.device)
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                m.running_mean.copy_(0.1 * randn(m.running_mean))
+                m.running_var.copy_(0.5 + randn(m.running_var).abs())
+                m.weight.add_(0.1 * randn(m.weight))
+                m.bias.add_(0.1 * randn(m.bias))
+            elif isinstance(m, LeViTAttention):
+                m.attention_biases.copy_(0.2 * randn(m.attention_biases))
+
+
+def phase_lsnet(gpu, profile_dir):
+    """LSNet-B classification serving through ``batch_hits``: three batches
+    with the SKA count set to 0 just before and read just after, then the
+    agreement with the plain fp32 model and the timings."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.test import load_params
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.eval.robustness import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        batch_hits,
+    )
+    from image_restoration_tpu_torch.kernels import ska as KS
+    from image_restoration_tpu_torch.utils.options import parse_options
+
+    cfg = parse_options(["--model", "lsnet", "--device", "cuda", "--seed",
+                         "0"] + LSNET_B)
+    check(cfg["bf16"] and cfg["model_kwargs"]["use_pallas_ska"],
+          "lsnet serving defaults are not bf16 + the SKA kernel")
+    model = load_params(cfg, build_model(cfg))
+    perturb_lsnet(model, seed=700)
+    n_params = sum(p.numel() for p in model.parameters())
+    b = LSNET_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mean = torch.from_numpy(IMAGENET_MEAN).cuda()
+    std = torch.from_numpy(IMAGENET_STD).cuda()
+    batches = [((torch.rand((b, 224, 224, 3), generator=gen, device="cuda")
+                 - mean) / std,
+                torch.randint(0, 1000, (b,), generator=gen, device="cuda"))
+               for _ in range(3)]
+    batch_hits(model, *batches[0])  # warm-up: cuDNN algorithm choice
+    torch.cuda.synchronize()
+
+    KS.ska.launches = 0
+    hits = [batch_hits(model, im, lb) for im, lb in batches]
+    torch.cuda.synchronize()
+    launches = {"ska": KS.ska.launches}
+    print(f"lsnet serving: LSNet-B ({n_params} parameters), {len(batches)} "
+          f"batches of {b} at 224x224, launches {launches}, top-1 hits "
+          f"{[int(t1.sum()) for t1, _ in hits]}", flush=True)
+    check(launches["ska"] == len(batches) * SKA_PER_FORWARD,
+          f"lsnet ska: {launches['ska']} launches for {len(batches)} "
+          f"forwards, expected {SKA_PER_FORWARD} each")
+
+    # agreement: kernel bf16 vs plain fp32 (oracle), against plain bf16
+    sd = model.state_dict()
+
+    def variant(bf16):
+        c2 = dict(cfg, bf16=bf16,
+                  model_kwargs=dict(cfg["model_kwargs"], use_pallas_ska=False))
+        m = build_model(c2)
+        m.load_state_dict(sd)
+        return m
+
+    ref, plain16 = variant(False), variant(True)
+    err_k = err_p = 0.0
+    agree = agree_p = 0
+    with torch.inference_mode():
+        for im, _ in batches:
+            x = im.permute(0, 3, 1, 2)
+            lk, lr, lp = model(x), ref(x), plain16(x)
+            check(torch.isfinite(lk).all().item() and lk.shape == (b, 1000),
+                  f"lsnet logits {tuple(lk.shape)} not finite")
+            err_k = max(err_k, (lk - lr).abs().max().item())
+            err_p = max(err_p, (lp - lr).abs().max().item())
+            agree += int((lk.argmax(-1) == lr.argmax(-1)).sum())
+            agree_p += int((lp.argmax(-1) == lr.argmax(-1)).sum())
+        scale = ref(batches[0][0].permute(0, 3, 1, 2)).abs().max().item()
+    del ref, plain16
+    n = b * len(batches)
+    print(f"lsnet serving: max |kernel bf16 - plain fp32| logit {err_k:.4e}, "
+          f"max |plain bf16 - plain fp32| {err_p:.4e} (fp32 logits up to "
+          f"{scale:.3f}); top-1 agreement with the fp32 model: kernel bf16 "
+          f"{agree}/{n}, plain bf16 {agree_p}/{n}", flush=True)
+    check(np.isfinite(err_k) and err_k <= 3.0 * err_p,
+          f"lsnet: kernel model error {err_k:.4e} above 3 x {err_p:.4e}")
+
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch_hits(model, *batches[0])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    x0 = batches[0][0].permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        fwd_ms = time_cuda(lambda: model(x0), reps=10, head_start_ms=50.0)
+    print(f"lsnet serving LSNet-B 224x224 bf16 batch {b} on {gpu}: {ms:.3f} "
+          f"ms/batch (batch_hits, host clock, median of 10; min "
+          f"{min(times):.3f}, max {max(times):.3f}), {b / (ms / 1e3):.1f} "
+          f"images/s; forward {fwd_ms:.3f} ms (device, CUDA events)",
+          flush=True)
+    if profile_dir:
+        _profile(lambda a: batch_hits(model, *a), batches, profile_dir,
+                 "lsnet", gpu, f"batches of {b} at 224x224")
     return launches
 
 
@@ -443,7 +713,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
                     help="directory for torch.profiler tables and traces of "
-                         "two 512x512 restores per model")
+                         "two forwards per model")
     args = ap.parse_args(argv)
 
     import torch
@@ -475,6 +745,7 @@ def main(argv=None):
 
     report = phase_kernels()
     report.update(phase_drs_kernels())
+    report.update(phase_ska_kernels())
     by_path = {
         "restormer": phase_slice(
             gpu, args.profile, "restormer",
@@ -490,6 +761,7 @@ def main(argv=None):
             {"block_front": DRS_BLOCKS_PER_FORWARD,
              "drs_apply_msfn": DRS_BLOCKS_PER_FORWARD,
              "mefc_step": MEFC_STEPS_PER_FORWARD}),
+        "lsnet": phase_lsnet(gpu, args.profile),
     }
     ms_is = {"block_front": "sum over the 44 blocks of one Restormer-base "
                             "512x512 forward of per-call CUDA-event medians",
@@ -498,7 +770,9 @@ def main(argv=None):
                                "512x512 forward of per-call CUDA-event medians",
              "mefc_step": "sum over the 8 steps of one DRSformer 512x512 "
                           "forward of per-shape medians of per-call "
-                          "CUDA-event medians"}
+                          "CUDA-event medians",
+             "ska": "sum over the 9 calls of one LSNet-B forward of a batch "
+                    "of 64 at 224x224 of per-call CUDA-event medians, bf16"}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -510,6 +784,10 @@ def main(argv=None):
                         "launches_by_path": per_path,
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"],
+                        "bound_by": max(r["bound_by_ms"],
+                                        key=r["bound_by_ms"].get),
+                        "library_ms": None,
                         "ms_is": ms_is[name], "per_shape": r["per_shape"]})
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -1,1 +1,1 @@
-"""Entry points: build_model, load_params, infer."""
+"""Entry points: build_model, load_params, infer, robust."""

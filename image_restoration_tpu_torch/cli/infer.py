@@ -68,12 +68,23 @@ def make_restore_fn(cfg, model):
     return restore
 
 
+def build_argparser():
+    from image_restoration_tpu_torch.utils.options import build_parser
+
+    p = build_parser()
+    p.add_argument("--pad_multiple", type=int, default=8)
+    p.add_argument("--output_dir", type=str, default="results")
+    p.add_argument("--input", type=str, default=None,
+                   help="image file or folder to restore")
+    return p
+
+
 def main(argv=None):
     from image_restoration_tpu_torch.cli.test import load_params
     from image_restoration_tpu_torch.cli.train import build_model
     from image_restoration_tpu_torch.utils.options import parse_options
 
-    cfg = parse_options(argv)
+    cfg = parse_options(argv, build_argparser())
     src = cfg.get("input")
     if not src:
         raise SystemExit("--input (image or folder) required")

@@ -26,7 +26,9 @@ def load_params(cfg, model):
     Torch ``.pth/.pt/.ckpt/.state`` files go through the envelope handling of
     ``utils.torch_import``; a ``.npz`` exported by the JAX package goes
     through ``utils.jax_bridge``, with the key map ``cfg["model"]`` was
-    registered with. Without ``--ckpt`` the model keeps its random init.
+    registered with; it holds params only, so BatchNorm statistics (LSNet)
+    stay at the model's init, as in the JAX ``cli/robust.py``. Without
+    ``--ckpt`` the model keeps its random init.
     Returns the model.
     """
     path = cfg.get("ckpt")

@@ -8,9 +8,15 @@ import torch
 
 
 def default_device(cfg) -> torch.device:
+    """``cfg["device"]`` when given, else the GPU. Without a GPU and without
+    an explicit device this raises: the port's entry points run on the
+    card, and the CPU only when the caller asks for it."""
     if cfg.get("device"):
         return torch.device(cfg["device"])
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass --device cpu to run "
+                           "on the CPU")
+    return torch.device("cuda")
 
 
 def build_model(cfg, device=None):
@@ -19,7 +25,7 @@ def build_model(cfg, device=None):
     Computes in bf16 unless ``cfg["bf16"]`` is False (parameters stay fp32).
     The random init is drawn from ``cfg["seed"]`` without touching the
     caller's global RNG state. Returned in eval mode on ``device`` (default:
-    the configured device, else the GPU when there is one).
+    :func:`default_device`).
     """
     from image_restoration_tpu_torch.models import get_model
 

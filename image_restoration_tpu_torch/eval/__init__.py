@@ -1,1 +1,2 @@
-"""Whole-image inference helpers."""
+"""Evaluation: whole-image inference helpers and the classification
+robustness protocol."""

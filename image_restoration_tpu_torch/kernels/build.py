@@ -34,6 +34,7 @@ _SIGNATURES = {
     "ir_drs_apply_msfn": (_I, [_P] * 19 + [_I] * 8 + [_F, _P]),
     "ir_mefc_step_smem": (_I, [_I, _I]),
     "ir_mefc_step": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "ir_ska": (_I, [_P] * 3 + [_I] * 7 + [_P]),
     "ir_error_string": (ctypes.c_char_p, [_I]),
 }
 

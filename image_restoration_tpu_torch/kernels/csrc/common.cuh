@@ -1,6 +1,6 @@
 // Shared helpers of the port's CUDA kernels (block_front.cu,
-// block_apply_gdfn.cu, drs_apply_msfn.cu, mefc_step.cu). Built for sm_90a
-// with nvcc into one shared library with a plain C interface; see
+// block_apply_gdfn.cu, drs_apply_msfn.cu, mefc_step.cu, ska.cu). Built for
+// sm_90a with nvcc into one shared library with a plain C interface; see
 // kernels/build.py.
 #pragma once
 

@@ -5,12 +5,14 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 MODELS: Dict[str, Callable[..., Any]] = {}
-# reference torch key -> the key the JAX importer walks, where a model's
-# torch names need rewriting before utils.jax_bridge can place them
-KEY_MAPS: Dict[str, Callable[[str], str]] = {}
+# reference torch key -> the key the JAX importer walks (None: a key the JAX
+# tree does not hold), where a model's torch names need rewriting before
+# utils.jax_bridge can place them
+KEY_MAPS: Dict[str, Callable[[str], Optional[str]]] = {}
 
 
-def register_model(name: str, key_map: Optional[Callable[[str], str]] = None):
+def register_model(name: str,
+                   key_map: Optional[Callable[[str], Optional[str]]] = None):
     def deco(ctor):
         MODELS[name.lower()] = ctor
         if key_map is not None:

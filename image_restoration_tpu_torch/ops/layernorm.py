@@ -1,4 +1,4 @@
-"""Channel LayerNorms of the Restormer family.
+"""Channel LayerNorms of the Restormer family, and BatchNorm.
 
 The bodies normalize the last axis, as the reference's bodies do after its
 ``to_3d`` reshape (Restormer.py:19-70). ``LayerNorm`` takes NCHW and views it
@@ -65,3 +65,19 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return self.body(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch's BatchNorm2d over the channels of NCHW, computed in fp32
+    whatever the activation dtype and cast back to it
+    (image_restoration_tpu/ops/layernorm.py ``BatchNorm2d``).
+
+    Eval normalises with the running statistics; train with the batch's
+    (biased variance) and updates the running ones with the unbiased
+    variance and ``momentum``. Parameters and buffers keep torch's names
+    (``weight``, ``bias``, ``running_mean``, ``running_var``,
+    ``num_batches_tracked``) and stay fp32.
+    """
+
+    def forward(self, x):
+        return super().forward(x.float()).to(x.dtype)

@@ -11,7 +11,8 @@ OIHW to HWIO (dense: (O, I) to (I, O)). A flax path alone cannot say which
 names (``down1_2``), so this walk starts from the target's torch keys and
 follows the importer's own rule for each; the leaf it finds goes back to
 torch layout. ``body`` levels stay: the reference torch modules have them
-too (``norm1.body.weight``, ``down1_2.body.0.weight``).
+too (``norm1.body.weight``, ``down1_2.body.0.weight``). GroupNorm's flax
+``scale`` lands on ``weight``.
 """
 
 from __future__ import annotations
@@ -98,36 +99,60 @@ def _to_torch_layout(key: str, arr: np.ndarray, leaf: str, shape):
     return arr
 
 
+_STATS = ("running_mean", "running_var")
+
+
 def state_dict_from_jax(params: Mapping[str, Any],
                         like: Mapping[str, torch.Tensor],
-                        key_map: Optional[Callable[[str], str]] = None,
+                        key_map: Optional[Callable[[str],
+                                                   Optional[str]]] = None,
+                        batch_stats: Optional[Mapping[str, Any]] = None,
                         ) -> Dict[str, torch.Tensor]:
     """Build a state_dict for the model whose ``state_dict()`` is ``like``
     from a JAX param tree (nested dicts of arrays, loop layout).
 
     ``key_map`` rewrites each torch key before the walk, as the same
     argument of ``import_state_dict`` does (DRSformer's
-    ``drsformer_key_map``); the state_dict keeps the torch keys.
+    ``drsformer_key_map``); the state_dict keeps the torch keys. A key the
+    map sends to None has no JAX leaf (LSNet's ``attention_bias_idxs``) and
+    keeps the model's own buffer.
+
+    BatchNorm models (LSNet) carry a second JAX collection: ``running_mean``
+    and ``running_var`` come from ``batch_stats`` (``variables
+    ["batch_stats"]``), walked like the params; ``num_batches_tracked`` has
+    no JAX counterpart and stays the model's own. Without ``batch_stats``
+    (a params-only ``.npz``, as the JAX ``cli/robust.py`` loads one) the
+    running statistics stay at the model's init, as they do in JAX.
 
     Raises KeyError when a torch key finds no JAX leaf or a JAX leaf is not
     placed under any torch key, and ValueError on a shape that does not fit:
     a tree of another architecture does not load.
     """
-    tree = _plain(params)
+    trees = {"params": _plain(params)}
+    if batch_stats is not None:
+        trees["batch_stats"] = _plain(batch_stats)
     out, placed, missing = {}, set(), []
     for key, ref in like.items():
-        path = _locate(tree, key if key_map is None else key_map(key))
+        mapped = key if key_map is None else key_map(key)
+        is_stat = key.endswith(_STATS)
+        if (mapped is None or key.endswith("num_batches_tracked")
+                or (is_stat and batch_stats is None)):
+            out[key] = ref.detach().clone()
+            continue
+        coll = "batch_stats" if is_stat else "params"
+        path = _locate(trees[coll], mapped)
         if path is None:
             missing.append(key)
             continue
-        arr = np.asarray(_get(tree, path))
+        arr = np.asarray(_get(trees[coll], path))
         arr = _to_torch_layout(key, arr, path[-1], ref.shape)
         out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(ref.dtype)
-        placed.add(path)
+        placed.add((coll,) + path)
     if missing:
         raise KeyError(f"{len(missing)} torch keys have no JAX leaf, e.g. "
                        f"{missing[:8]}")
-    unplaced = [p for p in _leaf_paths(tree) if p not in placed]
+    unplaced = [(c,) + p for c, t in trees.items() for p in _leaf_paths(t)
+                if (c,) + p not in placed]
     if unplaced:
         raise KeyError(f"{len(unplaced)} JAX leaves have no torch key, e.g. "
                        f"{['/'.join(p) for p in unplaced[:8]]}")

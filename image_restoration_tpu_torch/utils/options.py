@@ -1,8 +1,9 @@
 """Options of the port's inference surface.
 
-The subset of image_restoration_tpu/utils/options.py that ``cli/infer.py``
-reads: the model and its defaults, the checkpoint, padding, the precision
-and the input/output paths, with dotted ``--set a.b=c`` overrides. The
+The subset of image_restoration_tpu/utils/options.py that the port's entry
+points share: the model and its defaults, the seed, the checkpoint, the
+precision and the device, with dotted ``--set a.b=c`` overrides. Each entry
+point adds its own arguments (``cli/infer.py``, ``cli/robust.py``). The
 training options come with the training port.
 """
 
@@ -23,6 +24,10 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     # serving runs every block as K1 + K7 and every MEFC step as K8
     "drsformer": dict(dim=48, num_blocks=[4, 6, 6, 8], heads=[1, 2, 4, 8],
                       ffn_expansion_factor=2.66, fused_block=True),
+    # LSNet-T (JAX utils/options.py:56-57; S and B through --set
+    # model_kwargs.*); serving runs every LSConv's SKA as the CUDA kernel
+    "lsnet": dict(embed_dim=[64, 128, 192, 256], depth=[1, 2, 3, 4],
+                  use_pallas_ska=True),
 }
 
 
@@ -36,14 +41,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--fp32", dest="bf16", action="store_false")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda if available, else cpu)")
+                   help="torch device (default: cuda; without a GPU the entry "
+                        "points raise unless --device cpu is given)")
     p.add_argument("--ckpt", type=str, default=None,
                    help="checkpoint: torch .pth/.pt/.ckpt, or a JAX .npz")
     p.add_argument("--prefer_ema", action="store_true")
-    p.add_argument("--pad_multiple", type=int, default=8)
-    p.add_argument("--output_dir", type=str, default="results")
-    p.add_argument("--input", type=str, default=None,
-                   help="image file or folder to restore")
     return p
 
 
@@ -58,8 +60,11 @@ def _set_dotted(cfg: dict, key: str, value: str):
         node[parts[-1]] = value
 
 
-def parse_options(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
+def parse_options(argv=None, parser=None) -> dict:
+    """The config dict of ``argv`` parsed by ``parser`` (default
+    :func:`build_parser`): every argument, ``model_kwargs`` from
+    :data:`MODEL_DEFAULTS`, then the ``--set`` overrides."""
+    args = (parser or build_parser()).parse_args(argv)
     cfg = {k: v for k, v in vars(args).items() if k != "overrides"}
     cfg["model_kwargs"] = copy.deepcopy(MODEL_DEFAULTS.get(cfg["model"].lower(), {}))
     for ov in args.overrides:

@@ -37,12 +37,12 @@ Phases, any failure ends the run with a nonzero exit code:
 Each serving phase sets the launch counts to 0 just before its three
 forwards and reads them just after.
 
-Every kernel's row carries its bound: the larger of the bytes it must move
-(inputs read once, outputs written once) over 3.35 TB/s and its
-operations over their peak (products' multiply-adds at the 989 TFLOP/s of
-bf16 tensor cores, depthwise and SKA taps at the 67 TFLOP/s of fp32; the
-elementwise work is left out, so it stays a lower bound), summed over the
-forward's calls like its time. No single PyTorch call computes any of these
+Every kernel's row carries its bound: the largest of the bytes it must
+move (inputs read once, outputs written once) over 3.35 TB/s, its
+products' multiply-adds over the 989 TFLOP/s of bf16 tensor cores, and its
+depthwise and SKA taps over the 67 TFLOP/s of fp32 (the elementwise work is
+left out, so it stays a lower bound), summed over the forward's calls like
+its time. No single PyTorch call computes any of these
 functions, so ``library_ms`` is null throughout.
 
 The line before the last is a JSON object of the kernels; before it, the
@@ -208,9 +208,10 @@ def _record(report, name, shape, n_calls, t_k, t_p, abs_err, bound,
 def roofline(nbytes, tc_flops=0.0, fp32_flops=0.0):
     """(least ms, what bounds it) for work that moves ``nbytes`` of device
     memory and does ``tc_flops`` on bf16 tensor cores and ``fp32_flops``
-    on the fp32 units."""
+    on the fp32 units. The two pipes run concurrently, so the operations'
+    least time is the slower pipe's, not the sum."""
     t_bytes = nbytes / HBM_BYTES_PER_MS
-    t_ops = tc_flops / BF16_TC_FLOP_PER_MS + fp32_flops / FP32_FLOP_PER_MS
+    t_ops = max(tc_flops / BF16_TC_FLOP_PER_MS, fp32_flops / FP32_FLOP_PER_MS)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

@@ -141,18 +141,15 @@ def _load_batch(paths, size: int) -> np.ndarray:
 
 def evaluate_folder(model, root: str, batch_size: int = 64,
                     input_size: int = 224, mask: Optional[np.ndarray] = None,
-                    adv: Optional[str] = None,
-                    label_of_class: Optional[Callable[[str], int]] = None):
+                    adv: Optional[str] = None):
     """Accuracy over one ImageFolder tree (robust.py:10-63):
-    {"acc1": %, "acc5": %, "n": count}. ``label_of_class`` maps a class
-    dir to the label scored against (default: its index in the tree)."""
+    {"acc1": %, "acc5": %, "n": count}; each image's label is its class
+    dir's index in the tree."""
     if adv is not None:
         raise NotImplementedError(
             f"adv={adv!r}: FGSM/PGD differentiate through SKA, whose backward "
             f"comes with the LSNet training port")
-    classes, samples = _list_imagefolder(root)
-    if label_of_class is not None:
-        samples = [(p, label_of_class(classes[i])) for p, i in samples]
+    _, samples = _list_imagefolder(root)
     n = h1 = h5 = 0
     for i in range(0, len(samples), batch_size):
         chunk = samples[i:i + batch_size]

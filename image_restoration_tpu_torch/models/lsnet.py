@@ -30,7 +30,7 @@ from torch import nn
 
 from image_restoration_tpu_torch.models.registry import register_model
 from image_restoration_tpu_torch.ops.common import Conv
-from image_restoration_tpu_torch.ops.layernorm import BatchNorm2d
+from image_restoration_tpu_torch.ops.layernorm import BatchNorm1d, BatchNorm2d
 from image_restoration_tpu_torch.ops.ska import ska
 
 
@@ -64,14 +64,6 @@ class ConvBN(nn.Sequential):
         self.add_module("c", Conv(a, b, ks, stride, pad, groups, bias=False,
                                   dtype=dtype))
         self.add_module("bn", BatchNorm2d(b))
-
-
-class BatchNorm1d(nn.BatchNorm1d):
-    """The head's BatchNorm over (B, C), in fp32, cast back to the input
-    dtype (lsnet.py ``BatchNorm1d``)."""
-
-    def forward(self, x):
-        return super().forward(x.float()).to(x.dtype)
 
 
 class Linear(nn.Linear):

@@ -67,10 +67,9 @@ class LayerNorm(nn.Module):
         return self.body(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """torch's BatchNorm2d over the channels of NCHW, computed in fp32
-    whatever the activation dtype and cast back to it
-    (image_restoration_tpu/ops/layernorm.py ``BatchNorm2d``).
+class _Fp32BatchNorm:
+    """torch's BatchNorm computed in fp32 whatever the activation dtype and
+    cast back to it (image_restoration_tpu/ops/layernorm.py ``BatchNorm2d``).
 
     Eval normalises with the running statistics; train with the batch's
     (biased variance) and updates the running ones with the unbiased
@@ -81,3 +80,12 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x):
         return super().forward(x.float()).to(x.dtype)
+
+
+class BatchNorm2d(_Fp32BatchNorm, nn.BatchNorm2d):
+    """The fp32 BatchNorm over the channels of NCHW."""
+
+
+class BatchNorm1d(_Fp32BatchNorm, nn.BatchNorm1d):
+    """The fp32 BatchNorm over (B, C), LSNet's head (lsnet.py
+    ``BatchNorm1d``)."""

@@ -33,7 +33,19 @@ Phases, any failure ends the run with a nonzero exit code:
    ``batch_hits``. Each forward must launch 9 SKA kernels, the logits must
    be finite, and the kernel model's max |logit error| against the plain
    fp32 model must stay within 3x the plain bf16 model's; top-1 agreement,
-   images/s and forward ms follow.
+   images/s and forward ms follow;
+2d. the three-kernel Restormer block's kernels at the five block shapes of
+   phase 2, in bf16, by phase 2's rule and timing: LN + qkv + depthwise
+   (K4), the attention accumulation (K5, against its plain version on the
+   fp32 oracle's q and k, and also held to its plain version on the same
+   bf16 map at 1e-5 relative), the attention apply (K6) and LN + GDFN (K3);
+3d. Restormer-base with ``fused_block=False, fused_attn=True,
+   fused_gdfn=True`` served as phase 3: 44 launches of each of K3-K6 per
+   forward, the same agreement rule (the plain models turn all three flags
+   off);
+3e. AdaIR from its serving defaults (``fused_block``: 44 K1 + 44 K2 per
+   forward; its FreModules plain torch, with seeded non-zero ``para1`` and
+   ``para2`` so that their output reaches the image), the same way.
 Each serving phase sets the launch counts to 0 just before its three
 forwards and reads them just after.
 
@@ -42,8 +54,12 @@ move (inputs read once, outputs written once) over 3.35 TB/s, its
 products' multiply-adds over the 989 TFLOP/s of bf16 tensor cores, and its
 depthwise and SKA taps over the 67 TFLOP/s of fp32 (the elementwise work is
 left out, so it stays a lower bound), summed over the forward's calls like
-its time. No single PyTorch call computes any of these
-functions, so ``library_ms`` is null throughout.
+its time. No single PyTorch call computes any of these functions, so
+``library_ms`` is null throughout: K1-K4 and K7 are a LayerNorm, 1x1 and
+depthwise convs and a Gram reduction or a GDFN/MSFN in one pass; K5 is a
+per-head Gram and two sums of squares; K6 is two chained products with a
+bf16 rounding between them and a residual; K8 an eight-op mixture; K9 a
+dynamic conv whose weights vary per pixel.
 
 The line before the last is a JSON object of the kernels; before it, the
 card's name and power limit as nvidia-smi gives them. The last line is
@@ -94,19 +110,28 @@ LSNET_B = ["--set", "model_kwargs.embed_dim=(128,256,384,512)",
 LSNET_BATCH = 64
 SKA_SHAPES = [(28, 28, 128, 16, 2), (14, 14, 256, 32, 3), (7, 7, 384, 48, 4)]
 SKA_PER_FORWARD = sum(lv[-1] for lv in SKA_SHAPES)  # 9
+# The three-kernel Restormer block (K4, K5 + K6, K3) instead of the pair.
+THREE_KERNEL = ("model_kwargs.fused_block=False",
+                "model_kwargs.fused_attn=True", "model_kwargs.fused_gdfn=True")
+CSRC = "image_restoration_tpu_torch/kernels/csrc/"
 KERNELS = {
-    "block_front": ("image_restoration_tpu_torch/kernels/csrc/block_front.cu",
+    "block_front": (CSRC + "block_front.cu",
                     "image_restoration_tpu/kernels/block_pallas.py:80"),
-    "block_apply_gdfn": (
-        "image_restoration_tpu_torch/kernels/csrc/block_apply_gdfn.cu",
-        "image_restoration_tpu/kernels/block_pallas.py:223"),
-    "drs_apply_msfn": (
-        "image_restoration_tpu_torch/kernels/csrc/drs_apply_msfn.cu",
-        "image_restoration_tpu/kernels/drs_block_pallas.py:387"),
-    "mefc_step": ("image_restoration_tpu_torch/kernels/csrc/mefc_step.cu",
+    "block_apply_gdfn": (CSRC + "block_apply_gdfn.cu",
+                         "image_restoration_tpu/kernels/block_pallas.py:223"),
+    "ln_gdfn": (CSRC + "ln_gdfn.cu",
+                "image_restoration_tpu/kernels/gdfn_pallas.py:68"),
+    "ln_qkv_dwconv": (CSRC + "ln_qkv_dwconv.cu",
+                      "image_restoration_tpu/kernels/mdta_pallas.py:29"),
+    "attn_acc": (CSRC + "attn_core.cu",
+                 "image_restoration_tpu/kernels/attn_core_pallas.py:41"),
+    "attn_apply": (CSRC + "attn_core.cu",
+                   "image_restoration_tpu/kernels/attn_core_pallas.py:67"),
+    "drs_apply_msfn": (CSRC + "drs_apply_msfn.cu",
+                       "image_restoration_tpu/kernels/drs_block_pallas.py:387"),
+    "mefc_step": (CSRC + "mefc_step.cu",
                   "image_restoration_tpu/kernels/mefc_pallas.py:129"),
-    "ska": ("image_restoration_tpu_torch/kernels/csrc/ska.cu",
-            "image_restoration_tpu/kernels/ska_pallas.py:30"),
+    "ska": (CSRC + "ska.cu", "image_restoration_tpu/kernels/ska_pallas.py:30"),
 }
 # The card's published peaks (NVIDIA H100 SXM data sheet), per ms.
 HBM_BYTES_PER_MS = 3.35e9
@@ -235,6 +260,40 @@ def bound_block_apply_gdfn(h, w, c):
     return roofline(nbytes, tc, 2 * 9 * 2 * hid * n)
 
 
+def bound_ln_qkv_dwconv(h, w, c):
+    """K4: read x, write the 3C-wide qkv map (bf16) and the weights; the
+    qkv 1x1 on the tensor cores, the 3x3 depthwise over 3C in fp32."""
+    n = h * w
+    nbytes = 2 * n * c + 2 * n * 3 * c + 2 * 3 * c * c + 4 * (27 * c + 2 * c)
+    return roofline(nbytes, 2 * n * c * 3 * c, 2 * 9 * 3 * c * n)
+
+
+def bound_attn_acc(h, w, c, heads):
+    """K5: read q and k (bf16), write the fp32 Gram and sums of squares;
+    q^T k per head on the tensor cores, the squares in fp32."""
+    n, ch = h * w, c // heads
+    nbytes = 2 * 2 * n * c + 4 * (heads * ch * ch + 2 * c)
+    return roofline(nbytes, 2 * n * c * ch, 2 * 2 * n * c)
+
+
+def bound_attn_apply(h, w, c, heads):
+    """K6: read v and x, write out (bf16), A^T per head and W_proj; v A^T
+    per head and t W_proj on the tensor cores."""
+    n, ch = h * w, c // heads
+    nbytes = 3 * 2 * n * c + 2 * (heads * ch * ch + c * c)
+    return roofline(nbytes, 2 * n * c * ch + 2 * n * c * c)
+
+
+def bound_ln_gdfn(h, w, c):
+    """K3: read x, write out (bf16), the GDFN weights; the content|gate 1x1
+    and the out 1x1 on the tensor cores, the 3x3 depthwise over 2 hidden in
+    fp32."""
+    n, hid = h * w, int(c * 2.66)
+    nbytes = 2 * 2 * n * c + 2 * 3 * hid * c + 4 * 18 * hid + 4 * 2 * c
+    tc = 2 * n * c * 2 * hid + 2 * n * hid * c
+    return roofline(nbytes, tc, 2 * 9 * 2 * hid * n)
+
+
 def bound_drs_apply_msfn(h, w, c):
     """K7: as K2 with MSFN: project_in to 2H, the 3x3 and 5x5 banks over
     2H and the grouped 3x3 and 5x5 over H pairs in fp32, project_out."""
@@ -315,6 +374,85 @@ def phase_kernels():
         _record(report, "block_apply_gdfn", [1, h, w, c], n_blocks, t_k, t_p,
                 (kern2.float() - plain2.float()).abs().max().item(),
                 bound_block_apply_gdfn(h, w, c))
+    return report
+
+
+def _check_rule(name, shape, kern, plain, oracle):
+    """Phase 2's rule on one output; returns the message part."""
+    ek, ep = rel_err(kern, oracle), rel_err(plain, oracle)
+    check(kern.isfinite().all().item(), f"{name} not finite at {shape}")
+    check(ek < _bound(ep), f"{name} at {shape}: rel err {ek:.3e} above "
+          f"max(3 x {ep:.3e}, 4e-3)")
+    return f"{ek:.3e} (plain {ep:.3e})"
+
+
+def phase_3k_kernels():
+    """K4, K5, K6 and K3 at the block shapes of Restormer-base, each on its
+    plain version's inputs, against the plain version with the fp32 plain
+    chain as the oracle."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import attn_core as KA
+    from image_restoration_tpu_torch.kernels import gdfn as KG
+    from image_restoration_tpu_torch.kernels import mdta as KM
+
+    report = _new_report(("ln_gdfn", "ln_qkv_dwconv", "attn_acc",
+                          "attn_apply"))
+    for i, (h, w, c, heads, n_blocks) in enumerate(LEVELS):
+        p = random_block(c, heads, seed=100 + i)
+        gen = torch.Generator().manual_seed(200 + i)
+        x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
+        shape = f"{h}x{w}x{c} heads {heads}"
+        f = p.front()
+
+        def run(name, kern_fn, plain_fn, oracle, bound, to_plain=None):
+            """Phase 2's rule on each output; with ``to_plain``, also the
+            kernel's relative error against its plain version on the same
+            inputs must stay below it."""
+            kern, plain = kern_fn(), plain_fn()
+            torch.cuda.synchronize()
+            kerns = kern if isinstance(kern, tuple) else (kern,)
+            plains = plain if isinstance(plain, tuple) else (plain,)
+            oracles = oracle if isinstance(oracle, tuple) else (oracle,)
+            msg = "; ".join(_check_rule(name, shape, k, pl, o)
+                            for k, pl, o in zip(kerns, plains, oracles))
+            if to_plain is not None:
+                errs = [rel_err(k, pl) for k, pl in zip(kerns, plains)]
+                check(max(errs) < to_plain, f"{name} at {shape}: rel err "
+                      f"{errs} against its plain version, above {to_plain}")
+                msg += "; against plain " + ", ".join(f"{e:.3e}" for e in errs)
+            t_k, t_p = time_cuda(kern_fn), time_cuda(plain_fn)
+            print(f"{name} {shape}: rel err {msg}; kernel {t_k:.4f} ms, "
+                  f"plain {t_p:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]})", flush=True)
+            _record(report, name, [1, h, w, c], n_blocks, t_k, t_p,
+                    (kerns[0].float() - plains[0].float()).abs().max().item(),
+                    bound)
+            return plains
+
+        oqkv = KM.ln_qkv_dwconv_ref(x.float(), f)
+        (qkv,) = run("ln_qkv_dwconv", lambda: KM.ln_qkv_dwconv(x, f),
+                     lambda: KM.ln_qkv_dwconv_ref(x, f), oqkv,
+                     bound_ln_qkv_dwconv(h, w, c))
+        # K5 and its plain version widen the same bf16 map exactly, so both
+        # errors against the oracle are the map's rounding; the kernel is
+        # also held to its plain version: fp32 sums in another order.
+        gram, ss = run("attn_acc", lambda: KA.attn_acc(qkv, heads),
+                       lambda: KA.attn_acc_ref(qkv, heads),
+                       KA.attn_acc_ref(oqkv, heads),
+                       bound_attn_acc(h, w, c, heads), to_plain=1e-5)
+        at = KA.finalize_at(gram, ss, p.temperature, torch.bfloat16)
+        oracle = KA.attn_apply_ref(qkv.float(), x.float(), at.float(),
+                                   p.proj_w, p.proj_b)
+        del oqkv
+        (x2,) = run("attn_apply",
+                    lambda: KA.attn_apply(qkv, x, at, p.proj_w, p.proj_b),
+                    lambda: KA.attn_apply_ref(qkv, x, at, p.proj_w, p.proj_b),
+                    oracle, bound_attn_apply(h, w, c, heads))
+        g = p.gdfn()
+        run("ln_gdfn", lambda: KG.fused_ln_gdfn(x2, g),
+            lambda: KG.ln_gdfn_ref(x2, g), KG.ln_gdfn_ref(x2.float(), g),
+            bound_ln_gdfn(h, w, c))
     return report
 
 
@@ -455,12 +593,31 @@ def _profile(fn, inputs, profile_dir, tag, gpu, what):
           f"{profile_dir}", flush=True)
 
 
-def phase_slice(gpu, profile_dir, model_name, counters, expected):
-    """Serve ``model_name`` from ``build_model`` with its serving defaults:
-    three restores with the ``counters`` (name -> wrapper) set to 0 just
-    before and read just after, each expected to count ``expected[name]``
-    per forward; then the agreement with the plain fp32 model and the
-    timings. Returns the launch counts."""
+def perturb_adair(model, seed):
+    """Seeded, non-trivial ``para1`` and ``para2`` in every FreModule: the
+    init's zero ``para1`` makes a FreModule return its input, so nothing it
+    computes would reach the output."""
+    import torch
+
+    from image_restoration_tpu_torch.models.adair import FreModule
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FreModule):
+                for p in (m.para1, m.para2):
+                    p.copy_(0.5 * torch.randn(p.shape, generator=gen))
+
+
+def phase_slice(gpu, profile_dir, model_name, counters, expected,
+                overrides=(), tag=None, perturb=None):
+    """Serve ``model_name`` from ``build_model`` with its serving defaults
+    and the ``--set`` ``overrides`` (its seeded weights passed through
+    ``perturb`` first, if given): three restores with the ``counters``
+    (name -> wrapper) set to 0 just before and read just after, each
+    expected to count ``expected[name]`` per forward; then the agreement
+    with the plain fp32 model (every kernel flag off) and the timings,
+    printed under ``tag``. Returns the launch counts."""
     import torch
 
     from image_restoration_tpu_torch.cli.infer import make_restore_fn
@@ -468,11 +625,17 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected):
     from image_restoration_tpu_torch.cli.train import build_model
     from image_restoration_tpu_torch.utils.options import parse_options
 
+    tag = tag or model_name
+    sets = [a for kv in overrides for a in ("--set", kv)]
     cfg = parse_options(["--model", model_name, "--device", "cuda",
-                         "--seed", "0"])
-    check(cfg["bf16"] and cfg["model_kwargs"]["fused_block"],
-          f"{model_name} serving defaults are not bf16 + fused blocks")
+                         "--seed", "0"] + sets)
+    mk = cfg["model_kwargs"]
+    check(cfg["bf16"] and (mk.get("fused_block") or (
+        mk.get("fused_attn") and mk.get("fused_gdfn"))),
+          f"{tag}: not bf16 with fused blocks or the three-kernel block")
     model = load_params(cfg, build_model(cfg))
+    if perturb is not None:
+        perturb(model)
     restore = make_restore_fn(cfg, model)
     rng = np.random.default_rng(0)
     images = [rng.random((512, 512, 3), dtype=np.float32),
@@ -486,14 +649,14 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected):
     outs = [restore(img) for img in images]
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    print(f"{model_name} serving: {len(images)} images, launches {launches}",
+    print(f"{tag} serving: {len(images)} images, launches {launches}",
           flush=True)
     for img, out in zip(images, outs):
         check(out.shape == img.shape, f"output {out.shape} for {img.shape}")
         check(np.isfinite(out).all(), "non-finite restored image")
     for name, n in launches.items():
         check(n == len(images) * expected[name],
-              f"{model_name} {name}: {n} launches for {len(images)} forwards,"
+              f"{tag} {name}: {n} launches for {len(images)} forwards,"
               f" expected {expected[name]} each")
 
     # agreement: fused bf16 vs plain fp32 (oracle), against plain bf16
@@ -501,8 +664,9 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected):
     sd = model.state_dict()
 
     def variant(bf16):
-        c2 = dict(cfg, bf16=bf16,
-                  model_kwargs=dict(cfg["model_kwargs"], fused_block=False))
+        plain = {k: False for k in ("fused_block", "fused_attn", "fused_gdfn")
+                 if k in mk}
+        c2 = dict(cfg, bf16=bf16, model_kwargs=dict(mk, **plain))
         m = build_model(c2)
         m.load_state_dict(sd)
         return m
@@ -514,11 +678,11 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected):
     err_fused = (out_fused - out_ref).abs().max().item()
     err_plain = (out_plain - out_ref).abs().max().item()
     del out_ref, out_plain
-    print(f"{model_name} serving: max |fused bf16 - plain fp32| "
+    print(f"{tag} serving: max |fused bf16 - plain fp32| "
           f"{err_fused:.4e}, max |plain bf16 - plain fp32| {err_plain:.4e}",
           flush=True)
     check(np.isfinite(err_fused) and err_fused <= 3.0 * err_plain,
-          f"{model_name}: fused model error {err_fused:.4e} above 3 x "
+          f"{tag}: fused model error {err_fused:.4e} above 3 x "
           f"{err_plain:.4e}")
 
     times = []
@@ -531,12 +695,12 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected):
     ms = statistics.median(times)
     with torch.inference_mode():
         fwd_ms = time_cuda(lambda: model(x), reps=10, head_start_ms=150.0)
-    print(f"{model_name} serving 512x512 bf16 batch 1 on {gpu}: {ms:.3f} "
+    print(f"{tag} serving 512x512 bf16 batch 1 on {gpu}: {ms:.3f} "
           f"ms/img (restore, host clock, median of 10; min {min(times):.3f}, "
           f"max {max(times):.3f}), {0.262144 / (ms / 1e3):.4f} MP/s; forward "
           f"{fwd_ms:.3f} ms (device, CUDA events)", flush=True)
     if profile_dir:
-        _profile(restore, images, profile_dir, model_name, gpu,
+        _profile(restore, images, profile_dir, tag, gpu,
                  "restores at 512x512")
     return launches
 
@@ -728,8 +892,11 @@ def main(argv=None):
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
+    from image_restoration_tpu_torch.kernels import attn_core as KA
     from image_restoration_tpu_torch.kernels import block as KB
     from image_restoration_tpu_torch.kernels import drs_block as KD
+    from image_restoration_tpu_torch.kernels import gdfn as KG
+    from image_restoration_tpu_torch.kernels import mdta as KQ
     from image_restoration_tpu_torch.kernels import mefc as KM
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -747,6 +914,7 @@ def main(argv=None):
     report = phase_kernels()
     report.update(phase_drs_kernels())
     report.update(phase_ska_kernels())
+    report.update(phase_3k_kernels())
     by_path = {
         "restormer": phase_slice(
             gpu, args.profile, "restormer",
@@ -763,10 +931,29 @@ def main(argv=None):
              "drs_apply_msfn": DRS_BLOCKS_PER_FORWARD,
              "mefc_step": MEFC_STEPS_PER_FORWARD}),
         "lsnet": phase_lsnet(gpu, args.profile),
+        "restormer_3k": phase_slice(
+            gpu, args.profile, "restormer",
+            {"ln_qkv_dwconv": KQ.ln_qkv_dwconv, "attn_acc": KA.attn_acc,
+             "attn_apply": KA.attn_apply, "ln_gdfn": KG.fused_ln_gdfn},
+            dict.fromkeys(("ln_qkv_dwconv", "attn_acc", "attn_apply",
+                           "ln_gdfn"), BLOCKS_PER_FORWARD),
+            overrides=THREE_KERNEL, tag="restormer_3k"),
+        "adair": phase_slice(
+            gpu, args.profile, "adair",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": BLOCKS_PER_FORWARD},
+            perturb=lambda m: perturb_adair(m, seed=800)),
     }
     ms_is = {"block_front": "sum over the 44 blocks of one Restormer-base "
                             "512x512 forward of per-call CUDA-event medians",
              "block_apply_gdfn": "the same, 44 blocks",
+             "ln_gdfn": "the same, 44 blocks of the three-kernel variant",
+             "ln_qkv_dwconv": "the same, 44 blocks of the three-kernel "
+                              "variant",
+             "attn_acc": "the same, 44 blocks of the three-kernel variant",
+             "attn_apply": "the same, 44 blocks of the three-kernel variant",
              "drs_apply_msfn": "sum over the 40 blocks of one DRSformer "
                                "512x512 forward of per-call CUDA-event medians",
              "mefc_step": "sum over the 8 steps of one DRSformer 512x512 "

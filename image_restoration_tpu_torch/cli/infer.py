@@ -7,12 +7,24 @@ Usage:
   python -m image_restoration_tpu_torch.cli.infer --model drsformer \
       --ckpt drsformer_rain.pth --input rainy/ --output_dir derained/
 
+  python -m image_restoration_tpu_torch.cli.infer --model adair \
+      --ckpt adair.pth --input degraded/ --output_dir restored/
+
+  # the three-kernel Restormer block, on restormer or adair
+  python -m image_restoration_tpu_torch.cli.infer --model restormer \
+      --set model_kwargs.fused_block=False \
+      --set model_kwargs.fused_attn=True --set model_kwargs.fused_gdfn=True \
+      --input photos/ --output_dir restored/
+
 Each image is reflect-padded to a multiple of ``--pad_multiple`` (8), run
 through the model and cropped back, as the JAX ``cli/infer.py`` does. On a
-GPU the default Restormer runs every TransformerBlock through the two CUDA
-kernels of ``kernels/block.py``; DRSformer runs every block through pass 1
-of ``kernels/block.py`` and ``kernels/drs_block.py``'s MSFN pass, and its
-two MEFC Subnets step by step through ``kernels/mefc.py``.
+GPU the default Restormer and AdaIR run every TransformerBlock through the
+two CUDA kernels of ``kernels/block.py`` (AdaIR's FreModules are plain
+torch); with the three flags above every block runs ``kernels/mdta.py``,
+``kernels/attn_core.py`` (two kernels) and ``kernels/gdfn.py`` instead.
+DRSformer runs every block through pass 1 of ``kernels/block.py`` and
+``kernels/drs_block.py``'s MSFN pass, and its two MEFC Subnets step by step
+through ``kernels/mefc.py``.
 """
 
 from __future__ import annotations

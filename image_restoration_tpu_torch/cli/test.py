@@ -27,23 +27,27 @@ def load_params(cfg, model):
     ``utils.torch_import``; a ``.npz`` exported by the JAX package goes
     through ``utils.jax_bridge``, with the key map ``cfg["model"]`` was
     registered with; it holds params only, so BatchNorm statistics (LSNet)
-    stay at the model's init, as in the JAX ``cli/robust.py``. Without
-    ``--ckpt`` the model keeps its random init.
+    stay at the model's init, as in the JAX ``cli/robust.py``. From a torch
+    checkpoint, keys that the key map sends to None and the model does not
+    hold are dropped first: parameters the reference defines but never uses
+    (AdaIR's ``fre*.conv`` and ``fre*.score_gen``). Without ``--ckpt`` the
+    model keeps its random init.
     Returns the model.
     """
     path = cfg.get("ckpt")
     if not path:
         print("WARNING: no --ckpt given; using random init")
         return model
+    from image_restoration_tpu_torch.models import KEY_MAPS
+
+    key_map = KEY_MAPS.get(str(cfg.get("model", "")).lower())
     if path.endswith(".npz"):
-        from image_restoration_tpu_torch.models import KEY_MAPS
         from image_restoration_tpu_torch.utils.jax_bridge import (
             state_dict_from_jax,
         )
 
         with np.load(path) as data:
             tree = _unflatten(dict(data))
-        key_map = KEY_MAPS.get(str(cfg.get("model", "")).lower())
         sd = state_dict_from_jax(tree, model.state_dict(), key_map)
     elif path.endswith((".pth", ".pt", ".ckpt", ".state")):
         from image_restoration_tpu_torch.utils.torch_import import (
@@ -51,6 +55,10 @@ def load_params(cfg, model):
         )
 
         sd = load_torch_checkpoint(path, prefer_ema=cfg.get("prefer_ema", False))
+        if key_map is not None:
+            own = model.state_dict()
+            sd = {k: v for k, v in sd.items()
+                  if k in own or key_map(k) is not None}
     else:
         raise ValueError(f"{path}: the port reads torch .pth/.pt/.ckpt/.state "
                          f"and JAX .npz checkpoints (export orbax runs with "

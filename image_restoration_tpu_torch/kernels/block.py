@@ -46,6 +46,20 @@ class FrontParams(NamedTuple):
     dw_b: Optional[Tensor]
 
 
+class GDFNParams(NamedTuple):
+    """The parameters of LN2 + GDFN (torch layout, fp32), which K2's tail
+    and the three-kernel block's ``kernels/gdfn.py`` read."""
+
+    ln_w: Tensor
+    ln_b: Optional[Tensor]
+    in_w: Tensor               # (2 hidden, C, 1, 1), [content | gate]
+    in_b: Optional[Tensor]
+    dw_w: Tensor               # (2 hidden, 1, 3, 3)
+    dw_b: Optional[Tensor]
+    out_w: Tensor              # (C, hidden, 1, 1)
+    out_b: Optional[Tensor]
+
+
 class BlockParams(NamedTuple):
     """One TransformerBlock's parameters in torch layout (fp32).
 
@@ -73,6 +87,9 @@ class BlockParams(NamedTuple):
     def front(self) -> FrontParams:
         return FrontParams(*self[:len(FrontParams._fields)])
 
+    def gdfn(self) -> GDFNParams:
+        return GDFNParams(*self[-len(GDFNParams._fields):])
+
 
 # ------------------------------------------------------------ plain parts ---
 
@@ -95,6 +112,16 @@ def _dwconv3(t, w, b):
     return y.permute(0, 2, 3, 1)
 
 
+def front_qkv_f32(x, p: FrontParams, eps: float = 1e-5):
+    """dwconv3(qkv1x1(LN1(x))) in fp32, (B, H, W, 3C), rounded where the
+    kernels round before it: the LN output and the 1x1 weights to x's
+    dtype; the product and the taps in fp32."""
+    dt = x.dtype
+    y = layer_norm_f32(x, p.ln1_w, p.ln1_b, eps)
+    proj = _matmul_1x1(y.to(dt).float(), p.qkv_w, p.qkv_b, dt)
+    return _dwconv3(proj, p.dw_w, p.dw_b)
+
+
 def block_front_ref(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
     """Plain version of :func:`block_front`.
 
@@ -104,9 +131,7 @@ def block_front_ref(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
     """
     dt = x.dtype
     b, h, w, c = x.shape
-    y = layer_norm_f32(x, p.ln1_w, p.ln1_b, eps)
-    proj = _matmul_1x1(y.to(dt).float(), p.qkv_w, p.qkv_b, dt)
-    q, k, v = _dwconv3(proj, p.dw_w, p.dw_b).split(c, dim=-1)
+    q, k, v = front_qkv_f32(x, p, eps).split(c, dim=-1)
     ch = c // num_heads
     qh = q.to(dt).float().reshape(b, h * w, num_heads, ch)
     kh = k.to(dt).float().reshape(b, h * w, num_heads, ch)
@@ -115,38 +140,52 @@ def block_front_ref(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
     return v.to(dt).contiguous(), gram, ss
 
 
-def finalize(gram, ss, temperature, proj_w, dtype):
-    """A^T W_proj per batch, (B, C, C) in ``dtype``.
-
-    Logits are the Gram rescaled by the q and k norms (normalization commutes
-    with the contraction), times the per-head temperature; A is their per-head
-    softmax. A is block-diagonal over heads, so A^T W_proj is computed head by
-    head. W_proj is rounded to ``dtype`` first, as the TPU kernel packs it.
-    """
+def attention_softmax(gram, ss, temperature):
+    """The per-head attention A (B, heads, ch, ch) fp32 from the Gram and
+    the sums of squares: logits are the Gram rescaled by the q and k norms
+    (normalization commutes with the contraction), times the per-head
+    temperature; A is their softmax over the last axis."""
     b, heads, ch, _ = gram.shape
-    c = heads * ch
     qn = torch.sqrt(ss[:, 0]).clamp_min(1e-12).reshape(b, heads, ch)
     kn = torch.sqrt(ss[:, 1]).clamp_min(1e-12).reshape(b, heads, ch)
     logits = gram / (qn[..., :, None] * kn[..., None, :])
     logits = logits * temperature.reshape(-1, heads, 1, 1).float()
-    a = torch.softmax(logits, dim=-1)
+    return torch.softmax(logits, dim=-1)
+
+
+def finalize(gram, ss, temperature, proj_w, dtype):
+    """A^T W_proj per batch, (B, C, C) in ``dtype``.
+
+    A (:func:`attention_softmax`) is block-diagonal over heads, so A^T
+    W_proj is computed head by head. W_proj is rounded to ``dtype`` first,
+    as the TPU kernel packs it.
+    """
+    b, heads, ch, _ = gram.shape
+    c = heads * ch
+    a = attention_softmax(gram, ss, temperature)
     wp = proj_w.reshape(c, c).t().to(dtype).float().reshape(heads, ch, c)
     return torch.matmul(a.transpose(-1, -2), wp).reshape(b, c, c).to(dtype)
 
 
+def gdfn_tail_ref(ao, p: GDFNParams, dt, eps: float = 1e-5):
+    """ao + GDFN(LN2(ao)) on fp32 ``ao``, rounded where K2 and K3 round:
+    the LN output, the 1x1 weights and gelu * gate to ``dt``; content and
+    gate stay fp32 between the 1x1 and the depthwise. Output in ``dt``."""
+    y = layer_norm_f32(ao, p.ln_w, p.ln_b, eps)
+    cg = _matmul_1x1(y.to(dt).float(), p.in_w, p.in_b, dt)
+    cont, gate = _dwconv3(cg, p.dw_w, p.dw_b).chunk(2, dim=-1)
+    act = (gelu_exact(cont) * gate).to(dt).float()
+    return (_matmul_1x1(act, p.out_w, p.out_b, dt) + ao).to(dt)
+
+
 def block_apply_gdfn_ref(v, x, atw, p: BlockParams, eps: float = 1e-5):
     """Plain version of :func:`block_apply_gdfn`; output in x's dtype."""
-    dt = x.dtype
     b, h, w, c = x.shape
     ao = torch.bmm(v.float().reshape(b, h * w, c), atw.float())
     ao = ao.reshape(b, h, w, c) + x.float()
     if p.proj_b is not None:
         ao = ao + p.proj_b.float()
-    y = layer_norm_f32(ao, p.ln2_w, p.ln2_b, eps)
-    cg = _matmul_1x1(y.to(dt).float(), p.in_w, p.in_b, dt)
-    cont, gate = _dwconv3(cg, p.dw2_w, p.dw2_b).chunk(2, dim=-1)
-    act = (gelu_exact(cont) * gate).to(dt).float()
-    return (_matmul_1x1(act, p.out_w, p.out_b, dt) + ao).to(dt)
+    return gdfn_tail_ref(ao, p.gdfn(), x.dtype, eps)
 
 
 def reference_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5):
@@ -178,7 +217,7 @@ def reference_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5):
 
 # ---------------------------------------------------------------- kernels ---
 
-_HIDDEN_CHUNK = 32  # csrc/block_apply_gdfn.cu NH: hidden padded to this
+_HIDDEN_CHUNK = 32  # csrc/gdfn.cuh NH: hidden padded to this
 
 
 def _ptr(t):
@@ -234,6 +273,15 @@ def _tiles(b, h, w, th):
     return b * -(-h // th) * -(-w // 16)
 
 
+def front_weights(p: FrontParams, c: int):
+    """The front's weights as the CUDA kernels take them: W_qkv (C, 3C)
+    bf16, the taps (9, 3C) fp32, LN1's affine and the biases fp32."""
+    wqkv = p.qkv_w.reshape(3 * c, c).t().to(torch.bfloat16).contiguous()
+    dw = p.dw_w.reshape(3 * c, 9).t().float().contiguous()
+    return (wqkv, dw, _f32(p.ln1_w), _f32(p.ln1_b), _f32(p.qkv_b),
+            _f32(p.dw_b))
+
+
 def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
     """Pass 1: (v, gram, ss) as :func:`block_front_ref` documents.
 
@@ -259,10 +307,7 @@ def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
                  2 * torch.cuda.get_device_properties(x.device)
                  .multi_processor_count)
     f32 = dict(device=x.device, dtype=torch.float32)
-    wqkv = p.qkv_w.reshape(3 * c, c).t().to(torch.bfloat16).contiguous()
-    dw = p.dw_w.reshape(3 * c, 9).t().float().contiguous()
-    ln_w, ln_b = _f32(p.ln1_w), _f32(p.ln1_b)
-    bqkv, db = _f32(p.qkv_b), _f32(p.dw_b)
+    wqkv, dw, ln_w, ln_b, bqkv, db = front_weights(p, c)
     v = torch.empty_like(x)
     gram_part = torch.empty((b, grid_x, num_heads * ch * ch), **f32)
     ss_part = torch.empty((b, grid_x, 2 * c), **f32)
@@ -291,6 +336,26 @@ def _pad_hidden(t, hidden, hp, dim):
     return torch.cat([F.pad(cont, pad), F.pad(gate, pad)], dim=dim)
 
 
+def gdfn_weights(p: GDFNParams, c: int, hp: int):
+    """LN2 + GDFN weights as K2 and K3 take them. [content | gate] is
+    padded with zeros to ``hp`` each; padded channels give gelu(0) * 0 = 0
+    and meet zero rows of W_out. Returns W_cg (C, 2 hp) bf16, its bias,
+    the taps (9, 2 hp) and their bias fp32, W_out (hp, C) bf16, b_out and
+    LN2's affine fp32."""
+    hidden = p.out_w.shape[1]
+    wcg = _pad_hidden(p.in_w.reshape(2 * hidden, c).t(), hidden, hp, 1)
+    wcg = wcg.to(torch.bfloat16).contiguous()
+    dwcg = _pad_hidden(p.dw_w.reshape(2 * hidden, 9).t().float(), hidden,
+                       hp, 1).contiguous()
+    bcg = None if p.in_b is None else _pad_hidden(_f32(p.in_b), hidden, hp, 0)
+    dbcg = (None if p.dw_b is None
+            else _pad_hidden(_f32(p.dw_b), hidden, hp, 0))
+    wo = F.pad(p.out_w.reshape(c, hidden).t(), (0, 0, 0, hp - hidden))
+    wo = wo.to(torch.bfloat16).contiguous()
+    return (wcg, bcg, dwcg, dbcg, wo, _f32(p.out_b), _f32(p.ln_w),
+            _f32(p.ln_b))
+
+
 def block_apply_gdfn(v, x, atw, p: BlockParams, eps: float = 1e-5):
     """Pass 2: the block output (B, H, W, C) in x's dtype.
 
@@ -315,19 +380,8 @@ def block_apply_gdfn(v, x, atw, p: BlockParams, eps: float = 1e-5):
     th = _pick_tile_rows(_APPLY_TILE_ROWS.get(c),
                          lambda t: lib.lib.ir_block_apply_gdfn_smem(c, t),
                          lambda t: _tiles(b, h, w, t), x.device)
-    # [content | gate] padded with zeros to hp each; padded channels give
-    # gelu(0) * 0 = 0 and meet zero rows of W_out.
-    wcg = _pad_hidden(p.in_w.reshape(2 * hidden, c).t(), hidden, hp, 1)
-    wcg = wcg.to(torch.bfloat16).contiguous()
-    dwcg = _pad_hidden(p.dw2_w.reshape(2 * hidden, 9).t().float(), hidden,
-                       hp, 1).contiguous()
-    bcg = None if p.in_b is None else _pad_hidden(_f32(p.in_b), hidden, hp, 0)
-    dbcg = (None if p.dw2_b is None
-            else _pad_hidden(_f32(p.dw2_b), hidden, hp, 0))
-    wo = F.pad(p.out_w.reshape(c, hidden).t(), (0, 0, 0, hp - hidden))
-    wo = wo.to(torch.bfloat16).contiguous()
-    ln_w, ln_b = _f32(p.ln2_w), _f32(p.ln2_b)
-    bp, bo = _f32(p.proj_b), _f32(p.out_b)
+    wcg, bcg, dwcg, dbcg, wo, bo, ln_w, ln_b = gdfn_weights(p.gdfn(), c, hp)
+    bp = _f32(p.proj_b)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

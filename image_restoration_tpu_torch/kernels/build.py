@@ -35,6 +35,14 @@ _SIGNATURES = {
     "ir_mefc_step_smem": (_I, [_I, _I]),
     "ir_mefc_step": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "ir_ska": (_I, [_P] * 3 + [_I] * 7 + [_P]),
+    "ir_ln_qkv_dwconv_smem": (_I, [_I, _I]),
+    "ir_ln_qkv_dwconv": (_I, [_P] * 8 + [_I] * 5 + [_F, _P]),
+    "ir_attn_acc_smem": (_I, [_I, _I]),
+    "ir_attn_acc": (_I, [_P] * 5 + [_I] * 5 + [_P]),
+    "ir_attn_apply_smem": (_I, [_I, _I]),
+    "ir_attn_apply": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    "ir_ln_gdfn_smem": (_I, [_I, _I]),
+    "ir_ln_gdfn": (_I, [_P] * 10 + [_I] * 6 + [_F, _P]),
     "ir_error_string": (ctypes.c_char_p, [_I]),
 }
 

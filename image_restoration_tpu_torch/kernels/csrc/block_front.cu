@@ -36,146 +36,9 @@
 // at C = 384 (8 heads of 48) th = 8 does not fit, th = 4 takes ~198 KB and
 // th = 2 (~160 KB, the one chosen) gives the 64x64 latent level 128 blocks
 // for the 132 SMs where th = 4 gives 64.
-#include "common.cuh"
+#include "front.cuh"
 
 namespace irk {
-
-constexpr int F_THREADS = 192;  // 6 warps; 192 = nc * groups for nc 16/32/48
-constexpr int F_WARPS = F_THREADS / 32;
-
-__host__ __device__ inline int front_chunk(int ch) {
-  return ch % 48 == 0 ? 48 : (ch % 32 == 0 ? 32 : 16);
-}
-
-struct FrontSmem {
-  int hcols, P, Pp, npix, ldy, ldp, ldq;
-  size_t off_y, off_p, off_q, off_k, off_g, off_ss, off_red, total;
-  __host__ __device__ FrontSmem(int C, int heads, int th) {
-    const int ch = C / heads, nc = front_chunk(ch);
-    hcols = TILE_W + 2;
-    P = (th + 2) * hcols;
-    Pp = round16(P);
-    npix = th * TILE_W;
-    ldy = C + 8;
-    ldp = nc + 4;
-    ldq = ch + 8;
-    size_t o = 0;
-    off_y = o; o = align128(o + sizeof(bf16) * Pp * ldy);
-    off_p = o; o = align128(o + sizeof(float) * Pp * ldp);
-    off_q = o; o = align128(o + sizeof(bf16) * npix * ldq);
-    off_k = o; o = align128(o + sizeof(bf16) * npix * ldq);
-    off_g = o; o = align128(o + sizeof(float) * heads * ch * ch);
-    off_ss = o; o = align128(o + sizeof(float) * 2 * C);
-    off_red = o; o = align128(o + sizeof(float) * F_THREADS);
-    total = o;
-  }
-};
-
-struct FrontArgs {
-  const bf16* x;      // (B, H, W, C)
-  const float* ln_w;  // (C)
-  const float* ln_b;  // (C) or null (BiasFree)
-  const bf16* wqkv;   // (C, 3C): [q | k | v] output channels
-  const float* bqkv;  // (3C) or null
-  const float* dw;    // (9, 3C) depthwise taps, kh * 3 + kw
-  const float* db;    // (3C) or null
-  bf16* v;            // (B, H, W, C)
-  float* gram_part;   // (B, G, heads, ch, ch)
-  float* ss_part;     // (B, G, 2, C)
-  int H, W, C, heads, th, tiles_w, tiles;
-  float eps;
-};
-
-// proj[Pp x nc] = ys[Pp x C] @ wqkv[:, col0 : col0 + nc], fp32 accumulation.
-__device__ void front_project(const FrontArgs& a, const FrontSmem& L,
-                              const bf16* ys, float* proj, int col0, int nc,
-                              int warp) {
-  const int mt = L.Pp / 16, nt = nc / 16, ldw = 3 * a.C;
-  for (int t = warp; t < mt * nt; t += F_WARPS) {
-    const int mi = t / nt, ni = t % nt;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k = 0; k < a.C; k += 16) {
-      FragA fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, ys + mi * 16 * L.ldy + k, L.ldy);
-      wmma::load_matrix_sync(fb, a.wqkv + (size_t)k * ldw + col0 + ni * 16,
-                             ldw);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(proj + mi * 16 * L.ldp + ni * 16, acc, L.ldp,
-                            wmma::mem_row_major);
-  }
-}
-
-// 3x3 depthwise over one projected chunk for the tile's output pixels.
-// Thread (n, g) owns chunk channel n and output pixels g, g + groups, ...
-// q/k chunks (qk_dst != null) go to shared memory as bf16 at column `sub`
-// and add their fp32 sums of squares to ss (fixed order: deterministic);
-// v chunks go straight to device memory.
-__device__ void front_dwconv(const FrontArgs& a, const FrontSmem& L,
-                             const Halo& hl, const float* proj, int col0,
-                             int nc, bf16* qk_dst, int sub, float* ss,
-                             float* red, bf16* vb, int tid) {
-  const int n = tid % nc, g = tid / nc, groups = F_THREADS / nc;
-  const int col = col0 + n, C3 = 3 * a.C;
-  float wt[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) wt[k] = a.dw[k * C3 + col];
-  const float bias = a.bqkv ? a.bqkv[col] : 0.f;
-  const float dbias = a.db ? a.db[col] : 0.f;
-  float ssum = 0.f;
-  for (int q = g; q < L.npix; q += groups) {
-    const int orow = q / TILE_W, ocol = q % TILE_W;
-    const int gr = hl.r0 + orow, gc = hl.c0 + ocol;
-    float acc = dbias;
-#pragma unroll
-    for (int kh = 0; kh < 3; ++kh)
-#pragma unroll
-      for (int kw = 0; kw < 3; ++kw)
-        if (hl.inside(gr - 1 + kh, gc - 1 + kw))
-          acc += (proj[((orow + kh) * L.hcols + ocol + kw) * L.ldp + n] +
-                  bias) * wt[kh * 3 + kw];
-    const bool in = hl.inside(gr, gc);
-    if (qk_dst) {
-      qk_dst[q * L.ldq + sub + n] = f2bf(in ? acc : 0.f);
-      if (in) ssum += acc * acc;
-    } else if (in) {
-      vb[((size_t)gr * a.W + gc) * a.C + (col - 2 * a.C)] = f2bf(acc);
-    }
-  }
-  if (qk_dst) {
-    red[tid] = ssum;
-    __syncthreads();
-    if (g == 0) {
-      float s = 0.f;
-      for (int i = 0; i < groups; ++i) s += red[i * nc + n];
-      ss[col] += s;  // col < 2C: q sums at [0, C), k sums at [C, 2C)
-    }
-  }
-  __syncthreads();
-}
-
-// gram[ch x ch] += q^T[ch x npix] @ k[npix x ch], accumulator in smem.
-__device__ void front_gram(const FrontSmem& L, int ch, const bf16* qs,
-                           const bf16* ks, float* gram, int warp) {
-  const int t = ch / 16;
-  for (int i = warp; i < t * t; i += F_WARPS) {
-    const int mi = i / t, ni = i % t;
-    FragC acc;
-    wmma::load_matrix_sync(acc, gram + mi * 16 * ch + ni * 16, ch,
-                           wmma::mem_row_major);
-    for (int k = 0; k < L.npix; k += 16) {
-      FragAT fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, qs + k * L.ldq + mi * 16, L.ldq);
-      wmma::load_matrix_sync(fb, ks + k * L.ldq + ni * 16, L.ldq);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(gram + mi * 16 * ch + ni * 16, acc, ch,
-                            wmma::mem_row_major);
-  }
-}
 
 __global__ void __launch_bounds__(F_THREADS)
     block_front_kernel(FrontArgs a) {
@@ -202,19 +65,7 @@ __global__ void __launch_bounds__(F_THREADS)
   for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
     const Halo hl{(t / a.tiles_w) * a.th, (t % a.tiles_w) * TILE_W, a.H, a.W};
     __syncthreads();  // the previous tile is done with ys and proj
-    // LN1 of the halo tile; pixels outside the image (and the pad rows up
-    // to Pp) become zeros, so the product below stays finite there.
-    for (int p = warp; p < L.Pp; p += F_WARPS) {
-      const int gr = hl.r0 - 1 + p / L.hcols, gc = hl.c0 - 1 + p % L.hcols;
-      bf16* yrow = ys + p * L.ldy;
-      if (p >= L.P || !hl.inside(gr, gc)) {
-        for (int c = lane; c < C; c += 32) yrow[c] = f2bf(0.f);
-        continue;
-      }
-      const bf16* xr = xb + ((size_t)gr * a.W + gc) * C;
-      warp_layernorm([&](int c) { return bf2f(xr[c]); }, C, a.eps, a.ln_w,
-                     a.ln_b, yrow, lane);
-    }
+    front_ln_tile(a, L, hl, xb, ys, warp, lane);
     __syncthreads();
 
     for (int h = 0; h < heads; ++h) {
@@ -228,7 +79,8 @@ __global__ void __launch_bounds__(F_THREADS)
                        nullptr, tid);
         }
       }
-      front_gram(L, ch, qs, ks, gacc + h * ch * ch, warp);
+      front_gram(L.npix, L.ldq, ch, qs, ks, gacc + h * ch * ch, warp,
+                 F_WARPS);
       __syncthreads();
     }
     for (int sub = 0; sub < C; sub += nc) {
@@ -244,24 +96,6 @@ __global__ void __launch_bounds__(F_THREADS)
   for (int i = tid; i < ng; i += F_THREADS) a.gram_part[part * ng + i] = gacc[i];
   for (int i = tid; i < 2 * C; i += F_THREADS)
     a.ss_part[part * 2 * C + i] = ssacc[i];
-}
-
-// Sums the G per-block partials of each batch in a fixed order.
-__global__ void front_reduce_kernel(const float* gram_part,
-                                    const float* ss_part, float* gram,
-                                    float* ss, int G, int ng, int nss) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < ng) {
-    float s = 0.f;
-    for (int g = 0; g < G; ++g) s += gram_part[((size_t)b * G + g) * ng + i];
-    gram[(size_t)b * ng + i] = s;
-  } else if (i < ng + nss) {
-    const int j = i - ng;
-    float s = 0.f;
-    for (int g = 0; g < G; ++g) s += ss_part[((size_t)b * G + g) * nss + j];
-    ss[(size_t)b * nss + j] = s;
-  }
 }
 
 }  // namespace irk
@@ -299,11 +133,8 @@ int ir_block_front(const void* x, const void* ln_w, const void* ln_b,
   block_front_kernel<<<dim3(grid_x, B), F_THREADS, L.total, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int ng = C * (C / heads), nss = 2 * C;
-  front_reduce_kernel<<<dim3((ng + nss + 255) / 256, B), 256, 0, s>>>(
-      static_cast<const float*>(gram_part), static_cast<const float*>(ss_part),
-      static_cast<float*>(gram), static_cast<float*>(ss), grid_x, ng, nss);
-  return cudaGetLastError();
+  return launch_front_reduce(gram_part, ss_part, gram, ss, B, grid_x,
+                             C * (C / heads), 2 * C, s);
 }
 
 const char* ir_error_string(int code) {

@@ -1,3 +1,4 @@
 from image_restoration_tpu_torch.models.registry import (  # noqa: F401
     KEY_MAPS, MODELS, get_model, register_model)
-from image_restoration_tpu_torch.models import drsformer, lsnet, restormer  # noqa: F401
+from image_restoration_tpu_torch.models import (  # noqa: F401
+    adair, drsformer, lsnet, restormer)

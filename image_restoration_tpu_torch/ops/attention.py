@@ -22,6 +22,24 @@ def l2_normalize(x, dim: int, eps: float = 1e-12):
     return x / torch.clamp(n, min=eps)
 
 
+def normalized_channel_logits(q, k, eps: float = 1e-12):
+    """Normalized C x C channel-attention logits, token-major layout
+    (image_restoration_tpu/ops/attention.py ``normalized_channel_logits``).
+
+    q, k: (B, N, heads, C) with N the token axis. Returns fp32
+    (B, heads, C, C) equal to ``l2_normalize(q, dim=1)^T @
+    l2_normalize(k, dim=1)``, computed as the raw contraction of the
+    exactly widened activations rescaled by the outer product of the
+    channel norms.
+    """
+    qf, kf = q.float(), k.float()
+    raw = torch.einsum("bnhc,bnhd->bhcd", qf, kf)
+    qn = torch.sqrt(torch.einsum("bnhc,bnhc->bhc", qf, qf))
+    kn = torch.sqrt(torch.einsum("bnhc,bnhc->bhc", kf, kf))
+    return raw / (torch.clamp(qn, min=eps)[..., :, None]
+                  * torch.clamp(kn, min=eps)[..., None, :])
+
+
 def mdta_attention(q, k, v, temperature, num_heads: int):
     """Core MDTA contraction on NCHW q, k, v; returns NCHW in v's dtype.
 

@@ -1,4 +1,5 @@
-"""Pixel-(un)shuffle resamplers (Restormer.py:171-190), NCHW.
+"""Pixel-(un)shuffle resamplers (Restormer.py:171-190) and the bilinear
+resize, NCHW.
 
 torch's own pixel (un)shuffle has the (c, i, j) channel sub-order that the
 JAX package reproduces for checkpoint compatibility, so the port uses it
@@ -22,6 +23,20 @@ def pixel_shuffle(x, r: int):
 def pixel_unshuffle(x, r: int):
     """(B, C, H*r, W*r) -> (B, C*r^2, H, W), inverse of ``pixel_shuffle``."""
     return F.pixel_unshuffle(x, r)
+
+
+def resize_bilinear(x, out_h: int, out_w: int):
+    """Bilinear resize of NCHW ``x`` to (out_h, out_w)
+    (image_restoration_tpu/ops/resample.py ``resize_bilinear``, on NHWC,
+    with its default ``align_corners=False``).
+
+    The JAX function is ``jax.image.resize(method="linear")``, whose
+    ``antialias`` defaults to True: when it downsamples, its triangle filter
+    widens by the scale factor. ``F.interpolate(antialias=True)`` computes
+    the same filter, and equals the plain bilinear resize when it upsamples.
+    """
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                         align_corners=False, antialias=True)
 
 
 class Downsample(nn.Module):

@@ -20,6 +20,10 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "restormer": dict(dim=48, num_blocks=[4, 6, 6, 8], heads=[1, 2, 4, 8],
                       num_refinement_blocks=4, ffn_expansion_factor=2.66,
                       fused_block=True),
+    # AdaIR (JAX utils/options.py:32-33); serving runs every block as the
+    # two-kernel pair, as the JAX package serves it (bench.py)
+    "adair": dict(dim=48, num_blocks=[4, 6, 6, 8], heads=[1, 2, 4, 8],
+                  num_refinement_blocks=4, fused_block=True),
     # DRSformer (DRSformer_arch.py defaults; JAX utils/options.py:49);
     # serving runs every block as K1 + K7 and every MEFC step as K8
     "drsformer": dict(dim=48, num_blocks=[4, 6, 6, 8], heads=[1, 2, 4, 8],

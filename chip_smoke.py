@@ -4,6 +4,12 @@
 Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --tail [ROWS ...] [--warps 8|16]
+
+The second form checks and times only the two kernels that share the GDFN
+tail (K2, K3), at the wrappers' tile height and warps or at those given: the
+sweep behind ``kernels/block.py`` ``_APPLY_TILE_ROWS`` and ``_APPLY_WARPS``.
+It prints no result line.
 
 Phases, any failure ends the run with a nonzero exit code:
 1. device and build: the card's name and power limit; the CUDA kernels are
@@ -12,7 +18,9 @@ Phases, any failure ends the run with a nonzero exit code:
    K2) at every block shape of Restormer-base serving a 512x512 image, in
    bf16, against their plain PyTorch versions, with the fp32 plain version
    as the oracle. The kernel passes if its max relative error is below
-   max(3 x the plain bf16 version's, 4e-3). Times are CUDA-event medians;
+   max(3 x the plain bf16 version's, 4e-3). K2 must also give the same bits
+   on a second run, and holds the rule on a batch of two at 64x64 x 384.
+   Times are CUDA-event medians;
 2b. the same for DRSformer's kernels: the MSFN pass (K7) at the five block
    shapes of DRSformer serving a 512x512 image, and the MEFC step (K8) at
    512x512 x 48 and x 96, four steps each;
@@ -27,8 +35,10 @@ Phases, any failure ends the run with a nonzero exit code:
    in fp32 (max relative error 1e-5);
 3b. the DRSformer serving slice, the same way: each forward must launch 40
    K1, 40 K7 and 8 K8 (two MEFC Subnets of four steps);
-3c. LSNet-B classification serving: ``build_model`` (bf16, the SKA kernel,
-   seeded random weights and BatchNorm statistics) scores three seeded
+3c. LSNet-B classification serving: ``build_model`` from ``cli/robust.py``'s
+   options with ``--bf16`` given (the CLI itself classifies in fp32; this
+   phase times bf16), the SKA kernel, seeded random weights and BatchNorm
+   statistics; it scores three seeded
    normalised batches of 64 at 224x224 through ``eval/robustness.py``
    ``batch_hits``. Each forward must launch 9 SKA kernels, the logits must
    be finite, and the kernel model's max |logit error| against the plain
@@ -38,7 +48,8 @@ Phases, any failure ends the run with a nonzero exit code:
    phase 2, in bf16, by phase 2's rule and timing: LN + qkv + depthwise
    (K4), the attention accumulation (K5, against its plain version on the
    fp32 oracle's q and k, and also held to its plain version on the same
-   bf16 map at 1e-5 relative), the attention apply (K6) and LN + GDFN (K3);
+   bf16 map at 1e-5 relative), the attention apply (K6) and LN + GDFN (K3,
+   with K2's two extra checks);
 3d. Restormer-base with ``fused_block=False, fused_attn=True,
    fused_gdfn=True`` served as phase 3: 44 launches of each of K3-K6 per
    forward, the same agreement rule (the plain models turn all three flags
@@ -366,6 +377,11 @@ def phase_kernels():
               f"block_apply_gdfn not finite at {h}x{w}x{c}")
         check(ek < _bound(ep), f"block_apply_gdfn at {h}x{w}x{c}: rel err "
               f"{ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
+        check_tail_twice_and_batch2(
+            "block_apply_gdfn", f"{h}x{w}x{c}",
+            lambda: K.block_apply_gdfn(v, x, atw, p), kern2,
+            _batch2(K.block_apply_gdfn, K.block_apply_gdfn_ref, (v, x, atw), p)
+            if c == 384 else None)
         t_k = time_cuda(lambda: K.block_apply_gdfn(v, x, atw, p))
         t_p = time_cuda(lambda: K.block_apply_gdfn_ref(v, x, atw, p))
         print(f"block_apply_gdfn {h}x{w}x{c} heads {heads}: rel err "
@@ -384,6 +400,100 @@ def _check_rule(name, shape, kern, plain, oracle):
     check(ek < _bound(ep), f"{name} at {shape}: rel err {ek:.3e} above "
           f"max(3 x {ep:.3e}, 4e-3)")
     return f"{ek:.3e} (plain {ep:.3e})"
+
+
+def _batch2(kern_fn, plain_fn, tensors, *rest):
+    """(kernel, plain, oracle) calls on a batch of two: each of ``tensors``
+    stacked with its flip along dim 1."""
+    import torch
+
+    two = [torch.cat([t, t.flip(1)]) for t in tensors]
+    return (lambda: kern_fn(*two, *rest), lambda: plain_fn(*two, *rest),
+            lambda: plain_fn(*(t.float() for t in two), *rest))
+
+
+def check_tail_twice_and_batch2(name, shape, kern_fn, first, batch2=None):
+    """K2's and K3's extra checks: a second run gives ``first``'s bits (no
+    block order or atomics in the result); ``batch2`` = (kernel call, plain
+    call, oracle call) on a batch of two must hold phase 2's rule."""
+    import torch
+
+    again = kern_fn()
+    torch.cuda.synchronize()
+    check(torch.equal(first, again), f"{name} at {shape}: two runs differ")
+    if batch2 is not None:
+        kern, plain, oracle = (fn() for fn in batch2)
+        torch.cuda.synchronize()
+        msg = _check_rule(name, f"{shape} batch 2", kern, plain, oracle)
+        print(f"{name} {shape} batch 2: rel err {msg}", flush=True)
+
+
+def phase_tail(rows, warps=None):
+    """K2 and K3 alone (``--tail``): phase 2's rule, two equal runs and the
+    kernel's time at the five block shapes, once per tile height in
+    ``rows`` that fits the card (none given: the wrappers' own choice), in
+    blocks of ``warps`` warps (None: the wrappers' own choice)."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import block as K
+    from image_restoration_tpu_torch.kernels import gdfn as KG
+    from image_restoration_tpu_torch.kernels.build import load_library
+
+    lib = load_library().lib
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    chosen = dict(K._APPLY_TILE_ROWS)
+    if warps is not None:
+        K._APPLY_WARPS = dict.fromkeys(K._APPLY_WARPS, warps)
+    sums = {}
+    for i, (h, w, c, heads, n_blocks) in enumerate(LEVELS):
+        p = random_block(c, heads, seed=100 + i)
+        gen = torch.Generator().manual_seed(200 + i)
+        x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
+        v, gram, ss = K.block_front_ref(x, p, heads)
+        atw = K.finalize(gram, ss, p.temperature, p.proj_w, torch.bfloat16)
+        g = p.gdfn()
+        calls = {
+            "block_apply_gdfn": (
+                lambda: K.block_apply_gdfn(v, x, atw, p),
+                lambda: K.block_apply_gdfn_ref(v, x, atw, p),
+                lambda: K.block_apply_gdfn_ref(v.float(), x.float(),
+                                               atw.float(), p),
+                lib.ir_block_apply_gdfn_smem),
+            "ln_gdfn": (
+                lambda: KG.fused_ln_gdfn(x, g),
+                lambda: KG.ln_gdfn_ref(x, g),
+                lambda: KG.ln_gdfn_ref(x.float(), g),
+                lib.ir_ln_gdfn_smem),
+        }
+        for name, (kern_fn, plain_fn, oracle_fn, smem_of) in calls.items():
+            plain, oracle = plain_fn(), oracle_fn()
+            t_p = time_cuda(plain_fn)
+            for th in rows or [chosen.get(c)]:
+                if smem_of(c, th, K._apply_warps(c)) > limit:
+                    print(f"tail {name} {h}x{w}x{c} th {th}: does not fit",
+                          flush=True)
+                    continue
+                K._APPLY_TILE_ROWS[c] = th
+                kern = kern_fn()
+                torch.cuda.synchronize()
+                msg = _check_rule(name, f"{h}x{w}x{c} th {th}", kern, plain,
+                                  oracle)
+                check_tail_twice_and_batch2(name, f"{h}x{w}x{c} th {th}",
+                                            kern_fn, kern)
+                t_k = time_cuda(kern_fn)
+                print(f"tail {name} {h}x{w}x{c} th {th} "
+                      f"({K._apply_warps(c)} warps, "
+                      f"{smem_of(c, th, K._apply_warps(c))} B shared): rel "
+                      f"err {msg}; kernel "
+                      f"{t_k:.4f} ms, plain {t_p:.4f} ms", flush=True)
+                sums.setdefault((name, th if rows else "own"), []).append(
+                    n_blocks * t_k)
+            K._APPLY_TILE_ROWS[c] = chosen.get(c)
+            del plain, oracle
+    for (name, th), parts in sums.items():
+        if len(parts) == len(LEVELS):
+            print(f"tail {name} th {th}: {sum(parts):.3f} ms per forward "
+                  f"(44 blocks)", flush=True)
 
 
 def phase_3k_kernels():
@@ -453,6 +563,11 @@ def phase_3k_kernels():
         run("ln_gdfn", lambda: KG.fused_ln_gdfn(x2, g),
             lambda: KG.ln_gdfn_ref(x2, g), KG.ln_gdfn_ref(x2.float(), g),
             bound_ln_gdfn(h, w, c))
+        check_tail_twice_and_batch2(
+            "ln_gdfn", shape, lambda: KG.fused_ln_gdfn(x2, g),
+            KG.fused_ln_gdfn(x2, g),
+            _batch2(KG.fused_ln_gdfn, KG.ln_gdfn_ref, (x2,), g)
+            if c == 384 else None)
     return report
 
 
@@ -780,6 +895,7 @@ def phase_lsnet(gpu, profile_dir):
     agreement with the plain fp32 model and the timings."""
     import torch
 
+    from image_restoration_tpu_torch.cli.robust import build_argparser
     from image_restoration_tpu_torch.cli.test import load_params
     from image_restoration_tpu_torch.cli.train import build_model
     from image_restoration_tpu_torch.eval.robustness import (
@@ -790,8 +906,9 @@ def phase_lsnet(gpu, profile_dir):
     from image_restoration_tpu_torch.kernels import ska as KS
     from image_restoration_tpu_torch.utils.options import parse_options
 
-    cfg = parse_options(["--model", "lsnet", "--device", "cuda", "--seed",
-                         "0"] + LSNET_B)
+    # cli/robust.py classifies in fp32 unless asked: this phase times bf16
+    cfg = parse_options(["--device", "cuda", "--seed", "0", "--bf16"]
+                        + LSNET_B, build_argparser())
     check(cfg["bf16"] and cfg["model_kwargs"]["use_pallas_ska"],
           "lsnet serving defaults are not bf16 + the SKA kernel")
     model = load_params(cfg, build_model(cfg))
@@ -879,6 +996,14 @@ def main(argv=None):
     ap.add_argument("--profile", default=None,
                     help="directory for torch.profiler tables and traces of "
                          "two forwards per model")
+    ap.add_argument("--tail", nargs="*", type=int, default=None,
+                    metavar="ROWS",
+                    help="only K2 and K3 at the five block shapes: the rule, "
+                         "two equal runs and the times, at the wrappers' "
+                         "tile height or at each of ROWS; prints no result "
+                         "line")
+    ap.add_argument("--warps", type=int, default=None, choices=[8, 16],
+                    help="with --tail: warps a block at every width")
     args = ap.parse_args(argv)
 
     import torch
@@ -908,8 +1033,13 @@ def main(argv=None):
     lib = load_library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s", flush=True)
     for line in lib.compiler_log.splitlines():
-        if "Used" in line or "spill" in line:
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+
+    if args.tail is not None:
+        phase_tail(args.tail, args.warps)
+        print(gpu)
+        return 0
 
     report = phase_kernels()
     report.update(phase_drs_kernels())

@@ -8,9 +8,9 @@ ImageFolder trees.
         --ckpt lsnet_t.pth --inc_path /data/imagenet-c --input_size 224
 
 The model is LSNet-T unless ``--set model_kwargs.*`` says otherwise
-(``utils/options.py``), bf16 unless ``--fp32``, on the GPU unless
-``--device cpu``; on the GPU every LSConv runs SKA as the CUDA kernel of
-``kernels/ska.py``. ``--adv FGSM|PGD`` needs SKA's backward and is refused
+(``utils/options.py``), fp32 as the JAX CLI classifies unless ``--bf16``,
+on the GPU unless ``--device cpu``; on the GPU every LSConv runs SKA as the
+CUDA kernel of ``kernels/ska.py``. ``--adv FGSM|PGD`` needs SKA's backward and is refused
 until the training port.
 """
 
@@ -25,7 +25,9 @@ def build_argparser():
 
     p = build_parser()
     p.description = __doc__.splitlines()[0]
-    p.set_defaults(model="lsnet")
+    # the protocol's numbers are fp32 ones (the JAX CLI builds LSNet with
+    # its default dtype); --bf16 stays reachable
+    p.set_defaults(model="lsnet", bf16=False)
     p.add_argument("--inc_path", default=None)
     p.add_argument("--ina_path", default=None)
     p.add_argument("--inr_path", default=None)

@@ -19,7 +19,9 @@ Port of image_restoration_tpu/kernels/attn_core_pallas.py, in three steps:
 raises if the kernel cannot take the input; on a CPU tensor it runs its
 plain version (``attn_acc_ref``, ``attn_apply_ref``), which rounds where the
 kernel rounds when given bf16 and does not round at all in fp32. Each
-wrapper counts its launches in ``.launches``. Forward only.
+wrapper counts its launches in ``.launches``. Forward only: on CUDA
+tensors that require grad ``backward()`` raises
+(``kernels/forward_only.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from image_restoration_tpu_torch.kernels.block import (
     _ptr,
     attention_softmax,
 )
+from image_restoration_tpu_torch.kernels.forward_only import forward_only
 
 _ACC_PIXELS = 128  # csrc/attn_core.cu ACC_PIX: pixels per pass-A tile
 
@@ -113,20 +116,24 @@ def attn_acc(qkv, num_heads: int):
     grid_x = min(-(-h * w // _ACC_PIXELS),
                  2 * torch.cuda.get_device_properties(qkv.device)
                  .multi_processor_count)
-    f32 = dict(device=qkv.device, dtype=torch.float32)
-    gram_part = torch.empty((b, grid_x, c * ch), **f32)
-    ss_part = torch.empty((b, grid_x, 2 * c), **f32)
-    gram = torch.empty((b, num_heads, ch, ch), **f32)
-    ss = torch.empty((b, 2, c), **f32)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = lib.lib.ir_attn_acc(
-            qkv.data_ptr(), gram_part.data_ptr(), ss_part.data_ptr(),
-            gram.data_ptr(), ss.data_ptr(), b, h * w, c, num_heads, grid_x,
-            stream)
-    lib.check(code, "attn_acc")
-    attn_acc.launches += 1
-    return gram, ss
+
+    def launch():
+        f32 = dict(device=qkv.device, dtype=torch.float32)
+        gram_part = torch.empty((b, grid_x, c * ch), **f32)
+        ss_part = torch.empty((b, grid_x, 2 * c), **f32)
+        gram = torch.empty((b, num_heads, ch, ch), **f32)
+        ss = torch.empty((b, 2, c), **f32)
+        with torch.cuda.device(qkv.device):
+            stream = torch.cuda.current_stream(qkv.device).cuda_stream
+            code = lib.lib.ir_attn_acc(
+                qkv.data_ptr(), gram_part.data_ptr(), ss_part.data_ptr(),
+                gram.data_ptr(), ss.data_ptr(), b, h * w, c, num_heads, grid_x,
+                stream)
+        lib.check(code, "attn_acc")
+        attn_acc.launches += 1
+        return gram, ss
+
+    return forward_only("attn_acc", (qkv,), launch)
 
 
 attn_acc.launches = 0
@@ -167,15 +174,19 @@ def attn_apply(qkv, x, at, proj_w, proj_b):
                 16)
     wp = proj_w.reshape(c, c).t().to(torch.bfloat16).contiguous()
     bp = _f32(proj_b)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.lib.ir_attn_apply(
-            qkv.data_ptr(), x.data_ptr(), at.data_ptr(), wp.data_ptr(),
-            _ptr(bp), out.data_ptr(), b, h * w, c, heads, npix, stream)
-    lib.check(code, "attn_apply")
-    attn_apply.launches += 1
-    return out
+
+    def launch():
+        out = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code = lib.lib.ir_attn_apply(
+                qkv.data_ptr(), x.data_ptr(), at.data_ptr(), wp.data_ptr(),
+                _ptr(bp), out.data_ptr(), b, h * w, c, heads, npix, stream)
+        lib.check(code, "attn_apply")
+        attn_apply.launches += 1
+        return out
+
+    return forward_only("attn_apply", (qkv, x, at, proj_w, proj_b), launch)
 
 
 attn_apply.launches = 0

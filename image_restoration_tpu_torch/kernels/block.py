@@ -16,7 +16,9 @@ wrapper launches its kernel, or raises if the kernel cannot take the input;
 on a CPU tensor it runs its plain version (``block_front_ref``,
 ``block_apply_gdfn_ref``), which rounds where the kernel rounds when given
 bf16 and does not round at all in fp32. Each wrapper counts its launches in
-``.launches``. Forward only: serving does not differentiate the block.
+``.launches``. Forward only: on CUDA tensors that require grad,
+``backward()`` raises (``kernels/forward_only.py``); the plain versions
+differentiate.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from image_restoration_tpu_torch.kernels.forward_only import forward_only
 from image_restoration_tpu_torch.ops.attention import mdta_attention
 from image_restoration_tpu_torch.ops.common import gelu_exact
 from image_restoration_tpu_torch.ops.layernorm import layer_norm_f32
@@ -243,13 +246,22 @@ def _check_params(p: BlockParams, x):
                              f"on {x.device}")
 
 
-# Tile heights (output rows per block) by channel width, the fastest of
-# 8/4/2/1 in a sweep on an H100 80GB HBM3 (700 W) at the block shapes of
-# Restormer-base on a 512x512 image; the slowest choice ran up to 2x longer.
-# Other widths, or a card with less shared memory, take the rule of
-# ``_pick_tile_rows``.
+# Tile heights (output rows per block) by channel width, the fastest in a
+# sweep on an H100 80GB HBM3 (700 W) at the block shapes of Restormer-base
+# on a 512x512 image (8/4/2/1 rows for the front; 8/4/2 rows x 8/16 warps
+# for K2 and K3, ``chip_smoke.py --tail 8 4 2 --warps N``); the slowest
+# choice ran up to 2x longer. Other widths, or a card with less shared
+# memory, take the rule of ``_pick_tile_rows``.
 _FRONT_TILE_ROWS = {48: 8, 96: 4, 192: 8, 384: 2}
-_APPLY_TILE_ROWS = {48: 4, 96: 4, 192: 4, 384: 2}
+_APPLY_TILE_ROWS = {48: 8, 96: 4, 192: 8, 384: 2}
+# Warps per block of K2 and K3 (csrc/gdfn.cuh is built for 8 and 16), from
+# the same sweep: 16 warps win where a tile's products are long (C >= 192),
+# 8 where more blocks share an SM.
+_APPLY_WARPS = {48: 8, 96: 8, 192: 16, 384: 16}
+
+
+def _apply_warps(c: int) -> int:
+    return _APPLY_WARPS.get(c, 16 if c >= 192 else 8)
 
 
 def _pick_tile_rows(preferred, smem_of, tiles_of, device) -> int:
@@ -308,22 +320,26 @@ def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
                  .multi_processor_count)
     f32 = dict(device=x.device, dtype=torch.float32)
     wqkv, dw, ln_w, ln_b, bqkv, db = front_weights(p, c)
-    v = torch.empty_like(x)
-    gram_part = torch.empty((b, grid_x, num_heads * ch * ch), **f32)
-    ss_part = torch.empty((b, grid_x, 2 * c), **f32)
-    gram = torch.empty((b, num_heads, ch, ch), **f32)
-    ss = torch.empty((b, 2, c), **f32)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.lib.ir_block_front(
-            x.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), wqkv.data_ptr(),
-            _ptr(bqkv), dw.data_ptr(), _ptr(db), v.data_ptr(),
-            gram_part.data_ptr(), ss_part.data_ptr(), gram.data_ptr(),
-            ss.data_ptr(), b, h, w, c, num_heads, th, grid_x, float(eps),
-            stream)
-    lib.check(code, "block_front")
-    block_front.launches += 1
-    return v, gram, ss
+
+    def launch():
+        v = torch.empty_like(x)
+        gram_part = torch.empty((b, grid_x, num_heads * ch * ch), **f32)
+        ss_part = torch.empty((b, grid_x, 2 * c), **f32)
+        gram = torch.empty((b, num_heads, ch, ch), **f32)
+        ss = torch.empty((b, 2, c), **f32)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code = lib.lib.ir_block_front(
+                x.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), wqkv.data_ptr(),
+                _ptr(bqkv), dw.data_ptr(), _ptr(db), v.data_ptr(),
+                gram_part.data_ptr(), ss_part.data_ptr(), gram.data_ptr(),
+                ss.data_ptr(), b, h, w, c, num_heads, th, grid_x, float(eps),
+                stream)
+        lib.check(code, "block_front")
+        block_front.launches += 1
+        return v, gram, ss
+
+    return forward_only("block_front", (x, *p), launch)
 
 
 block_front.launches = 0
@@ -373,26 +389,36 @@ def block_apply_gdfn(v, x, atw, p: BlockParams, eps: float = 1e-5):
         raise ValueError(f"block_apply_gdfn: v {tuple(v.shape)}, x "
                          f"{tuple(x.shape)}, atw {tuple(atw.shape)}; C must "
                          f"be a multiple of 16")
+    if v.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("v and x must start on a 16-byte boundary (the "
+                         "kernel copies 16 bytes at a time)")
     hidden = p.out_w.shape[1]
     hp = -(-hidden // _HIDDEN_CHUNK) * _HIDDEN_CHUNK
     _check_params(p, x)
     lib = load_library()
-    th = _pick_tile_rows(_APPLY_TILE_ROWS.get(c),
-                         lambda t: lib.lib.ir_block_apply_gdfn_smem(c, t),
-                         lambda t: _tiles(b, h, w, t), x.device)
+    warps = _apply_warps(c)
+    th = _pick_tile_rows(
+        _APPLY_TILE_ROWS.get(c),
+        lambda t: lib.lib.ir_block_apply_gdfn_smem(c, t, warps),
+        lambda t: _tiles(b, h, w, t), x.device)
     wcg, bcg, dwcg, dbcg, wo, bo, ln_w, ln_b = gdfn_weights(p.gdfn(), c, hp)
     bp = _f32(p.proj_b)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.lib.ir_block_apply_gdfn(
-            v.data_ptr(), x.data_ptr(), atw.data_ptr(), _ptr(bp),
-            ln_w.data_ptr(), _ptr(ln_b), wcg.data_ptr(), _ptr(bcg),
-            dwcg.data_ptr(), _ptr(dbcg), wo.data_ptr(), _ptr(bo),
-            out.data_ptr(), b, h, w, c, hp, th, float(eps), stream)
-    lib.check(code, "block_apply_gdfn")
-    block_apply_gdfn.launches += 1
-    return out
+
+    def launch():
+        out = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code = lib.lib.ir_block_apply_gdfn(
+                v.data_ptr(), x.data_ptr(), atw.data_ptr(), _ptr(bp),
+                ln_w.data_ptr(), _ptr(ln_b), wcg.data_ptr(), _ptr(bcg),
+                dwcg.data_ptr(), _ptr(dbcg), wo.data_ptr(), _ptr(bo),
+                out.data_ptr(), b, h, w, c, hp, th, warps, float(eps),
+                stream)
+        lib.check(code, "block_apply_gdfn")
+        block_apply_gdfn.launches += 1
+        return out
+
+    return forward_only("block_apply_gdfn", (v, x, atw, *p), launch)
 
 
 block_apply_gdfn.launches = 0

@@ -28,8 +28,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ir_block_front_smem": (_I, [_I, _I, _I]),
     "ir_block_front": (_I, [_P] * 12 + [_I] * 7 + [_F, _P]),
-    "ir_block_apply_gdfn_smem": (_I, [_I, _I]),
-    "ir_block_apply_gdfn": (_I, [_P] * 13 + [_I] * 6 + [_F, _P]),
+    "ir_block_apply_gdfn_smem": (_I, [_I, _I, _I]),
+    "ir_block_apply_gdfn": (_I, [_P] * 13 + [_I] * 7 + [_F, _P]),
     "ir_drs_apply_msfn_smem": (_I, [_I, _I, _I]),
     "ir_drs_apply_msfn": (_I, [_P] * 19 + [_I] * 8 + [_F, _P]),
     "ir_mefc_step_smem": (_I, [_I, _I]),
@@ -41,8 +41,8 @@ _SIGNATURES = {
     "ir_attn_acc": (_I, [_P] * 5 + [_I] * 5 + [_P]),
     "ir_attn_apply_smem": (_I, [_I, _I]),
     "ir_attn_apply": (_I, [_P] * 6 + [_I] * 5 + [_P]),
-    "ir_ln_gdfn_smem": (_I, [_I, _I]),
-    "ir_ln_gdfn": (_I, [_P] * 10 + [_I] * 6 + [_F, _P]),
+    "ir_ln_gdfn_smem": (_I, [_I, _I, _I]),
+    "ir_ln_gdfn": (_I, [_P] * 10 + [_I] * 7 + [_F, _P]),
     "ir_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -9,40 +9,48 @@
 //   act = bf16(gelu(dw3x3(cg_c)) * dw3x3(cg_g))   (exact erf GELU, fp32 taps)
 //   out = bf16(act @ W_out + b_out + ao)
 // Every product takes bf16 operands and accumulates in fp32 on the tensor
-// cores (nvcuda::wmma); the rounding points are the TPU kernel's.
+// cores (mma.sync in the FFN, nvcuda::wmma in phase 1); the rounding points
+// are the TPU kernel's.
 //
 // What bounds it on the card: the hidden width is 2.66 C (x2 for content
 // and gate), so the expanded activation is 5.3x the block's input. The
 // kernel never writes it: it loops over hidden chunks of 32 content + 32
-// gate channels, and each chunk's act @ W_out is accumulated into the fp32
-// (pixels x C) output tile kept in shared memory. Device-memory traffic is
-// the v and x reads (with halo) and the output write; the rest is
-// shared-memory and tensor-core work, which this first version does not yet
-// pipeline (no TMA, no wgmma).
+// gate channels, and each chunk's act @ W_out is accumulated into the
+// (pixels x C) output tile, which the warps hold in registers. Device-memory
+// traffic is the v and x reads (with halo) and the output write; the time
+// goes to shared-memory and tensor-core work in short stages between
+// barriers (gdfn.cuh says what the FFN tail does about that).
 //
-// Shared memory (ApplySmem): the LN2'd halo tile (bf16, all C), the fp32
-// output accumulator (th*16 pixels x C), and a region shared by the phase-1
-// staging (16 rows of v, 16 rows of ao) and the phase-2 chunk buffers
-// (fp32 content|gate of the halo tile, bf16 act). The tile height th is
-// the host's (kernels/block.py _APPLY_TILE_ROWS, the fastest of 8/4/2/1
-// measured on an H100 at each width): the limit is the 227 KB of shared
-// memory a block may take, which at C = 384 rules out th = 8 and leaves
-// th = 4 (~219 KB, one block per SM) or th = 2 (~146 KB, the one chosen,
-// which also gives the 64x64 latent level 128 blocks instead of 64).
+// Phase 1 (here): cp.async stages the x halo tile into ys and v 16 halo
+// pixels at a time into one of two buffers, a block of rows ahead of the
+// product v @ atw that reads it (wmma, atw through L1); LN2 then takes 8
+// lanes a pixel in place. Phase 2 is gdfn_tail. Still open in phase 1: the
+// atw fragments come from device memory (L1) inside the k loop, and at
+// C = 384 one 16-row product keeps 16 warps busy for 24 dependent steps.
+//
+// Shared memory (ApplySmem): the LN2'd halo tile (bf16, all C), then one
+// region that the fp32 output tile and phase 1's staging (2 x 16 rows of v,
+// 16 rows of ao) share with phase 2's chunk buffers. The tile height th and
+// the warps a block are the host's (kernels/block.py _APPLY_TILE_ROWS and
+// _APPLY_WARPS, the fastest of 8/4/2 rows x 8/16 warps measured on an H100
+// at each width); gdfn.cuh lists the bytes per width. The limit is the 227
+// KB a block may take: at C = 384 th = 4 no longer fits beside phase 1's
+// staging, and th = 2 also gives the 64x64 latent level 128 blocks for the
+// 132 SMs instead of 64.
 #include "gdfn.cuh"
 
 namespace irk {
 
-__global__ void __launch_bounds__(A_THREADS)
+template <int NF, int NW>
+__global__ void __launch_bounds__(NW * 32)
     block_apply_gdfn_kernel(ApplyArgs a) {
+  constexpr int A_THREADS = NW * 32, A_WARPS = NW;
   extern __shared__ __align__(128) unsigned char smem[];
   const ApplySmem L(a.C, a.th);
   bf16* ys = reinterpret_cast<bf16*>(smem + L.off_y);
   float* oacc = reinterpret_cast<float*>(smem + L.off_o);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L.off_vs);
+  bf16* vs = reinterpret_cast<bf16*>(smem + L.off_vs);  // two buffers
   float* ao = reinterpret_cast<float*>(smem + L.off_ao);
-  float* cg = reinterpret_cast<float*>(smem + L.off_cg);
-  bf16* act = reinterpret_cast<bf16*>(smem + L.off_act);
 
   const int C = a.C, b = blockIdx.y, t = blockIdx.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -50,23 +58,39 @@ __global__ void __launch_bounds__(A_THREADS)
   const size_t img = (size_t)b * a.H * a.W * C;
   const bf16* atw = a.atw + (size_t)b * C * C;
 
+  // Phase 1. The x halo tile goes to ys, 16 bytes a copy and zeros outside
+  // the image; v follows 16 halo pixels at a time, one block of rows ahead
+  // of the product that reads it, so no step waits on device memory but the
+  // first.
+  const int per_row = C / 8;
+  for (int i = tid; i < L.Pp * per_row; i += A_THREADS) {
+    const int p = i / per_row, s = i % per_row * 8;
+    const int gr = hl.r0 - 1 + p / L.hcols, gc = hl.c0 - 1 + p % L.hcols;
+    const bool in = p < L.P && hl.inside(gr, gc);
+    cp_async16(ys + p * L.ldy + s,
+               in ? a.x + img + ((size_t)gr * a.W + gc) * C + s : a.x, in);
+  }
+  auto stage_v = [&](int rb, bf16* dst) {
+    for (int i = tid; i < 16 * per_row; i += A_THREADS) {
+      const int r = i / per_row, s = i % per_row * 8, p = rb + r;
+      const int gr = hl.r0 - 1 + p / L.hcols, gc = hl.c0 - 1 + p % L.hcols;
+      const bool in = p < L.P && hl.inside(gr, gc);
+      cp_async16(dst + r * L.ldy + s,
+                 in ? a.v + img + ((size_t)gr * a.W + gc) * C + s : a.v, in);
+    }
+  };
+  stage_v(0, vs);
+  cp_async_commit();
   for (int i = tid; i < L.npix * L.ldo; i += A_THREADS) oacc[i] = 0.f;
 
-  // Phase 1, 16 halo pixels at a time: ao = x + v @ atw + b_proj, then LN2
-  // into ys; centre pixels also seed the output accumulator with
-  // ao + b_out (both residuals of the block).
-  for (int rb = 0; rb < L.Pp; rb += 16) {
-    for (int r = warp; r < 16; r += A_WARPS) {
-      const int p = rb + r;
-      const int gr = hl.r0 - 1 + p / L.hcols, gc = hl.c0 - 1 + p % L.hcols;
-      bf16* dst = vs + r * L.ldy;
-      if (p < L.P && hl.inside(gr, gc)) {
-        const bf16* src = a.v + img + ((size_t)gr * a.W + gc) * C;
-        for (int c = lane; c < C; c += 32) dst[c] = src[c];
-      } else {
-        for (int c = lane; c < C; c += 32) dst[c] = f2bf(0.f);
-      }
-    }
+  // Per 16 halo pixels: ao = v @ atw, then LN2 of ao + b_proj + x in place
+  // in ys, 8 lanes a pixel; centre pixels also seed the output accumulator
+  // with that sum + b_out (both residuals of the block).
+  for (int rb = 0, it = 0; rb < L.Pp; rb += 16, ++it) {
+    const bf16* vcur = vs + (it & 1) * 16 * L.ldy;
+    if (rb + 16 < L.Pp) stage_v(rb + 16, vs + ((it + 1) & 1) * 16 * L.ldy);
+    cp_async_commit();
+    cp_async_wait_group<1>();  // all but the rows just asked for
     __syncthreads();
     for (int ni = warp; ni < C / 16; ni += A_WARPS) {
       FragC acc;
@@ -74,68 +98,88 @@ __global__ void __launch_bounds__(A_THREADS)
       for (int k = 0; k < C; k += 16) {
         FragA fa;
         FragB fb;
-        wmma::load_matrix_sync(fa, vs + k, L.ldy);
+        wmma::load_matrix_sync(fa, vcur + k, L.ldy);
         wmma::load_matrix_sync(fb, atw + (size_t)k * C + ni * 16, C);
         wmma::mma_sync(acc, fa, fb, acc);
       }
       wmma::store_matrix_sync(ao + ni * 16, acc, L.ldo, wmma::mem_row_major);
     }
     __syncthreads();
-    for (int r = warp; r < 16; r += A_WARPS) {
-      const int p = rb + r;
+    // the next round's first barrier keeps its product off ao until every
+    // warp is through here
+    for (int r0 = warp * 4; r0 < 16; r0 += A_WARPS * 4) {
+      const int r = r0 + lane / 8, p = rb + r;
       const int hr = p / L.hcols, hc = p % L.hcols;
-      const int gr = hl.r0 - 1 + hr, gc = hl.c0 - 1 + hc;
+      const bool live =
+          p < L.P && hl.inside(hl.r0 - 1 + hr, hl.c0 - 1 + hc);
+      const bool centre = hr >= 1 && hr <= a.th && hc >= 1 && hc <= TILE_W;
       bf16* yrow = ys + p * L.ldy;
-      if (p >= L.P || !hl.inside(gr, gc)) {
-        for (int c = lane; c < C; c += 32) yrow[c] = f2bf(0.f);
-        continue;
-      }
-      const bf16* xr = a.x + img + ((size_t)gr * a.W + gc) * C;
-      float* arow = ao + r * L.ldo;
-      for (int c = lane; c < C; c += 32)
-        arow[c] += (a.bp ? a.bp[c] : 0.f) + bf2f(xr[c]);
-      __syncwarp();
-      warp_layernorm([&](int c) { return arow[c]; }, C, a.eps, a.ln_w,
-                     a.ln_b, yrow, lane);
-      if (hr >= 1 && hr <= a.th && hc >= 1 && hc <= TILE_W) {
-        float* orow = oacc + ((hr - 1) * TILE_W + hc - 1) * L.ldo;
-        for (int c = lane; c < C; c += 32)
-          orow[c] = arow[c] + (a.bo ? a.bo[c] : 0.f);
-      }
+      const float* arow = ao + r * L.ldo;
+      float* orow = oacc + ((hr - 1) * TILE_W + hc - 1) * L.ldo;
+      group8_layernorm(
+          live, C, a.eps, a.ln_w, a.ln_b, lane % 8,
+          [&](int v, float(&x)[8]) {
+            unpack8(*reinterpret_cast<const uint4*>(yrow + v * 8), x);
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              x[e] += arow[v * 8 + e] + (a.bp ? a.bp[v * 8 + e] : 0.f);
+          },
+          [&](int v, const float(&x)[8], const float(&y)[8]) {
+            if (centre) {
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                orow[v * 8 + e] = x[e] + (a.bo ? a.bo[v * 8 + e] : 0.f);
+            }
+            *reinterpret_cast<uint4*>(yrow + v * 8) = pack8(y);
+          });
     }
-    __syncthreads();
   }
+  __syncthreads();
 
   // Phase 2: the FFN, one hidden chunk at a time, and the output.
-  gdfn_tail(a, L, hl, ys, oacc, cg, act, img, tid, warp, lane);
+  gdfn_tail<NF, NW>(a, L, hl, smem, img);
 }
+
+struct LaunchApplyGdfn {
+  ApplyArgs a;
+  dim3 grid;
+  size_t smem;
+  cudaStream_t stream;
+  template <int NF, int NW>
+  cudaError_t run() const {
+    cudaError_t e = cudaFuncSetAttribute(
+        block_apply_gdfn_kernel<NF, NW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    block_apply_gdfn_kernel<NF, NW><<<grid, NW * 32, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace irk
 
 extern "C" {
 
-// Dynamic shared memory one block of the pass-2 kernel needs.
-int ir_block_apply_gdfn_smem(int C, int th) {
+// Dynamic shared memory one block of the pass-2 kernel needs; above the
+// card's limit for a tile whose output fragments no instantiation holds.
+int ir_block_apply_gdfn_smem(int C, int th, int warps) {
+  if (!irk::tail_frags(C, th, warps)) return irk::SMEM_LIMIT + 1;
   return static_cast<int>(irk::ApplySmem(C, th).total);
 }
 
 // Launches pass 2 on `stream`, one block per output tile and batch image.
-// `hp` is the hidden width padded to a multiple of 32. Returns
-// cudaGetLastError().
+// `hp` is the hidden width padded to a multiple of 32; `warps` (8 or 16) the
+// block size. Returns cudaGetLastError().
 int ir_block_apply_gdfn(const void* v, const void* x, const void* atw,
                         const void* bp, const void* ln_w, const void* ln_b,
                         const void* wcg, const void* bcg, const void* dwcg,
                         const void* dbcg, const void* wo, const void* bo,
                         void* out, int B, int H, int W, int C, int hp, int th,
-                        float eps, void* stream) {
+                        int warps, float eps, void* stream) {
   using namespace irk;
   const ApplySmem L(C, th);
   if (L.total > static_cast<size_t>(SMEM_LIMIT) || hp % NH)
     return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      block_apply_gdfn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.total));
-  if (e != cudaSuccess) return e;
   const int tiles_w = (W + TILE_W - 1) / TILE_W;
   const int tiles = ((H + th - 1) / th) * tiles_w;
   ApplyArgs a{static_cast<const bf16*>(v), static_cast<const bf16*>(x),
@@ -145,9 +189,10 @@ int ir_block_apply_gdfn(const void* v, const void* x, const void* atw,
               static_cast<const float*>(dwcg), static_cast<const float*>(dbcg),
               static_cast<const bf16*>(wo), static_cast<const float*>(bo),
               static_cast<bf16*>(out), H, W, C, hp, th, tiles_w, eps};
-  block_apply_gdfn_kernel<<<dim3(tiles, B), A_THREADS, L.total,
-                            static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  return dispatch_tail(
+      C, th, warps,
+      LaunchApplyGdfn{a, dim3(tiles, B), L.total,
+                      static_cast<cudaStream_t>(stream)});
 }
 
 }  // extern "C"

@@ -57,6 +57,67 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
 
+// Closes this thread's cp_async16 copies started so far into one group;
+// groups complete in the order they were committed.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory (ldmatrix): lane l gives the
+// address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[j]
+// is this lane's pair of matrix j: row lane / 4, columns 2 (lane % 4), + 1.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// The same with every matrix transposed: r[j] is rows 2 (lane % 4), + 1 of
+// column lane / 4 of matrix j as it lies in memory.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// 16 x 16 bf16 tile at `tile` (row-major, leading dimension ld) as the A
+// operand of mma_16816: a[0..3].
+__device__ __forceinline__ void load_a_16x16(unsigned (&a)[4], const bf16* tile,
+                                             int ld, int lane) {
+  ldmatrix_x4(a, tile + (lane % 16) * ld + (lane / 16) * 8);
+}
+
+// 16 (k) x 16 (n) bf16 tile at `tile` (row-major, n contiguous) as two B
+// operands of mma_16816: b[0..1] for columns 0-7, b[2..3] for columns 8-15.
+__device__ __forceinline__ void load_b_16x16(unsigned (&b)[4], const bf16* tile,
+                                             int ld, int lane) {
+  ldmatrix_x4_trans(b, tile + (lane % 16) * ld + (lane / 16) * 8);
+}
+
+// d += a (16 x 16, bf16) @ b (16 x 8, bf16), fp32 accumulation on the
+// tensor cores (mma.sync m16n8k16). With g = lane / 4 and t = lane % 4,
+// d[0..1] are row g, columns 2t and 2t + 1; d[2..3] row g + 8.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
+                                          unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Where a halo pixel of a tile lies in the image. Tiles start at image
 // (r0, c0); halo pixel p is at halo row p / (TILE_W + 2), column
 // p % (TILE_W + 2), i.e. image (r0 - 1 + row, c0 - 1 + col).

@@ -26,7 +26,9 @@ Kernel functions take (B, H, W, C) contiguous tensors. On a CUDA tensor a
 wrapper launches its kernel, or raises if the kernel cannot take the input;
 on a CPU tensor it runs its plain version, which rounds where the kernel
 rounds when given bf16 and does not round at all in fp32. Each wrapper
-counts its launches in ``.launches``. Forward only.
+counts its launches in ``.launches``. Forward only: on CUDA
+tensors that require grad ``backward()`` raises
+(``kernels/forward_only.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from image_restoration_tpu_torch.kernels.block import (
     _ptr,
     block_front,
 )
+from image_restoration_tpu_torch.kernels.forward_only import forward_only
 from image_restoration_tpu_torch.ops.attention import (
     tksa_attention,
     topk_mixture,
@@ -332,24 +335,28 @@ def drs_apply_msfn(v, x, atw, p: DRSBlockParams, eps: float = 1e-5):
     th, kc, split = _msfn_launch(lib, b, h, w, c, pk["nch"], x.device)
     ln_w, ln_b = _f32(p.ln2_w), _f32(p.ln2_b)
     bp, bo = _f32(p.proj_b), _f32(p.out_b)
-    y = torch.empty_like(x)
-    res = torch.empty(x.shape, device=x.device, dtype=torch.float32)
-    out = torch.empty_like(x)
-    part = (torch.empty((split,) + x.shape, device=x.device,
-                        dtype=torch.float32) if split > 1 else None)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.lib.ir_drs_apply_msfn(
-            v.data_ptr(), x.data_ptr(), atw.data_ptr(), _ptr(bp),
-            ln_w.data_ptr(), _ptr(ln_b), _ptr(bo), y.data_ptr(),
-            res.data_ptr(), pk["win"].data_ptr(), _ptr(pk["bin"]),
-            pk["w1"].data_ptr(), _ptr(pk["b1"]), pk["w2"].data_ptr(),
-            _ptr(pk["b2"]), pk["wout"].data_ptr(), pk["meta"].data_ptr(),
-            out.data_ptr(), _ptr(part), b, h, w, c, pk["nch"], th, kc, split,
-            float(eps), stream)
-    lib.check(code, "drs_apply_msfn")
-    drs_apply_msfn.launches += 1
-    return out
+
+    def launch():
+        y = torch.empty_like(x)
+        res = torch.empty(x.shape, device=x.device, dtype=torch.float32)
+        out = torch.empty_like(x)
+        part = (torch.empty((split,) + x.shape, device=x.device,
+                            dtype=torch.float32) if split > 1 else None)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code = lib.lib.ir_drs_apply_msfn(
+                v.data_ptr(), x.data_ptr(), atw.data_ptr(), _ptr(bp),
+                ln_w.data_ptr(), _ptr(ln_b), _ptr(bo), y.data_ptr(),
+                res.data_ptr(), pk["win"].data_ptr(), _ptr(pk["bin"]),
+                pk["w1"].data_ptr(), _ptr(pk["b1"]), pk["w2"].data_ptr(),
+                _ptr(pk["b2"]), pk["wout"].data_ptr(), pk["meta"].data_ptr(),
+                out.data_ptr(), _ptr(part), b, h, w, c, pk["nch"], th, kc, split,
+                float(eps), stream)
+        lib.check(code, "drs_apply_msfn")
+        drs_apply_msfn.launches += 1
+        return out
+
+    return forward_only("drs_apply_msfn", (v, x, atw, *p), launch)
 
 
 drs_apply_msfn.launches = 0

@@ -12,7 +12,9 @@ cannot take the input; on a CPU tensor it runs :func:`ln_qkv_dwconv_ref`,
 which rounds where the kernel rounds (the LN output and the 1x1 weights to
 x's dtype, the product and the taps in fp32, only the result rounded) and
 does not round at all in fp32. The wrapper counts its launches in
-``.launches``. Forward only.
+``.launches``. Forward only: on CUDA
+tensors that require grad ``backward()`` raises
+(``kernels/forward_only.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from image_restoration_tpu_torch.kernels.block import (
     front_qkv_f32,
     front_weights,
 )
+from image_restoration_tpu_torch.kernels.forward_only import forward_only
 
 
 def ln_qkv_dwconv_ref(x, p: FrontParams, eps: float = 1e-5):
@@ -58,16 +61,20 @@ def ln_qkv_dwconv(x, p: FrontParams, eps: float = 1e-5):
                          lambda t: lib.lib.ir_ln_qkv_dwconv_smem(c, t),
                          lambda t: _tiles(b, h, w, t), x.device)
     wqkv, dw, ln_w, ln_b, bqkv, db = front_weights(p, c)
-    out = torch.empty((b, h, w, 3 * c), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.lib.ir_ln_qkv_dwconv(
-            x.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), wqkv.data_ptr(),
-            _ptr(bqkv), dw.data_ptr(), _ptr(db), out.data_ptr(), b, h, w, c,
-            th, float(eps), stream)
-    lib.check(code, "ln_qkv_dwconv")
-    ln_qkv_dwconv.launches += 1
-    return out
+
+    def launch():
+        out = torch.empty((b, h, w, 3 * c), dtype=x.dtype, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code = lib.lib.ir_ln_qkv_dwconv(
+                x.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), wqkv.data_ptr(),
+                _ptr(bqkv), dw.data_ptr(), _ptr(db), out.data_ptr(), b, h, w, c,
+                th, float(eps), stream)
+        lib.check(code, "ln_qkv_dwconv")
+        ln_qkv_dwconv.launches += 1
+        return out
+
+    return forward_only("ln_qkv_dwconv", (x, *p), launch)
 
 
 ln_qkv_dwconv.launches = 0

@@ -19,7 +19,9 @@ chip. Everything is bias-free, as in the reference.
 On a CUDA tensor :func:`mefc_step` launches its kernel or raises; on a CPU
 tensor it runs :func:`mefc_step_ref`, which rounds where the kernel rounds
 when given bf16 and does not round at all in fp32. ``mefc_step.launches``
-counts launches. Forward only.
+counts launches. Forward only: on CUDA
+tensors that require grad ``backward()`` raises
+(``kernels/forward_only.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from image_restoration_tpu_torch.kernels.block import (
     _pick_tile_rows,
     _tiles,
 )
+from image_restoration_tpu_torch.kernels.forward_only import forward_only
 
 Tensor = torch.Tensor
 
@@ -180,16 +183,20 @@ def mefc_step(x, sp: StepParams, m):
     w1 = torch.stack([_io(wt) for wt in sp.sep_w1]).to(torch.bfloat16)
     w1 = w1.contiguous()
     dwa, dwb, dwd = _taps(sp.sep_dwa), _taps(sp.sep_dwb), _taps(sp.dil_dw)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.lib.ir_mefc_step(
-            x.data_ptr(), w1.data_ptr(), dwa.data_ptr(),
-            dwb.data_ptr(), dwd.data_ptr(), m.data_ptr(), out.data_ptr(),
-            b, h, w, c, th, stream)
-    lib.check(code, "mefc_step")
-    mefc_step.launches += 1
-    return out
+
+    def launch():
+        out = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code = lib.lib.ir_mefc_step(
+                x.data_ptr(), w1.data_ptr(), dwa.data_ptr(),
+                dwb.data_ptr(), dwd.data_ptr(), m.data_ptr(), out.data_ptr(),
+                b, h, w, c, th, stream)
+        lib.check(code, "mefc_step")
+        mefc_step.launches += 1
+        return out
+
+    return forward_only("mefc_step", (x, m, *sp), launch)
 
 
 mefc_step.launches = 0

@@ -8,14 +8,16 @@ with C % wc == 0 and an odd k, and returns (B, H, W, C) in x's dtype.
 
 On a CUDA tensor it launches ``csrc/ska.cu`` or raises; on a CPU tensor it
 runs :func:`~image_restoration_tpu_torch.ops.ska.ska_plain`. ``ska.launches``
-counts launches. Forward only: serving does not differentiate SKA, and its
-backward comes with LSNet training.
+counts launches. Forward only: on CUDA tensors that require grad
+``backward()`` raises (``kernels/forward_only.py``); SKA's backward comes
+with LSNet training.
 """
 
 from __future__ import annotations
 
 import torch
 
+from image_restoration_tpu_torch.kernels.forward_only import forward_only
 from image_restoration_tpu_torch.ops.ska import ska_plain, ska_shape
 
 
@@ -36,15 +38,19 @@ def ska(x, w):
         if not t.is_contiguous():
             raise ValueError(f"ska: {name} must be contiguous")
     lib = load_library()
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.lib.ir_ska(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                              b, h, wd, c, wc, ks,
-                              int(x.dtype == torch.float32), stream)
-    lib.check(code, "ska")
-    ska.launches += 1
-    return out
+
+    def launch():
+        out = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code = lib.lib.ir_ska(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                  b, h, wd, c, wc, ks,
+                                  int(x.dtype == torch.float32), stream)
+        lib.check(code, "ska")
+        ska.launches += 1
+        return out
+
+    return forward_only("ska", (x, w), launch)
 
 
 ska.launches = 0

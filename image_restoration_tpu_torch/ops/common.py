@@ -45,15 +45,33 @@ class Conv(nn.Conv2d):
                         self.padding, self.dilation, self.groups)
 
 
+def _reflect_pad_after(x, pad: int, dim: int):
+    """Reflect-pad ``pad`` entries after the end of ``dim`` (-1 or -2) of an
+    NCHW tensor, any ``pad``: ``F.pad`` takes less than the side at a time,
+    so the pad grows in steps, each reflecting what is there, which gives
+    the periodic reflection ``numpy.pad`` and ``jnp.pad`` give. A side of 1
+    has nothing to reflect and repeats its one entry, as they do."""
+    while pad > 0:
+        n = x.shape[dim]
+        step = pad if n == 1 else min(pad, n - 1)
+        widths = (0, step, 0, 0) if dim == -1 else (0, 0, 0, step)
+        x = F.pad(x, widths, mode="replicate" if n == 1 else "reflect")
+        pad -= step
+    return x
+
+
 def pad_to_multiple(x, multiple: int, mode: str = "reflect"):
     """Pad H and W of an NCHW tensor up to the next multiple.
 
     Returns (padded, (H, W)). Reflect padding matches numpy/JAX ``reflect``
-    (the edge pixel is not repeated), as the reference's ``F.pad`` does.
+    (the edge pixel is not repeated) for every pad width, also one that is
+    not smaller than the side.
     """
     h, w = x.shape[-2:]
     ph, pw = (-h) % multiple, (-w) % multiple
-    if ph or pw:
+    if mode == "reflect":
+        x = _reflect_pad_after(_reflect_pad_after(x, ph, -2), pw, -1)
+    elif ph or pw:
         x = F.pad(x, (0, pw, 0, ph), mode=mode)
     return x, (h, w)
 

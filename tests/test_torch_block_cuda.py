@@ -16,6 +16,15 @@ BiasFree cases carry every conv bias), at 24x20, which leaves a ragged
 16-pixel tile column; plus the latent level's width (c 384, 8 heads, hidden
 1021) at 12x20. The kernels take head widths that are multiples of 16 (48
 and 96 at every level of Restormer-base); c 48 with 2 heads must raise.
+
+Pass 2 (K2) also runs TAIL_CASES, which reach every edge of the FFN tail it
+shares with K3: heights that are no multiple of the tile rows (8 at c 48
+and 192, 4 at 96, 2 at 384), widths that are no multiple of 16, hidden
+widths 127 and 1021 (padded to 128 and 1024 with zero weights), a batch of
+two, both LN types, with and without conv biases. Two runs must give the
+same bits. A ``backward()`` through a wrapper raises ``NotImplementedError``
+(the kernels are forward only) instead of leaving the parameters without
+gradients.
 """
 
 import numpy as np
@@ -26,6 +35,11 @@ from image_restoration_tpu_torch.kernels import block as K
 
 CASES = [(24, 20, c, heads, ln) for c, heads in ((48, 1), (96, 1), (96, 2))
          for ln in ("WithBias", "BiasFree")] + [(12, 20, 384, 8, "WithBias")]
+# (batch, h, w, c, heads, ln_type)
+TAIL_CASES = [(1, 13, 21, 48, 1, "WithBias"), (2, 7, 37, 48, 1, "BiasFree"),
+              (1, 10, 33, 96, 2, "BiasFree"), (1, 19, 24, 192, 4, "WithBias"),
+              (2, 5, 19, 384, 8, "BiasFree"), (2, 3, 16, 384, 8, "WithBias"),
+              (1, 1, 1, 48, 1, "BiasFree")]
 
 
 @pytest.fixture
@@ -60,10 +74,11 @@ def _params(rng, c, heads, ln_type, device):
         mk(c, hidden, 1, 1, sc=hidden ** -0.5), cb(c))
 
 
-def _inputs(cuda, h, w, c, heads, ln_type, seed):
+def _inputs(cuda, h, w, c, heads, ln_type, seed, batch=1):
     rng = np.random.default_rng(seed)
     p = _params(rng, c, heads, ln_type, cuda)
-    x = torch.from_numpy(rng.standard_normal((1, h, w, c)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((batch, h, w, c))
+                         .astype(np.float32))
     return p, x.to(cuda, torch.bfloat16)
 
 
@@ -99,6 +114,49 @@ def test_block_apply_gdfn_kernel_vs_plain(cuda, h, w, c, heads, ln_type):
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     assert torch.isfinite(got).all()
     assert _rel(got, oracle) < max(3 * _rel(plain, oracle), 4e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,heads,ln_type", TAIL_CASES)
+def test_block_apply_gdfn_tail_edges_and_two_equal_runs(cuda, b, h, w, c,
+                                                        heads, ln_type):
+    p, x = _inputs(cuda, h, w, c, heads, ln_type, seed=h + w + c, batch=b)
+    v, gram, ss = K.block_front_ref(x, p, heads)
+    atw = K.finalize(gram, ss, p.temperature, p.proj_w, torch.bfloat16)
+    oracle = K.block_apply_gdfn_ref(v.float(), x.float(), atw.float(), p)
+    plain = K.block_apply_gdfn_ref(v, x, atw, p)
+    got = K.block_apply_gdfn(v, x, atw, p)
+    again = K.block_apply_gdfn(v, x, atw, p)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert _rel(got, oracle) < max(3 * _rel(plain, oracle), 4e-3)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_backward_through_the_kernels_raises(cuda):
+    p, x = _inputs(cuda, 24, 20, 48, 1, "WithBias", seed=2)
+    v, gram, ss = K.block_front(x.clone().requires_grad_(), p, 1)
+    assert v.requires_grad and gram.requires_grad and ss.requires_grad
+    with pytest.raises(NotImplementedError, match="block_front"):
+        (v.float().sum() + gram.sum()).backward()
+    v, atw = v.detach(), K.finalize(gram, ss, p.temperature, p.proj_w,
+                                    torch.bfloat16).detach()
+    out = K.block_apply_gdfn(v, x.clone().requires_grad_(), atw, p)
+    with pytest.raises(NotImplementedError, match="block_apply_gdfn"):
+        out.float().sum().backward()
+    # a parameter that requires grad is enough
+    pg = p._replace(out_w=p.out_w.clone().requires_grad_())
+    out = K.fused_block(x, pg, 1)
+    with pytest.raises(NotImplementedError, match="block_apply_gdfn"):
+        out.float().sum().backward()
+    # serving: nothing requires grad, or grad mode is off
+    before = K.block_apply_gdfn.launches
+    assert not K.block_apply_gdfn(v, x, atw, p).requires_grad
+    with torch.no_grad():
+        assert not K.fused_block(x.clone().requires_grad_(), pg, 1) \
+            .requires_grad
+    assert K.block_apply_gdfn.launches == before + 2
 
 
 @pytest.mark.cuda

@@ -143,6 +143,23 @@ def test_mefc_step_kernel_vs_plain(cuda, h, w, c):
 
 
 @pytest.mark.cuda
+def test_backward_through_the_kernels_raises(cuda):
+    """The kernels are forward only: a gradient must not vanish silently."""
+    p, x, v, atw = _msfn_inputs(cuda, 19, 37, 48, 1, 2.66, "WithBias", seed=3)
+    out = K.drs_apply_msfn(v, x.clone().requires_grad_(), atw, p)
+    with pytest.raises(NotImplementedError, match="drs_apply_msfn"):
+        out.float().sum().backward()
+    rng = np.random.default_rng(4)
+    sp = step_params(rng, 48, cuda)
+    m = M.fold_step(sp, mix_weights(rng, 1, cuda), torch.bfloat16)
+    out = M.mefc_step(x.abs().requires_grad_(), sp, m)
+    with pytest.raises(NotImplementedError, match="mefc_step"):
+        out.float().sum().backward()
+    with torch.no_grad():
+        assert not M.mefc_step(x.abs().requires_grad_(), sp, m).requires_grad
+
+
+@pytest.mark.cuda
 def test_fused_paths_count_their_launches(cuda):
     p, x, _, _ = _msfn_inputs(cuda, 19, 37, 48, 1, 2.66, "WithBias", seed=0)
     before = (KB.block_front.launches, K.drs_apply_msfn.launches)

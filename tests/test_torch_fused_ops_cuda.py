@@ -18,12 +18,15 @@ another order), and must give the same bits on a second run.
 Shapes: small and odd, (h, w, c, heads) with a ragged 16-pixel tile column
 and odd heights, both LN types (the BiasFree cases carry every conv bias),
 and the latent level's width (c 384, 8 heads, hidden 1021). Weights and
-inputs are test_torch_block_cuda.py's.
+inputs are test_torch_block_cuda.py's. LN + GDFN (K3) also runs that
+file's TAIL_CASES (every edge of the FFN tail it shares with K2) and must
+give the same bits on a second run. A ``backward()`` through a wrapper
+raises ``NotImplementedError``: the kernels are forward only.
 """
 
 import pytest
 import torch
-from test_torch_block_cuda import _inputs, _rel
+from test_torch_block_cuda import TAIL_CASES, _inputs, _rel
 
 from image_restoration_tpu_torch.kernels import attn_core as KA
 from image_restoration_tpu_torch.kernels import gdfn as KG
@@ -96,6 +99,48 @@ def test_ln_gdfn_kernel_vs_plain(cuda, h, w, c, heads, ln_type):
     torch.cuda.synchronize()
     _holds(got, KG.ln_gdfn_ref(x, p.gdfn()),
            KG.ln_gdfn_ref(x.float(), p.gdfn()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,heads,ln_type", TAIL_CASES)
+def test_ln_gdfn_tail_edges_and_two_equal_runs(cuda, b, h, w, c, heads,
+                                               ln_type):
+    p, x = _inputs(cuda, h, w, c, heads, ln_type, seed=h + w + c, batch=b)
+    got = KG.fused_ln_gdfn(x, p.gdfn())
+    again = KG.fused_ln_gdfn(x, p.gdfn())
+    torch.cuda.synchronize()
+    _holds(got, KG.ln_gdfn_ref(x, p.gdfn()),
+           KG.ln_gdfn_ref(x.float(), p.gdfn()))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_backward_through_the_kernels_raises(cuda):
+    p, x = _inputs(cuda, 24, 20, 48, 1, "WithBias", seed=2)
+    xg = x.clone().requires_grad_()
+    qkv = KM.ln_qkv_dwconv(xg, p.front())
+    with pytest.raises(NotImplementedError, match="ln_qkv_dwconv"):
+        qkv.float().sum().backward()
+    qkv = qkv.detach().requires_grad_()
+    gram, ss = KA.attn_acc(qkv, 1)
+    with pytest.raises(NotImplementedError, match="attn_acc"):
+        (gram.sum() + ss.sum()).backward()
+    at = KA.finalize_at(gram.detach(), ss.detach(), p.temperature,
+                        torch.bfloat16)
+    out = KA.attn_apply(qkv, x, at, p.proj_w, p.proj_b)
+    with pytest.raises(NotImplementedError, match="attn_apply"):
+        out.float().sum().backward()
+    out = KG.fused_ln_gdfn(xg, p.gdfn())
+    with pytest.raises(NotImplementedError, match="fused_ln_gdfn"):
+        out.float().sum().backward()
+    before = KG.fused_ln_gdfn.launches
+    assert not KG.fused_ln_gdfn(x, p.gdfn()).requires_grad
+    with torch.no_grad():
+        assert not KG.fused_ln_gdfn(xg, p.gdfn()).requires_grad
+    assert KG.fused_ln_gdfn.launches == before + 2
+    with pytest.raises(ValueError, match="16-byte"):
+        KG.fused_ln_gdfn(x.reshape(-1)[4:4 + 4 * 20 * 48]
+                         .reshape(1, 4, 20, 48), p.gdfn())
 
 
 @pytest.mark.cuda

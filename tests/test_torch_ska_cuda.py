@@ -87,6 +87,18 @@ def test_unaligned_view_and_launch_count(cuda):
 
 
 @pytest.mark.cuda
+def test_backward_through_the_kernel_raises(cuda):
+    """The kernel is forward only: a gradient must not vanish silently."""
+    x, w = _inputs(CASES[0], cuda, seed=5)
+    out = K.ska(x.requires_grad_(), w)
+    with pytest.raises(NotImplementedError, match="ska"):
+        out.sum().backward()
+    with torch.no_grad():
+        assert not K.ska(x, w).requires_grad
+    assert not K.ska(x.detach(), w).requires_grad
+
+
+@pytest.mark.cuda
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     """A CUDA tensor never falls back to the plain version."""
     x, w = _inputs(CASES[3], cuda, seed=2)

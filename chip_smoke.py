@@ -5,11 +5,15 @@ Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
 
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --tail [ROWS ...] [--warps 8|16]
+    python3 chip_smoke.py --front [ROWS ...] [--warps 8|16]
 
 The second form checks and times only the two kernels that share the GDFN
 tail (K2, K3), at the wrappers' tile height and warps or at those given: the
 sweep behind ``kernels/block.py`` ``_APPLY_TILE_ROWS`` and ``_APPLY_WARPS``.
-It prints no result line.
+The third does the same for the two kernels that share the block front (K1,
+K4; ``_FRONT_TILE_ROWS``/``_FRONT_WARPS`` in ``kernels/block.py``,
+``_QKV_TILE_ROWS``/``_QKV_WARPS`` in ``kernels/mdta.py``). Neither prints a
+result line.
 
 Phases, any failure ends the run with a nonzero exit code:
 1. device and build: the card's name and power limit; the CUDA kernels are
@@ -18,8 +22,9 @@ Phases, any failure ends the run with a nonzero exit code:
    K2) at every block shape of Restormer-base serving a 512x512 image, in
    bf16, against their plain PyTorch versions, with the fp32 plain version
    as the oracle. The kernel passes if its max relative error is below
-   max(3 x the plain bf16 version's, 4e-3). K2 must also give the same bits
-   on a second run, and holds the rule on a batch of two at 64x64 x 384.
+   max(3 x the plain bf16 version's, 4e-3). K1 and K2 must also give the
+   same bits on a second run, and hold the rule on a batch of two at 64x64
+   x 384.
    Times are CUDA-event medians;
 2b. the same for DRSformer's kernels: the MSFN pass (K7) at the five block
    shapes of DRSformer serving a 512x512 image, and the MEFC step (K8) at
@@ -46,10 +51,10 @@ Phases, any failure ends the run with a nonzero exit code:
    images/s and forward ms follow;
 2d. the three-kernel Restormer block's kernels at the five block shapes of
    phase 2, in bf16, by phase 2's rule and timing: LN + qkv + depthwise
-   (K4), the attention accumulation (K5, against its plain version on the
-   fp32 oracle's q and k, and also held to its plain version on the same
-   bf16 map at 1e-5 relative), the attention apply (K6) and LN + GDFN (K3,
-   with K2's two extra checks);
+   (K4, with K1's two extra checks), the attention accumulation (K5,
+   against its plain version on the fp32 oracle's q and k, and also held to
+   its plain version on the same bf16 map at 1e-5 relative), the attention
+   apply (K6) and LN + GDFN (K3, with K2's two extra checks);
 3d. Restormer-base with ``fused_block=False, fused_attn=True,
    fused_gdfn=True`` served as phase 3: 44 launches of each of K3-K6 per
    forward, the same agreement rule (the plain models turn all three flags
@@ -357,6 +362,10 @@ def phase_kernels():
                   f"not finite at {h}x{w}x{c}")
             check(ek < _bound(ep), f"block_front {name} at {h}x{w}x{c}: "
                   f"rel err {ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
+        check_twice_and_batch2(
+            "block_front", f"{h}x{w}x{c}", lambda: K.block_front(x, p, heads),
+            kern, _batch2(K.block_front, K.block_front_ref, (x,), p, heads)
+            if c == 384 else None)
         abs_front = (kern[0].float() - plain[0].float()).abs().max().item()
         t_k = time_cuda(lambda: K.block_front(x, p, heads))
         t_p = time_cuda(lambda: K.block_front_ref(x, p, heads))
@@ -377,7 +386,7 @@ def phase_kernels():
               f"block_apply_gdfn not finite at {h}x{w}x{c}")
         check(ek < _bound(ep), f"block_apply_gdfn at {h}x{w}x{c}: rel err "
               f"{ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
-        check_tail_twice_and_batch2(
+        check_twice_and_batch2(
             "block_apply_gdfn", f"{h}x{w}x{c}",
             lambda: K.block_apply_gdfn(v, x, atw, p), kern2,
             _batch2(K.block_apply_gdfn, K.block_apply_gdfn_ref, (v, x, atw), p)
@@ -412,88 +421,143 @@ def _batch2(kern_fn, plain_fn, tensors, *rest):
             lambda: plain_fn(*(t.float() for t in two), *rest))
 
 
-def check_tail_twice_and_batch2(name, shape, kern_fn, first, batch2=None):
-    """K2's and K3's extra checks: a second run gives ``first``'s bits (no
+def _outputs(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+def check_twice_and_batch2(name, shape, kern_fn, first, batch2=None):
+    """The extra checks of K1-K4: a second run gives ``first``'s bits (no
     block order or atomics in the result); ``batch2`` = (kernel call, plain
-    call, oracle call) on a batch of two must hold phase 2's rule."""
+    call, oracle call) on a batch of two must hold phase 2's rule. Outputs
+    may be tensors or tuples of them."""
     import torch
 
     again = kern_fn()
     torch.cuda.synchronize()
-    check(torch.equal(first, again), f"{name} at {shape}: two runs differ")
+    check(all(torch.equal(a, b) for a, b in zip(_outputs(first),
+                                                _outputs(again))),
+          f"{name} at {shape}: two runs differ")
     if batch2 is not None:
         kern, plain, oracle = (fn() for fn in batch2)
         torch.cuda.synchronize()
-        msg = _check_rule(name, f"{shape} batch 2", kern, plain, oracle)
+        msg = "; ".join(_check_rule(name, f"{shape} batch 2", k, p, o)
+                        for k, p, o in zip(_outputs(kern), _outputs(plain),
+                                           _outputs(oracle)))
         print(f"{name} {shape} batch 2: rel err {msg}", flush=True)
 
 
-def phase_tail(rows, warps=None):
-    """K2 and K3 alone (``--tail``): phase 2's rule, two equal runs and the
-    kernel's time at the five block shapes, once per tile height in
-    ``rows`` that fits the card (none given: the wrappers' own choice), in
-    blocks of ``warps`` warps (None: the wrappers' own choice)."""
+def _sweep_calls(group, x, p, heads, c):
+    """name -> (kernel call, plain call, oracle call, batch-2 calls, module,
+    tile-row table, warps table, warps of c, shared memory of a tile height)
+    for the kernels of ``group``: "tail" (K2, K3) or "front" (K1, K4)."""
     import torch
 
     from image_restoration_tpu_torch.kernels import block as K
     from image_restoration_tpu_torch.kernels import gdfn as KG
+    from image_restoration_tpu_torch.kernels import mdta as KM
     from image_restoration_tpu_torch.kernels.build import load_library
 
     lib = load_library().lib
+    if group == "front":
+        f = p.front()
+        return {
+            "block_front": (
+                lambda: K.block_front(x, f, heads),
+                lambda: K.block_front_ref(x, f, heads),
+                lambda: K.block_front_ref(x.float(), f, heads),
+                _batch2(K.block_front, K.block_front_ref, (x,), f, heads),
+                K, "_FRONT_TILE_ROWS", "_FRONT_WARPS",
+                lambda: K._front_warps(c),
+                lambda th: lib.ir_block_front_smem(c, heads, th,
+                                                   K._front_warps(c))),
+            "ln_qkv_dwconv": (
+                lambda: KM.ln_qkv_dwconv(x, f),
+                lambda: KM.ln_qkv_dwconv_ref(x, f),
+                lambda: KM.ln_qkv_dwconv_ref(x.float(), f),
+                _batch2(KM.ln_qkv_dwconv, KM.ln_qkv_dwconv_ref, (x,), f),
+                KM, "_QKV_TILE_ROWS", "_QKV_WARPS",
+                lambda: KM._qkv_warps(c),
+                lambda th: lib.ir_ln_qkv_dwconv_smem(c, th, KM._qkv_warps(c))),
+        }
+    v, gram, ss = K.block_front_ref(x, p, heads)
+    atw = K.finalize(gram, ss, p.temperature, p.proj_w, torch.bfloat16)
+    g = p.gdfn()
+    return {
+        "block_apply_gdfn": (
+            lambda: K.block_apply_gdfn(v, x, atw, p),
+            lambda: K.block_apply_gdfn_ref(v, x, atw, p),
+            lambda: K.block_apply_gdfn_ref(v.float(), x.float(), atw.float(),
+                                           p),
+            _batch2(K.block_apply_gdfn, K.block_apply_gdfn_ref, (v, x, atw),
+                    p),
+            K, "_APPLY_TILE_ROWS", "_APPLY_WARPS", lambda: K._apply_warps(c),
+            lambda th: lib.ir_block_apply_gdfn_smem(c, th, K._apply_warps(c))),
+        "ln_gdfn": (
+            lambda: KG.fused_ln_gdfn(x, g),
+            lambda: KG.ln_gdfn_ref(x, g),
+            lambda: KG.ln_gdfn_ref(x.float(), g),
+            _batch2(KG.fused_ln_gdfn, KG.ln_gdfn_ref, (x,), g),
+            K, "_APPLY_TILE_ROWS", "_APPLY_WARPS", lambda: K._apply_warps(c),
+            lambda th: lib.ir_ln_gdfn_smem(c, th, K._apply_warps(c))),
+    }
+
+
+def phase_sweep(group, rows, warps=None):
+    """The two kernels of ``group`` alone (``--tail``: K2 and K3, which
+    share the GDFN tail; ``--front``: K1 and K4, which share the block
+    front): phase 2's rule, two equal runs, a batch of two at 64x64 x 384,
+    and the kernel's and plain version's times at the five block shapes,
+    once per tile height in ``rows`` that fits the card (none given: the
+    wrappers' own choice), in blocks of ``warps`` warps (None: the
+    wrappers' own choice)."""
+    import torch
+
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    chosen = dict(K._APPLY_TILE_ROWS)
-    if warps is not None:
-        K._APPLY_WARPS = dict.fromkeys(K._APPLY_WARPS, warps)
     sums = {}
     for i, (h, w, c, heads, n_blocks) in enumerate(LEVELS):
         p = random_block(c, heads, seed=100 + i)
         gen = torch.Generator().manual_seed(200 + i)
         x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
-        v, gram, ss = K.block_front_ref(x, p, heads)
-        atw = K.finalize(gram, ss, p.temperature, p.proj_w, torch.bfloat16)
-        g = p.gdfn()
-        calls = {
-            "block_apply_gdfn": (
-                lambda: K.block_apply_gdfn(v, x, atw, p),
-                lambda: K.block_apply_gdfn_ref(v, x, atw, p),
-                lambda: K.block_apply_gdfn_ref(v.float(), x.float(),
-                                               atw.float(), p),
-                lib.ir_block_apply_gdfn_smem),
-            "ln_gdfn": (
-                lambda: KG.fused_ln_gdfn(x, g),
-                lambda: KG.ln_gdfn_ref(x, g),
-                lambda: KG.ln_gdfn_ref(x.float(), g),
-                lib.ir_ln_gdfn_smem),
-        }
-        for name, (kern_fn, plain_fn, oracle_fn, smem_of) in calls.items():
+        for name, (kern_fn, plain_fn, oracle_fn, batch2, mod, rows_table,
+                   warps_table, warps_of, smem_of) in _sweep_calls(
+                       group, x, p, heads, c).items():
+            if warps is not None:
+                setattr(mod, warps_table,
+                        dict.fromkeys(getattr(mod, warps_table), warps))
+            table = getattr(mod, rows_table)
+            chosen = table.get(c)
             plain, oracle = plain_fn(), oracle_fn()
             t_p = time_cuda(plain_fn)
-            for th in rows or [chosen.get(c)]:
-                if smem_of(c, th, K._apply_warps(c)) > limit:
-                    print(f"tail {name} {h}x{w}x{c} th {th}: does not fit",
-                          flush=True)
-                    continue
-                K._APPLY_TILE_ROWS[c] = th
+            for th in rows or [None]:
+                where = f"{h}x{w}x{c} th {th or 'own'}"
+                if th is not None:
+                    if smem_of(th) > limit:
+                        print(f"{group} {name} {where}: does not fit",
+                              flush=True)
+                        continue
+                    table[c] = th
                 kern = kern_fn()
                 torch.cuda.synchronize()
-                msg = _check_rule(name, f"{h}x{w}x{c} th {th}", kern, plain,
-                                  oracle)
-                check_tail_twice_and_batch2(name, f"{h}x{w}x{c} th {th}",
-                                            kern_fn, kern)
+                msg = "; ".join(
+                    _check_rule(name, where, k, pl, o) for k, pl, o in
+                    zip(_outputs(kern), _outputs(plain), _outputs(oracle)))
+                check_twice_and_batch2(name, where, kern_fn, kern,
+                                       batch2 if c == 384 else None)
                 t_k = time_cuda(kern_fn)
-                print(f"tail {name} {h}x{w}x{c} th {th} "
-                      f"({K._apply_warps(c)} warps, "
-                      f"{smem_of(c, th, K._apply_warps(c))} B shared): rel "
-                      f"err {msg}; kernel "
-                      f"{t_k:.4f} ms, plain {t_p:.4f} ms", flush=True)
-                sums.setdefault((name, th if rows else "own"), []).append(
-                    n_blocks * t_k)
-            K._APPLY_TILE_ROWS[c] = chosen.get(c)
+                detail = (f" ({warps_of()} warps, {smem_of(th)} B shared)"
+                          if th is not None else "")
+                print(f"{group} {name} {where}{detail}: rel err {msg}; "
+                      f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms", flush=True)
+                sums.setdefault((name, th or "own"), []).append(
+                    (n_blocks * t_k, n_blocks * t_p))
+                del kern
+            table[c] = chosen
             del plain, oracle
     for (name, th), parts in sums.items():
         if len(parts) == len(LEVELS):
-            print(f"tail {name} th {th}: {sum(parts):.3f} ms per forward "
-                  f"(44 blocks)", flush=True)
+            print(f"{group} {name} th {th}: {sum(k for k, _ in parts):.3f} "
+                  f"ms per forward (44 blocks), plain "
+                  f"{sum(p for _, p in parts):.3f}", flush=True)
 
 
 def phase_3k_kernels():
@@ -544,6 +608,11 @@ def phase_3k_kernels():
         (qkv,) = run("ln_qkv_dwconv", lambda: KM.ln_qkv_dwconv(x, f),
                      lambda: KM.ln_qkv_dwconv_ref(x, f), oqkv,
                      bound_ln_qkv_dwconv(h, w, c))
+        check_twice_and_batch2(
+            "ln_qkv_dwconv", shape, lambda: KM.ln_qkv_dwconv(x, f),
+            KM.ln_qkv_dwconv(x, f),
+            _batch2(KM.ln_qkv_dwconv, KM.ln_qkv_dwconv_ref, (x,), f)
+            if c == 384 else None)
         # K5 and its plain version widen the same bf16 map exactly, so both
         # errors against the oracle are the map's rounding; the kernel is
         # also held to its plain version: fp32 sums in another order.
@@ -563,7 +632,7 @@ def phase_3k_kernels():
         run("ln_gdfn", lambda: KG.fused_ln_gdfn(x2, g),
             lambda: KG.ln_gdfn_ref(x2, g), KG.ln_gdfn_ref(x2.float(), g),
             bound_ln_gdfn(h, w, c))
-        check_tail_twice_and_batch2(
+        check_twice_and_batch2(
             "ln_gdfn", shape, lambda: KG.fused_ln_gdfn(x2, g),
             KG.fused_ln_gdfn(x2, g),
             _batch2(KG.fused_ln_gdfn, KG.ln_gdfn_ref, (x2,), g)
@@ -999,11 +1068,18 @@ def main(argv=None):
     ap.add_argument("--tail", nargs="*", type=int, default=None,
                     metavar="ROWS",
                     help="only K2 and K3 at the five block shapes: the rule, "
-                         "two equal runs and the times, at the wrappers' "
-                         "tile height or at each of ROWS; prints no result "
-                         "line")
+                         "two equal runs, batch 2 at 64x64x384 and the "
+                         "times, at the wrappers' tile height or at each of "
+                         "ROWS; prints no result line")
+    ap.add_argument("--front", nargs="*", type=int, default=None,
+                    metavar="ROWS",
+                    help="only K1 and K4 at the five block shapes: the rule, "
+                         "two equal runs, batch 2 at 64x64x384 and the "
+                         "times, at the wrappers' tile height or at each of "
+                         "ROWS; prints no result line")
     ap.add_argument("--warps", type=int, default=None, choices=[8, 16],
-                    help="with --tail: warps a block at every width")
+                    help="with --tail or --front: warps a block at every "
+                         "width")
     args = ap.parse_args(argv)
 
     import torch
@@ -1036,8 +1112,11 @@ def main(argv=None):
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    if args.tail is not None:
-        phase_tail(args.tail, args.warps)
+    if args.tail is not None or args.front is not None:
+        if args.tail is not None:
+            phase_sweep("tail", args.tail, args.warps)
+        if args.front is not None:
+            phase_sweep("front", args.front, args.warps)
         print(gpu)
         return 0
 

@@ -248,20 +248,29 @@ def _check_params(p: BlockParams, x):
 
 # Tile heights (output rows per block) by channel width, the fastest in a
 # sweep on an H100 80GB HBM3 (700 W) at the block shapes of Restormer-base
-# on a 512x512 image (8/4/2/1 rows for the front; 8/4/2 rows x 8/16 warps
-# for K2 and K3, ``chip_smoke.py --tail 8 4 2 --warps N``); the slowest
-# choice ran up to 2x longer. Other widths, or a card with less shared
-# memory, take the rule of ``_pick_tile_rows``.
-_FRONT_TILE_ROWS = {48: 8, 96: 4, 192: 8, 384: 2}
+# on a 512x512 image (8/4/2 rows x 8/16 warps for K2 and K3,
+# ``chip_smoke.py --tail 8 4 2 --warps N``); the slowest choice ran up to
+# 2x longer. Other widths, or a card with less shared memory, take the rule
+# of ``_pick_tile_rows``.
 _APPLY_TILE_ROWS = {48: 8, 96: 4, 192: 8, 384: 2}
 # Warps per block of K2 and K3 (csrc/gdfn.cuh is built for 8 and 16), from
 # the same sweep: 16 warps win where a tile's products are long (C >= 192),
 # 8 where more blocks share an SM.
 _APPLY_WARPS = {48: 8, 96: 8, 192: 16, 384: 16}
+# Tile heights and warps of K1 (csrc/front.cuh, built for 8 and 16 warps),
+# the fastest in ``chip_smoke.py --front 8 4 2 1 --warps 8|16`` on the same
+# card; K4 has its own (kernels/mdta.py). At C = 384 only 8 warps hold the
+# Gram and only th <= 2 fits; at 192, th = 8 does not fit.
+_FRONT_TILE_ROWS = {48: 8, 96: 8, 192: 4, 384: 2}
+_FRONT_WARPS = {48: 8, 96: 16, 192: 16, 384: 8}
 
 
 def _apply_warps(c: int) -> int:
     return _APPLY_WARPS.get(c, 16 if c >= 192 else 8)
+
+
+def _front_warps(c: int) -> int:
+    return _FRONT_WARPS.get(c, 8)
 
 
 def _pick_tile_rows(preferred, smem_of, tiles_of, device) -> int:
@@ -294,6 +303,21 @@ def front_weights(p: FrontParams, c: int):
             _f32(p.dw_b))
 
 
+_FRONT_BLOCKS = {}
+
+
+def _front_blocks(lib, device, c, heads, th, warps) -> int:
+    """Blocks of pass 1 the card holds at once: its SMs times the blocks
+    one SM holds (by shared memory and registers), cached per shape."""
+    key = (device, c, heads, th, warps)
+    if key not in _FRONT_BLOCKS:
+        with torch.cuda.device(device):
+            per_sm = lib.lib.ir_block_front_blocks(c, heads, th, warps)
+        _FRONT_BLOCKS[key] = max(per_sm, 1) * torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _FRONT_BLOCKS[key]
+
+
 def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
     """Pass 1: (v, gram, ss) as :func:`block_front_ref` documents.
 
@@ -310,14 +334,18 @@ def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
     if c % 16 or ch % 16 or ch * num_heads != c:
         raise ValueError(f"block_front needs C and C/heads multiples of 16, "
                          f"got C={c}, heads={num_heads}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (the kernel "
+                         "copies 16 bytes at a time)")
     _check_params(p, x)
     lib = load_library()
-    th = _pick_tile_rows(_FRONT_TILE_ROWS.get(c),
-                         lambda t: lib.lib.ir_block_front_smem(c, num_heads, t),
-                         lambda t: _tiles(b, h, w, t), x.device)
+    warps = _front_warps(c)
+    th = _pick_tile_rows(
+        _FRONT_TILE_ROWS.get(c),
+        lambda t: lib.lib.ir_block_front_smem(c, num_heads, t, warps),
+        lambda t: _tiles(b, h, w, t), x.device)
     grid_x = min(-(-h // th) * -(-w // 16),
-                 2 * torch.cuda.get_device_properties(x.device)
-                 .multi_processor_count)
+                 _front_blocks(lib, x.device, c, num_heads, th, warps))
     f32 = dict(device=x.device, dtype=torch.float32)
     wqkv, dw, ln_w, ln_b, bqkv, db = front_weights(p, c)
 
@@ -333,8 +361,8 @@ def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
                 x.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), wqkv.data_ptr(),
                 _ptr(bqkv), dw.data_ptr(), _ptr(db), v.data_ptr(),
                 gram_part.data_ptr(), ss_part.data_ptr(), gram.data_ptr(),
-                ss.data_ptr(), b, h, w, c, num_heads, th, grid_x, float(eps),
-                stream)
+                ss.data_ptr(), b, h, w, c, num_heads, th, warps, grid_x,
+                float(eps), stream)
         lib.check(code, "block_front")
         block_front.launches += 1
         return v, gram, ss

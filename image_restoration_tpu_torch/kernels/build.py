@@ -26,8 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ir_block_front_smem": (_I, [_I, _I, _I]),
-    "ir_block_front": (_I, [_P] * 12 + [_I] * 7 + [_F, _P]),
+    "ir_block_front_smem": (_I, [_I] * 4),
+    "ir_block_front_blocks": (_I, [_I] * 4),
+    "ir_block_front": (_I, [_P] * 12 + [_I] * 8 + [_F, _P]),
     "ir_block_apply_gdfn_smem": (_I, [_I, _I, _I]),
     "ir_block_apply_gdfn": (_I, [_P] * 13 + [_I] * 7 + [_F, _P]),
     "ir_drs_apply_msfn_smem": (_I, [_I, _I, _I]),
@@ -35,8 +36,8 @@ _SIGNATURES = {
     "ir_mefc_step_smem": (_I, [_I, _I]),
     "ir_mefc_step": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "ir_ska": (_I, [_P] * 3 + [_I] * 7 + [_P]),
-    "ir_ln_qkv_dwconv_smem": (_I, [_I, _I]),
-    "ir_ln_qkv_dwconv": (_I, [_P] * 8 + [_I] * 5 + [_F, _P]),
+    "ir_ln_qkv_dwconv_smem": (_I, [_I] * 3),
+    "ir_ln_qkv_dwconv": (_I, [_P] * 8 + [_I] * 6 + [_F, _P]),
     "ir_attn_acc_smem": (_I, [_I, _I]),
     "ir_attn_acc": (_I, [_P] * 5 + [_I] * 5 + [_P]),
     "ir_attn_apply_smem": (_I, [_I, _I]),

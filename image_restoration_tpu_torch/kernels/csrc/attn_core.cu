@@ -14,8 +14,8 @@
 // a sequential grid; Hopper blocks run in no order, so each block walks a
 // strided set of 128-pixel tiles, stages one head's q and k at a time in
 // shared memory (16-byte cp.async), accumulates its Gram there with
-// front_gram (front.cuh, K1's), and writes one partial; front_reduce_kernel
-// sums the partials in a fixed order, so the result is deterministic.
+// acc_gram (wmma), and writes one partial; front_reduce_kernel (front.cuh,
+// K1's) sums the partials in a fixed order, so the result is deterministic.
 //
 // Pass B, attn_apply_kernel (K6): out = bf16(x + (bf16(v @ A^T) @ W_proj +
 // b_proj)) per tile of `npix` pixels. t = v @ A^T is computed head by head
@@ -35,6 +35,29 @@ namespace irk {
 constexpr int C_THREADS = 256;  // 8 warps
 constexpr int C_WARPS = C_THREADS / 32;
 constexpr int ACC_PIX = 128;    // pixels per pass-A tile
+
+// gram[ch x ch] += q^T[ch x npix] @ k[npix x ch], the accumulator in shared
+// memory; q and k rows `ldq` apart, npix a multiple of 16.
+static __device__ void acc_gram(int npix, int ldq, int ch, const bf16* qs,
+                                const bf16* ks, float* gram, int warp,
+                                int nwarps) {
+  const int t = ch / 16;
+  for (int i = warp; i < t * t; i += nwarps) {
+    const int mi = i / t, ni = i % t;
+    FragC acc;
+    wmma::load_matrix_sync(acc, gram + mi * 16 * ch + ni * 16, ch,
+                           wmma::mem_row_major);
+    for (int k = 0; k < npix; k += 16) {
+      FragAT fa;
+      FragB fb;
+      wmma::load_matrix_sync(fa, qs + k * ldq + mi * 16, ldq);
+      wmma::load_matrix_sync(fb, ks + k * ldq + ni * 16, ldq);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(gram + mi * 16 * ch + ni * 16, acc, ch,
+                            wmma::mem_row_major);
+  }
+}
 
 struct AccSmem {
   int ldq;
@@ -84,7 +107,7 @@ __global__ void __launch_bounds__(C_THREADS)
       }
       cp_async_wait_all();
       __syncthreads();
-      front_gram(ACC_PIX, L.ldq, ch, qs, ks, gacc + h * ch * ch, warp,
+      acc_gram(ACC_PIX, L.ldq, ch, qs, ks, gacc + h * ch * ch, warp,
                  C_WARPS);
       for (int j = tid; j < 2 * ch; j += C_THREADS) {
         const int part = j / ch, c = j % ch;

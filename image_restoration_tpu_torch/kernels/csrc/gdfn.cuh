@@ -105,75 +105,6 @@ struct ApplyArgs {
   float eps;
 };
 
-// 8 bf16 (16 bytes) <-> 8 floats.
-__device__ __forceinline__ void unpack8(const uint4& u, float (&x)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&y)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    h[i] = __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
-  return u;
-}
-
-// LayerNorm of one pixel by a group of 8 lanes, four pixels a warp at a
-// time (a warp a pixel leaves most lanes idle at C = 48 and serialises 14
-// pixels a warp): lane l of the group takes the 8-channel vectors l, l + 8,
-// ... `load(v, x)` gives vector v's fp32 values, `emit(v, x, y)` takes them
-// back beside the normalised ones. fp32 statistics over C (two passes,
-// biased variance), BiasFree when ln_b is null, as warp_layernorm. Every
-// lane of the warp must call it; a group that is not `live` only takes part
-// in the shuffles.
-template <typename Load, typename Emit>
-__device__ __forceinline__ void group8_layernorm(bool live, int C, float eps,
-                                                 const float* ln_w,
-                                                 const float* ln_b, int l,
-                                                 Load load, Emit emit) {
-  const int nvec = C / 8;
-  auto sum8 = [](float v) {
-#pragma unroll
-    for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-  };
-  float s = 0.f;
-  if (live)
-    for (int v = l; v < nvec; v += 8) {
-      float x[8];
-      load(v, x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) s += x[e];
-    }
-  const float mu = sum8(s) / C;
-  float s2 = 0.f;
-  if (live)
-    for (int v = l; v < nvec; v += 8) {
-      float x[8];
-      load(v, x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) s2 += (x[e] - mu) * (x[e] - mu);
-    }
-  const float inv = rsqrtf(sum8(s2) / C + eps);
-  if (live)
-    for (int v = l; v < nvec; v += 8) {
-      float x[8], y[8];
-      load(v, x);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        y[e] = ln_b ? (x[e] - mu) * inv * ln_w[v * 8 + e] + ln_b[v * 8 + e]
-                    : x[e] * inv * ln_w[v * 8 + e];
-      emit(v, x, y);
-    }
-}
-
 // Output fragments (16 x 16) one warp owns in the out product, by tile:
 // the smallest instantiated count that holds them, 0 when none does.
 // 16 warps leave a thread 128 registers, which 12 fragments overrun.

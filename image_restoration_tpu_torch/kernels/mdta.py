@@ -22,7 +22,6 @@ from __future__ import annotations
 import torch
 
 from image_restoration_tpu_torch.kernels.block import (
-    _FRONT_TILE_ROWS,
     FrontParams,
     _check_input,
     _check_params,
@@ -33,6 +32,17 @@ from image_restoration_tpu_torch.kernels.block import (
     front_weights,
 )
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
+
+# Tile heights (output rows per block) and warps per block of K4 by channel
+# width, the fastest in ``chip_smoke.py --front 8 4 2 1 --warps 8|16`` on an
+# H100 80GB HBM3 (700 W); csrc/front.cuh is built for 8 and 16 warps. K4
+# keeps no Gram, so it takes taller tiles than K1 where K1's do not fit.
+_QKV_TILE_ROWS = {48: 8, 96: 8, 192: 8, 384: 2}
+_QKV_WARPS = {48: 8, 96: 8, 192: 16, 384: 8}
+
+
+def _qkv_warps(c: int) -> int:
+    return _QKV_WARPS.get(c, 8)
 
 
 def ln_qkv_dwconv_ref(x, p: FrontParams, eps: float = 1e-5):
@@ -55,10 +65,14 @@ def ln_qkv_dwconv(x, p: FrontParams, eps: float = 1e-5):
     b, h, w, c = x.shape
     if c % 16:
         raise ValueError(f"ln_qkv_dwconv needs C a multiple of 16, got {c}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (the kernel "
+                         "copies 16 bytes at a time)")
     _check_params(p, x)
     lib = load_library()
-    th = _pick_tile_rows(_FRONT_TILE_ROWS.get(c),
-                         lambda t: lib.lib.ir_ln_qkv_dwconv_smem(c, t),
+    warps = _qkv_warps(c)
+    th = _pick_tile_rows(_QKV_TILE_ROWS.get(c),
+                         lambda t: lib.lib.ir_ln_qkv_dwconv_smem(c, t, warps),
                          lambda t: _tiles(b, h, w, t), x.device)
     wqkv, dw, ln_w, ln_b, bqkv, db = front_weights(p, c)
 
@@ -69,7 +83,7 @@ def ln_qkv_dwconv(x, p: FrontParams, eps: float = 1e-5):
             code = lib.lib.ir_ln_qkv_dwconv(
                 x.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), wqkv.data_ptr(),
                 _ptr(bqkv), dw.data_ptr(), _ptr(db), out.data_ptr(), b, h, w, c,
-                th, float(eps), stream)
+                th, warps, float(eps), stream)
         lib.check(code, "ln_qkv_dwconv")
         ln_qkv_dwconv.launches += 1
         return out

@@ -17,6 +17,12 @@ BiasFree cases carry every conv bias), at 24x20, which leaves a ragged
 1021) at 12x20. The kernels take head widths that are multiples of 16 (48
 and 96 at every level of Restormer-base); c 48 with 2 heads must raise.
 
+Pass 1 (K1) also runs FRONT_CASES, which reach every edge of the front it
+shares with K4 (csrc/front.cuh): ragged tiles both ways, a 1x1 and a 1-row
+image, a batch of two, both LN types with and without conv biases, C 384
+with 8 heads, both block sizes and every count of Gram fragments a warp
+holds; two runs must give the same bits (v, Gram and sums of squares).
+
 Pass 2 (K2) also runs TAIL_CASES, which reach every edge of the FFN tail it
 shares with K3: heights that are no multiple of the tile rows (8 at c 48
 and 192, 4 at 96, 2 at 384), widths that are no multiple of 16, hidden
@@ -35,6 +41,25 @@ from image_restoration_tpu_torch.kernels import block as K
 
 CASES = [(24, 20, c, heads, ln) for c, heads in ((48, 1), (96, 1), (96, 2))
          for ln in ("WithBias", "BiasFree")] + [(12, 20, 384, 8, "WithBias")]
+# (batch, h, w, c, heads, ln_type, conv biases, warps); K1 at 8 warps holds
+# 1 (c 16), 2 (48), 3 (96, 2 heads), 5 (96, 1 head; 192) or 9 (384) Gram
+# fragments a warp, at 16 warps 1, 1, 2, 3, 3.
+FRONT_CASES = [
+    (1, 13, 21, 48, 1, "WithBias", False, 8),
+    (1, 13, 21, 48, 1, "WithBias", True, 16),
+    (2, 7, 37, 48, 1, "BiasFree", True, 8),
+    (2, 7, 37, 48, 1, "BiasFree", False, 16),
+    (1, 1, 1, 16, 1, "WithBias", True, 8),
+    (1, 1, 1, 16, 1, "BiasFree", False, 16),
+    (1, 1, 40, 96, 2, "BiasFree", False, 8),
+    (1, 1, 40, 96, 2, "WithBias", True, 16),
+    (1, 10, 33, 96, 1, "WithBias", True, 8),
+    (1, 10, 33, 96, 1, "BiasFree", False, 16),
+    (1, 19, 24, 192, 4, "WithBias", False, 8),
+    (2, 6, 35, 192, 4, "BiasFree", True, 16),
+    (2, 5, 19, 384, 8, "BiasFree", True, 8),
+    (1, 3, 16, 384, 8, "WithBias", False, 8),
+]
 # (batch, h, w, c, heads, ln_type)
 TAIL_CASES = [(1, 13, 21, 48, 1, "WithBias"), (2, 7, 37, 48, 1, "BiasFree"),
               (1, 10, 33, 96, 2, "BiasFree"), (1, 19, 24, 192, 4, "WithBias"),
@@ -51,10 +76,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _params(rng, c, heads, ln_type, device):
-    """Seeded BlockParams in torch layout; conv biases only with BiasFree."""
+def _params(rng, c, heads, ln_type, device, bias=None):
+    """Seeded BlockParams in torch layout; conv biases if ``bias``, by
+    default only with BiasFree."""
     hidden = int(c * 2.66)
-    bias = ln_type == "BiasFree"
+    bias = ln_type == "BiasFree" if bias is None else bias
 
     def mk(*shape, sc=0.05, base=0.0):
         a = base + sc * rng.standard_normal(shape)
@@ -74,9 +100,9 @@ def _params(rng, c, heads, ln_type, device):
         mk(c, hidden, 1, 1, sc=hidden ** -0.5), cb(c))
 
 
-def _inputs(cuda, h, w, c, heads, ln_type, seed, batch=1):
+def _inputs(cuda, h, w, c, heads, ln_type, seed, batch=1, bias=None):
     rng = np.random.default_rng(seed)
-    p = _params(rng, c, heads, ln_type, cuda)
+    p = _params(rng, c, heads, ln_type, cuda, bias)
     x = torch.from_numpy(rng.standard_normal((batch, h, w, c))
                          .astype(np.float32))
     return p, x.to(cuda, torch.bfloat16)
@@ -99,6 +125,38 @@ def test_block_front_kernel_vs_plain(cuda, h, w, c, heads, ln_type):
         assert g.shape == pl.shape and g.dtype == pl.dtype, name
         assert torch.isfinite(g).all(), name
         assert _rel(g, o) < max(3 * _rel(pl, o), 4e-3), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,heads,ln_type,bias,warps", FRONT_CASES)
+def test_block_front_edges_warps_and_two_equal_runs(cuda, monkeypatch, b, h,
+                                                    w, c, heads, ln_type,
+                                                    bias, warps):
+    monkeypatch.setitem(K._FRONT_WARPS, c, warps)
+    p, x = _inputs(cuda, h, w, c, heads, ln_type, seed=h + w + c, batch=b,
+                   bias=bias)
+    oracle = K.block_front_ref(x.float(), p, heads)
+    plain = K.block_front_ref(x, p, heads)
+    got = K.block_front(x, p, heads)
+    again = K.block_front(x, p, heads)
+    torch.cuda.synchronize()
+    for name, o, pl, g, a in zip(("v", "gram", "sumsq"), oracle, plain, got,
+                                 again):
+        assert g.shape == pl.shape and g.dtype == pl.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, o) < max(3 * _rel(pl, o), 4e-3), name
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.cuda
+def test_block_front_raises_where_no_block_size_holds_the_gram(cuda,
+                                                               monkeypatch):
+    """8 heads of 48 need 5 Gram fragments a warp at 16 warps, which is not
+    built: the wrapper raises instead of running something else."""
+    monkeypatch.setitem(K._FRONT_WARPS, 384, 16)
+    p, x = _inputs(cuda, 3, 16, 384, 8, "WithBias", seed=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.block_front(x, p, 8)
 
 
 @pytest.mark.cuda
@@ -180,6 +238,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         K.block_front(x.transpose(1, 2), p, 1)
     with pytest.raises(ValueError):
         K.block_front(x, p, 2)  # heads of 24 channels
+    with pytest.raises(ValueError, match="16-byte"):
+        K.block_front(x.reshape(-1)[4:4 + 4 * 20 * 48].reshape(1, 4, 20, 48),
+                      p, 1)
     atw = torch.zeros((1, 48, 48), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         K.block_apply_gdfn(x[:, :12], x, atw, p)

@@ -20,13 +20,15 @@ and odd heights, both LN types (the BiasFree cases carry every conv bias),
 and the latent level's width (c 384, 8 heads, hidden 1021). Weights and
 inputs are test_torch_block_cuda.py's. LN + GDFN (K3) also runs that
 file's TAIL_CASES (every edge of the FFN tail it shares with K2) and must
-give the same bits on a second run. A ``backward()`` through a wrapper
+give the same bits on a second run; LN + qkv + depthwise (K4) runs its
+FRONT_CASES (the edges of the front it shares with K1) in blocks of 8 and
+of 16 warps, with the same two-runs check. A ``backward()`` through a wrapper
 raises ``NotImplementedError``: the kernels are forward only.
 """
 
 import pytest
 import torch
-from test_torch_block_cuda import TAIL_CASES, _inputs, _rel
+from test_torch_block_cuda import FRONT_CASES, TAIL_CASES, _inputs, _rel
 
 from image_restoration_tpu_torch.kernels import attn_core as KA
 from image_restoration_tpu_torch.kernels import gdfn as KG
@@ -60,6 +62,24 @@ def test_ln_qkv_dwconv_kernel_vs_plain(cuda, h, w, c, heads, ln_type):
     torch.cuda.synchronize()
     _holds(got, KM.ln_qkv_dwconv_ref(x, p.front()),
            KM.ln_qkv_dwconv_ref(x.float(), p.front()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,heads,ln_type,bias", sorted(
+    {case[:-1] for case in FRONT_CASES}))
+@pytest.mark.parametrize("warps", [8, 16])
+def test_ln_qkv_dwconv_edges_warps_and_two_equal_runs(cuda, monkeypatch,
+                                                      warps, b, h, w, c,
+                                                      heads, ln_type, bias):
+    monkeypatch.setitem(KM._QKV_WARPS, c, warps)
+    p, x = _inputs(cuda, h, w, c, heads, ln_type, seed=h + w + c, batch=b,
+                   bias=bias)
+    got = KM.ln_qkv_dwconv(x, p.front())
+    again = KM.ln_qkv_dwconv(x, p.front())
+    torch.cuda.synchronize()
+    _holds(got, KM.ln_qkv_dwconv_ref(x, p.front()),
+           KM.ln_qkv_dwconv_ref(x.float(), p.front()))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -173,6 +193,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         KM.ln_qkv_dwconv(x.float(), p.front())
     with pytest.raises(ValueError):
         KM.ln_qkv_dwconv(x.transpose(1, 2), p.front())
+    with pytest.raises(ValueError, match="16-byte"):
+        KM.ln_qkv_dwconv(x.reshape(-1)[4:4 + 4 * 20 * 48]
+                         .reshape(1, 4, 20, 48), p.front())
     with pytest.raises(TypeError):
         KG.fused_ln_gdfn(x.float(), p.gdfn())
     qkv = KM.ln_qkv_dwconv(x, p.front())

@@ -83,10 +83,13 @@ def test_port_never_imports_jax():
     assert res.returncode == 0, res.stderr
 
 
-def test_chip_smoke_refuses_without_cuda(tmp_path):
+@pytest.mark.parametrize("args", [[], ["--tail", "8"],
+                                  ["--front", "8", "4", "--warps", "16"]],
+                         ids=["full", "tail", "front"])
+def test_chip_smoke_refuses_without_cuda(tmp_path, args):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    res = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=300)
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                          *args], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout

@@ -6,14 +6,17 @@ Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --tail [ROWS ...] [--warps 8|16]
     python3 chip_smoke.py --front [ROWS ...] [--warps 8|16]
+    python3 chip_smoke.py --msfn [ROWS ...] [--warps 8|16]
 
 The second form checks and times only the two kernels that share the GDFN
 tail (K2, K3), at the wrappers' tile height and warps or at those given: the
 sweep behind ``kernels/block.py`` ``_APPLY_TILE_ROWS`` and ``_APPLY_WARPS``.
 The third does the same for the two kernels that share the block front (K1,
 K4; ``_FRONT_TILE_ROWS``/``_FRONT_WARPS`` in ``kernels/block.py``,
-``_QKV_TILE_ROWS``/``_QKV_WARPS`` in ``kernels/mdta.py``). Neither prints a
-result line.
+``_QKV_TILE_ROWS``/``_QKV_WARPS`` in ``kernels/mdta.py``). The fourth does
+it for DRSformer's MSFN pass (K7) at the five block shapes of phase 2b
+(``_MSFN_TILE_ROWS``/``_MSFN_WARPS`` in ``kernels/drs_block.py``). None of
+them prints a result line.
 
 Phases, any failure ends the run with a nonzero exit code:
 1. device and build: the card's name and power limit; the CUDA kernels are
@@ -27,8 +30,8 @@ Phases, any failure ends the run with a nonzero exit code:
    x 384.
    Times are CUDA-event medians;
 2b. the same for DRSformer's kernels: the MSFN pass (K7) at the five block
-   shapes of DRSformer serving a 512x512 image, and the MEFC step (K8) at
-   512x512 x 48 and x 96, four steps each;
+   shapes of DRSformer serving a 512x512 image, with K1's two extra checks,
+   and the MEFC step (K8) at 512x512 x 48 and x 96, four steps each;
 3. the Restormer serving slice: Restormer-base from ``build_model`` (bf16,
    fused blocks, seeded random weights) restores three images through
    ``make_restore_fn``. The outputs must be finite; each forward must launch
@@ -449,15 +452,30 @@ def check_twice_and_batch2(name, shape, kern_fn, first, batch2=None):
 def _sweep_calls(group, x, p, heads, c):
     """name -> (kernel call, plain call, oracle call, batch-2 calls, module,
     tile-row table, warps table, warps of c, shared memory of a tile height)
-    for the kernels of ``group``: "tail" (K2, K3) or "front" (K1, K4)."""
+    for the kernels of ``group``: "tail" (K2, K3), "front" (K1, K4) or
+    "msfn" (K7; ``p`` a DRSformer block's)."""
     import torch
 
     from image_restoration_tpu_torch.kernels import block as K
+    from image_restoration_tpu_torch.kernels import drs_block as KD
     from image_restoration_tpu_torch.kernels import gdfn as KG
     from image_restoration_tpu_torch.kernels import mdta as KM
     from image_restoration_tpu_torch.kernels.build import load_library
 
     lib = load_library().lib
+    if group == "msfn":
+        v, gram, ss = K.block_front_ref(x, p.front(), heads)
+        atw = KD.tksa_finalize(gram, ss, p.temperature, p.mix, p.proj_w,
+                               torch.bfloat16)
+        return {"drs_apply_msfn": (
+            lambda: KD.drs_apply_msfn(v, x, atw, p),
+            lambda: KD.drs_apply_msfn_ref(v, x, atw, p),
+            lambda: KD.drs_apply_msfn_ref(v.float(), x.float(), atw.float(),
+                                          p),
+            _batch2(KD.drs_apply_msfn, KD.drs_apply_msfn_ref, (v, x, atw), p),
+            KD, "_MSFN_TILE_ROWS", "_MSFN_WARPS", lambda: KD._msfn_warps(c),
+            lambda th: KD._msfn_smem(c, p.s3_w.shape[0], th,
+                                     KD._msfn_warps(c)))}
     if group == "front":
         f = p.front()
         return {
@@ -503,29 +521,31 @@ def _sweep_calls(group, x, p, heads, c):
 
 
 def phase_sweep(group, rows, warps=None):
-    """The two kernels of ``group`` alone (``--tail``: K2 and K3, which
-    share the GDFN tail; ``--front``: K1 and K4, which share the block
-    front): phase 2's rule, two equal runs, a batch of two at 64x64 x 384,
-    and the kernel's and plain version's times at the five block shapes,
-    once per tile height in ``rows`` that fits the card (none given: the
-    wrappers' own choice), in blocks of ``warps`` warps (None: the
-    wrappers' own choice)."""
+    """The kernels of ``group`` alone (``--tail``: K2 and K3, which share
+    the GDFN tail; ``--front``: K1 and K4, which share the block front;
+    ``--msfn``: K7 at DRSformer's shapes): phase 2's rule, two equal runs,
+    a batch of two at 64x64 x 384, and the kernel's and plain version's
+    times at the five block shapes, once per tile height in ``rows`` that
+    fits the card (none given: the wrappers' own choice), in blocks of
+    ``warps`` warps (None: the wrappers' own choice)."""
     import torch
 
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    drs = group == "msfn"
+    levels = DRS_LEVELS if drs else LEVELS
     sums = {}
-    for i, (h, w, c, heads, n_blocks) in enumerate(LEVELS):
-        p = random_block(c, heads, seed=100 + i)
-        gen = torch.Generator().manual_seed(200 + i)
+    for i, (h, w, c, heads, n_blocks) in enumerate(levels):
+        p = (random_drs_block(c, heads, seed=300 + i) if drs
+             else random_block(c, heads, seed=100 + i))
+        gen = torch.Generator().manual_seed((400 if drs else 200) + i)
         x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
         for name, (kern_fn, plain_fn, oracle_fn, batch2, mod, rows_table,
                    warps_table, warps_of, smem_of) in _sweep_calls(
                        group, x, p, heads, c).items():
+            wtable, table = getattr(mod, warps_table), getattr(mod, rows_table)
+            chosen_w, chosen = wtable.get(c), table.get(c)
             if warps is not None:
-                setattr(mod, warps_table,
-                        dict.fromkeys(getattr(mod, warps_table), warps))
-            table = getattr(mod, rows_table)
-            chosen = table.get(c)
+                wtable[c] = warps
             plain, oracle = plain_fn(), oracle_fn()
             t_p = time_cuda(plain_fn)
             for th in rows or [None]:
@@ -551,12 +571,17 @@ def phase_sweep(group, rows, warps=None):
                 sums.setdefault((name, th or "own"), []).append(
                     (n_blocks * t_k, n_blocks * t_p))
                 del kern
-            table[c] = chosen
+            for t, v in ((table, chosen), (wtable, chosen_w)):
+                if v is None:
+                    t.pop(c, None)
+                else:
+                    t[c] = v
             del plain, oracle
     for (name, th), parts in sums.items():
-        if len(parts) == len(LEVELS):
+        if len(parts) == len(levels):
             print(f"{group} {name} th {th}: {sum(k for k, _ in parts):.3f} "
-                  f"ms per forward (44 blocks), plain "
+                  f"ms per forward ({sum(lv[-1] for lv in levels)} blocks), "
+                  f"plain "
                   f"{sum(p for _, p in parts):.3f}", flush=True)
 
 
@@ -702,6 +727,11 @@ def phase_drs_kernels():
         check(ek < _bound(ep), f"drs_apply_msfn at {h}x{w}x{c}: rel err "
               f"{ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
         del oracle
+        check_twice_and_batch2(
+            "drs_apply_msfn", f"{h}x{w}x{c}",
+            lambda: K.drs_apply_msfn(v, x, atw, p), kern,
+            _batch2(K.drs_apply_msfn, K.drs_apply_msfn_ref, (v, x, atw), p)
+            if c == 384 else None)
         t_k = time_cuda(lambda: K.drs_apply_msfn(v, x, atw, p))
         t_p = time_cuda(lambda: K.drs_apply_msfn_ref(v, x, atw, p))
         print(f"drs_apply_msfn {h}x{w}x{c} heads {heads}: rel err {ek:.3e} "
@@ -1077,9 +1107,13 @@ def main(argv=None):
                          "two equal runs, batch 2 at 64x64x384 and the "
                          "times, at the wrappers' tile height or at each of "
                          "ROWS; prints no result line")
+    ap.add_argument("--msfn", nargs="*", type=int, default=None,
+                    metavar="ROWS",
+                    help="only K7 at DRSformer's five block shapes, as "
+                         "--tail; prints no result line")
     ap.add_argument("--warps", type=int, default=None, choices=[8, 16],
-                    help="with --tail or --front: warps a block at every "
-                         "width")
+                    help="with --tail, --front or --msfn: warps a block at "
+                         "every width")
     args = ap.parse_args(argv)
 
     import torch
@@ -1112,11 +1146,11 @@ def main(argv=None):
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    if args.tail is not None or args.front is not None:
-        if args.tail is not None:
-            phase_sweep("tail", args.tail, args.warps)
-        if args.front is not None:
-            phase_sweep("front", args.front, args.warps)
+    sweeps = {"tail": args.tail, "front": args.front, "msfn": args.msfn}
+    if any(rows is not None for rows in sweeps.values()):
+        for group, rows in sweeps.items():
+            if rows is not None:
+                phase_sweep(group, rows, args.warps)
         print(gpu)
         return 0
 

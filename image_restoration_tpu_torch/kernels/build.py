@@ -31,8 +31,8 @@ _SIGNATURES = {
     "ir_block_front": (_I, [_P] * 12 + [_I] * 8 + [_F, _P]),
     "ir_block_apply_gdfn_smem": (_I, [_I, _I, _I]),
     "ir_block_apply_gdfn": (_I, [_P] * 13 + [_I] * 7 + [_F, _P]),
-    "ir_drs_apply_msfn_smem": (_I, [_I, _I, _I]),
-    "ir_drs_apply_msfn": (_I, [_P] * 19 + [_I] * 8 + [_F, _P]),
+    "ir_drs_apply_msfn_smem": (_I, [_I] * 4),
+    "ir_drs_apply_msfn": (_I, [_P] * 19 + [_I] * 9 + [_F, _P]),
     "ir_mefc_step_smem": (_I, [_I, _I]),
     "ir_mefc_step": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "ir_ska": (_I, [_P] * 3 + [_I] * 7 + [_P]),

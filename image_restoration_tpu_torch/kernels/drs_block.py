@@ -190,6 +190,8 @@ def reference_drs_block(x, p: DRSBlockParams, num_heads: int,
 # ---------------------------------------------------------------- kernels ---
 
 GROUPS_PER_CHUNK = 16  # csrc/drs_apply_msfn.cu NG
+U_SEGMENTS = 5         # csrc/drs_apply_msfn.cu NSEGU
+CHUNK_INTS = 16        # csrc/drs_apply_msfn.cu CT_INTS
 
 
 @functools.lru_cache(maxsize=None)
@@ -237,21 +239,58 @@ def msfn_chunks(hidden: int, ng: int = GROUPS_PER_CHUNK):
 
 
 @functools.lru_cache(maxsize=None)
-def _chunk_indices(hidden: int, device):
-    """:func:`msfn_chunks` as device index tensors, made once per width and
-    device (a copy from host memory would stall the host on every call):
-    rows of u channels (W_in, b_in), of the three stage-1 tap tables, and of
-    the 2H groups (stage 2, W_out). An empty slot indexes one past the
-    table, where :func:`_gather` puts a row of zeros."""
+def msfn_u_tables(hidden: int):
+    """Where the kernel finds each chunk's operands in u.
+
+    The pre kernel stores u in its natural channel order with each path's
+    H channels padded to ``hp`` (a multiple of 8), so u is ``2 hp`` wide and
+    u channel ``path * H + c`` lies at ``pos = path * hp + c``. A chunk
+    stages up to five 8-channel segments of u a pixel; operand o reads
+    column ``col`` of them: segment ``col // 8``, channel ``col % 8``.
+
+    Returns ``hp`` and ``ctab`` (chunks, 16) int32, the kernel's chunk
+    records: k1, k2, the five segments' first positions (-1: none), 0, then
+    the 32 operands' columns as bytes (an empty slot reads column 0).
+    """
     lay = msfn_chunks(hidden)
-    h2 = 2 * hidden
+    hp = -(-hidden // 8) * 8
+    src = lay["src"]
+    pos = np.where(src < 0, -1, src // hidden * hp + src % hidden)
+    no = 2 * GROUPS_PER_CHUNK
+    nch = lay["meta"].shape[0]
+    ctab = np.zeros((nch, CHUNK_INTS), np.int32)
+    for j in range(nch):
+        p = pos[j * no:(j + 1) * no]
+        segs = sorted(set((p[p >= 0] // 8 * 8).tolist()))
+        assert len(segs) <= U_SEGMENTS, (hidden, j, segs)
+        cols = np.asarray([0 if q < 0 else segs.index(q // 8 * 8) * 8 + q % 8
+                           for q in p], np.uint8)
+        ctab[j, :2] = lay["meta"][j]
+        ctab[j, 2:2 + U_SEGMENTS] = segs + [-1] * (U_SEGMENTS - len(segs))
+        ctab[j, 8:] = cols.view("<i4")
+    return dict(hp=hp, ctab=ctab)
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_indices(hidden: int, device):
+    """:func:`msfn_chunks` and :func:`msfn_u_tables` as device tensors, made
+    once per width and device (a copy from host memory would stall the host
+    on every call): the u channel of each padded position (W_in, b_in), rows
+    of the three stage-1 tap tables, of the 2H groups (stage 2, W_out), and
+    the kernel's chunk records. An empty slot indexes one past the table,
+    where :func:`_gather` puts a row of zeros."""
+    lay = msfn_chunks(hidden)
+    ut = msfn_u_tables(hidden)
+    h2, hp = 2 * hidden, ut["hp"]
     src, group = lay["src"], lay["group"]
     taps = np.where(src < 0, 3 * h2, lay["kind"] * h2 + src)
-    return dict(src=torch.as_tensor(np.where(src < 0, h2, src), device=device),
+    q = np.arange(2 * hp)
+    unat = np.where(q % hp < hidden, q // hp * hidden + q % hp, h2)
+    return dict(unat=torch.as_tensor(unat, device=device),
+                ctab=torch.as_tensor(ut["ctab"], device=device),
                 taps=torch.as_tensor(taps, device=device),
                 group=torch.as_tensor(np.where(group < 0, h2, group),
                                       device=device),
-                meta=torch.as_tensor(lay["meta"], device=device),
                 nch=lay["meta"].shape[0])
 
 
@@ -261,10 +300,11 @@ def _gather(table, idx):
 
 
 def _pack_msfn(p: DRSBlockParams, c: int, device):
-    """The MSFN weights in the kernel's chunk order (see
-    :func:`msfn_chunks`): gathered project_in columns and project_out rows
-    (bf16), stage-1 taps (25 per operand), stage-2 taps (2 x 25 per group),
-    and their biases (fp32, None when bias-free)."""
+    """The MSFN weights as the kernel takes them: project_in's columns in
+    u's padded natural order (see :func:`msfn_u_tables`) and project_out's
+    rows in chunk order (bf16), stage-1 taps (25 per operand slot), stage-2
+    taps (2 x 25 per group), their biases (fp32, None when bias-free), and
+    the chunk records."""
     hidden = p.s3_w.shape[0]
     ix = _chunk_indices(hidden, torch.device(device))
     h2 = 2 * hidden
@@ -275,15 +315,15 @@ def _pack_msfn(p: DRSBlockParams, c: int, device):
     taps2 = torch.cat([F.pad(p.s3_w.reshape(hidden, 2, 9).float(), (0, 16)),
                        p.s5_w.reshape(hidden, 2, 25).float()])
     pk = dict(
-        win=_gather(p.in_w.reshape(h2, c), ix["src"]).t()
+        win=_gather(p.in_w.reshape(h2, c), ix["unat"]).t()
         .to(torch.bfloat16).contiguous(),
         w1=_gather(taps1, ix["taps"]).contiguous(),
         w2=_gather(taps2, ix["group"]).contiguous(),
         wout=_gather(p.out_w.reshape(c, h2).t(), ix["group"])
         .to(torch.bfloat16).contiguous(),
-        meta=ix["meta"], nch=ix["nch"])
+        ctab=ix["ctab"], nch=ix["nch"])
     pk["bin"] = None if p.in_b is None else _gather(
-        p.in_b.float(), ix["src"]).contiguous()
+        p.in_b.float(), ix["unat"]).contiguous()
     pk["b1"] = None if p.dw3_b is None else _gather(
         torch.cat([p.dw3_b, p.dw3_b, p.dw5_b]).float(), ix["taps"]).contiguous()
     pk["b2"] = None if p.s3_b is None else _gather(
@@ -291,23 +331,49 @@ def _pack_msfn(p: DRSBlockParams, c: int, device):
     return pk
 
 
-def _msfn_launch(lib, b, h, w, c, nch, device):
-    """(tile rows, y channels staged at a time, chunk split) for the card.
+# Tile heights and warps of K7's main kernel (csrc/drs_apply_msfn.cu, built
+# for 8 and 16 warps) by channel width, the fastest in ``chip_smoke.py
+# --msfn 8 4 2 --warps 8|16`` on an H100 80GB HBM3 (700 W) at DRSformer's
+# block shapes on a 512x512 image: 8 warps, two blocks an SM, win where the
+# tile's shared memory leaves room for two (C <= 96); at C = 384 only
+# th <= 4 holds the output fragments. Other widths take the tallest tile
+# that fits, at 16 warps.
+_MSFN_TILE_ROWS = {48: 8, 96: 8, 192: 8, 384: 4}
+_MSFN_WARPS = {48: 8, 96: 8, 192: 16, 384: 16}
 
-    The tallest tile of 8/4/2/1 rows whose shared memory fits, keeping all
-    of y's channels resident when they fit beside the rest, else staging
-    them in the widest slice that does. Where the tiles are fewer than two
-    per SM (the deep levels: 128 tiles at 128x128, 64 at 64x64), each
-    tile's chunks are split over that many more blocks.
+
+def _msfn_warps(c: int) -> int:
+    return _MSFN_WARPS.get(c, 16)
+
+
+def _msfn_smem(c: int, hidden: int, th: int, warps: int) -> int:
+    """Shared memory of one block of the main kernel."""
+    from image_restoration_tpu_torch.kernels.build import load_library
+
+    nch = msfn_chunks(hidden)["meta"].shape[0]
+    return load_library().lib.ir_drs_apply_msfn_smem(c, th, warps, nch)
+
+
+def _msfn_launch(b, h, w, c, hidden, device):
+    """(tile rows, warps, chunk split) for the card.
+
+    The tile height of ``_MSFN_TILE_ROWS`` if it fits, else the tallest of
+    8/4/2/1 rows that fits (shared memory, and a build that holds the
+    tile's output fragments). Where the tiles are fewer than two per SM,
+    each tile's chunks are split over that many more blocks.
     """
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    for th in (8, 4, 2, 1):
-        for kc in (c, 64, 48, 32, 16):
-            if c % kc == 0 and lib.lib.ir_drs_apply_msfn_smem(c, th, kc) <= limit:
-                tiles = b * -(-h // th) * -(-w // 16)
-                split = min(nch, -(-2 * props.multi_processor_count // tiles))
-                return th, kc, split
+    nch = msfn_chunks(hidden)["meta"].shape[0]
+    warps = _msfn_warps(c)
+    rows = (8, 4, 2, 1)
+    if c in _MSFN_TILE_ROWS:
+        rows = (_MSFN_TILE_ROWS[c],) + rows
+    for th in rows:
+        if _msfn_smem(c, hidden, th, warps) <= limit:
+            tiles = b * -(-h // th) * -(-w // 16)
+            split = min(nch, -(-2 * props.multi_processor_count // tiles))
+            return th, warps, split
     raise ValueError(f"drs_apply_msfn: C={c} too wide for the card's shared "
                      f"memory")
 
@@ -331,13 +397,15 @@ def drs_apply_msfn(v, x, atw, p: DRSBlockParams, eps: float = 1e-5):
                          f"be a multiple of 16")
     _check_params(p, x)
     lib = load_library()
+    hidden = p.s3_w.shape[0]
     pk = _pack_msfn(p, c, x.device)
-    th, kc, split = _msfn_launch(lib, b, h, w, c, pk["nch"], x.device)
+    th, warps, split = _msfn_launch(b, h, w, c, hidden, x.device)
     ln_w, ln_b = _f32(p.ln2_w), _f32(p.ln2_b)
     bp, bo = _f32(p.proj_b), _f32(p.out_b)
+    uw = pk["win"].shape[1]
 
     def launch():
-        y = torch.empty_like(x)
+        u = torch.empty((b, h, w, uw), device=x.device, dtype=torch.bfloat16)
         res = torch.empty(x.shape, device=x.device, dtype=torch.float32)
         out = torch.empty_like(x)
         part = (torch.empty((split,) + x.shape, device=x.device,
@@ -346,12 +414,12 @@ def drs_apply_msfn(v, x, atw, p: DRSBlockParams, eps: float = 1e-5):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             code = lib.lib.ir_drs_apply_msfn(
                 v.data_ptr(), x.data_ptr(), atw.data_ptr(), _ptr(bp),
-                ln_w.data_ptr(), _ptr(ln_b), _ptr(bo), y.data_ptr(),
+                ln_w.data_ptr(), _ptr(ln_b), _ptr(bo), u.data_ptr(),
                 res.data_ptr(), pk["win"].data_ptr(), _ptr(pk["bin"]),
                 pk["w1"].data_ptr(), _ptr(pk["b1"]), pk["w2"].data_ptr(),
-                _ptr(pk["b2"]), pk["wout"].data_ptr(), pk["meta"].data_ptr(),
-                out.data_ptr(), _ptr(part), b, h, w, c, pk["nch"], th, kc, split,
-                float(eps), stream)
+                _ptr(pk["b2"]), pk["wout"].data_ptr(), pk["ctab"].data_ptr(),
+                out.data_ptr(), _ptr(part), b, h, w, c, uw, pk["nch"], th,
+                warps, split, float(eps), stream)
         lib.check(code, "drs_apply_msfn")
         drs_apply_msfn.launches += 1
         return out

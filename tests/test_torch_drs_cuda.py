@@ -13,11 +13,15 @@ Rule (tests/test_tpu_kernels.py's): with the fp32 plain version as the
 oracle, the kernel's max error relative to the oracle's max magnitude is
 below max(3 x the plain bf16 version's, 4e-3).
 
+Two runs of a kernel give the same bits (no atomics, fixed orders).
+
 Shapes: pass 2 at c 48 (hidden 127, odd) and c 96 with expansion 2.0
-(hidden 192, even), both LN types (the BiasFree cases carry every conv
-bias), at 19x37, which leaves ragged tiles in both directions; plus the
-latent level's width (c 384, hidden 1021) at 9x20. The MEFC step at c 48
-and 96 on 19x37 and 5x3 (smaller than its halo).
+(hidden 192, even), both LN types with and without conv biases, at 19x37,
+which leaves ragged tiles in both directions; c 192 (hidden 510, even);
+the latent level's width (c 384, hidden 1021) at 9x20 and at 37x45
+(several tiles each way), and on a batch of two; a 1x1 and a 1-row
+image; and every tile height and warp count the wrapper can pick. The MEFC
+step at c 48 and 96 on 19x37 and 5x3 (smaller than its halo).
 """
 
 import numpy as np
@@ -28,9 +32,19 @@ from image_restoration_tpu_torch.kernels import block as KB
 from image_restoration_tpu_torch.kernels import drs_block as K
 from image_restoration_tpu_torch.kernels import mefc as M
 
-MSFN_CASES = [(19, 37, 48, 1, 2.66, "WithBias"), (19, 37, 48, 1, 2.66, "BiasFree"),
-              (19, 37, 96, 2, 2.0, "WithBias"), (19, 37, 96, 2, 2.0, "BiasFree"),
-              (9, 20, 384, 8, 2.66, "WithBias")]
+# (h, w, c, heads, expansion, ln_type, conv biases, batch)
+MSFN_CASES = [(19, 37, 48, 1, 2.66, "WithBias", False, 1),
+              (19, 37, 48, 1, 2.66, "BiasFree", True, 1),
+              (19, 37, 96, 2, 2.0, "WithBias", False, 1),
+              (19, 37, 96, 2, 2.0, "BiasFree", True, 1),
+              (9, 20, 384, 8, 2.66, "WithBias", False, 1),
+              (19, 37, 48, 1, 2.66, "WithBias", True, 1),
+              (19, 37, 96, 2, 2.0, "BiasFree", False, 1),
+              (21, 40, 192, 4, 2.66, "WithBias", False, 1),
+              (37, 45, 384, 8, 2.66, "BiasFree", True, 1),
+              (9, 20, 384, 8, 2.66, "WithBias", True, 2),
+              (1, 1, 48, 1, 2.66, "WithBias", True, 1),
+              (1, 23, 96, 2, 2.66, "BiasFree", False, 1)]
 STEP_CASES = [(19, 37, 48), (19, 37, 96), (5, 3, 48)]
 
 
@@ -50,12 +64,12 @@ def _mk(rng, device):
     return mk
 
 
-def drs_params(rng, c, heads, expansion, ln_type, device):
-    """Seeded DRSBlockParams in torch layout; conv biases only with
-    BiasFree."""
+def drs_params(rng, c, heads, expansion, ln_type, device, bias=None):
+    """Seeded DRSBlockParams in torch layout; conv biases where ``bias``
+    (by default only with BiasFree)."""
     mk = _mk(rng, device)
     h = int(c * expansion)
-    bias = ln_type == "BiasFree"
+    bias = ln_type == "BiasFree" if bias is None else bias
     cb = (lambda n: mk(n, sc=0.02)) if bias else (lambda n: None)
     lnb = (lambda: mk(c, sc=0.1)) if ln_type == "WithBias" else (lambda: None)
     return K.DRSBlockParams(
@@ -98,10 +112,11 @@ def _rel(got, oracle):
     return (got.float() - oracle.float()).abs().max().item() / scale
 
 
-def _msfn_inputs(cuda, h, w, c, heads, expansion, ln_type, seed):
+def _msfn_inputs(cuda, h, w, c, heads, expansion, ln_type, seed, bias=None,
+                 batch=1):
     rng = np.random.default_rng(seed)
-    p = drs_params(rng, c, heads, expansion, ln_type, cuda)
-    x = torch.from_numpy(rng.standard_normal((1, h, w, c)).astype(np.float32))
+    p = drs_params(rng, c, heads, expansion, ln_type, cuda, bias)
+    x = torch.from_numpy(rng.standard_normal((batch, h, w, c)).astype(np.float32))
     x = x.to(cuda, torch.bfloat16)
     v, gram, ss = KB.block_front_ref(x, p.front(), heads)
     atw = K.tksa_finalize(gram, ss, p.temperature, p.mix, p.proj_w,
@@ -109,19 +124,49 @@ def _msfn_inputs(cuda, h, w, c, heads, expansion, ln_type, seed):
     return p, x, v, atw
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("h,w,c,heads,expansion,ln_type", MSFN_CASES)
-def test_drs_apply_msfn_kernel_vs_plain(cuda, h, w, c, heads, expansion,
-                                        ln_type):
-    p, x, v, atw = _msfn_inputs(cuda, h, w, c, heads, expansion, ln_type,
-                                seed=c + heads)
+def _check_msfn(v, x, atw, p):
+    """The rule against the fp32 oracle, and two runs with equal bits."""
     oracle = K.drs_apply_msfn_ref(v.float(), x.float(), atw.float(), p)
     plain = K.drs_apply_msfn_ref(v, x, atw, p)
     got = K.drs_apply_msfn(v, x, atw, p)
+    again = K.drs_apply_msfn(v, x, atw, p)
     torch.cuda.synchronize()
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     assert torch.isfinite(got).all()
     assert _rel(got, oracle) < max(3 * _rel(plain, oracle), 4e-3)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,heads,expansion,ln_type,bias,batch",
+                         MSFN_CASES)
+def test_drs_apply_msfn_kernel_vs_plain(cuda, h, w, c, heads, expansion,
+                                        ln_type, bias, batch):
+    p, x, v, atw = _msfn_inputs(cuda, h, w, c, heads, expansion, ln_type,
+                                seed=c + heads, bias=bias, batch=batch)
+    _check_msfn(v, x, atw, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(48, 1), (96, 2), (192, 4), (384, 8)])
+def test_drs_apply_msfn_every_launch_setting(cuda, monkeypatch, c, heads):
+    """Every tile height and warp count the wrapper can pick at this width
+    (those whose shared memory and registers the card and the builds hold)
+    gives the rule and equal bits, on ragged tiles, with a chunk split."""
+    p, x, v, atw = _msfn_inputs(cuda, 19, 37, c, heads, 2.66, "BiasFree",
+                                seed=7 + c)
+    hidden = p.s3_w.shape[0]
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    ran = []
+    for warps in (8, 16):
+        for th in (8, 4, 2, 1):
+            if K._msfn_smem(c, hidden, th, warps) > limit:
+                continue
+            monkeypatch.setitem(K._MSFN_TILE_ROWS, c, th)
+            monkeypatch.setitem(K._MSFN_WARPS, c, warps)
+            _check_msfn(v, x, atw, p)
+            ran.append((th, warps))
+    assert len(ran) >= 4, ran
 
 
 @pytest.mark.cuda
@@ -185,6 +230,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         K.drs_apply_msfn(v, x.float(), atw, p)
     with pytest.raises(ValueError):
         K.drs_apply_msfn(v[:, :12], x, atw, p)
+    with pytest.raises(ValueError):  # C not a multiple of 16
+        K.drs_apply_msfn(v[..., :40].contiguous(), x[..., :40].contiguous(),
+                         atw[:, :40, :40].contiguous(), p)
+    with pytest.MonkeyPatch.context() as mp:  # no build for 12 warps
+        mp.setitem(K._MSFN_WARPS, 48, 12)
+        with pytest.raises(ValueError):
+            K.drs_apply_msfn(v, x, atw, p)
     sp = step_params(np.random.default_rng(3), 48, cuda)
     m = M.fold_step(sp, mix_weights(np.random.default_rng(4), 1, cuda),
                     torch.bfloat16)

@@ -10,9 +10,12 @@ drs_block) against the JAX package's ``drs_block_pallas``.
   are summed in other orders).
 * fp32: the plain passes round nowhere, so the fused composition must equal
   the plain block (rtol=1e-4, atol=1e-5).
-* The CUDA kernel walks MSFN in chunks of 16 stage-2 groups through tables
-  (``msfn_chunks``, ``_pack_msfn``); the walk, replayed with torch convs on
-  those tables, must give the plain MSFN (fp32, atol=1e-5).
+* The CUDA kernel computes u once per pixel in its padded natural order,
+  then walks MSFN in chunks of 16 stage-2 groups through tables
+  (``msfn_chunks``, ``msfn_u_tables``, ``_pack_msfn``): each chunk stages
+  a few 8-channel segments of u and reads its operands at their columns.
+  The walk, replayed with torch convs on those tables, must give the plain
+  MSFN (fp32, rtol=atol=1e-5).
 
 Cases cover both LN types and both hidden parities: c 16 with expansion
 2.66 (hidden 42, even) and 2.0 (32), c 24 with 2.66 (hidden 63, odd: one
@@ -133,9 +136,10 @@ def test_fused_drs_block_fp32_equals_reference(c, heads, expansion, ln_type):
 
 
 def _replay_kernel_walk(v, x, atw, p, eps):
-    """drs_apply_msfn's chunk walk in fp32 torch, on the packed tables: u of
-    the chunk's 32 operands, their stage-1 taps (k1), the 16 pairs' stage-2
-    taps (k2), and the gathered project_out rows."""
+    """drs_apply_msfn's walk in fp32 torch, on the packed tables: u once, in
+    its stored order; per chunk the staged u segments and each operand's
+    column among them, the 32 operands' stage-1 taps (k1), the 16 pairs'
+    stage-2 taps (k2), and the gathered project_out rows."""
     b, h, w, c = x.shape
     pk = TK._pack_msfn(p, c, "cpu")
     ao = torch.bmm(v.reshape(b, h * w, c), atw).reshape(b, h, w, c) + x
@@ -144,12 +148,17 @@ def _replay_kernel_walk(v, x, atw, p, eps):
     y = layer_norm_f32(ao, p.ln2_w, p.ln2_b, eps)
     acc = ao if p.out_b is None else ao + p.out_b
     ng, no = TK.GROUPS_PER_CHUNK, 2 * TK.GROUPS_PER_CHUNK
+    u_all = y @ pk["win"].float()
+    if pk["bin"] is not None:
+        u_all = u_all + pk["bin"]
     for j in range(pk["nch"]):
-        k1, k2 = pk["meta"][j].tolist()
+        rec = pk["ctab"][j].numpy()
+        k1, k2 = rec[:2].tolist()
+        staged = torch.cat([u_all[..., s:s + 8] if s >= 0
+                            else torch.zeros_like(u_all[..., :8])
+                            for s in rec[2:2 + TK.U_SEGMENTS].tolist()], -1)
+        u = staged[..., torch.from_numpy(rec[8:].view(np.uint8).astype(np.int64))]
         ops, grp = slice(j * no, (j + 1) * no), slice(j * ng, (j + 1) * ng)
-        u = y @ pk["win"][:, ops].float()
-        if pk["bin"] is not None:
-            u = u + pk["bin"][ops]
         d = F.conv2d(u.permute(0, 3, 1, 2),
                      pk["w1"][ops, :k1 * k1].reshape(no, 1, k1, k1),
                      None if pk["b1"] is None else pk["b1"][ops],
@@ -179,10 +188,23 @@ def test_kernel_chunk_tables_reproduce_msfn(c, heads, expansion, ln_type):
                                atol=1e-5)
 
 
+def _u_reads(hidden):
+    """The position in stored u that each operand slot reads through the
+    kernel's chunk records (segment start + column), and whether that
+    segment is staged."""
+    ctab = TK.msfn_u_tables(hidden)["ctab"]
+    cols = np.ascontiguousarray(ctab[:, 8:]).view(np.uint8).astype(np.int64)
+    segs = ctab[:, 2:2 + TK.U_SEGMENTS]
+    seg = np.take_along_axis(segs, cols // 8, axis=1)
+    return (seg + cols % 8).reshape(-1), (seg >= 0).reshape(-1)
+
+
 def test_msfn_chunks_pair_every_operand_once():
     """Every (u channel, bank) operand is used by exactly one stage-2 group,
     in both hidden parities, and the odd width's mixed group pairs
-    d3[H-1] (padded to 5x5) with d5[0]."""
+    d3[H-1] (padded to 5x5) with d5[0]. Through the kernel's u tables each
+    operand reads its own channel's stored position, from a staged segment,
+    the mixed group's included."""
     for hidden in (127, 510):
         lay = TK.msfn_chunks(hidden)
         real = lay["src"] >= 0
@@ -191,10 +213,24 @@ def test_msfn_chunks_pair_every_operand_once():
         assert len(ops) == real.sum() == 4 * hidden
         assert sorted(lay["group"][lay["group"] >= 0]) == list(range(2 * hidden))
         assert len(lay["meta"]) * TK.GROUPS_PER_CHUNK == len(lay["group"])
+        ut = TK.msfn_u_tables(hidden)
+        hp = ut["hp"]
+        read, staged = _u_reads(hidden)
+        want = lay["src"] // hidden * hp + lay["src"] % hidden
+        assert staged.all() and (read[real] == want[real]).all()
+        # each stored channel is read once as a d3 and once as a d5 operand
+        kinds = set(zip(read[real], lay["kind"][real] // 2))
+        assert len(kinds) == 4 * hidden
+        assert ut["ctab"].shape == (len(lay["meta"]), TK.CHUNK_INTS)
+        assert (ut["ctab"][:, :2] == lay["meta"]).all()
     lay = TK.msfn_chunks(127)
     g = int(np.flatnonzero(lay["group"] == 63)[0])  # path 0, group 63
     assert list(lay["src"][2 * g:2 * g + 2]) == [126, 0]
     assert list(lay["kind"][2 * g:2 * g + 2]) == [1, 2]
+    read, _ = _u_reads(127)
+    assert list(read[2 * g:2 * g + 2]) == [126, 0]
+    g = int(np.flatnonzero(lay["group"] == 127 + 63)[0])  # path 1's
+    assert list(read[2 * g:2 * g + 2]) == [128 + 126, 128]
 
 
 def test_cpu_wrappers_use_plain_versions_without_counting():

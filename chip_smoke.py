@@ -7,6 +7,7 @@ Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
     python3 chip_smoke.py --tail [ROWS ...] [--warps 8|16]
     python3 chip_smoke.py --front [ROWS ...] [--warps 8|16]
     python3 chip_smoke.py --msfn [ROWS ...] [--warps 8|16]
+    python3 chip_smoke.py --mefc [ROWS ...]
 
 The second form checks and times only the two kernels that share the GDFN
 tail (K2, K3), at the wrappers' tile height and warps or at those given: the
@@ -15,8 +16,11 @@ The third does the same for the two kernels that share the block front (K1,
 K4; ``_FRONT_TILE_ROWS``/``_FRONT_WARPS`` in ``kernels/block.py``,
 ``_QKV_TILE_ROWS``/``_QKV_WARPS`` in ``kernels/mdta.py``). The fourth does
 it for DRSformer's MSFN pass (K7) at the five block shapes of phase 2b
-(``_MSFN_TILE_ROWS``/``_MSFN_WARPS`` in ``kernels/drs_block.py``). None of
-them prints a result line.
+(``_MSFN_TILE_ROWS``/``_MSFN_WARPS`` in ``kernels/drs_block.py``). The
+fifth does it for the MEFC step (K8, 16 warps a block) at its two shapes,
+with a batch of two at both and the wrapper's weight packing timed apart
+(``_MEFC_TILE_ROWS`` in ``kernels/mefc.py``). None of them prints a result
+line.
 
 Phases, any failure ends the run with a nonzero exit code:
 1. device and build: the card's name and power limit; the CUDA kernels are
@@ -31,7 +35,9 @@ Phases, any failure ends the run with a nonzero exit code:
    Times are CUDA-event medians;
 2b. the same for DRSformer's kernels: the MSFN pass (K7) at the five block
    shapes of DRSformer serving a 512x512 image, with K1's two extra checks,
-   and the MEFC step (K8) at 512x512 x 48 and x 96, four steps each;
+   and the MEFC step (K8) at 512x512 x 48 and x 96, four steps each, with
+   two bit-equal runs of every step and, at x 96, a batch of two whose
+   images have different mix weights;
 3. the Restormer serving slice: Restormer-base from ``build_model`` (bf16,
    fused blocks, seeded random weights) restores three images through
    ``make_restore_fn``. The outputs must be finite; each forward must launch
@@ -89,6 +95,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -520,6 +527,34 @@ def _sweep_calls(group, x, p, heads, c):
     }
 
 
+@contextlib.contextmanager
+def _kept(c, *tables):
+    """Puts back each launch table's entry for width ``c`` (or its absence)
+    when the sweep that changes them ends."""
+    saved = [t.get(c) for t in tables]
+    try:
+        yield
+    finally:
+        for t, v in zip(tables, saved):
+            if v is None:
+                t.pop(c, None)
+            else:
+                t[c] = v
+
+
+def _try_rows(label, table, c, th, smem_of, limit):
+    """Sets ``table[c] = th`` when a block of ``th`` rows fits the card's
+    shared memory, else says so and returns False; ``th`` None keeps the
+    wrapper's own choice."""
+    if th is None:
+        return True
+    if smem_of(th) > limit:
+        print(f"{label}: does not fit", flush=True)
+        return False
+    table[c] = th
+    return True
+
+
 def phase_sweep(group, rows, warps=None):
     """The kernels of ``group`` alone (``--tail``: K2 and K3, which share
     the GDFN tail; ``--front``: K1 and K4, which share the block front;
@@ -543,40 +578,33 @@ def phase_sweep(group, rows, warps=None):
                    warps_table, warps_of, smem_of) in _sweep_calls(
                        group, x, p, heads, c).items():
             wtable, table = getattr(mod, warps_table), getattr(mod, rows_table)
-            chosen_w, chosen = wtable.get(c), table.get(c)
-            if warps is not None:
-                wtable[c] = warps
-            plain, oracle = plain_fn(), oracle_fn()
-            t_p = time_cuda(plain_fn)
-            for th in rows or [None]:
-                where = f"{h}x{w}x{c} th {th or 'own'}"
-                if th is not None:
-                    if smem_of(th) > limit:
-                        print(f"{group} {name} {where}: does not fit",
-                              flush=True)
+            with _kept(c, table, wtable):
+                if warps is not None:
+                    wtable[c] = warps
+                plain, oracle = plain_fn(), oracle_fn()
+                t_p = time_cuda(plain_fn)
+                for th in rows or [None]:
+                    where = f"{h}x{w}x{c} th {th or 'own'}"
+                    if not _try_rows(f"{group} {name} {where}", table, c, th,
+                                     smem_of, limit):
                         continue
-                    table[c] = th
-                kern = kern_fn()
-                torch.cuda.synchronize()
-                msg = "; ".join(
-                    _check_rule(name, where, k, pl, o) for k, pl, o in
-                    zip(_outputs(kern), _outputs(plain), _outputs(oracle)))
-                check_twice_and_batch2(name, where, kern_fn, kern,
-                                       batch2 if c == 384 else None)
-                t_k = time_cuda(kern_fn)
-                detail = (f" ({warps_of()} warps, {smem_of(th)} B shared)"
-                          if th is not None else "")
-                print(f"{group} {name} {where}{detail}: rel err {msg}; "
-                      f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms", flush=True)
-                sums.setdefault((name, th or "own"), []).append(
-                    (n_blocks * t_k, n_blocks * t_p))
-                del kern
-            for t, v in ((table, chosen), (wtable, chosen_w)):
-                if v is None:
-                    t.pop(c, None)
-                else:
-                    t[c] = v
-            del plain, oracle
+                    kern = kern_fn()
+                    torch.cuda.synchronize()
+                    msg = "; ".join(
+                        _check_rule(name, where, k, pl, o) for k, pl, o in
+                        zip(_outputs(kern), _outputs(plain), _outputs(oracle)))
+                    check_twice_and_batch2(name, where, kern_fn, kern,
+                                           batch2 if c == 384 else None)
+                    t_k = time_cuda(kern_fn)
+                    detail = (f" ({warps_of()} warps, {smem_of(th)} B shared)"
+                              if th is not None else "")
+                    print(f"{group} {name} {where}{detail}: rel err {msg}; "
+                          f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
+                          flush=True)
+                    sums.setdefault((name, th or "own"), []).append(
+                        (n_blocks * t_k, n_blocks * t_p))
+                    del kern
+                del plain, oracle
     for (name, th), parts in sums.items():
         if len(parts) == len(levels):
             print(f"{group} {name} th {th}: {sum(k for k, _ in parts):.3f} "
@@ -742,36 +770,92 @@ def phase_drs_kernels():
                 bound_drs_apply_msfn(h, w, c))
 
     for i, (h, w, c, n_steps) in enumerate(MEFC_STEPS):
-        steps, mix = random_mefc_steps(c, n_steps, seed=500 + i)
-        gen = torch.Generator().manual_seed(600 + i)
-        x = torch.randn((1, h, w, c), generator=gen).abs()
-        x = x.to("cuda", torch.bfloat16)
-        errs, t_ks, t_ps, abs_err = [], [], [], 0.0
-        for st, sp in enumerate(steps):  # each step on the plain chain's input
-            m = M.fold_step(sp, mix[:, st], torch.bfloat16)
-            oracle = M.mefc_step_ref(
-                x.float(), sp, M.fold_step(sp, mix[:, st], torch.float32))
-            plain = M.mefc_step_ref(x, sp, m)
-            kern = M.mefc_step(x, sp, m)
-            torch.cuda.synchronize()
-            ek, ep = rel_err(kern, oracle), rel_err(plain, oracle)
-            check(torch.isfinite(kern).all().item(),
-                  f"mefc_step not finite at {h}x{w}x{c} step {st}")
-            check(ek < _bound(ep), f"mefc_step at {h}x{w}x{c} step {st}: rel "
-                  f"err {ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
-            errs.append(f"{ek:.3e} (plain {ep:.3e})")
-            abs_err = max(abs_err,
-                          (kern.float() - plain.float()).abs().max().item())
-            t_ks.append(time_cuda(lambda: M.mefc_step(x, sp, m)))
-            t_ps.append(time_cuda(lambda: M.mefc_step_ref(x, sp, m)))
-            x = plain
-        t_k, t_p = statistics.median(t_ks), statistics.median(t_ps)
-        print(f"mefc_step {h}x{w}x{c}, {n_steps} steps: rel err "
-              f"{'; '.join(errs)}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms "
-              f"(median over the steps)", flush=True)
+        t_k, t_p, msg, abs_err = _mefc_shape(i, h, w, c, n_steps,
+                                             batch2=c == 96)
+        print(f"mefc_step {h}x{w}x{c}, {n_steps} steps: rel err {msg}; "
+              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median over the "
+              f"steps)", flush=True)
         _record(report, "mefc_step", [1, h, w, c], n_steps, t_k, t_p, abs_err,
                 bound_mefc_step(h, w, c))
     return report
+
+
+def _mefc_shape(i, h, w, c, n_steps, batch2, plain=True):
+    """K8 at shape ``i`` of MEFC_STEPS, each step on the plain chain's
+    input: phase 2's rule, two bit-equal runs and, with ``batch2``, the rule
+    on a batch of two whose images have different mix weights (the second
+    image's M has its ops flipped). Returns the kernel's and (with
+    ``plain``) the plain version's median ms over the steps, the errors and
+    the max |kernel - plain|."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import mefc as M
+
+    steps, mix = random_mefc_steps(c, n_steps, seed=500 + i)
+    gen = torch.Generator().manual_seed(600 + i)
+    x = torch.randn((1, h, w, c), generator=gen).abs()
+    x = x.to("cuda", torch.bfloat16)
+    errs, t_ks, t_ps, abs_err = [], [], [], 0.0
+    for st, sp in enumerate(steps):
+        where = f"{h}x{w}x{c} step {st}"
+        m = M.fold_step(sp, mix[:, st], torch.bfloat16)
+        oracle = M.mefc_step_ref(
+            x.float(), sp, M.fold_step(sp, mix[:, st], torch.float32))
+        ref = M.mefc_step_ref(x, sp, m)
+        kern = M.mefc_step(x, sp, m)
+        torch.cuda.synchronize()
+        errs.append(_check_rule("mefc_step", where, kern, ref, oracle))
+        del oracle
+        check_twice_and_batch2(
+            "mefc_step", where, lambda: M.mefc_step(x, sp, m), kern,
+            _batch2(lambda x2, m2: M.mefc_step(x2, sp, m2),
+                    lambda x2, m2: M.mefc_step_ref(x2, sp, m2), (x, m))
+            if batch2 else None)
+        abs_err = max(abs_err, (kern.float() - ref.float()).abs().max().item())
+        t_ks.append(time_cuda(lambda: M.mefc_step(x, sp, m)))
+        if plain:
+            t_ps.append(time_cuda(lambda: M.mefc_step_ref(x, sp, m)))
+        x = ref
+    return (statistics.median(t_ks),
+            statistics.median(t_ps) if plain else None, "; ".join(errs),
+            abs_err)
+
+
+def phase_mefc_sweep(rows):
+    """``--mefc``: K8 alone at its two shapes (phase 2b's checks, with a
+    batch of two at both), once per tile height in ``rows`` that fits the
+    card (none given: the wrapper's own choice); per-step and per-forward
+    times, and the wrapper's weight packing timed apart."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import mefc as M
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    sums = {}
+    for i, (h, w, c, n_steps) in enumerate(MEFC_STEPS):
+        _, t_p, _, _ = _mefc_shape(i, h, w, c, 1, batch2=False)
+        steps, _ = random_mefc_steps(c, 1, seed=500 + i)
+        t_pack = time_cuda(lambda: M._pack_step(steps[0]))
+        print(f"mefc {h}x{w}x{c}: plain {t_p:.4f} ms a step (step 0); the "
+              f"wrapper's weight packing {t_pack:.4f} ms a call", flush=True)
+        with _kept(c, M._MEFC_TILE_ROWS):
+            for th in rows or [None]:
+                where = f"mefc {h}x{w}x{c} th {th or 'own'}"
+                if not _try_rows(where, M._MEFC_TILE_ROWS, c, th,
+                                 lambda t: M._mefc_smem(c, t), limit):
+                    continue
+                used = M._mefc_tile_rows(1, h, w, c, torch.device("cuda"))
+                t_k, _, msg, _ = _mefc_shape(i, h, w, c, n_steps, batch2=True,
+                                             plain=False)
+                print(f"{where} (th {used}, {M._mefc_smem(c, used)} B "
+                      f"shared): rel err {msg}; kernel {t_k:.4f} ms a step "
+                      f"(median of {n_steps}), {n_steps * t_k:.4f} ms a "
+                      f"forward", flush=True)
+                sums.setdefault(th or "own", []).append(n_steps * t_k)
+    for th, parts in sums.items():
+        if len(parts) == len(MEFC_STEPS):
+            print(f"mefc th {th}: {sum(parts):.4f} ms per forward "
+                  f"({MEFC_STEPS_PER_FORWARD} steps)", flush=True)
 
 
 def _profile(fn, inputs, profile_dir, tag, gpu, what):
@@ -1111,10 +1195,19 @@ def main(argv=None):
                     metavar="ROWS",
                     help="only K7 at DRSformer's five block shapes, as "
                          "--tail; prints no result line")
+    ap.add_argument("--mefc", nargs="*", type=int, default=None,
+                    metavar="ROWS",
+                    help="only K8 at its two shapes: the rule, two equal "
+                         "runs, batch 2 and the times, at the wrapper's tile "
+                         "height or at each of ROWS; prints no result line")
     ap.add_argument("--warps", type=int, default=None, choices=[8, 16],
                     help="with --tail, --front or --msfn: warps a block at "
                          "every width")
     args = ap.parse_args(argv)
+    sweeps = {"tail": args.tail, "front": args.front, "msfn": args.msfn}
+    if args.warps is not None and all(r is None for r in sweeps.values()):
+        ap.error("--warps goes with --tail, --front or --msfn (K8 runs 16 "
+                 "warps a block)")
 
     import torch
 
@@ -1146,11 +1239,13 @@ def main(argv=None):
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    sweeps = {"tail": args.tail, "front": args.front, "msfn": args.msfn}
-    if any(rows is not None for rows in sweeps.values()):
+    if args.mefc is not None or any(rows is not None
+                                    for rows in sweeps.values()):
         for group, rows in sweeps.items():
             if rows is not None:
                 phase_sweep(group, rows, args.warps)
+        if args.mefc is not None:
+            phase_mefc_sweep(args.mefc)
         print(gpu)
         return 0
 

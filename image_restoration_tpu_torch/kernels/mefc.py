@@ -155,12 +155,45 @@ def _taps(ws):
                      ).contiguous()
 
 
+# Tile heights of the step kernel (csrc/mefc_step.cu, 16 warps a block) by
+# channel width, the fastest in ``chip_smoke.py --mefc 8 4`` on an H100
+# 80GB HBM3 (700 W) at DRSformer's two Subnet shapes on a 512x512 image:
+# the tallest tile that fits, one block an SM (th 8 at C = 48 beat th 4
+# with two blocks an SM; th 8 does not fit at C = 96). Other widths take
+# the tallest tile that fits and still gives every SM a block.
+_MEFC_TILE_ROWS = {48: 8, 96: 4}
+
+
+def _mefc_smem(c: int, th: int) -> int:
+    """Shared memory of one block; more than any card has when no build of
+    the kernel takes ``c`` and ``th``."""
+    from image_restoration_tpu_torch.kernels.build import load_library
+
+    return load_library().lib.ir_mefc_step_smem(c, th)
+
+
+def _mefc_tile_rows(b, h, w, c, device) -> int:
+    """``_MEFC_TILE_ROWS``'s if it fits the card, else the tallest of
+    8/4/2/1 rows that fits and gives every SM a block."""
+    return _pick_tile_rows(_MEFC_TILE_ROWS.get(c), lambda t: _mefc_smem(c, t),
+                           lambda t: _tiles(b, h, w, t), device)
+
+
+def _pack_step(sp: StepParams):
+    """The step's weights as the kernel takes them: the four W1 (4, C, C)
+    bf16, (in, out); the SepConvs' first and second taps and the DilConvs'
+    taps, fp32 (sum k^2, C)."""
+    w1 = torch.stack([_io(wt) for wt in sp.sep_w1]).to(torch.bfloat16)
+    return (w1.contiguous(), _taps(sp.sep_dwa), _taps(sp.sep_dwb),
+            _taps(sp.dil_dw))
+
+
 def mefc_step(x, sp: StepParams, m):
     """One op-mixture step: relu(relu(sum_op op(x) @ M_op) + x), (B, H, W, C)
     in x's dtype.
 
-    x: (B, H, W, C) bf16 on the GPU, C a multiple of 16, any H and W;
-    m: (B, 8, C, C) bf16 from :func:`fold_step`.
+    x: (B, H, W, C) bf16 on the GPU, C a multiple of 16 up to 128, any H and
+    W; m: (B, 8, C, C) bf16 from :func:`fold_step`.
     """
     if x.device.type == "cpu":
         return mefc_step_ref(x, sp, m)
@@ -172,17 +205,16 @@ def mefc_step(x, sp: StepParams, m):
     if c % 16 or m.shape != (b, NUM_OPS, c, c):
         raise ValueError(f"mefc_step: x {tuple(x.shape)}, m {tuple(m.shape)};"
                          f" C must be a multiple of 16")
+    if x.data_ptr() % 16 or m.data_ptr() % 16:
+        raise ValueError("x and m must start on a 16-byte boundary (the "
+                         "kernel copies 16 bytes at a time)")
     for t in (*sp.sep_dwa, *sp.sep_w1, *sp.sep_dwb, *sp.dil_dw):
         if t.device != x.device:
             raise ValueError(f"a step parameter is on {t.device}, the input "
                              f"on {x.device}")
     lib = load_library()
-    # the tallest tile that fits shared memory: 8 rows at C = 48, 4 at 96
-    th = _pick_tile_rows(None, lambda t: lib.lib.ir_mefc_step_smem(c, t),
-                         lambda t: _tiles(b, h, w, t), x.device)
-    w1 = torch.stack([_io(wt) for wt in sp.sep_w1]).to(torch.bfloat16)
-    w1 = w1.contiguous()
-    dwa, dwb, dwd = _taps(sp.sep_dwa), _taps(sp.sep_dwb), _taps(sp.dil_dw)
+    th = _mefc_tile_rows(b, h, w, c, x.device)
+    w1, dwa, dwb, dwd = _pack_step(sp)
 
     def launch():
         out = torch.empty_like(x)

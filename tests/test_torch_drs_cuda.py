@@ -21,7 +21,11 @@ which leaves ragged tiles in both directions; c 192 (hidden 510, even);
 the latent level's width (c 384, hidden 1021) at 9x20 and at 37x45
 (several tiles each way), and on a batch of two; a 1x1 and a 1-row
 image; and every tile height and warp count the wrapper can pick. The MEFC
-step at c 48 and 96 on 19x37 and 5x3 (smaller than its halo).
+step at c 48 and 96 on 19x37, on 40x70 (several tiles each way), on a 5x3
+image (smaller than its halo), a 1x1 and a 1-row image, on batches of two
+whose images have different mix weights (so different M), at every tile
+height the wrapper can pick, and at c 64 and 128 (the
+kernel built for any width; 48 and 96 have builds of their own).
 """
 
 import numpy as np
@@ -45,7 +49,11 @@ MSFN_CASES = [(19, 37, 48, 1, 2.66, "WithBias", False, 1),
               (9, 20, 384, 8, 2.66, "WithBias", True, 2),
               (1, 1, 48, 1, 2.66, "WithBias", True, 1),
               (1, 23, 96, 2, 2.66, "BiasFree", False, 1)]
-STEP_CASES = [(19, 37, 48), (19, 37, 96), (5, 3, 48)]
+# (h, w, c, batch)
+STEP_CASES = [(19, 37, 48, 2), (19, 37, 96, 2), (5, 3, 48, 2),
+              (40, 70, 48, 1), (40, 70, 96, 1), (40, 70, 96, 2),
+              (1, 1, 48, 1), (1, 23, 96, 1), (1, 23, 48, 2),
+              (19, 37, 64, 2), (9, 20, 128, 1)]
 
 
 @pytest.fixture
@@ -169,22 +177,56 @@ def test_drs_apply_msfn_every_launch_setting(cuda, monkeypatch, c, heads):
     assert len(ran) >= 4, ran
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("h,w,c", STEP_CASES)
-def test_mefc_step_kernel_vs_plain(cuda, h, w, c):
-    rng = np.random.default_rng(c + h)
+def _step_inputs(cuda, h, w, c, batch, seed):
+    rng = np.random.default_rng(seed)
     sp = step_params(rng, c, cuda)
-    x = torch.from_numpy(rng.standard_normal((2, h, w, c)).astype(np.float32))
-    x = x.to(cuda, torch.bfloat16)
-    mix = mix_weights(rng, 2, cuda)
+    x = torch.from_numpy(rng.standard_normal((batch, h, w, c)).astype(np.float32))
+    return sp, x.to(cuda, torch.bfloat16), mix_weights(rng, batch, cuda)
+
+
+def _check_step(x, sp, mix):
+    """The rule against the fp32 oracle (M folded in fp32), and two runs
+    with equal bits."""
     oracle = M.mefc_step_ref(x.float(), sp, M.fold_step(sp, mix, torch.float32))
     m = M.fold_step(sp, mix, torch.bfloat16)
     plain = M.mefc_step_ref(x, sp, m)
     got = M.mefc_step(x, sp, m)
+    again = M.mefc_step(x, sp, m)
     torch.cuda.synchronize()
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     assert torch.isfinite(got).all()
     assert _rel(got, oracle) < max(3 * _rel(plain, oracle), 4e-3)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,batch", STEP_CASES)
+def test_mefc_step_kernel_vs_plain(cuda, h, w, c, batch):
+    """The rule above and equal bits; a batch's images have different mix
+    weights, so each must read its own M."""
+    sp, x, mix = _step_inputs(cuda, h, w, c, batch, seed=c + h)
+    if batch == 2:
+        assert not torch.equal(mix[0], mix[1])
+    _check_step(x, sp, mix)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [48, 96])
+def test_mefc_step_every_launch_setting(cuda, monkeypatch, c):
+    """Every tile height the wrapper can pick at this width (those whose
+    shared memory the card and the builds hold) gives the rule and equal
+    bits, on ragged tiles and a batch of two."""
+    sp, x, mix = _step_inputs(cuda, 19, 37, c, 2, seed=11 + c)
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    ran = []
+    for th in (8, 4, 2, 1):
+        if M._mefc_smem(c, th) > limit:
+            continue
+        monkeypatch.setitem(M._MEFC_TILE_ROWS, c, th)
+        assert M._mefc_tile_rows(2, 19, 37, c, x.device) == th
+        _check_step(x, sp, mix)
+        ran.append(th)
+    assert len(ran) >= 3, ran
 
 
 @pytest.mark.cuda
@@ -244,3 +286,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         M.mefc_step(x.transpose(1, 2), sp, m)
     with pytest.raises(ValueError):
         M.mefc_step(x, sp, m[:, :7])
+    with pytest.raises(ValueError, match="16-byte"):
+        M.mefc_step(x.reshape(-1)[4:4 + 19 * 36 * 48].reshape(1, 19, 36, 48),
+                    sp, m)
+    with pytest.raises(ValueError, match="16-byte"):
+        M.mefc_step(x, sp, torch.zeros(m.numel() + 4, device=cuda,
+                                       dtype=m.dtype)[4:].view(m.shape))

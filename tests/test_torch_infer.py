@@ -85,8 +85,9 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("args", [[], ["--tail", "8"],
                                   ["--front", "8", "4", "--warps", "16"],
-                                  ["--msfn", "8", "4", "--warps", "8"]],
-                         ids=["full", "tail", "front", "msfn"])
+                                  ["--msfn", "8", "4", "--warps", "8"],
+                                  ["--mefc", "4", "2"]],
+                         ids=["full", "tail", "front", "msfn", "mefc"])
 def test_chip_smoke_refuses_without_cuda(tmp_path, args):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     res = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),

@@ -8,6 +8,8 @@ Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
     python3 chip_smoke.py --front [ROWS ...] [--warps 8|16]
     python3 chip_smoke.py --msfn [ROWS ...] [--warps 8|16]
     python3 chip_smoke.py --mefc [ROWS ...]
+    python3 chip_smoke.py --attn [PIX ...] [--warps 4|8] [--cols N]
+                                 [--groups N] [--ring 2|3] [--walk N]
 
 The second form checks and times only the two kernels that share the GDFN
 tail (K2, K3), at the wrappers' tile height and warps or at those given: the
@@ -19,8 +21,14 @@ it for DRSformer's MSFN pass (K7) at the five block shapes of phase 2b
 (``_MSFN_TILE_ROWS``/``_MSFN_WARPS`` in ``kernels/drs_block.py``). The
 fifth does it for the MEFC step (K8, 16 warps a block) at its two shapes,
 with a batch of two at both and the wrapper's weight packing timed apart
-(``_MEFC_TILE_ROWS`` in ``kernels/mefc.py``). None of them prints a result
-line.
+(``_MEFC_TILE_ROWS`` in ``kernels/mefc.py``). The sixth does it for the
+attention core (K5, K6) at the five block shapes: phase 2d's rule (K5 also
+1e-5 of its plain version), two bit-equal runs of both, a batch of two at
+64x64 x 384 whose images differ, and their times, at the wrappers' pixels a
+tile or at each of PIX, with K6's warps a block, output columns a warp and
+column groups and K5's tile slots and fewest tiles a block walks as given; K6's weight packing and the host time
+of a wrapper call are timed apart (the sweep behind ``kernels/attn_core.py``
+``_ACC_*`` and ``_APPLY_*``). None of them prints a result line.
 
 Phases, any failure ends the run with a nonzero exit code:
 1. device and build: the card's name and power limit; the CUDA kernels are
@@ -63,7 +71,9 @@ Phases, any failure ends the run with a nonzero exit code:
    (K4, with K1's two extra checks), the attention accumulation (K5,
    against its plain version on the fp32 oracle's q and k, and also held to
    its plain version on the same bf16 map at 1e-5 relative), the attention
-   apply (K6) and LN + GDFN (K3, with K2's two extra checks);
+   apply (K6), both with K1's two extra checks (the batch of two with A^T's
+   heads reversed in its second image), and LN + GDFN (K3, with K2's two
+   extra checks);
 3d. Restormer-base with ``fused_block=False, fused_attn=True,
    fused_gdfn=True`` served as phase 3: 44 launches of each of K3-K6 per
    forward, the same agreement rule (the plain models turn all three flags
@@ -613,6 +623,147 @@ def phase_sweep(group, rows, warps=None):
                   f"{sum(p for _, p in parts):.3f}", flush=True)
 
 
+def check_attn_twice_and_batch2(shape, qkv, x, at, p, heads, batch2):
+    """K5's and K6's extra checks (phase 2d, ``--attn``): two runs give
+    the same bits; with ``batch2``, a batch of two (each input stacked with
+    its flip along H, and A^T with its heads reversed, so the two images
+    differ) holds phase 2's rule, K5 at 1e-5 of its plain version (which
+    widens the same bf16 map exactly, so the rule's oracle is the plain
+    version itself)."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import attn_core as KA
+
+    check_twice_and_batch2("attn_acc", shape,
+                           lambda: KA.attn_acc(qkv, heads),
+                           KA.attn_acc(qkv, heads))
+    if batch2:
+        two = torch.cat([qkv, qkv.flip(1)])
+        kern, plain = KA.attn_acc(two, heads), KA.attn_acc_ref(two, heads)
+        errs = [rel_err(k, pl) for k, pl in zip(kern, plain)]
+        check(all(k.isfinite().all().item() for k in kern) and
+              max(errs) < 1e-5, f"attn_acc at {shape} batch 2: rel err "
+              f"{errs} against its plain version, above 1e-5")
+        print(f"attn_acc {shape} batch 2: rel err against plain "
+              f"{max(errs):.3e}", flush=True)
+
+    def apply_fn(fn):
+        return lambda q2, x2, a2: fn(q2, x2, a2, p.proj_w, p.proj_b)
+
+    check_twice_and_batch2(
+        "attn_apply", shape, lambda: KA.attn_apply(qkv, x, at, p.proj_w,
+                                                   p.proj_b),
+        KA.attn_apply(qkv, x, at, p.proj_w, p.proj_b),
+        _batch2(apply_fn(KA.attn_apply), apply_fn(KA.attn_apply_ref),
+                (qkv, x, at)) if batch2 else None)
+
+
+def phase_attn_sweep(pixels, warps=None, cols=None, groups=None,
+                     ring=None, walk=None):
+    """``--attn``: K5 and K6 alone at the five block shapes: phase 2d's
+    rule (K5 also 1e-5 of its plain version), two equal runs, a batch of
+    two at 64x64 x 384, and the kernels' times, once per tile size in
+    ``pixels`` (none given: the wrappers' own), with K6's warps, columns a
+    warp and column groups and K5's tile slots (``ring``) and fewest tiles
+    a block walks (``walk``) as given (None: the wrappers' own). The wrapper's weight
+    packing and a wrapper call's host time are timed apart."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import attn_core as KA
+    from image_restoration_tpu_torch.kernels import mdta as KM
+    from image_restoration_tpu_torch.kernels.build import load_library
+
+    lib = load_library().lib
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    sums = {}
+    for i, (h, w, c, heads, n_blocks) in enumerate(LEVELS):
+        p = random_block(c, heads, seed=100 + i)
+        gen = torch.Generator().manual_seed(200 + i)
+        x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
+        f = p.front()
+        oqkv = KM.ln_qkv_dwconv_ref(x.float(), f)
+        qkv = oqkv.to(torch.bfloat16)
+        gram_o = KA.attn_acc_ref(oqkv, heads)
+        del oqkv
+        gram_p = KA.attn_acc_ref(qkv, heads)
+        at = KA.finalize_at(*gram_p, p.temperature, torch.bfloat16)
+        out_p = KA.attn_apply_ref(qkv, x, at, p.proj_w, p.proj_b)
+        out_o = KA.attn_apply_ref(qkv.float(), x.float(), at.float(),
+                                  p.proj_w, p.proj_b)
+        t_pa = time_cuda(lambda: KA.attn_acc_ref(qkv, heads))
+        t_pb = time_cuda(
+            lambda: KA.attn_apply_ref(qkv, x, at, p.proj_w, p.proj_b))
+        t_pack = time_cuda(lambda: KA._apply_weights(p.proj_w, p.proj_b))
+        host = {}
+        for name, fn in (("attn_acc", lambda: KA.attn_acc(qkv, heads)),
+                         ("attn_apply", lambda: KA.attn_apply(
+                             qkv, x, at, p.proj_w, p.proj_b))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            host[name] = (time.perf_counter() - t0) / 50 * 1e3
+            torch.cuda.synchronize()
+        shape = f"{h}x{w}x{c} heads {heads}"
+        print(f"attn {shape}: plain acc {t_pa:.4f} ms, plain apply "
+              f"{t_pb:.4f} ms; the wrapper's weight packing {t_pack:.4f} "
+              f"ms on the card; host ms a wrapper call (launch included): "
+              f"acc {host['attn_acc']:.4f}, apply {host['attn_apply']:.4f}",
+              flush=True)
+        for pix in pixels or [None]:
+            where = f"{shape} pix {pix or 'own'}"
+            tables = () if not (pix or warps or cols or groups or ring
+                                or walk) else (
+                (KA._ACC_PIXELS, pix), (KA._ACC_RING, ring),
+                (KA._ACC_WALK, walk), (KA._APPLY_PIXELS, pix),
+                (KA._APPLY_WARPS, warps), (KA._APPLY_COLS, cols),
+                (KA._APPLY_GROUPS, groups))
+            given = [(t, v) for t, v in tables if v is not None]
+            with _kept(c, *(t for t, _ in given)):
+                for t, v in given:
+                    t[c] = v
+                if given:
+                    acc_smem = lib.ir_attn_acc_smem(c, heads,
+                                                    *KA._acc_config(c))
+                    apply_smem = lib.ir_attn_apply_smem(c, heads,
+                                                        *KA._apply_config(c))
+                    if max(acc_smem, apply_smem) > limit:
+                        print(f"attn {where}: does not fit or is not built",
+                              flush=True)
+                        continue
+                    where += (f" (acc {KA._acc_config(c)}, {acc_smem} B; "
+                              f"apply {KA._apply_config(c)}, {apply_smem} B)")
+                kern = KA.attn_acc(qkv, heads)
+                torch.cuda.synchronize()
+                msg = "; ".join(_check_rule("attn_acc", where, k, pl, o)
+                                for k, pl, o in zip(kern, gram_p, gram_o))
+                errs = [rel_err(k, pl) for k, pl in zip(kern, gram_p)]
+                check(max(errs) < 1e-5, f"attn_acc at {where}: rel err "
+                      f"{errs} against its plain version, above 1e-5")
+                kb = KA.attn_apply(qkv, x, at, p.proj_w, p.proj_b)
+                torch.cuda.synchronize()
+                msg_b = _check_rule("attn_apply", where, kb, out_p, out_o)
+                check_attn_twice_and_batch2(where, qkv, x, at, p, heads,
+                                            c == 384)
+                t_a = time_cuda(lambda: KA.attn_acc(qkv, heads))
+                t_b = time_cuda(
+                    lambda: KA.attn_apply(qkv, x, at, p.proj_w, p.proj_b))
+                print(f"attn {where}: acc rel err {msg}, against plain "
+                      f"{max(errs):.3e}; kernel {t_a:.4f} ms; apply rel err "
+                      f"{msg_b}; kernel {t_b:.4f} ms", flush=True)
+                sums.setdefault(pix or "own", []).append(
+                    (n_blocks * t_a, n_blocks * t_b, n_blocks * t_pa,
+                     n_blocks * t_pb))
+                del kern, kb
+    for pix, parts in sums.items():
+        if len(parts) == len(LEVELS):
+            tot = [sum(col) for col in zip(*parts)]
+            print(f"attn pix {pix}: per forward ({BLOCKS_PER_FORWARD} "
+                  f"blocks) acc {tot[0]:.3f} ms (plain {tot[2]:.3f}), apply "
+                  f"{tot[1]:.3f} ms (plain {tot[3]:.3f})", flush=True)
+
+
 def phase_3k_kernels():
     """K4, K5, K6 and K3 at the block shapes of Restormer-base, each on its
     plain version's inputs, against the plain version with the fp32 plain
@@ -674,6 +825,7 @@ def phase_3k_kernels():
                        KA.attn_acc_ref(oqkv, heads),
                        bound_attn_acc(h, w, c, heads), to_plain=1e-5)
         at = KA.finalize_at(gram, ss, p.temperature, torch.bfloat16)
+        check_attn_twice_and_batch2(shape, qkv, x, at, p, heads, c == 384)
         oracle = KA.attn_apply_ref(qkv.float(), x.float(), at.float(),
                                    p.proj_w, p.proj_b)
         del oqkv
@@ -1200,14 +1352,39 @@ def main(argv=None):
                     help="only K8 at its two shapes: the rule, two equal "
                          "runs, batch 2 and the times, at the wrapper's tile "
                          "height or at each of ROWS; prints no result line")
-    ap.add_argument("--warps", type=int, default=None, choices=[8, 16],
-                    help="with --tail, --front or --msfn: warps a block at "
-                         "every width")
+    ap.add_argument("--attn", nargs="*", type=int, default=None,
+                    metavar="PIX",
+                    help="only K5 and K6 at the five block shapes: the "
+                         "rule, two equal runs, batch 2 at 64x64x384 and "
+                         "the times, at the wrappers' pixels a tile or at "
+                         "each of PIX, with the wrapper's weight packing "
+                         "and host time a call timed apart; prints no "
+                         "result line")
+    ap.add_argument("--warps", type=int, default=None, choices=[4, 8, 16],
+                    help="with --tail, --front or --msfn (8 or 16): warps a "
+                         "block at every width; with --attn (4 or 8): K6's "
+                         "warps a block")
+    ap.add_argument("--cols", type=int, default=None, choices=[16, 48, 96],
+                    help="with --attn: K6's output columns a warp job")
+    ap.add_argument("--groups", type=int, default=None, choices=[1, 2, 4],
+                    help="with --attn: K6's column groups (blocks a tile)")
+    ap.add_argument("--ring", type=int, default=None, choices=[2, 3],
+                    help="with --attn: K5's tile slots (loads ring - 1 "
+                         "tiles ahead)")
+    ap.add_argument("--walk", type=int, default=None,
+                    help="with --attn: the fewest tiles a K5 block walks")
     args = ap.parse_args(argv)
     sweeps = {"tail": args.tail, "front": args.front, "msfn": args.msfn}
-    if args.warps is not None and all(r is None for r in sweeps.values()):
-        ap.error("--warps goes with --tail, --front or --msfn (K8 runs 16 "
-                 "warps a block)")
+    if args.warps is not None and all(r is None for r in sweeps.values()) \
+            and args.attn is None:
+        ap.error("--warps goes with --tail, --front, --msfn or --attn (K8 "
+                 "runs 16 warps a block)")
+    if args.warps == (16 if args.attn is not None else 4):
+        ap.error("--warps: 8 or 16 with --tail, --front or --msfn; 4 or 8 "
+                 "with --attn")
+    if (args.cols or args.groups or args.ring or args.walk) and \
+            args.attn is None:
+        ap.error("--cols, --groups, --ring and --walk go with --attn")
 
     import torch
 
@@ -1239,13 +1416,16 @@ def main(argv=None):
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    if args.mefc is not None or any(rows is not None
-                                    for rows in sweeps.values()):
+    if args.mefc is not None or args.attn is not None or any(
+            rows is not None for rows in sweeps.values()):
         for group, rows in sweeps.items():
             if rows is not None:
                 phase_sweep(group, rows, args.warps)
         if args.mefc is not None:
             phase_mefc_sweep(args.mefc)
+        if args.attn is not None:
+            phase_attn_sweep(args.attn, args.warps, args.cols, args.groups,
+                             args.ring, args.walk)
         print(gpu)
         return 0
 

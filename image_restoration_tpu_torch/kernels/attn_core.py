@@ -13,6 +13,16 @@ Port of image_restoration_tpu/kernels/attn_core_pallas.py, in three steps:
 * :func:`attn_apply` (CUDA ``csrc/attn_core.cu``, K6):
   out = x + bf16(v @ A^T) @ W_proj + b_proj.
 
+Both kernels are persistent: about as many blocks as the card holds at once
+(measured once per shape by the occupancy API and cached) walk the pixel
+tiles, loading the next tile while the current one runs. Their launch
+configurations come from per-width tables (``_ACC_*``, ``_APPLY_*``),
+chosen by ``chip_smoke.py --attn`` sweeps. K5 gives each block one head
+and sums its blocks' partials in a fixed order (two runs give the same
+bits). K6 reads W_proj as the parameter holds it, (out, in) fp32, and
+rounds it to bf16 as each block stages it, so :func:`attn_apply` packs no
+weights on a launch.
+
 :func:`fused_mdta_core` chains the three. Kernel functions take
 (B, H, W, C) contiguous tensors and the (B, H, W, 3C) qkv map, channels
 [q | k | v], head-major. On a CUDA tensor a wrapper launches its kernel, or
@@ -36,9 +46,6 @@ from image_restoration_tpu_torch.kernels.block import (
     attention_softmax,
 )
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
-
-_ACC_PIXELS = 128  # csrc/attn_core.cu ACC_PIX: pixels per pass-A tile
-
 
 def attn_acc_ref(qkv, num_heads: int):
     """Plain version of :func:`attn_acc`: the per-head Gram q^T k
@@ -97,6 +104,66 @@ def _check_qkv(qkv, num_heads):
     return b, h, w, c, ch
 
 
+# Launch tables by channel width, chosen by ``chip_smoke.py --attn`` sweeps
+# on an H100 80GB HBM3 (700 W). K5 (csrc/attn_core.cu: one head a block,
+# the warps that cover its Gram times pixel shares, 8 at most): pixels a
+# tile, tile slots (2 or 3: loads one or two tiles ahead) and the fewest
+# tiles a block walks, so that at the small deep-level maps a block's
+# partial (ch^2 + 2 ch floats) does not outweigh its tiles. K6: pixels a
+# tile, warps a block, output columns a warp job and column groups (blocks
+# that split a tile's output columns, so that each stages only its rows of
+# W_proj: C = 384's whole W_proj does not fit).
+_ACC_PIXELS = {48: 128, 96: 64, 192: 64, 384: 64}
+_ACC_RING = {48: 2, 96: 2, 192: 2, 384: 3}
+_ACC_WALK = {48: 1, 96: 1, 192: 4, 384: 2}
+_APPLY_PIXELS = {48: 128, 96: 64, 192: 64, 384: 32}
+_APPLY_WARPS = {48: 8, 96: 8, 192: 8, 384: 4}
+_APPLY_COLS = {48: 48, 96: 48, 192: 96, 384: 48}
+_APPLY_GROUPS = {48: 1, 96: 1, 192: 1, 384: 4}
+
+
+def _acc_config(c):
+    """K5's (pixels a tile, slots) at width ``c``; 64 and 2 where the
+    tables have no entry."""
+    return _ACC_PIXELS.get(c, 64), _ACC_RING.get(c, 2)
+
+
+def _apply_config(c):
+    """K6's (pixels, warps, columns a warp, column groups) at width ``c``;
+    64 pixels, 8 warps, 16 columns and one group where the tables have no
+    entry."""
+    return (_APPLY_PIXELS.get(c, 64), _APPLY_WARPS.get(c, 8),
+            _APPLY_COLS.get(c, 16), _APPLY_GROUPS.get(c, 1))
+
+
+def _apply_weights(proj_w, proj_b):
+    """What :func:`attn_apply` hands the kernel for W_proj and b_proj: the
+    parameters themselves when they are fp32 and contiguous (the kernel
+    rounds W_proj to bf16 as it stages it), else fp32 copies."""
+    return _f32(proj_w), _f32(proj_b)
+
+
+_GRIDS = {}
+
+
+def _grid(lib, kind, device, args, tiles, per_item, walk=1):
+    """Blocks per batch image of a persistent launch: ``per_item`` blocks
+    (heads or column groups) times the tile strides the card holds at once
+    (SMs x blocks an SM), no more than the tiles / ``walk``; cached per
+    shape."""
+    key = (kind, device, args, tiles, walk)
+    if key not in _GRIDS:
+        with torch.cuda.device(device):
+            per_sm = getattr(lib.lib, f"ir_attn_{kind}_blocks")(*args)
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+        if per_sm < 1:
+            raise ValueError(f"attn_{kind}: (C, heads, config) {args} is not "
+                             f"built or does not fit the card")
+        strides = min(max(1, tiles // walk), max(1, per_sm * sms // per_item))
+        _GRIDS[key] = per_item * strides
+    return _GRIDS[key]
+
+
 def attn_acc(qkv, num_heads: int):
     """Pass A: (gram, ss) as :func:`attn_acc_ref` documents.
 
@@ -108,41 +175,33 @@ def attn_acc(qkv, num_heads: int):
 
     b, h, w, c, ch = _check_qkv(qkv, num_heads)
     lib = load_library()
-    if lib.lib.ir_attn_acc_smem(c, num_heads) > getattr(
-            torch.cuda.get_device_properties(qkv.device),
-            "shared_memory_per_block_optin", 232448):
-        raise ValueError(f"attn_acc: C={c} too wide for the card's shared "
-                         f"memory")
-    grid_x = min(-(-h * w // _ACC_PIXELS),
-                 2 * torch.cuda.get_device_properties(qkv.device)
-                 .multi_processor_count)
+    cfg = _acc_config(c)
+    pix = cfg[0]
+    grid_x = _grid(lib, "acc", qkv.device, (c, num_heads, *cfg),
+                   -(-h * w // pix), num_heads, _ACC_WALK.get(c, 1))
+    strides = grid_x // num_heads
+    n_gram, n_ss = num_heads * ch * ch, 2 * c
 
     def launch():
-        f32 = dict(device=qkv.device, dtype=torch.float32)
-        gram_part = torch.empty((b, grid_x, c * ch), **f32)
-        ss_part = torch.empty((b, grid_x, 2 * c), **f32)
-        gram = torch.empty((b, num_heads, ch, ch), **f32)
-        ss = torch.empty((b, 2, c), **f32)
+        # one buffer: the partials, then the Gram and the sums of squares
+        buf = torch.empty(b * (strides + 1) * (n_gram + n_ss),
+                          device=qkv.device, dtype=torch.float32)
+        gram_part, ss_part, gram, ss = buf.split(
+            [b * strides * n_gram, b * strides * n_ss, b * n_gram, b * n_ss])
         with torch.cuda.device(qkv.device):
             stream = torch.cuda.current_stream(qkv.device).cuda_stream
             code = lib.lib.ir_attn_acc(
                 qkv.data_ptr(), gram_part.data_ptr(), ss_part.data_ptr(),
-                gram.data_ptr(), ss.data_ptr(), b, h * w, c, num_heads, grid_x,
-                stream)
+                gram.data_ptr(), ss.data_ptr(), b, h * w, c, num_heads, *cfg,
+                grid_x, stream)
         lib.check(code, "attn_acc")
         attn_acc.launches += 1
-        return gram, ss
+        return gram.view(b, num_heads, ch, ch), ss.view(b, 2, c)
 
     return forward_only("attn_acc", (qkv,), launch)
 
 
 attn_acc.launches = 0
-
-
-# Pixels per pass-B block: the most of 128/64/32/16 whose shared memory
-# (v or t in bf16 and the fp32 product, csrc/attn_core.cu ApplyAttnSmem)
-# stays under 116 KB, so two blocks share an SM.
-_APPLY_SMEM_TARGET = 116 * 1024
 
 
 def attn_apply(qkv, x, at, proj_w, proj_b):
@@ -151,7 +210,9 @@ def attn_apply(qkv, x, at, proj_w, proj_b):
 
     qkv: (B, H, W, 3C) and x: (B, H, W, C) bf16 on the GPU; at:
     (B, heads, ch, ch) bf16 from :func:`finalize_at`; proj_w (C, C, 1, 1)
-    and proj_b (C) or None in torch layout.
+    and proj_b (C) or None in torch layout. The kernel reads proj_w (fp32,
+    (out, in)) and proj_b as they are and rounds W_proj to bf16 as it
+    stages it: nothing is packed on a launch.
     """
     if x.device.type == "cpu":
         return attn_apply_ref(qkv, x, at, proj_w, proj_b)
@@ -169,11 +230,13 @@ def attn_apply(qkv, x, at, proj_w, proj_b):
             raise ValueError(f"parameter {name} is on {t.device}, the input "
                              f"on {x.device}")
     lib = load_library()
-    npix = next((n for n in (128, 64, 32)
-                 if lib.lib.ir_attn_apply_smem(c, n) <= _APPLY_SMEM_TARGET),
-                16)
-    wp = proj_w.reshape(c, c).t().to(torch.bfloat16).contiguous()
-    bp = _f32(proj_b)
+    cfg = _apply_config(c)
+    pix, groups = cfg[0], cfg[3]
+    grid_x = _grid(lib, "apply", x.device, (c, heads, *cfg),
+                   -(-h * w // pix), groups)
+    wp, bp = _apply_weights(proj_w, proj_b)
+    if wp.data_ptr() % 16:
+        raise ValueError("proj_w must start on a 16-byte boundary")
 
     def launch():
         out = torch.empty_like(x)
@@ -181,7 +244,8 @@ def attn_apply(qkv, x, at, proj_w, proj_b):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             code = lib.lib.ir_attn_apply(
                 qkv.data_ptr(), x.data_ptr(), at.data_ptr(), wp.data_ptr(),
-                _ptr(bp), out.data_ptr(), b, h * w, c, heads, npix, stream)
+                _ptr(bp), out.data_ptr(), b, h * w, c, heads, *cfg, grid_x,
+                stream)
         lib.check(code, "attn_apply")
         attn_apply.launches += 1
         return out

@@ -22,7 +22,11 @@ inputs are test_torch_block_cuda.py's. LN + GDFN (K3) also runs that
 file's TAIL_CASES (every edge of the FFN tail it shares with K2) and must
 give the same bits on a second run; LN + qkv + depthwise (K4) runs its
 FRONT_CASES (the edges of the front it shares with K1) in blocks of 8 and
-of 16 warps, with the same two-runs check. A ``backward()`` through a wrapper
+of 16 warps, with the same two-runs check. The attention core (K5, K6)
+runs ATTN_CASES: ragged tiles, fewer tiles than blocks, blocks that walk
+several tiles, batch 2 with different images, C = 384's column groups,
+and each entry of ``kernels/attn_core.py``'s launch tables forced in turn,
+with two bit-equal runs of both kernels. A ``backward()`` through a wrapper
 raises ``NotImplementedError``: the kernels are forward only.
 """
 
@@ -109,6 +113,65 @@ def test_attn_apply_kernel_vs_plain(cuda, h, w, c, heads, ln_type):
     _holds(got, KA.attn_apply_ref(qkv, x, at, p.proj_w, p.proj_b),
            KA.attn_apply_ref(qkv.float(), x.float(), at.float(), p.proj_w,
                              p.proj_b))
+
+
+# The attention core's edges: (b, h, w, c, heads, K5's (pixels, slots,
+# fewest tiles a block walks), K6's (pixels, warps, columns a warp, column
+# groups)), each launch-table entry forced in turn. H*W not a
+# multiple of the tile (9x20 = 180 pixels), fewer tiles than blocks
+# (5x13), persistent blocks that walk several tiles (128x128 at 16 pixels
+# a tile, and a fewest walk of 2-8 tiles forced), K5's rings of two and
+# three tile slots, batch 2 with different images, C = 384 with its output
+# columns split over column groups, and width 96 at one and at two heads.
+ATTN_CASES = [
+    (1, 9, 20, 48, 1, (128, 2, 1), (128, 8, 48, 1)),
+    (1, 9, 20, 48, 1, (16, 3, 4), (16, 4, 16, 1)),
+    (2, 11, 24, 96, 2, (128, 3, 1), (64, 8, 48, 1)),
+    (1, 5, 13, 96, 1, (128, 2, 8), (64, 8, 48, 1)),
+    (1, 5, 13, 96, 1, (32, 3, 1), (128, 8, 96, 1)),
+    (2, 12, 20, 192, 4, (64, 2, 2), (64, 8, 96, 1)),
+    (1, 12, 20, 192, 4, (16, 3, 1), (16, 4, 16, 2)),
+    (1, 12, 20, 384, 8, (64, 2, 1), (32, 4, 48, 4)),
+    (2, 7, 37, 384, 8, (32, 3, 4), (16, 8, 16, 4)),
+    (1, 12, 20, 384, 8, (64, 3, 1), (32, 8, 96, 4)),
+    (1, 128, 128, 48, 1, (16, 2, 1), (16, 8, 16, 1)),
+    (1, 128, 128, 96, 1, (16, 3, 4), (16, 8, 48, 1)),
+    (1, 64, 64, 384, 8, (16, 3, 2), (16, 4, 48, 4)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,heads,acc_cfg,apply_cfg", ATTN_CASES)
+def test_attn_core_edges_tables_and_two_equal_runs(cuda, monkeypatch, b, h,
+                                                   w, c, heads, acc_cfg,
+                                                   apply_cfg):
+    for table, v in zip((KA._ACC_PIXELS, KA._ACC_RING, KA._ACC_WALK),
+                        acc_cfg):
+        monkeypatch.setitem(table, c, v)
+    for table, v in zip((KA._APPLY_PIXELS, KA._APPLY_WARPS, KA._APPLY_COLS,
+                         KA._APPLY_GROUPS), apply_cfg):
+        monkeypatch.setitem(table, c, v)
+    p, x = _inputs(cuda, h, w, c, heads, "WithBias", seed=h + w + c + b,
+                   batch=b)
+    qkv = KM.ln_qkv_dwconv_ref(x, p.front())
+    got = KA.attn_acc(qkv, heads)
+    again = KA.attn_acc(qkv, heads)
+    torch.cuda.synchronize()
+    for g, a, want in zip(got, again, KA.attn_acc_ref(qkv, heads)):
+        assert g.shape == want.shape and g.dtype == torch.float32
+        assert torch.equal(g, a)
+        assert _rel(g, want) < 1e-5
+    at = KA.finalize_at(*KA.attn_acc_ref(qkv, heads), p.temperature,
+                        torch.bfloat16)
+    if b == 2:  # the second image's A^T differs beyond its q and k
+        at = torch.cat([at[:1], at[1:].flip(1)]).contiguous()
+    out = KA.attn_apply(qkv, x, at, p.proj_w, p.proj_b)
+    again = KA.attn_apply(qkv, x, at, p.proj_w, p.proj_b)
+    torch.cuda.synchronize()
+    _holds(out, KA.attn_apply_ref(qkv, x, at, p.proj_w, p.proj_b),
+           KA.attn_apply_ref(qkv.float(), x.float(), at.float(), p.proj_w,
+                             p.proj_b))
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda

@@ -10,6 +10,8 @@ Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
     python3 chip_smoke.py --mefc [ROWS ...]
     python3 chip_smoke.py --attn [PIX ...] [--warps 4|8] [--cols N]
                                  [--groups N] [--ring 2|3] [--walk N]
+    python3 chip_smoke.py --ska [TH ...] [--warps 1-8] [--ring 1|2]
+                                [--split 1|2|4|8]
 
 The second form checks and times only the two kernels that share the GDFN
 tail (K2, K3), at the wrappers' tile height and warps or at those given: the
@@ -28,7 +30,16 @@ attention core (K5, K6) at the five block shapes: phase 2d's rule (K5 also
 tile or at each of PIX, with K6's warps a block, output columns a warp and
 column groups and K5's tile slots and fewest tiles a block walks as given; K6's weight packing and the host time
 of a wrapper call are timed apart (the sweep behind ``kernels/attn_core.py``
-``_ACC_*`` and ``_APPLY_*``). None of them prints a result line.
+``_ACC_*`` and ``_APPLY_*``). The seventh does it for the SKA dynamic
+conv (K9) at LSNet-B's three shapes at batch 64, bf16 and fp32: phase 2c's
+rules, two bit-equal runs of both and their times, at the wrapper's rows a
+strip or at each of TH, with warps a block, strip slots and the threads
+that share a unit's channel repeats as given; the plain versions, the
+timer's floor (a one-value ``zero_``), copies of x and w, and the host
+time of a wrapper call and of its parts are timed apart (the sweep behind
+``kernels/ska.py`` ``_SKA_*``). With no option it touches no table, so
+copied into an older tree it times that tree's K9. None of them prints a
+result line.
 
 Phases, any failure ends the run with a nonzero exit code:
 1. device and build: the card's name and power limit; the CUDA kernels are
@@ -1155,33 +1166,53 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected,
     return launches
 
 
-def phase_ska_kernels():
-    """K9 against ska_plain at LSNet-B's shapes, bf16 and fp32."""
+def _ska_inputs(i, h, w, c, wc):
+    """Shape ``i`` of SKA_SHAPES at batch 64: fp32 x and w, their bf16
+    copies, the fp32 plain version (the oracle) and the bf16 one."""
     import torch
 
+    from image_restoration_tpu_torch.ops.ska import ska_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(800 + i)
+    x = torch.randn((LSNET_BATCH, h, w, c), generator=gen, device="cuda")
+    wt = torch.randn((LSNET_BATCH, h, w, wc, 9), generator=gen,
+                     device="cuda")
+    xb, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+    return x, wt, xb, wb, ska_plain(x, wt), ska_plain(xb, wb)
+
+
+def _ska_rule(where, kern, oracle, plain=None):
+    """Phase 2c's rule on one kernel output: bf16 (``plain`` given) within
+    max(3 x the plain bf16 error, 4e-3) of the fp32 oracle, fp32 within
+    1e-5; returns the error and the plain version's."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(torch.isfinite(kern).all().item(), f"ska not finite at {where}")
+    err = rel_err(kern, oracle)
+    if plain is None:
+        check(err <= 1e-5, f"ska fp32 at {where}: rel err {err:.3e} above "
+              f"1e-5")
+        return err, None
+    ep = rel_err(plain, oracle)
+    check(err < _bound(ep), f"ska at {where}: rel err {err:.3e} above "
+          f"max(3 x {ep:.3e}, 4e-3)")
+    return err, ep
+
+
+def phase_ska_kernels():
+    """K9 against ska_plain at LSNet-B's shapes, bf16 and fp32."""
     from image_restoration_tpu_torch.kernels import ska as K
     from image_restoration_tpu_torch.ops.ska import ska_plain
 
     report = _new_report(("ska",))
     b = LSNET_BATCH
     for i, (h, w, c, wc, calls) in enumerate(SKA_SHAPES):
-        gen = torch.Generator(device="cuda").manual_seed(800 + i)
-        x = torch.randn((b, h, w, c), generator=gen, device="cuda")
-        wt = torch.randn((b, h, w, wc, 9), generator=gen, device="cuda")
-        xb, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
-        oracle = ska_plain(x, wt)
-        kern32 = K.ska(x, wt)
-        plain = ska_plain(xb, wb)
+        x, wt, xb, wb, oracle, plain = _ska_inputs(i, h, w, c, wc)
         kern = K.ska(xb, wb)
-        torch.cuda.synchronize()
-        e32 = rel_err(kern32, oracle)
-        ek, ep = rel_err(kern, oracle), rel_err(plain, oracle)
-        check(torch.isfinite(kern).all().item(),
-              f"ska not finite at {h}x{w}x{c}")
-        check(e32 <= 1e-5,
-              f"ska fp32 at {h}x{w}x{c}: rel err {e32:.3e} above 1e-5")
-        check(ek < _bound(ep), f"ska at {h}x{w}x{c}: rel err {ek:.3e} above "
-              f"max(3 x {ep:.3e}, 4e-3)")
+        ek, ep = _ska_rule(f"{h}x{w}x{c}", kern, oracle, plain)
+        e32, _ = _ska_rule(f"{h}x{w}x{c}", K.ska(x, wt), oracle)
+        abs_err = (kern.float() - plain.float()).abs().max().item()
         t_k = time_cuda(lambda: K.ska(xb, wb))
         t_p = time_cuda(lambda: ska_plain(xb, wb))
         t_k32 = time_cuda(lambda: K.ska(x, wt))
@@ -1193,11 +1224,124 @@ def phase_ska_kernels():
               f"{bound[0]:.4f} ms ({bound[1]}); fp32 rel err {e32:.3e}, "
               f"kernel {t_k32:.4f} ms, plain {t_p32:.4f} ms, bound "
               f"{bound32[0]:.4f} ms", flush=True)
-        _record(report, "ska", [b, h, w, c, wc], calls, t_k, t_p,
-                (kern.float() - plain.float()).abs().max().item(), bound,
-                fp32_ms=t_k32, fp32_plain_ms=t_p32, fp32_bound_ms=bound32[0],
-                fp32_max_rel_err=e32)
+        _record(report, "ska", [b, h, w, c, wc], calls, t_k, t_p, abs_err,
+                bound, fp32_ms=t_k32, fp32_plain_ms=t_p32,
+                fp32_bound_ms=bound32[0], fp32_max_rel_err=e32)
     return report
+
+
+def _host_ms(fn, n=200):
+    """Host ms of one call of ``fn`` (the enqueue, not the device work),
+    mean over ``n`` calls after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def _ska_host_parts(xb, wb):
+    """Host ms of a wrapper call of K9 and of the parts every call
+    repeats."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import ska as K
+    from image_restoration_tpu_torch.kernels.forward_only import forward_only
+    from image_restoration_tpu_torch.ops.ska import ska_shape
+
+    def in_device():
+        with torch.cuda.device(xb.device):
+            pass
+
+    parts = {"call": lambda: K.ska(xb, wb),
+             "ska_shape": lambda: ska_shape(xb, wb),
+             "empty_like": lambda: torch.empty_like(xb),
+             "cuda.device": in_device,
+             "current_stream": lambda: torch.cuda.current_stream(
+                 xb.device).cuda_stream,
+             "current_device": torch.cuda.current_device,
+             "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(
+                 xb.device.index),
+             "forward_only": lambda: forward_only("ska", (xb, wb),
+                                                  lambda: None)}
+    return ", ".join(f"{k} {_host_ms(fn):.4f}" for k, fn in parts.items())
+
+
+def phase_ska_sweep(rows, warps=None, ring=None, split=None):
+    """``--ska``: K9 alone at LSNet-B's three shapes at batch 64, bf16 and
+    fp32: phase 2c's rules, two bit-equal runs and the times, at the
+    wrapper's rows a strip or at each of ``rows`` that fits the card (each
+    type on its own), with ``warps`` a block, ``ring`` strip slots and the
+    channel repeats of a unit ``split`` over threads as given (None: the
+    wrapper's own). The plain versions, the timer's floor, copies of the
+    same inputs and the host ms of a wrapper call and of its parts are
+    timed apart. With no option it touches no table,
+    so an older tree's K9 can be timed by this script."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import ska as K
+    from image_restoration_tpu_torch.kernels.build import load_library
+    from image_restoration_tpu_torch.ops.ska import ska_plain
+
+    b = LSNET_BATCH
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    sums = {}
+    for i, (h, w, c, wc, calls) in enumerate(SKA_SHAPES):
+        x, wt, xb, wb, oracle, plain = _ska_inputs(i, h, w, c, wc)
+        shape = f"{b}x{h}x{w}x{c} wc {wc}"
+        tiny = torch.zeros(1, device="cuda")
+        print(f"ska {shape}: plain {time_cuda(lambda: ska_plain(xb, wb)):.4f} "
+              f"ms, fp32 {time_cuda(lambda: ska_plain(x, wt)):.4f} ms; the "
+              f"timer's floor (a 1-value zero_) "
+              f"{time_cuda(tiny.zero_):.4f} ms; copies of x and w (two "
+              f"clones) bf16 {time_cuda(lambda: (xb.clone(), wb.clone())):.4f}"
+              f" ms, fp32 {time_cuda(lambda: (x.clone(), wt.clone())):.4f} "
+              f"ms; host ms of a wrapper call and its parts: "
+              f"{_ska_host_parts(xb, wb)}", flush=True)
+        for th in rows or [None]:
+            for dt, esize, xd, wd in (("bf16", 2, xb, wb), ("fp32", 4, x, wt)):
+                where = f"{shape} {dt} th {th or 'own'}"
+                given = [(getattr(K, name, None), v) for name, v in (
+                    ("_SKA_ROWS", th), ("_SKA_WARPS", warps),
+                    ("_SKA_RING", ring), ("_SKA_SPLIT", split))
+                    if v is not None]
+                with _kept((c, esize), *(t for t, _ in given)):
+                    for t, v in given:
+                        t[(c, esize)] = v
+                    if given:
+                        cfg = K._config(w, c, wc, esize)
+                        smem = load_library().lib.ir_ska_smem(
+                            w, c, wc, esize == 4, *cfg)
+                        if smem > limit:
+                            print(f"ska {where}: does not fit", flush=True)
+                            continue
+                        where += f" (rows, ring, warps, split {cfg}, {smem} B)"
+                    kern = K.ska(xd, wd)
+                    err, ep = _ska_rule(where, kern, oracle,
+                                        plain if esize == 2 else None)
+                    check_twice_and_batch2("ska", where,
+                                           lambda: K.ska(xd, wd), kern)
+                    t_k = time_cuda(lambda: K.ska(xd, wd))
+                    bound = bound_ska(b, h, w, c, wc, esize)[0]
+                    if ep is not None:
+                        gap = (kern.float() - plain.float()).abs().max()
+                        err = (f"{err:.3e} (plain {ep:.3e}), max |kernel - "
+                               f"plain| {gap.item():.3e}")
+                    else:
+                        err = f"{err:.3e}"
+                    print(f"ska {where}: rel err {err}; kernel {t_k:.4f} ms, "
+                          f"bound {bound:.4f} ({bound / t_k:.1%})", flush=True)
+                    sums.setdefault((dt, th or "own"), []).append(calls * t_k)
+                    del kern
+    for (dt, th), parts in sums.items():
+        if len(parts) == len(SKA_SHAPES):
+            print(f"ska {dt} th {th}: {sum(parts):.4f} ms per forward "
+                  f"({SKA_PER_FORWARD} calls)", flush=True)
 
 
 def perturb_lsnet(model, seed):
@@ -1360,31 +1504,50 @@ def main(argv=None):
                          "each of PIX, with the wrapper's weight packing "
                          "and host time a call timed apart; prints no "
                          "result line")
-    ap.add_argument("--warps", type=int, default=None, choices=[4, 8, 16],
+    ap.add_argument("--ska", nargs="*", type=int, default=None,
+                    metavar="TH",
+                    help="only K9 at LSNet-B's three shapes, bf16 and fp32: "
+                         "the rules, two equal runs and the times, at the "
+                         "wrapper's rows a strip or at each of TH, with the "
+                         "host time of a wrapper call and its parts timed "
+                         "apart; prints no result line")
+    ap.add_argument("--warps", type=int, default=None,
                     help="with --tail, --front or --msfn (8 or 16): warps a "
                          "block at every width; with --attn (4 or 8): K6's "
-                         "warps a block")
+                         "warps a block; with --ska (1-8): K9's")
     ap.add_argument("--cols", type=int, default=None, choices=[16, 48, 96],
                     help="with --attn: K6's output columns a warp job")
     ap.add_argument("--groups", type=int, default=None, choices=[1, 2, 4],
                     help="with --attn: K6's column groups (blocks a tile)")
-    ap.add_argument("--ring", type=int, default=None, choices=[2, 3],
-                    help="with --attn: K5's tile slots (loads ring - 1 "
-                         "tiles ahead)")
+    ap.add_argument("--ring", type=int, default=None, choices=[1, 2, 3],
+                    help="with --attn (2 or 3): K5's tile slots (loads "
+                         "ring - 1 tiles ahead); with --ska (1 or 2): K9's "
+                         "strip slots (1: one strip a block)")
+    ap.add_argument("--split", type=int, default=None, choices=[1, 2, 4, 8],
+                    help="with --ska: threads that share a K9 unit's channel "
+                         "repeats")
     ap.add_argument("--walk", type=int, default=None,
                     help="with --attn: the fewest tiles a K5 block walks")
     args = ap.parse_args(argv)
     sweeps = {"tail": args.tail, "front": args.front, "msfn": args.msfn}
-    if args.warps is not None and all(r is None for r in sweeps.values()) \
-            and args.attn is None:
-        ap.error("--warps goes with --tail, --front, --msfn or --attn (K8 "
-                 "runs 16 warps a block)")
-    if args.warps == (16 if args.attn is not None else 4):
+    warps_of = {"tail": (8, 16), "front": (8, 16), "msfn": (8, 16),
+                "attn": (4, 8), "ska": tuple(range(1, 9))}
+    given = [k for k in warps_of if getattr(args, k) is not None]
+    if args.warps is not None and not given:
+        ap.error("--warps goes with --tail, --front, --msfn, --attn or --ska "
+                 "(K8 runs 16 warps a block)")
+    if args.warps is not None and any(args.warps not in warps_of[k]
+                                      for k in given):
         ap.error("--warps: 8 or 16 with --tail, --front or --msfn; 4 or 8 "
-                 "with --attn")
-    if (args.cols or args.groups or args.ring or args.walk) and \
-            args.attn is None:
-        ap.error("--cols, --groups, --ring and --walk go with --attn")
+                 "with --attn; 1-8 with --ska")
+    if (args.cols or args.groups or args.walk) and args.attn is None:
+        ap.error("--cols, --groups and --walk go with --attn")
+    if args.ring is not None and (args.attn is None) == (args.ska is None):
+        ap.error("--ring goes with one of --attn and --ska")
+    if args.ring == (1 if args.attn is not None else 3):
+        ap.error("--ring: 2 or 3 with --attn, 1 or 2 with --ska")
+    if args.split is not None and args.ska is None:
+        ap.error("--split goes with --ska")
 
     import torch
 
@@ -1416,8 +1579,9 @@ def main(argv=None):
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    if args.mefc is not None or args.attn is not None or any(
-            rows is not None for rows in sweeps.values()):
+    if args.mefc is not None or args.attn is not None or \
+            args.ska is not None or any(rows is not None
+                                        for rows in sweeps.values()):
         for group, rows in sweeps.items():
             if rows is not None:
                 phase_sweep(group, rows, args.warps)
@@ -1426,6 +1590,8 @@ def main(argv=None):
         if args.attn is not None:
             phase_attn_sweep(args.attn, args.warps, args.cols, args.groups,
                              args.ring, args.walk)
+        if args.ska is not None:
+            phase_ska_sweep(args.ska, args.warps, args.ring, args.split)
         print(gpu)
         return 0
 

@@ -29,6 +29,7 @@ through ``kernels/mefc.py``.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -60,9 +61,26 @@ def save_image(path: str, arr: np.ndarray):
     Image.fromarray((arr * 255.0).round().astype(np.uint8)).save(path)
 
 
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 products and convolutions at full precision, not TF32, as the
+    JAX CLI's ``jax.default_matmul_precision("highest")``; the caller's
+    settings come back on exit."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 def make_restore_fn(cfg, model):
     """Whole-image restorer: (H, W, 3) float32 in [0, 1] -> the same shape,
-    clipped to [0, 1]. Runs on the model's device."""
+    clipped to [0, 1]. Runs on the model's device, with TF32 off
+    (:func:`full_fp32`) whatever the model's dtype."""
     from image_restoration_tpu_torch.eval.tiled import pad_test
 
     device = next(model.parameters()).device
@@ -73,7 +91,7 @@ def make_restore_fn(cfg, model):
     def restore(img: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(img, np.float32))
         x = x.permute(2, 0, 1)[None].to(device)
-        with torch.inference_mode():
+        with torch.inference_mode(), full_fp32():
             out = pad_test(fwd, x, cfg.get("pad_multiple", 8))
         return out[0].permute(1, 2, 0).float().cpu().numpy()
 

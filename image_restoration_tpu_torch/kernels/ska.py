@@ -6,6 +6,15 @@ weights LKP predicts (ops/ska.py gives the formula). :func:`ska` takes
 (B, H, W, C) x and (B, H, W, wc, k^2) w in bf16 or fp32, any H and W, any C
 with C % wc == 0 and an odd k, and returns (B, H, W, C) in x's dtype.
 
+At k = 3 with wc a multiple of 8 (every LSNet width) ``csrc/ska.cu`` runs
+its strip kernel: blocks take strips of whole image rows staged in shared
+memory; persistent ones (as many as the card holds, measured once per
+shape by the occupancy API and cached) load the next strips while the
+current one runs. Rows a strip, strip slots, the threads a unit's channel
+repeats are split over and warps a block come from per-width tables
+(``_SKA_*``), chosen by ``chip_smoke.py --ska`` sweeps. Other shapes and
+unaligned views take the kernel's scalar path.
+
 On a CUDA tensor it launches ``csrc/ska.cu`` or raises; on a CPU tensor it
 runs :func:`~image_restoration_tpu_torch.ops.ska.ska_plain`. ``ska.launches``
 counts launches. Forward only: on CUDA tensors that require grad
@@ -15,10 +24,53 @@ with LSNet training.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
 from image_restoration_tpu_torch.ops.ska import ska_plain, ska_shape
+
+# Launch tables of the strip kernel by (C, bytes a value), chosen by
+# ``chip_smoke.py --ska`` sweeps at LSNet-B's batch-64 shapes (28x28 x 128,
+# 14x14 x 256, 7x7 x 384) on an H100 80GB HBM3 (700 W): rows a strip,
+# strip slots (1: one strip a block; 2: persistent blocks loading the
+# next strip ahead), the threads that share a (pixel, 8 weight
+# channels) unit's channel repeats, and warps a block (none: one thread a
+# unit share of a strip, at most 8). fp32 strips take twice the shared
+# memory, so the deeper fp32 maps run 4-row strips one a block.
+_SKA_ROWS = {(128, 2): 2, (256, 2): 2, (384, 2): 2,
+             (128, 4): 2, (256, 4): 4, (384, 4): 4}
+_SKA_RING = {(128, 2): 2, (256, 2): 2, (384, 2): 2,
+             (128, 4): 2, (256, 4): 1, (384, 4): 1}
+_SKA_SPLIT = {(384, 2): 2}
+_SKA_WARPS = {}
+
+
+def _config(w, c, wc, esize):
+    """(rows a strip, slots, warps, split) at width ``c``; 2 rows, 2 slots
+    and no split where the tables have no entry."""
+    key = (c, esize)
+    th, split = _SKA_ROWS.get(key, 2), _SKA_SPLIT.get(key, 1)
+    warps = _SKA_WARPS.get(key) or min(
+        8, max(1, -(-th * w * (wc // 8) * split // 32)))
+    return th, _SKA_RING.get(key, 2), warps, split
+
+
+_GRIDS = {}
+
+
+def _grid(lib, device, args, n_strips):
+    """Blocks of a persistent launch: the SMs times the blocks an SM holds,
+    no more than the strips (0 where the strip kernel does not fit: the
+    scalar path ignores it); cached per shape."""
+    key = (device, args, n_strips)
+    if key not in _GRIDS:
+        with torch.cuda.device(device):
+            per_sm = lib.lib.ir_ska_blocks(*args)
+            props = torch.cuda.get_device_properties(device)
+        _GRIDS[key] = min(n_strips, per_sm * props.multi_processor_count)
+    return _GRIDS[key]
 
 
 def ska(x, w):
@@ -38,14 +90,21 @@ def ska(x, w):
         if not t.is_contiguous():
             raise ValueError(f"ska: {name} must be contiguous")
     lib = load_library()
+    fp32 = int(x.dtype == torch.float32)
+    cfg = _config(wd, c, wc, 4 if fp32 else 2)
+    grid = _grid(lib, x.device, (wd, c, wc, fp32, *cfg), b * -(-h // cfg[0]))
 
     def launch():
         out = torch.empty_like(x)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
+        idx = x.device.index
+        # a device switch and a Stream object took a third of a call's host
+        # time (chip_smoke.py --ska times the parts): switch only when x is
+        # not on the current device, and take the raw stream handle
+        with (contextlib.nullcontext() if idx == torch.cuda.current_device()
+              else torch.cuda.device(idx)):
             code = lib.lib.ir_ska(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                  b, h, wd, c, wc, ks,
-                                  int(x.dtype == torch.float32), stream)
+                                  b, h, wd, c, wc, ks, fp32, *cfg, grid,
+                                  torch._C._cuda_getCurrentRawStream(idx))
         lib.check(code, "ska")
         ska.launches += 1
         return out

@@ -69,6 +69,49 @@ def test_infer_folder_cli(tmp_path):
         infer.main(TINY + ["--device", "cpu"])  # no --input
 
 
+@pytest.mark.parametrize("caller", [(True, True), (False, True),
+                                    (True, False), (False, False)],
+                         ids=["both_on", "cudnn_only", "matmul_only", "off"])
+def test_restore_runs_without_tf32(caller):
+    """The JAX restore runs under ``default_matmul_precision("highest")``
+    whatever the dtype: the port's forward sees both TF32 flags False, and
+    the caller's settings come back after, also when the forward raises."""
+    seen = []
+
+    class Stub(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(()))
+
+        def forward(self, x):
+            seen.append((torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32))
+            if x.shape[-1] == 24:
+                raise RuntimeError("stub failure")
+            return x * self.w
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = caller
+        restore = infer.make_restore_fn({"pad_multiple": 8}, Stub())
+        img = np.random.default_rng(3).random((13, 11, 3), dtype=np.float32)
+        np.testing.assert_array_equal(restore(img), img)
+        assert seen == [(False, False)]
+        after = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        assert after == caller
+        with pytest.raises(RuntimeError, match="stub failure"):
+            restore(np.zeros((24, 24, 3), np.float32))
+        assert seen[-1] == (False, False)
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == caller
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -86,8 +129,9 @@ def test_port_never_imports_jax():
 @pytest.mark.parametrize("args", [[], ["--tail", "8"],
                                   ["--front", "8", "4", "--warps", "16"],
                                   ["--msfn", "8", "4", "--warps", "8"],
-                                  ["--mefc", "4", "2"]],
-                         ids=["full", "tail", "front", "msfn", "mefc"])
+                                  ["--mefc", "4", "2"],
+                                  ["--ska", "2", "4", "--warps", "8"]],
+                         ids=["full", "tail", "front", "msfn", "mefc", "ska"])
 def test_chip_smoke_refuses_without_cuda(tmp_path, args):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     res = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),

@@ -14,9 +14,14 @@ bf16 version's, 4e-3); the fp32 kernel's below 1e-5 (the same fp32 taps
 in the same order, fused multiply-adds against separate roundings).
 
 Shapes: LSNet-B's three at batch 4, (28, 28, 128 / wc 16), (14, 14, 256 /
-32), (7, 7, 384 / 48), which take the vectorised path; a ragged 7x9 at
+32), (7, 7, 384 / 48), which take the strip kernel; a ragged 7x9 at
 C 24 / wc 6 and C 12 / wc 2, and k = 5, which take the scalar path; and an
-unaligned view of x (the scalar path too).
+unaligned view of x and rows too wide for a strip (the scalar path too).
+The strip kernel is also held, at launch tables set by the test, to strips
+whose rows do not divide H, to 7x7 x 384 images split over blocks by rows,
+with one strip a block and with persistent blocks, to a batch whose images
+differ (each image's result must not depend on the others), to two
+bit-equal runs, and in fp32 at each LSNet-B shape.
 """
 
 import numpy as np
@@ -46,6 +51,29 @@ def _inputs(case, device, seed):
     wt = torch.from_numpy(
         rng.standard_normal((b, h, w, wc, ks * ks), dtype=np.float32))
     return x.to(device), wt.to(device)
+
+
+def _set_config(monkeypatch, c, th, ring, warps=None, split=1):
+    """Launch tables for width ``c`` in bf16 and fp32."""
+    for esize in (2, 4):
+        monkeypatch.setitem(K._SKA_ROWS, (c, esize), th)
+        monkeypatch.setitem(K._SKA_RING, (c, esize), ring)
+        monkeypatch.setitem(K._SKA_SPLIT, (c, esize), split)
+        if warps is not None:
+            monkeypatch.setitem(K._SKA_WARPS, (c, esize), warps)
+
+
+def _check_both(x, w):
+    """The rule in bf16 and fp32; returns the two results."""
+    oracle = ska_plain(x, w)
+    got32 = K.ska(x, w)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    plain, got = ska_plain(xb, wb), K.ska(xb, wb)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.isfinite(got32).all()
+    assert _rel(got32, oracle) <= 1e-5
+    assert _rel(got, oracle) < max(3 * _rel(plain, oracle), 4e-3)
+    return got, got32
 
 
 def _rel(got, oracle):
@@ -114,3 +142,78 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         K.ska(x, w.cpu())
     with pytest.raises(ValueError):
         K.ska(x[:, :, ::2], w[:, :, ::2])  # not contiguous
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th", [3, 4, 5])
+@pytest.mark.parametrize("ring", [1, 2])
+def test_strips_that_do_not_divide_h(cuda, monkeypatch, th, ring):
+    """H = 13 and 14 at 3-5 rows a strip: the last strip of each image is
+    short, and its halo row below the image is zero-filled."""
+    _set_config(monkeypatch, 64, th, ring)
+    for h in (13, 14):
+        x, w = _inputs((2, h, 10, 64, 16, 3), cuda, seed=10 * h + th)
+        _check_both(x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th", [1, 2, 3, 4, 7])
+@pytest.mark.parametrize("ring", [1, 2])
+@pytest.mark.parametrize("split", [1, 2, 8])
+def test_deep_map_split_over_blocks(cuda, monkeypatch, th, ring, split):
+    """LSNet-B's 7x7 x 384 (wc 48) with each image split into strips of 1
+    to 4 rows (7: one strip an image), one strip a block or persistent
+    blocks, each unit's 8 channel repeats on 1, 2 or 8 threads, in bf16
+    and fp32 (configurations that do not fit take the scalar path)."""
+    _set_config(monkeypatch, 384, th, ring, split=split)
+    x, w = _inputs((3, 7, 7, 384, 48, 3), cuda, seed=th + 10 * ring + split)
+    _check_both(x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES[:3], ids=["28x128", "14x256", "7x384"])
+def test_images_of_a_batch_are_independent_and_runs_equal(cuda, case):
+    """Each image of a batch of different images gives the bits it gives
+    alone, and two runs give the same bits, in bf16 and fp32."""
+    x, w = _inputs(case, cuda, seed=7)
+    for dt in (torch.bfloat16, torch.float32):
+        xd, wd = x.to(dt), w.to(dt)
+        got = K.ska(xd, wd)
+        assert torch.equal(got, K.ska(xd, wd))
+        for i in range(x.shape[0]):
+            alone = K.ska(xd[i:i + 1].contiguous(), wd[i:i + 1].contiguous())
+            assert torch.equal(got[i:i + 1], alone)
+        assert not torch.equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES[:3], ids=["28x128", "14x256", "7x384"])
+@pytest.mark.parametrize("ring", [1, 2])
+def test_fp32_at_lsnet_shapes(cuda, monkeypatch, case, ring):
+    """fp32 at LSNet-B's three shapes, at the tables' rows a strip and with
+    each ring: within 1e-5 of the fp32 plain version (the same taps in the
+    same order, fused multiply-adds against separate roundings)."""
+    c = case[3]
+    for esize in (2, 4):
+        monkeypatch.setitem(K._SKA_RING, (c, esize), ring)
+    x, w = _inputs(case, cuda, seed=ring)
+    oracle = ska_plain(x, w)
+    got = K.ska(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and _rel(got, oracle) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_scalar_path_for_rows_too_wide_for_a_strip(cuda, monkeypatch):
+    """A 1000-pixel row of 256 channels does not fit a strip in shared
+    memory: the scalar kernel takes it, by the same rule."""
+    from image_restoration_tpu_torch.kernels.build import load_library
+
+    lib = load_library().lib
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert lib.ir_ska_smem(1000, 256, 32, 0, 1, 1, 8, 1) > limit
+    _set_config(monkeypatch, 256, 1, 1, warps=8)
+    x, w = _inputs((1, 3, 1000, 256, 32, 3), cuda, seed=3)
+    n = K.ska.launches
+    _check_both(x, w)
+    assert K.ska.launches == n + 2

@@ -10,8 +10,7 @@ Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
     python3 chip_smoke.py --mefc [ROWS ...]
     python3 chip_smoke.py --attn [PIX ...] [--warps 4|8] [--cols N]
                                  [--groups N] [--ring 2|3] [--walk N]
-    python3 chip_smoke.py --ska [TH ...] [--warps 1-8] [--ring 1|2]
-                                [--split 1|2|4|8]
+    python3 chip_smoke.py --ska [TH ...] [--ring 1|2] [--split 1|2|4|8]
 
 The second form checks and times only the two kernels that share the GDFN
 tail (K2, K3), at the wrappers' tile height and warps or at those given: the
@@ -33,8 +32,8 @@ of a wrapper call are timed apart (the sweep behind ``kernels/attn_core.py``
 ``_ACC_*`` and ``_APPLY_*``). The seventh does it for the SKA dynamic
 conv (K9) at LSNet-B's three shapes at batch 64, bf16 and fp32: phase 2c's
 rules, two bit-equal runs of both and their times, at the wrapper's rows a
-strip or at each of TH, with warps a block, strip slots and the threads
-that share a unit's channel repeats as given; the plain versions, the
+strip or at each of TH, with strip slots and the threads that share a
+unit's channel repeats as given; the plain versions, the
 timer's floor (a one-value ``zero_``), copies of x and w, and the host
 time of a wrapper call and of its parts are timed apart (the sweep behind
 ``kernels/ska.py`` ``_SKA_*``). With no option it touches no table, so
@@ -1272,12 +1271,12 @@ def _ska_host_parts(xb, wb):
     return ", ".join(f"{k} {_host_ms(fn):.4f}" for k, fn in parts.items())
 
 
-def phase_ska_sweep(rows, warps=None, ring=None, split=None):
+def phase_ska_sweep(rows, ring=None, split=None):
     """``--ska``: K9 alone at LSNet-B's three shapes at batch 64, bf16 and
     fp32: phase 2c's rules, two bit-equal runs and the times, at the
     wrapper's rows a strip or at each of ``rows`` that fits the card (each
-    type on its own), with ``warps`` a block, ``ring`` strip slots and the
-    channel repeats of a unit ``split`` over threads as given (None: the
+    type on its own), with ``ring`` strip slots and the channel repeats of
+    a unit ``split`` over threads as given (None: the
     wrapper's own). The plain versions, the timer's floor, copies of the
     same inputs and the host ms of a wrapper call and of its parts are
     timed apart. With no option it touches no table,
@@ -1289,7 +1288,6 @@ def phase_ska_sweep(rows, warps=None, ring=None, split=None):
     from image_restoration_tpu_torch.ops.ska import ska_plain
 
     b = LSNET_BATCH
-    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     sums = {}
     for i, (h, w, c, wc, calls) in enumerate(SKA_SHAPES):
         x, wt, xb, wb, oracle, plain = _ska_inputs(i, h, w, c, wc)
@@ -1307,20 +1305,19 @@ def phase_ska_sweep(rows, warps=None, ring=None, split=None):
             for dt, esize, xd, wd in (("bf16", 2, xb, wb), ("fp32", 4, x, wt)):
                 where = f"{shape} {dt} th {th or 'own'}"
                 given = [(getattr(K, name, None), v) for name, v in (
-                    ("_SKA_ROWS", th), ("_SKA_WARPS", warps),
-                    ("_SKA_RING", ring), ("_SKA_SPLIT", split))
+                    ("_SKA_ROWS", th), ("_SKA_RING", ring),
+                    ("_SKA_SPLIT", split))
                     if v is not None]
                 with _kept((c, esize), *(t for t, _ in given)):
                     for t, v in given:
                         t[(c, esize)] = v
                     if given:
-                        cfg = K._config(w, c, wc, esize)
-                        smem = load_library().lib.ir_ska_smem(
-                            w, c, wc, esize == 4, *cfg)
-                        if smem > limit:
+                        cfg = K._config(c, esize)
+                        if not load_library().lib.ir_ska_blocks(
+                                w, c, wc, esize == 4, *cfg):
                             print(f"ska {where}: does not fit", flush=True)
                             continue
-                        where += f" (rows, ring, warps, split {cfg}, {smem} B)"
+                        where += f" (rows, ring, split {cfg})"
                     kern = K.ska(xd, wd)
                     err, ep = _ska_rule(where, kern, oracle,
                                         plain if esize == 2 else None)
@@ -1514,7 +1511,7 @@ def main(argv=None):
     ap.add_argument("--warps", type=int, default=None,
                     help="with --tail, --front or --msfn (8 or 16): warps a "
                          "block at every width; with --attn (4 or 8): K6's "
-                         "warps a block; with --ska (1-8): K9's")
+                         "warps a block")
     ap.add_argument("--cols", type=int, default=None, choices=[16, 48, 96],
                     help="with --attn: K6's output columns a warp job")
     ap.add_argument("--groups", type=int, default=None, choices=[1, 2, 4],
@@ -1531,15 +1528,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
     sweeps = {"tail": args.tail, "front": args.front, "msfn": args.msfn}
     warps_of = {"tail": (8, 16), "front": (8, 16), "msfn": (8, 16),
-                "attn": (4, 8), "ska": tuple(range(1, 9))}
+                "attn": (4, 8)}
     given = [k for k in warps_of if getattr(args, k) is not None]
     if args.warps is not None and not given:
-        ap.error("--warps goes with --tail, --front, --msfn, --attn or --ska "
-                 "(K8 runs 16 warps a block)")
+        ap.error("--warps goes with --tail, --front, --msfn or --attn (K8 "
+                 "runs 16 warps a block, K9 sizes its blocks from its strip)")
     if args.warps is not None and any(args.warps not in warps_of[k]
                                       for k in given):
         ap.error("--warps: 8 or 16 with --tail, --front or --msfn; 4 or 8 "
-                 "with --attn; 1-8 with --ska")
+                 "with --attn")
     if (args.cols or args.groups or args.walk) and args.attn is None:
         ap.error("--cols, --groups and --walk go with --attn")
     if args.ring is not None and (args.attn is None) == (args.ska is None):
@@ -1591,7 +1588,7 @@ def main(argv=None):
             phase_attn_sweep(args.attn, args.warps, args.cols, args.groups,
                              args.ring, args.walk)
         if args.ska is not None:
-            phase_ska_sweep(args.ska, args.warps, args.ring, args.split)
+            phase_ska_sweep(args.ska, args.ring, args.split)
         print(gpu)
         return 0
 

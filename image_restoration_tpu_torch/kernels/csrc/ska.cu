@@ -37,8 +37,11 @@
 //   64-bit division.
 // - ska_scalar_kernel (any odd k, any C with C % wc == 0): one thread per
 //   output value, scalar loads; the small widths of the tests (wc = 2, 6),
-//   k = 5 and unaligned views take it, and so do rows too wide for a strip
-//   to fit in shared memory.
+//   k = 5 and unaligned views take it, and so do rows too wide for even a
+//   one-row strip to fit in shared memory.
+#include <algorithm>
+#include <atomic>
+
 #include "common.cuh"
 
 namespace irk {
@@ -275,33 +278,55 @@ __global__ void __launch_bounds__(SKA_THREADS)
 }
 
 // The strip kernel's configuration: `th` rows a strip, `ring` slots (1, 2),
-// `warps` a block (1-8), each unit's channel repeats split over `split`
-// threads, within the card's shared memory.
+// each unit's channel repeats split over `split` threads, within the card's
+// shared memory.
 static bool strip_takes(int W, int C, int wc, int esize, int th, int ring,
-                        int warps, int split) {
+                        int split) {
   return wc > 0 && wc % 8 == 0 && C % wc == 0 && th >= 1 && ring >= 1 &&
-         ring <= 2 && warps >= 1 && warps <= 8 && split >= 1 &&
-         C / wc % split == 0 &&
+         ring <= 2 && split >= 1 && C / wc % split == 0 &&
          static_cast<long long>(th + 2) * (W + 2) * C * esize <= SMEM_LIMIT &&
          StripSmem(W, C, wc, th, esize, ring).total <= SMEM_LIMIT;
 }
 
-// Sets the shared-memory limit of the strip kernel for `ring` slots, then
-// launches it on `grid` blocks or, with `blocks` given, only asks how many
-// blocks an SM holds.
+// Threads of a strip-kernel block: one a (pixel, 8 weight channels) unit
+// share of a full strip, in whole warps, at most 256.
+static int strip_threads(int W, int wc, int th, int split) {
+  const long long n = static_cast<long long>(th) * W * (wc / 8) * split;
+  return 32 * static_cast<int>(std::min(8LL, std::max(1LL, (n + 31) / 32)));
+}
+
+// Lets ska_strip_kernel<T, RING> take the card's whole shared memory, once
+// a device (the attribute is set by the first call on each).
+template <typename T, int RING>
+static cudaError_t allow_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(ska_strip_kernel<T, RING>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_LIMIT);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+// Launches the strip kernel for `ring` slots on `grid` blocks or, with
+// `blocks` given, only asks how many blocks an SM holds.
 template <typename T>
-static cudaError_t strip_launch(const StripArgs& a, int ring, int warps,
-                                int grid, cudaStream_t stream, int* blocks) {
+static cudaError_t strip_launch(const StripArgs& a, int ring, int grid,
+                                cudaStream_t stream, int* blocks) {
   const int smem = StripSmem(a.W, a.C, a.wc, a.th, sizeof(T), ring).total;
+  const int threads = strip_threads(a.W, a.wc, a.th, a.split);
   const auto kernel =
       ring == 1 ? ska_strip_kernel<T, 1> : ska_strip_kernel<T, 2>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = ring == 1 ? allow_smem<T, 1>() : allow_smem<T, 2>();
   if (e != cudaSuccess) return e;
   if (blocks)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
-                                                         32 * warps, smem);
-  kernel<<<grid, 32 * warps, smem, stream>>>(a);
+                                                         threads, smem);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -309,40 +334,30 @@ static cudaError_t strip_launch(const StripArgs& a, int ring, int warps,
 
 extern "C" {
 
-// Dynamic shared memory of one strip-kernel block (`fp32` selects float
-// over bf16); above the card's limit where the configuration is not built.
-int ir_ska_smem(int W, int C, int wc, int fp32, int th, int ring, int warps,
-                int split) {
-  using namespace irk;
-  const int esize = fp32 ? 4 : 2;
-  if (!strip_takes(W, C, wc, esize, th, ring, warps, split))
-    return SMEM_LIMIT + 1;
-  return StripSmem(W, C, wc, th, esize, ring).total;
-}
-
-// Strip-kernel blocks one SM holds at once (0 if none).
+// Strip-kernel blocks one SM holds at once (`fp32` selects float over
+// bf16); 0 where the configuration does not fit the card.
 int ir_ska_blocks(int W, int C, int wc, int fp32, int th, int ring,
-                  int warps, int split) {
+                  int split) {
   using namespace irk;
-  if (!strip_takes(W, C, wc, fp32 ? 4 : 2, th, ring, warps, split)) return 0;
+  if (!strip_takes(W, C, wc, fp32 ? 4 : 2, th, ring, split)) return 0;
   const StripArgs a{nullptr, nullptr, nullptr, 1, th, W, C, wc, th, split};
   int blocks = 0;
   const cudaError_t e =
-      fp32 ? strip_launch<float>(a, ring, warps, 0, nullptr, &blocks)
-           : strip_launch<bf16>(a, ring, warps, 0, nullptr, &blocks);
+      fp32 ? strip_launch<float>(a, ring, 0, nullptr, &blocks)
+           : strip_launch<bf16>(a, ring, 0, nullptr, &blocks);
   return e == cudaSuccess ? blocks : 0;
 }
 
 // Launches the SKA forward on `stream`; `fp32` selects float over bf16 for
 // x, w and out alike. k = 3 with wc a multiple of 8, 16-byte aligned
-// pointers and a strip configuration (th, ring, warps, split) that fits
+// pointers and a strip configuration (th, ring, split) that fits
 // takes the strip kernel on `grid` blocks (ring 1: one strip a block
 // whatever `grid`); anything else the scalar kernel. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for an empty or malformed
 // shape (C not a multiple of wc, even ks).
 int ir_ska(const void* x, const void* w, void* out, int B, int H, int W,
-           int C, int wc, int ks, int fp32, int th, int ring, int warps,
-           int split, int grid, void* stream) {
+           int C, int wc, int ks, int fp32, int th, int ring, int split,
+           int grid, void* stream) {
   using namespace irk;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || wc <= 0 || C % wc ||
       ks <= 0 || ks % 2 == 0)
@@ -353,13 +368,13 @@ int ir_ska(const void* x, const void* w, void* out, int B, int H, int W,
                          reinterpret_cast<uintptr_t>(w) |
                          reinterpret_cast<uintptr_t>(out);
   if (ks == 3 && ptrs % 16 == 0 &&
-      strip_takes(W, C, wc, esize, th, ring, warps, split)) {
+      strip_takes(W, C, wc, esize, th, ring, split)) {
     const StripArgs a{x, w, out, B, H, W, C, wc, th, split};
     const int n_strips = B * ((H + th - 1) / th);
     const int blocks =
         ring == 1 || grid <= 0 || grid > n_strips ? n_strips : grid;
-    return fp32 ? strip_launch<float>(a, ring, warps, blocks, s, nullptr)
-                : strip_launch<bf16>(a, ring, warps, blocks, s, nullptr);
+    return fp32 ? strip_launch<float>(a, ring, blocks, s, nullptr)
+                : strip_launch<bf16>(a, ring, blocks, s, nullptr);
   }
   const long long total = static_cast<long long>(B) * H * W * C;
   const unsigned blocks =

@@ -10,9 +10,11 @@ At k = 3 with wc a multiple of 8 (every LSNet width) ``csrc/ska.cu`` runs
 its strip kernel: blocks take strips of whole image rows staged in shared
 memory; persistent ones (as many as the card holds, measured once per
 shape by the occupancy API and cached) load the next strips while the
-current one runs. Rows a strip, strip slots, the threads a unit's channel
-repeats are split over and warps a block come from per-width tables
-(``_SKA_*``), chosen by ``chip_smoke.py --ska`` sweeps. Other shapes and
+current one runs. Rows a strip, strip slots and the threads a unit's
+channel repeats are split over come from per-width tables (``_SKA_*``),
+chosen by ``chip_smoke.py --ska`` sweeps; the kernel sizes its blocks from
+them. Rows too wide for the table's strip to fit in shared memory take
+one-row strips, one a block; rows too wide for those, other shapes and
 unaligned views take the kernel's scalar path.
 
 On a CUDA tensor it launches ``csrc/ska.cu`` or raises; on a CPU tensor it
@@ -35,42 +37,44 @@ from image_restoration_tpu_torch.ops.ska import ska_plain, ska_shape
 # ``chip_smoke.py --ska`` sweeps at LSNet-B's batch-64 shapes (28x28 x 128,
 # 14x14 x 256, 7x7 x 384) on an H100 80GB HBM3 (700 W): rows a strip,
 # strip slots (1: one strip a block; 2: persistent blocks loading the
-# next strip ahead), the threads that share a (pixel, 8 weight
-# channels) unit's channel repeats, and warps a block (none: one thread a
-# unit share of a strip, at most 8). fp32 strips take twice the shared
+# next strip ahead) and the threads that share a (pixel, 8 weight
+# channels) unit's channel repeats. fp32 strips take twice the shared
 # memory, so the deeper fp32 maps run 4-row strips one a block.
 _SKA_ROWS = {(128, 2): 2, (256, 2): 2, (384, 2): 2,
              (128, 4): 2, (256, 4): 4, (384, 4): 4}
 _SKA_RING = {(128, 2): 2, (256, 2): 2, (384, 2): 2,
              (128, 4): 2, (256, 4): 1, (384, 4): 1}
 _SKA_SPLIT = {(384, 2): 2}
-_SKA_WARPS = {}
 
 
-def _config(w, c, wc, esize):
-    """(rows a strip, slots, warps, split) at width ``c``; 2 rows, 2 slots
-    and no split where the tables have no entry."""
+def _config(c, esize):
+    """(rows a strip, slots, split) at width ``c``; 2 rows, 2 slots and no
+    split where the tables have no entry."""
     key = (c, esize)
-    th, split = _SKA_ROWS.get(key, 2), _SKA_SPLIT.get(key, 1)
-    warps = _SKA_WARPS.get(key) or min(
-        8, max(1, -(-th * w * (wc // 8) * split // 32)))
-    return th, _SKA_RING.get(key, 2), warps, split
+    return (_SKA_ROWS.get(key, 2), _SKA_RING.get(key, 2),
+            _SKA_SPLIT.get(key, 1))
 
 
-_GRIDS = {}
+_PLANS = {}
 
 
-def _grid(lib, device, args, n_strips):
-    """Blocks of a persistent launch: the SMs times the blocks an SM holds,
-    no more than the strips (0 where the strip kernel does not fit: the
-    scalar path ignores it); cached per shape."""
-    key = (device, args, n_strips)
-    if key not in _GRIDS:
+def _plan(lib, device, b, h, w, c, wc, fp32):
+    """(rows a strip, slots, split, blocks) of a launch: the tables' strip
+    or, where it does not fit the card, one-row strips one a block, on the
+    SMs times the blocks an SM holds, no more than the strips (0 blocks
+    where neither fits: the scalar path ignores them); cached per shape."""
+    th, ring, split = _config(c, 4 if fp32 else 2)
+    key = (device, b, h, w, c, wc, fp32, th, ring, split)
+    if key not in _PLANS:
         with torch.cuda.device(device):
-            per_sm = lib.lib.ir_ska_blocks(*args)
-            props = torch.cuda.get_device_properties(device)
-        _GRIDS[key] = min(n_strips, per_sm * props.multi_processor_count)
-    return _GRIDS[key]
+            per_sm = lib.lib.ir_ska_blocks(w, c, wc, fp32, th, ring, split)
+            if not per_sm:
+                th, ring = 1, 1
+                per_sm = lib.lib.ir_ska_blocks(w, c, wc, fp32, th, ring,
+                                               split)
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _PLANS[key] = (th, ring, split, min(b * -(-h // th), per_sm * sms))
+    return _PLANS[key]
 
 
 def ska(x, w):
@@ -91,8 +95,7 @@ def ska(x, w):
             raise ValueError(f"ska: {name} must be contiguous")
     lib = load_library()
     fp32 = int(x.dtype == torch.float32)
-    cfg = _config(wd, c, wc, 4 if fp32 else 2)
-    grid = _grid(lib, x.device, (wd, c, wc, fp32, *cfg), b * -(-h // cfg[0]))
+    plan = _plan(lib, x.device, b, h, wd, c, wc, fp32)
 
     def launch():
         out = torch.empty_like(x)
@@ -103,7 +106,7 @@ def ska(x, w):
         with (contextlib.nullcontext() if idx == torch.cuda.current_device()
               else torch.cuda.device(idx)):
             code = lib.lib.ir_ska(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                  b, h, wd, c, wc, ks, fp32, *cfg, grid,
+                                  b, h, wd, c, wc, ks, fp32, *plan,
                                   torch._C._cuda_getCurrentRawStream(idx))
         lib.check(code, "ska")
         ska.launches += 1

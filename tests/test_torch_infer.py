@@ -130,7 +130,7 @@ def test_port_never_imports_jax():
                                   ["--front", "8", "4", "--warps", "16"],
                                   ["--msfn", "8", "4", "--warps", "8"],
                                   ["--mefc", "4", "2"],
-                                  ["--ska", "2", "4", "--warps", "8"]],
+                                  ["--ska", "2", "4", "--ring", "2"]],
                          ids=["full", "tail", "front", "msfn", "mefc", "ska"])
 def test_chip_smoke_refuses_without_cuda(tmp_path, args):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")

@@ -16,7 +16,8 @@ in the same order, fused multiply-adds against separate roundings).
 Shapes: LSNet-B's three at batch 4, (28, 28, 128 / wc 16), (14, 14, 256 /
 32), (7, 7, 384 / 48), which take the strip kernel; a ragged 7x9 at
 C 24 / wc 6 and C 12 / wc 2, and k = 5, which take the scalar path; and an
-unaligned view of x and rows too wide for a strip (the scalar path too).
+unaligned view of x and rows too wide for even a one-row strip (the scalar
+path too); rows too wide for the tables' strip take one-row strips.
 The strip kernel is also held, at launch tables set by the test, to strips
 whose rows do not divide H, to 7x7 x 384 images split over blocks by rows,
 with one strip a block and with persistent blocks, to a batch whose images
@@ -53,14 +54,12 @@ def _inputs(case, device, seed):
     return x.to(device), wt.to(device)
 
 
-def _set_config(monkeypatch, c, th, ring, warps=None, split=1):
+def _set_config(monkeypatch, c, th, ring, split=1):
     """Launch tables for width ``c`` in bf16 and fp32."""
     for esize in (2, 4):
         monkeypatch.setitem(K._SKA_ROWS, (c, esize), th)
         monkeypatch.setitem(K._SKA_RING, (c, esize), ring)
         monkeypatch.setitem(K._SKA_SPLIT, (c, esize), split)
-        if warps is not None:
-            monkeypatch.setitem(K._SKA_WARPS, (c, esize), warps)
 
 
 def _check_both(x, w):
@@ -209,11 +208,39 @@ def test_scalar_path_for_rows_too_wide_for_a_strip(cuda, monkeypatch):
     memory: the scalar kernel takes it, by the same rule."""
     from image_restoration_tpu_torch.kernels.build import load_library
 
-    lib = load_library().lib
-    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    assert lib.ir_ska_smem(1000, 256, 32, 0, 1, 1, 8, 1) > limit
-    _set_config(monkeypatch, 256, 1, 1, warps=8)
+    lib = load_library()
+    assert lib.lib.ir_ska_blocks(1000, 256, 32, 0, 1, 1, 1) == 0
+    _set_config(monkeypatch, 256, 1, 1)
     x, w = _inputs((1, 3, 1000, 256, 32, 3), cuda, seed=3)
+    assert K._plan(lib, x.device, 1, 3, 1000, 256, 32, 0)[3] == 0
     n = K.ska.launches
     _check_both(x, w)
     assert K.ska.launches == n + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,w", [(torch.float32, 40), (torch.bfloat16, 72)])
+def test_rows_too_wide_for_the_tables_strip(cuda, dt, w):
+    """At C 128 the tables' 2-row strips in two slots overflow shared
+    memory from W 33 in fp32 and W 66 in bf16: one-row strips one a block
+    take such rows, by the same rule, on 5 rows that need several."""
+    from image_restoration_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    fp32 = int(dt == torch.float32)
+    th, ring, split = K._config(128, 4 if fp32 else 2)
+    assert (th, ring) == (2, 2)
+    assert lib.lib.ir_ska_blocks(w, 128, 16, fp32, th, ring, split) == 0
+    x, wt = _inputs((2, 5, w, 128, 16, 3), cuda, seed=w)
+    x, wt = x.to(dt), wt.to(dt)
+    assert K._plan(lib, x.device, 2, 5, w, 128, 16, fp32)[:2] == (1, 1)
+    assert K._plan(lib, x.device, 2, 5, w, 128, 16, fp32)[3] > 0
+    oracle = ska_plain(x.float(), wt.float())
+    got = K.ska(x, wt)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, K.ska(x, wt))
+    if fp32:
+        assert _rel(got, oracle) <= 1e-5
+    else:
+        assert _rel(got, oracle) < max(3 * _rel(ska_plain(x, wt), oracle),
+                                       4e-3)

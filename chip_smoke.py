@@ -91,8 +91,31 @@ Phases, any failure ends the run with a nonzero exit code:
 3e. AdaIR from its serving defaults (``fused_block``: 44 K1 + 44 K2 per
    forward; its FreModules plain torch, with seeded non-zero ``para1`` and
    ``para2`` so that their output reaches the image), the same way.
-Each serving phase sets the launch counts to 0 just before its three
-forwards and reads them just after.
+3f. evaluation: a seeded synthetic benchmark tree in the JAX layout
+   (Rain100L-shaped: three pairs, 481x321 twice and 321x481; BSD68-shaped:
+   three clean images of those sizes; GoPro-shaped: one 1280x720 pair) is
+   scored through ``cli/test.py`` ``main``. Restormer-base from its serving
+   defaults, seeded weights passed as a ``.pth`` ``--ckpt``, scores derain,
+   denoise_25 and deblur: 44 K1 + 44 K2 launches per forward, finite
+   scores, and each image's on-card PSNR and SSIM within 1e-3 dB and 1e-4
+   of a float64 host recomputation (scipy, the skimage formula) of the
+   same clipped output. On every input shape the benchmarks fed it (the
+   padded 328x488 and 488x328 of Rain100L, deep maps 41x61 and 61x41 at
+   384 channels; BSD68's 320x480 and 480x320 crops; GoPro's 768x1280
+   bucket) the kernel model holds phase 3's rule against the plain fp32
+   model. ``make_restore_fn`` with ``tile=128`` on a 512x512 image runs its
+   16 windows as one batch of 16 (one forward's launches); every window of
+   the restore holds phase 2's rule against the plain fp32 model (both
+   clipped), and the windows whose bits equal their own batch-1 forward
+   are counted. DRSformer scores derain: 40 K1, 40 K7 and 8 K8 per
+   forward, finite outputs and scores, and phase 3's rule against its
+   plain fp32 model at 328x488 and 488x328. ms/img per benchmark follow:
+   the host clock around the evaluate loop, and inside it the forward and
+   the metrics by CUDA events.
+Each serving phase sets the launch counts to 0 just before its forwards
+and reads them just after; the kernels line's ``launches_by_path`` lists
+phase 3f's two ``main`` runs as ``eval`` (Restormer-base, 7 forwards) and
+``eval_drsformer`` (3 forwards).
 
 Every kernel's row carries its bound: the largest of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s, its
@@ -156,6 +179,14 @@ LSNET_B = ["--set", "model_kwargs.embed_dim=(128,256,384,512)",
 LSNET_BATCH = 64
 SKA_SHAPES = [(28, 28, 128, 16, 2), (14, 14, 256, 32, 3), (7, 7, 384, 48, 4)]
 SKA_PER_FORWARD = sum(lv[-1] for lv in SKA_SHAPES)  # 9
+# The synthetic benchmark tree of phase 3f, (H, W) per image in the JAX
+# layout of eval/benchmarks.py: Rain100L- and BSD68-shaped (481x321 and
+# 321x481 images) and GoPro-shaped (1280x720); the benchmarks it scores
+# and their images.
+EVAL_SIZES = [(321, 481), (321, 481), (481, 321)]
+GOPRO_SIZE = (720, 1280)
+EVAL_BENCHES = ["derain", "denoise_25", "deblur"]
+EVAL_IMAGES = {"derain": 3, "denoise_25": 3, "deblur": 1}
 # The three-kernel Restormer block (K4, K5 + K6, K3) instead of the pair.
 THREE_KERNEL = ("model_kwargs.fused_block=False",
                 "model_kwargs.fused_attn=True", "model_kwargs.fused_gdfn=True")
@@ -1053,6 +1084,20 @@ def _profile(fn, inputs, profile_dir, tag, gpu, what):
           f"{profile_dir}", flush=True)
 
 
+def plain_variant(cfg, model, bf16):
+    """``model``'s weights in the model that ``cfg`` builds with every
+    kernel flag off, computing in bf16 or fp32: the plain model the kernel
+    model is held to."""
+    from image_restoration_tpu_torch.cli.train import build_model
+
+    mk = cfg["model_kwargs"]
+    off = {k: False for k in ("fused_block", "fused_attn", "fused_gdfn",
+                              "use_pallas_ska") if k in mk}
+    m = build_model(dict(cfg, bf16=bf16, model_kwargs=dict(mk, **off)))
+    m.load_state_dict(model.state_dict())
+    return m
+
+
 def perturb_adair(model, seed):
     """Seeded, non-trivial ``para1`` and ``para2`` in every FreModule: the
     init's zero ``para1`` makes a FreModule return its input, so nothing it
@@ -1121,20 +1166,10 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected,
 
     # agreement: fused bf16 vs plain fp32 (oracle), against plain bf16
     x = torch.from_numpy(images[0]).permute(2, 0, 1)[None].cuda()
-    sd = model.state_dict()
-
-    def variant(bf16):
-        plain = {k: False for k in ("fused_block", "fused_attn", "fused_gdfn")
-                 if k in mk}
-        c2 = dict(cfg, bf16=bf16, model_kwargs=dict(mk, **plain))
-        m = build_model(c2)
-        m.load_state_dict(sd)
-        return m
-
     with torch.inference_mode():
         out_fused = model(x)
-        out_ref = variant(False)(x)
-        out_plain = variant(True)(x)
+        out_ref = plain_variant(cfg, model, False)(x)
+        out_plain = plain_variant(cfg, model, True)(x)
     err_fused = (out_fused - out_ref).abs().max().item()
     err_plain = (out_plain - out_ref).abs().max().item()
     del out_ref, out_plain
@@ -1413,16 +1448,8 @@ def phase_lsnet(gpu, profile_dir):
           f"forwards, expected {SKA_PER_FORWARD} each")
 
     # agreement: kernel bf16 vs plain fp32 (oracle), against plain bf16
-    sd = model.state_dict()
-
-    def variant(bf16):
-        c2 = dict(cfg, bf16=bf16,
-                  model_kwargs=dict(cfg["model_kwargs"], use_pallas_ska=False))
-        m = build_model(c2)
-        m.load_state_dict(sd)
-        return m
-
-    ref, plain16 = variant(False), variant(True)
+    ref, plain16 = (plain_variant(cfg, model, False),
+                    plain_variant(cfg, model, True))
     err_k = err_p = 0.0
     agree = agree_p = 0
     with torch.inference_mode():
@@ -1465,6 +1492,350 @@ def phase_lsnet(gpu, profile_dir):
         _profile(lambda a: batch_hits(model, *a), batches, profile_dir,
                  "lsnet", gpu, f"batches of {b} at 224x224")
     return launches
+
+
+def _smooth_image(rng, h, w):
+    """A seeded uint8 RGB image with structure at several scales (a sum of
+    upsampled random fields), so that SSIM sees edges and flat areas."""
+    img = np.zeros((h, w, 3))
+    for cell, amp in ((64, 0.5), (16, 0.3), (4, 0.2)):
+        lo = rng.random((-(-h // cell) + 1, -(-w // cell) + 1, 3))
+        img += amp * np.kron(lo, np.ones((cell, cell, 1)))[:h, :w]
+    return (img * 255).clip(0, 255).astype(np.uint8)
+
+
+def write_eval_tree(root, seed=0):
+    """Phase 3f's seeded benchmark tree under ``root``: Rain100L-shaped
+    pairs (the input with seeded streak-like noise), BSD68-shaped clean
+    images (the benchmark adds the noise) and one GoPro-shaped pair."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+
+    def save(rel, arr):
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(arr).save(path)
+
+    def degrade(gt):
+        noise = rng.standard_normal(gt.shape) * 12.0
+        streaks = (rng.random(gt.shape[:2]) > 0.97)[..., None] * 80.0
+        return np.clip(gt + noise + streaks, 0, 255).astype(np.uint8)
+
+    for i, (h, w) in enumerate(EVAL_SIZES):
+        gt = _smooth_image(rng, h, w)
+        save(f"deraining/Rain100L/target/{i:03d}.png", gt)
+        save(f"deraining/Rain100L/input/{i:03d}.png", degrade(gt))
+        save(f"denoising/bsd68/{i:03d}.png", _smooth_image(rng, h, w))
+    gt = _smooth_image(rng, *GOPRO_SIZE)
+    save("deblurring/GoPro/test/target/000.png", gt)
+    save("deblurring/GoPro/test/input/000.png", degrade(gt))
+
+
+class _MetricProbe:
+    """Stands in for ``eval/benchmarks.py``'s metrics module while a phase
+    scores: each PSNR/SSIM call runs the real function between two CUDA
+    events, and with ``keep`` the clipped output, the target and the value
+    are kept for the host recomputation."""
+
+    def __init__(self, metrics, keep):
+        self.m, self.keep = metrics, keep
+        self.events, self.kept = [], []
+
+    def _timed(self, fn, out, gt):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        val = fn(out, gt)
+        end.record()
+        self.events.append((start, end))
+        if self.keep:
+            self.kept.append((fn.__name__, out[0].double().cpu().numpy(),
+                              gt[0].double().cpu().numpy(), val))
+        return val
+
+    def __getattr__(self, name):
+        return getattr(self.m, name)
+
+    def psnr(self, out, gt):
+        return self._timed(self.m.psnr, out, gt)
+
+    def ssim(self, out, gt):
+        return self._timed(self.m.ssim, out, gt)
+
+    def ms(self):
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+@contextlib.contextmanager
+def metric_probe(keep=False):
+    from image_restoration_tpu_torch.eval import benchmarks as B
+
+    saved = B.M
+    B.M = probe = _MetricProbe(saved, keep)
+    try:
+        yield probe
+    finally:
+        B.M = saved
+
+
+def host_psnr_ssim(out, gt):
+    """float64 PSNR and SSIM of (C, H, W) arrays by the skimage formula:
+    gaussian weights sigma 1.5 truncated at 3.5 (radius 5), sample
+    covariance, the map cropped by the radius and averaged (scipy)."""
+    from scipy.ndimage import gaussian_filter
+
+    psnr = 10.0 * np.log10(1.0 / np.mean((out - gt) ** 2))
+
+    def filt(a):
+        return gaussian_filter(a, sigma=(0, 1.5, 1.5), truncate=3.5)
+
+    cov = 121.0 / 120.0
+    ux, uy = filt(out), filt(gt)
+    vx = cov * (filt(out * out) - ux * ux)
+    vy = cov * (filt(gt * gt) - uy * uy)
+    vxy = cov * (filt(out * gt) - ux * uy)
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    s = ((2 * ux * uy + c1) * (2 * vxy + c2)
+         / ((ux ** 2 + uy ** 2 + c1) * (vx + vy + c2)))
+    return psnr, float(s[:, 5:-5, 5:-5].mean())
+
+
+def _eval_main(tag, argv, counters, expected, n_forwards):
+    """``cli/test.py`` ``main(argv)`` with the launch ``counters`` set to 0
+    just before and read just after, every clipped output and metric kept;
+    checks the launches per forward, finite scores and results.json."""
+    import json
+    import os
+
+    import torch
+
+    from image_restoration_tpu_torch.cli import test as T
+
+    for fn in counters.values():
+        fn.launches = 0
+    with metric_probe(keep=True) as probe:
+        results = T.main(argv)
+        torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"eval {tag}: {n_forwards} forwards, launches {launches}; "
+          + "; ".join(f"{b} PSNR {r['psnr']:.4f} dB SSIM {r['ssim']:.4f} "
+                      f"n {r['n']}" for b, r in results.items()), flush=True)
+    for name, n in launches.items():
+        check(n == n_forwards * expected[name],
+              f"eval {tag} {name}: {n} launches for {n_forwards} forwards, "
+              f"expected {expected[name]} each")
+    with open(os.path.join(argv[argv.index("--output_dir") + 1],
+                           "results.json")) as f:
+        check(json.load(f) == results, f"eval {tag}: results.json differs")
+    for b, r in results.items():
+        check(np.isfinite(r["psnr"]) and np.isfinite(r["ssim"]),
+              f"eval {tag} {b}: non-finite scores {r}")
+    check(len(probe.kept) == 2 * n_forwards,
+          f"eval {tag}: {len(probe.kept)} metric calls")
+    return launches, probe.kept
+
+
+def _eval_times(gpu, tag, model, data):
+    """ms/img of each benchmark: the host clock around ``run_benchmark``
+    (the evaluate loop: read, copy, pad, forward, metrics, one readback),
+    and inside it the forward and the metrics by CUDA events; then the
+    forward's device time alone at the first image's padded shape (the
+    host kept ahead by a spin, as phase 3 times it). Returns the first
+    model input of each shape that the benchmarks fed the forward."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.test import make_eval_fn
+    from image_restoration_tpu_torch.eval.benchmarks import run_benchmark
+
+    fn = make_eval_fn(model)
+    device = next(model.parameters()).device
+    by_shape = {}
+    for bench in (EVAL_BENCHES if tag == "restormer" else ["derain"]):
+        fwd_events, inputs = [], []
+
+        def timed(x):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(x)
+            end.record()
+            fwd_events.append((start, end))
+            inputs.append(x)
+            return out
+
+        with metric_probe() as probe:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = run_benchmark(bench, timed, data, device=device)
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3 / r.n
+        fwd = sum(s.elapsed_time(e) for s, e in fwd_events) / r.n
+        x0 = inputs[0]
+        alone = time_cuda(lambda: fn(x0), reps=10, head_start_ms=150.0)
+        print(f"eval {tag} {bench} bf16 on {gpu}: {r.n} images, {host:.3f} "
+              f"ms/img (evaluate loop, host clock), forward {fwd:.3f} ms/img, "
+              f"metrics {probe.ms() / r.n:.3f} ms/img (CUDA events); forward "
+              f"device time alone {alone:.3f} ms at {x0.shape[2]}x"
+              f"{x0.shape[3]}", flush=True)
+        for x in inputs:
+            by_shape.setdefault((bench, tuple(x.shape[2:])), x)
+    return by_shape
+
+
+def _hold_to_plain(tag, model, plain32, plain16, inputs):
+    """Phase 3's rule on each input the benchmarks fed ``model``: the kernel
+    model's max |error| against the plain fp32 model within 3x the plain
+    bf16 model's."""
+    import torch
+
+    from image_restoration_tpu_torch.utils.precision import full_fp32
+
+    for (bench, (h, w)), x in inputs.items():
+        with torch.inference_mode(), full_fp32():
+            ref = plain32(x)
+            err_k = (model(x).float() - ref).abs().max().item()
+            err_p = (plain16(x).float() - ref).abs().max().item()
+        del ref
+        print(f"eval {tag} {bench} {h}x{w} (deep map {h // 8}x{w // 8}): max "
+              f"|kernel bf16 - plain fp32| {err_k:.4e}, max |plain bf16 - "
+              f"plain fp32| {err_p:.4e}", flush=True)
+        check(np.isfinite(err_k) and err_k <= 3.0 * err_p,
+              f"eval {tag} {bench} at {h}x{w}: kernel model error "
+              f"{err_k:.4e} above 3 x {err_p:.4e}")
+
+
+def _windows_by_rule(model, plain32, plain16, img, tiled):
+    """The ``--tile 128`` restore ``tiled`` of ``img``, window by window:
+    each window held to phase 2's rule against the plain fp32 model (both
+    clipped to [0, 1], as the restore clips), and counted when its bits
+    equal the window's own batch-1 forward. The batch changes finalize's
+    batched cuBLAS product and cuDNN's conv algorithms, so equal bits are
+    not expected (PERF.md section 6)."""
+    import torch
+
+    from image_restoration_tpu_torch.eval.tiled import window_partition
+    from image_restoration_tpu_torch.utils.precision import full_fp32
+
+    x = torch.from_numpy(img).permute(2, 0, 1)[None].cuda()
+    wins, _ = window_partition(x, 128)
+    out = torch.from_numpy(tiled).permute(2, 0, 1)[None].cuda()
+    got, _ = window_partition(out, 128)
+    equal, worst = 0, (0.0, 0.0)
+    with torch.inference_mode(), full_fp32():
+        for k in range(wins.shape[0]):
+            win = wins[k:k + 1]
+            ref = plain32(win).clamp(0.0, 1.0)
+            ek = rel_err(got[k:k + 1], ref)
+            ep = rel_err(plain16(win).clamp(0.0, 1.0), ref)
+            equal += torch.equal(model(win).clamp(0.0, 1.0).float(),
+                                 got[k:k + 1])
+            worst = max(worst, (ek, ep))
+            check(ek < _bound(ep), f"tiled window {k}: rel err {ek:.3e} "
+                  f"above max(3 x {ep:.3e}, 4e-3)")
+    print(f"eval restormer --tile 128 on 512x512: 16 windows in one batch of "
+          f"16, each within phase 2's rule against plain fp32 (worst rel err "
+          f"{worst[0]:.3e}, plain bf16 {worst[1]:.3e}); {equal} of 16 "
+          f"bit-equal to their batch-1 forward", flush=True)
+
+
+def phase_eval(gpu):
+    """Phase 3f: score Restormer-base and DRSformer through ``cli/test.py``
+    on a seeded synthetic benchmark tree; the on-card metrics against a
+    float64 host recomputation; the times; the kernel model against the
+    plain fp32 model on every input shape the benchmarks fed it; the
+    ``--tile 128`` windows by phase 2's rule. Returns the launch counts of
+    the two ``main`` runs."""
+    import os
+    import tempfile
+
+    import torch
+
+    from image_restoration_tpu_torch.cli.infer import make_restore_fn
+    from image_restoration_tpu_torch.cli.test import load_params
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.kernels import block as KB
+    from image_restoration_tpu_torch.kernels import drs_block as KD
+    from image_restoration_tpu_torch.kernels import mefc as KM
+    from image_restoration_tpu_torch.utils.options import parse_options
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ir_eval_") as tmp:
+        data = os.path.join(tmp, "data")
+        write_eval_tree(data)
+        # Restormer-base from its serving defaults, seeded weights through
+        # the checkpoint path
+        ckpt = os.path.join(tmp, "restormer.pth")
+        torch.save(build_model(parse_options(["--seed", "7"])).state_dict(),
+                   ckpt)
+        n_fwd = sum(EVAL_IMAGES.values())
+        pair = {"block_front": KB.block_front,
+                "block_apply_gdfn": KB.block_apply_gdfn}
+        launches, kept = _eval_main(
+            "restormer", ["--model", "restormer", "--ckpt", ckpt,
+                          "--benchmarks", *EVAL_BENCHES, "--data_file_dir",
+                          data, "--output_dir", os.path.join(tmp, "r")],
+            pair, dict.fromkeys(pair, BLOCKS_PER_FORWARD), n_fwd)
+        worst = [0.0, 0.0]
+        for (_, out, gt, p), (_, _, _, s) in zip(kept[::2], kept[1::2]):
+            p_host, s_host = host_psnr_ssim(out, gt)
+            dp, ds = abs(p.item() - p_host), abs(s.item() - s_host)
+            worst = [max(worst[0], dp), max(worst[1], ds)]
+            check(dp <= 1e-3 and ds <= 1e-4,
+                  f"eval metrics at {out.shape}: card PSNR {p.item():.6f} "
+                  f"SSIM {s.item():.7f}, host float64 {p_host:.6f} "
+                  f"{s_host:.7f}")
+        print(f"eval restormer: {len(kept) // 2} images, on-card metrics vs "
+              f"float64 host: max |dPSNR| {worst[0]:.3e} dB (limit 1e-3), "
+              f"max |dSSIM| {worst[1]:.3e} (limit 1e-4)", flush=True)
+
+        cfg = parse_options(["--model", "restormer", "--ckpt", ckpt])
+        model = load_params(cfg, build_model(cfg))
+        inputs = _eval_times(gpu, "restormer", model, data)
+        plain32, plain16 = (plain_variant(cfg, model, False),
+                            plain_variant(cfg, model, True))
+        _hold_to_plain("restormer", model, plain32, plain16, inputs)
+
+        # --tile 128 on a 512x512 image: 16 windows through one forward
+        restore = make_restore_fn(dict(cfg, tile=128), model)
+        img = np.random.default_rng(3).random((512, 512, 3), dtype=np.float32)
+        restore(img)
+        for fn in pair.values():
+            fn.launches = 0
+        tiled = restore(img)
+        torch.cuda.synchronize()
+        check(all(fn.launches == BLOCKS_PER_FORWARD for fn in pair.values()),
+              f"tiled: {[fn.launches for fn in pair.values()]} launches, "
+              f"expected one batched forward ({BLOCKS_PER_FORWARD} each)")
+        _windows_by_rule(model, plain32, plain16, img, tiled)
+        del model, plain32, plain16, inputs
+
+        trio = {"block_front": KB.block_front,
+                "drs_apply_msfn": KD.drs_apply_msfn,
+                "mefc_step": KM.mefc_step}
+        n_drs = EVAL_IMAGES["derain"]
+        drs_launches, kept = _eval_main(
+            "drsformer", ["--model", "drsformer", "--benchmarks", "derain",
+                          "--data_file_dir", data, "--output_dir",
+                          os.path.join(tmp, "d")], trio,
+            {"block_front": DRS_BLOCKS_PER_FORWARD,
+             "drs_apply_msfn": DRS_BLOCKS_PER_FORWARD,
+             "mefc_step": MEFC_STEPS_PER_FORWARD}, n_drs)
+        for _, out, _, val in kept:
+            check(np.isfinite(out).all() and np.isfinite(val.item()),
+                  "eval drsformer: non-finite output or score")
+        # the same seeded weights as main's model
+        dcfg = parse_options(["--model", "drsformer"])
+        model = load_params(dcfg, build_model(dcfg))
+        inputs = _eval_times(gpu, "drsformer", model, data)
+        _hold_to_plain("drsformer", model, plain_variant(dcfg, model, False),
+                       plain_variant(dcfg, model, True), inputs)
+    print(f"eval: phase 3f took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, drs_launches
 
 
 def main(argv=None):
@@ -1627,6 +1998,7 @@ def main(argv=None):
              "block_apply_gdfn": BLOCKS_PER_FORWARD},
             perturb=lambda m: perturb_adair(m, seed=800)),
     }
+    by_path["eval"], by_path["eval_drsformer"] = phase_eval(gpu)
     ms_is = {"block_front": "sum over the 44 blocks of one Restormer-base "
                             "512x512 forward of per-call CUDA-event medians",
              "block_apply_gdfn": "the same, 44 blocks",

@@ -1,4 +1,5 @@
-"""Inference entry point: restore an image or every image in a folder.
+"""Inference entry point: restore an image, every image in a folder, or
+the frames of a video (image_restoration_tpu/cli/infer.py).
 
 Usage:
   python -m image_restoration_tpu_torch.cli.infer --model restormer \
@@ -16,11 +17,18 @@ Usage:
       --set model_kwargs.fused_attn=True --set model_kwargs.fused_gdfn=True \
       --input photos/ --output_dir restored/
 
+  # tiled: every 128x128 window of an image through the model as one batch
+  python -m image_restoration_tpu_torch.cli.infer --model restormer \
+      --ckpt restormer.pth --lq_dir rainy/ --tile 128 --output_dir out/
+
 Each image is reflect-padded to a multiple of ``--pad_multiple`` (8), run
-through the model and cropped back, as the JAX ``cli/infer.py`` does. On a
-GPU the default Restormer and AdaIR run every TransformerBlock through the
-two CUDA kernels of ``kernels/block.py`` (AdaIR's FreModules are plain
-torch); with the three flags above every block runs ``kernels/mdta.py``,
+through the model and cropped back, or with ``--tile`` cut into windows,
+as the JAX ``cli/infer.py`` does. ``--lq_dir`` stands in for ``--input``;
+a video file (``.mp4``, ...) is decoded and re-encoded by an ``ffmpeg`` on
+PATH, and refused without one. On a GPU the default Restormer and AdaIR
+run every TransformerBlock through the two CUDA kernels of
+``kernels/block.py`` (AdaIR's FreModules are plain torch); with the three
+flags above every block runs ``kernels/mdta.py``,
 ``kernels/attn_core.py`` (two kernels) and ``kernels/gdfn.py`` instead.
 DRSformer runs every block through pass 1 of ``kernels/block.py`` and
 ``kernels/drs_block.py``'s MSFN pass, and its two MEFC Subnets step by step
@@ -29,13 +37,18 @@ through ``kernels/mefc.py``.
 
 from __future__ import annotations
 
-import contextlib
 import os
+import shutil
+import subprocess
+import tempfile
 
 import numpy as np
 import torch
 
+from image_restoration_tpu_torch.utils.precision import full_fp32
+
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".tif", ".tiff")
+VID_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
 
 
 def list_images(path: str):
@@ -61,52 +74,38 @@ def save_image(path: str, arr: np.ndarray):
     Image.fromarray((arr * 255.0).round().astype(np.uint8)).save(path)
 
 
-@contextlib.contextmanager
-def full_fp32():
-    """fp32 products and convolutions at full precision, not TF32, as the
-    JAX CLI's ``jax.default_matmul_precision("highest")``; the caller's
-    settings come back on exit."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
 def make_restore_fn(cfg, model):
-    """Whole-image restorer: (H, W, 3) float32 in [0, 1] -> the same shape,
-    clipped to [0, 1]. Runs on the model's device, with TF32 off
-    (:func:`full_fp32`) whatever the model's dtype."""
-    from image_restoration_tpu_torch.eval.tiled import pad_test
+    """Whole-image restorer: (H, W, 3) float32 in [0, 1] -> the restored
+    image, clipped to [0, 1]: window-tiled (``cfg["tile"]``, the NeRD-Rain
+    window_partitionx protocol: every window of the image through the model
+    as one batch) or pad-to-multiple (``cfg["pad_multiple"]``, default 8).
+    A tuple output is unwrapped to its first element. Runs on the model's
+    device, with TF32 off (:func:`full_fp32`) whatever the model's dtype."""
+    from image_restoration_tpu_torch.eval.tiled import pad_test, windowed_apply
 
     device = next(model.parameters()).device
 
     def fwd(x):
-        return torch.clamp(model(x), 0.0, 1.0)
+        out = model(x)
+        if isinstance(out, tuple):
+            out = out[0]
+        return torch.clamp(out, 0.0, 1.0)
 
     def restore(img: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(img, np.float32))
         x = x.permute(2, 0, 1)[None].to(device)
         with torch.inference_mode(), full_fp32():
-            out = pad_test(fwd, x, cfg.get("pad_multiple", 8))
+            if cfg.get("tile"):
+                out = windowed_apply(fwd, x, cfg["tile"])
+            else:
+                out = pad_test(fwd, x, cfg.get("pad_multiple", 8))
         return out[0].permute(1, 2, 0).float().cpu().numpy()
 
     return restore
 
 
-def build_argparser():
-    from image_restoration_tpu_torch.utils.options import build_parser
-
-    p = build_parser()
-    p.add_argument("--pad_multiple", type=int, default=8)
-    p.add_argument("--output_dir", type=str, default="results")
-    p.add_argument("--input", type=str, default=None,
-                   help="image file or folder to restore")
-    return p
+def _ffmpeg():
+    return shutil.which("ffmpeg")
 
 
 def main(argv=None):
@@ -114,29 +113,58 @@ def main(argv=None):
     from image_restoration_tpu_torch.cli.train import build_model
     from image_restoration_tpu_torch.utils.options import parse_options
 
-    cfg = parse_options(argv, build_argparser())
-    src = cfg.get("input")
+    cfg = parse_options(argv)
+    src = cfg.get("input") or cfg.get("lq_dir")
     if not src:
-        raise SystemExit("--input (image or folder) required")
-    paths = list_images(src)
-    if not paths:
-        raise SystemExit(f"no images found under {src}")
+        raise SystemExit("--input (image, folder, frame dir, or video) "
+                         "required")
+    is_video = os.path.isfile(src) and src.lower().endswith(VID_EXTS)
+    if is_video and not _ffmpeg():
+        raise SystemExit(
+            "video input needs an ffmpeg binary on PATH (none found) — "
+            "extract frames to a folder and pass that instead")
     out_dir = cfg.get("output_dir", "results")
     os.makedirs(out_dir, exist_ok=True)
 
     model = load_params(cfg, build_model(cfg))
     restore = make_restore_fn(cfg, model)
-    print(f"restoring {len(paths)} image(s) -> {out_dir}")
-    outs = []
-    for i, p in enumerate(paths):
-        img = load_image(p)
-        res = restore(img)
-        dst = os.path.join(out_dir, os.path.basename(p))
-        save_image(dst, res)
-        outs.append(dst)
-        if i % 25 == 0 or i == len(paths) - 1:
-            print(f"  [{i + 1}/{len(paths)}] {os.path.basename(p)} "
-                  f"{img.shape} -> {res.shape}")
+
+    tmp = None
+    if is_video:
+        tmp = tempfile.mkdtemp(prefix="ir_frames_")
+        subprocess.run([_ffmpeg(), "-i", src, "-qscale:v", "2",
+                        os.path.join(tmp, "f%06d.png")], check=True)
+        frames_dir = tmp
+    else:
+        frames_dir = src
+    try:
+        paths = list_images(frames_dir)
+        if not paths:
+            raise SystemExit(f"no images found under {frames_dir}")
+        print(f"restoring {len(paths)} frame(s) -> {out_dir}")
+        outs = []
+        for i, p in enumerate(paths):
+            img = load_image(p)
+            res = restore(img)
+            dst = os.path.join(out_dir, os.path.basename(p))
+            save_image(dst, res)
+            outs.append(dst)
+            if i % 25 == 0 or i == len(paths) - 1:
+                print(f"  [{i + 1}/{len(paths)}] {os.path.basename(p)} "
+                      f"{img.shape} -> {res.shape}")
+        if is_video:
+            dst = os.path.join(
+                out_dir,
+                os.path.splitext(os.path.basename(src))[0] + "_restored.mp4")
+            subprocess.run([_ffmpeg(), "-y", "-framerate",
+                            str(cfg.get("fps", 24)),
+                            "-i", os.path.join(out_dir, "f%06d.png"),
+                            "-c:v", "libx264", "-pix_fmt", "yuv420p", dst],
+                           check=True)
+            print(f"encoded {dst}")
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
     return outs
 
 

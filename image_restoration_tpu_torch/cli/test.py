@@ -1,10 +1,30 @@
-"""Checkpoint loading shared by the port's entry points
-(image_restoration_tpu/cli/test.py ``load_params``). Benchmark evaluation
-comes with the eval port."""
+"""Benchmark evaluation entry point — the `src/test.py` surface
+(image_restoration_tpu/cli/test.py; MoCE-IR-main/src/test.py:166-209 call
+stack; AdaIR test.py --mode switch), and the checkpoint loading the port's
+entry points share.
+
+Usage:
+  python -m image_restoration_tpu_torch.cli.test --model restormer \
+      --ckpt restormer.pth --benchmarks derain denoise_25 --data_file_dir data/
+
+  # AdaIR's --mode switch (eval/benchmarks.py MODE_TO_BENCHMARKS), tiled
+  python -m image_restoration_tpu_torch.cli.test --model adair \
+      --ckpt adair.pth --mode 3 --tile 128 --data_file_dir data/
+
+Prints one line per benchmark and writes ``results.json`` under
+``--output_dir``, as the JAX CLI does. The forward runs on the GPU unless
+``--device cpu`` is given, with TF32 off (``utils/precision.py``
+``full_fp32``, the JAX CLI's "highest"); on the GPU Restormer and AdaIR run
+every block through K1/K2 and DRSformer through K1/K7/K8 (``cli/infer.py``).
+"""
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
+import torch
 
 
 def _unflatten(flat):
@@ -65,3 +85,68 @@ def load_params(cfg, model):
                          f"save_params_npz)")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def make_eval_fn(model):
+    """The benchmark forward: (B, C, H, W) -> the model's restored image,
+    under ``torch.inference_mode()`` with TF32 off, a tuple output unwrapped
+    to its first element (JAX ``cli/test.py:105-115``)."""
+    from image_restoration_tpu_torch.utils.precision import full_fp32
+
+    def fn(x):
+        with torch.inference_mode(), full_fp32():
+            out = model(x)
+        if isinstance(out, tuple):
+            out = out[0]
+        return out
+
+    return fn
+
+
+def main(argv=None):
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.eval.benchmarks import (
+        MODE_TO_BENCHMARKS, run_benchmark,
+    )
+    from image_restoration_tpu_torch.utils.options import parse_options
+
+    cfg = parse_options(argv)
+    if cfg.get("unpaired"):
+        raise NotImplementedError(
+            "--unpaired scores NIQE, which comes with eval/niqe.py in "
+            "ROADMAP Queue 1 item 6")
+    if cfg.get("lpips_ckpt"):
+        raise NotImplementedError(
+            "--lpips_ckpt scores LPIPS, which comes with eval/perceptual.py "
+            "in ROADMAP Queue 1 item 6")
+    model = load_params(cfg, build_model(cfg))
+    device = next(model.parameters()).device
+    fn = make_eval_fn(model)
+
+    benches = cfg["benchmarks"]
+    if cfg.get("mode") is not None:
+        benches = MODE_TO_BENCHMARKS[cfg["mode"]]
+
+    extra_kw = {"device": device}
+    if cfg.get("pad_multiple", 8) != 8:  # explicit override beats protocol
+        extra_kw["pad_multiple"] = cfg["pad_multiple"]
+    if cfg.get("tile"):
+        extra_kw["tile"] = cfg["tile"]
+    if cfg.get("save_images"):
+        extra_kw["save_dir"] = cfg["save_images"]
+
+    results = {}
+    for b in benches:
+        r = run_benchmark(b, fn, cfg["data_file_dir"], **extra_kw)
+        results[b] = {"psnr": r.psnr, "ssim": r.ssim, "n": r.n, **r.extra}
+        print(f"{b}: PSNR {r.psnr:.4f} dB | SSIM {r.ssim:.4f} | {r.n} images")
+
+    out_dir = cfg.get("output_dir", "results")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "results.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -2,8 +2,9 @@
 
 The subset of image_restoration_tpu/utils/options.py that the port's entry
 points share: the model and its defaults, the seed, the checkpoint, the
-precision and the device, with dotted ``--set a.b=c`` overrides. Each entry
-point adds its own arguments (``cli/infer.py``, ``cli/robust.py``). The
+precision and the device, with dotted ``--set a.b=c`` overrides, and the
+evaluation and inference options of ``cli/test.py`` and ``cli/infer.py``
+(with the JAX defaults). ``cli/robust.py`` adds its own arguments. The
 training options come with the training port.
 """
 
@@ -50,6 +51,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt", type=str, default=None,
                    help="checkpoint: torch .pth/.pt/.ckpt, or a JAX .npz")
     p.add_argument("--prefer_ema", action="store_true")
+    # data (JAX utils/options.py:85,94)
+    p.add_argument("--data_file_dir", type=str, default="data/")
+    p.add_argument("--lq_dir", type=str, default=None)
+    # eval (the JAX test.py surface, JAX utils/options.py:159-181)
+    p.add_argument("--benchmarks", nargs="+", default=["derain"])
+    p.add_argument("--mode", type=int, default=None,
+                   help="AdaIR-style switch: 0 denoise, 1 derain, 2 dehaze, "
+                        "3 aio3, 4 deblur, 5 synllie, 6 aio5")
+    p.add_argument("--tile", type=int, default=None,
+                   help="window size for tiled inference")
+    p.add_argument("--lpips_ckpt", type=str, default=None,
+                   help="torch .pth with vgg16+lpips-head weights; enables "
+                        "the LPIPS column")
+    p.add_argument("--pad_multiple", type=int, default=8)
+    p.add_argument("--save_images", type=str, default=None)
+    p.add_argument("--output_dir", type=str, default="results")
+    p.add_argument("--input", type=str, default=None,
+                   help="cli.infer source: image file, folder, frame "
+                        "sequence dir, or (with ffmpeg on PATH) video file")
+    p.add_argument("--fps", type=int, default=24,
+                   help="output frame rate when re-encoding video")
+    p.add_argument("--unpaired", action="store_true",
+                   help="no-GT eval: restore --lq_dir and report NIQE")
     return p
 
 

@@ -4,8 +4,8 @@
 Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
 
     python3 chip_smoke.py [--profile DIR]
-    python3 chip_smoke.py --tail [ROWS ...] [--warps 8|16]
-    python3 chip_smoke.py --front [ROWS ...] [--warps 8|16]
+    python3 chip_smoke.py --tail [ROWS ...] [--warps 8|16] [--shapes S]
+    python3 chip_smoke.py --front [ROWS ...] [--warps 8|16] [--shapes S]
     python3 chip_smoke.py --msfn [ROWS ...] [--warps 8|16]
     python3 chip_smoke.py --mefc [ROWS ...]
     python3 chip_smoke.py --attn [PIX ...] [--warps 4|8] [--cols N]
@@ -17,7 +17,11 @@ tail (K2, K3), at the wrappers' tile height and warps or at those given: the
 sweep behind ``kernels/block.py`` ``_APPLY_TILE_ROWS`` and ``_APPLY_WARPS``.
 The third does the same for the two kernels that share the block front (K1,
 K4; ``_FRONT_TILE_ROWS``/``_FRONT_WARPS`` in ``kernels/block.py``,
-``_QKV_TILE_ROWS``/``_QKV_WARPS`` in ``kernels/mdta.py``). The fourth does
+``_QKV_TILE_ROWS``/``_QKV_WARPS`` in ``kernels/mdta.py``). With
+``--shapes measnet`` either runs K2 or K1 alone at MEASNet's five block
+shapes (C 32, 64, 128, 256; batch 2 at 64x64 x 256), the sweep behind
+those tables' entries for C 32, 64, 128 and 256; ``--shapes nerd_rain``
+at NeRD-Rain's nine. The fourth does
 it for DRSformer's MSFN pass (K7) at the five block shapes of phase 2b
 (``_MSFN_TILE_ROWS``/``_MSFN_WARPS`` in ``kernels/drs_block.py``). The
 fifth does it for the MEFC step (K8, 16 warps a block) at its two shapes,
@@ -91,6 +95,21 @@ Phases, any failure ends the run with a nonzero exit code:
 3e. AdaIR from its serving defaults (``fused_block``: 44 K1 + 44 K2 per
    forward; its FreModules plain torch, with seeded non-zero ``para1`` and
    ``para2`` so that their output reaches the image), the same way.
+2e. K1 and K2 as phase 2 at MEASNet's five block shapes serving a 512x512
+   image (C 32, 64, 128, 256; batch 2 at 64x64 x 256) and at NeRD-Rain's
+   nine (C 48, 96, 192 at its three scales; batch 2 at the C 192 ones);
+   CG-IR's have phase 2's shapes. Then CG-IR's gated pair: ``fused_block``
+   with a per-sample (2, heads) temperature and a (2, C) output gate
+   folded into A^T W_proj, on a batch of two at 128x128 x 192 and 64x64 x
+   384, by phase 2's rule against ``reference_block(..., gate=)``, two
+   runs bit-equal;
+3g. CG-IR, MEASNet and NeRD-Rain served as phase 3 from their serving
+   defaults (``fused_block``): 44, 40 and 78 K1 + K2 launches per forward,
+   the same agreement rule against each plain fp32 model (NeRD-Rain on its
+   restored image, the first of its 7 outputs; its restores pad to
+   multiples of 16). MEASNet's FD BatchNorm statistics and affines and its
+   FreqBlocks' ``param_alpha``/``param_beta`` are seeded non-trivial
+   (``perturb_measnet``), so every FreqBlock reaches the image;
 3f. evaluation: a seeded synthetic benchmark tree in the JAX layout
    (Rain100L-shaped: three pairs, 481x321 twice and 321x481; BSD68-shaped:
    three clean images of those sizes; GoPro-shaped: one 1280x720 pair) is
@@ -115,7 +134,10 @@ Phases, any failure ends the run with a nonzero exit code:
 Each serving phase sets the launch counts to 0 just before its forwards
 and reads them just after; the kernels line's ``launches_by_path`` lists
 phase 3f's two ``main`` runs as ``eval`` (Restormer-base, 7 forwards) and
-``eval_drsformer`` (3 forwards).
+``eval_drsformer`` (3 forwards), and phase 3g's as ``cg_ir``, ``measnet``
+and ``nerd_rain``. K1's and K2's rows keep Restormer-base's per-forward
+sums; their ``by_path`` holds MEASNet's and NeRD-Rain's, and their
+``per_shape`` rows of those shapes carry a ``path``.
 
 Every kernel's row carries its bound: the largest of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s, its
@@ -169,6 +191,30 @@ DRS_LEVELS = [
     (512, 512, 96, 1, 4),
 ]
 DRS_BLOCKS_PER_FORWARD = sum(lv[-1] for lv in DRS_LEVELS)  # 40
+# MEASNet (MODEL_DEFAULTS["measnet"]: dim 32, blocks 4/4/6/8, 4 refinement,
+# heads 1/2/4/8) at a 512x512 input: level 1 at 32, level 2 at 64 (4
+# encoder + 4 decoder blocks), level 3 at 128 (6 + 6), the latent at 256,
+# and decoder level 1 + refinement at 64 with heads[0].
+MEASNET_LEVELS = [
+    (512, 512, 32, 1, 4),
+    (256, 256, 64, 2, 8),
+    (128, 128, 128, 4, 12),
+    (64, 64, 256, 8, 8),
+    (512, 512, 64, 1, 8),
+]
+MEASNET_BLOCKS_PER_FORWARD = sum(lv[-1] for lv in MEASNET_LEVELS)  # 40
+# NeRD-Rain large (dim 48, blocks 2/3/3, heads 1/2/4) at a 512x512 input:
+# its U-Nets run at 1/4 scale (once, 2 + 2 / 3 + 3 / 3 blocks a level), 1/2
+# (two encoder and two decoder passes) and full scale (three of each).
+NERD_LEVELS = [
+    (128, 128, 48, 1, 4), (64, 64, 96, 2, 6), (32, 32, 192, 4, 3),
+    (256, 256, 48, 1, 8), (128, 128, 96, 2, 12), (64, 64, 192, 4, 6),
+    (512, 512, 48, 1, 12), (256, 256, 96, 2, 18), (128, 128, 192, 4, 9),
+]
+NERD_BLOCKS_PER_FORWARD = sum(lv[-1] for lv in NERD_LEVELS)  # 78
+# CG-IR's 44 CGTBs have Restormer-base's block shapes (LEVELS); the gated
+# pair runs at batch 2 at two of them in phase 2e.
+GATED_SHAPES = [(128, 128, 192, 4), (64, 64, 384, 8)]
 MEFC_STEPS = [(512, 512, 48, 4), (512, 512, 96, 4)]  # (H, W, C, steps)
 MEFC_STEPS_PER_FORWARD = sum(lv[-1] for lv in MEFC_STEPS)  # 8
 # LSNet-B (lsnet.py:221-222) classifying a batch of 64 at 224x224: SKA runs
@@ -400,15 +446,19 @@ def _bound(plain):
     return max(3.0 * plain, 4e-3)
 
 
-def phase_kernels():
+def phase_kernels(levels=LEVELS, seed=100, tag=""):
+    """K1 and K2 at ``levels`` (Restormer-base's by default), phase 2's
+    rule, two equal runs, a batch of two at the widest level, and the
+    times; printed with ``tag``."""
     import torch
 
     from image_restoration_tpu_torch.kernels import block as K
 
     report = _new_report(("block_front", "block_apply_gdfn"))
-    for i, (h, w, c, heads, n_blocks) in enumerate(LEVELS):
-        p = random_block(c, heads, seed=100 + i)
-        gen = torch.Generator().manual_seed(200 + i)
+    widest = max(lv[2] for lv in levels)
+    for i, (h, w, c, heads, n_blocks) in enumerate(levels):
+        p = random_block(c, heads, seed=seed + i)
+        gen = torch.Generator().manual_seed(seed + 100 + i)
         x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
 
         oracle = K.block_front_ref(x.float(), p, heads)
@@ -426,11 +476,11 @@ def phase_kernels():
         check_twice_and_batch2(
             "block_front", f"{h}x{w}x{c}", lambda: K.block_front(x, p, heads),
             kern, _batch2(K.block_front, K.block_front_ref, (x,), p, heads)
-            if c == 384 else None)
+            if c == widest else None)
         abs_front = (kern[0].float() - plain[0].float()).abs().max().item()
         t_k = time_cuda(lambda: K.block_front(x, p, heads))
         t_p = time_cuda(lambda: K.block_front_ref(x, p, heads))
-        print(f"block_front {h}x{w}x{c} heads {heads}: rel err "
+        print(f"{tag}block_front {h}x{w}x{c} heads {heads}: rel err "
               f"{'; '.join(errs)}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
               flush=True)
         _record(report, "block_front", [1, h, w, c], n_blocks, t_k, t_p,
@@ -451,16 +501,60 @@ def phase_kernels():
             "block_apply_gdfn", f"{h}x{w}x{c}",
             lambda: K.block_apply_gdfn(v, x, atw, p), kern2,
             _batch2(K.block_apply_gdfn, K.block_apply_gdfn_ref, (v, x, atw), p)
-            if c == 384 else None)
+            if c == widest else None)
         t_k = time_cuda(lambda: K.block_apply_gdfn(v, x, atw, p))
         t_p = time_cuda(lambda: K.block_apply_gdfn_ref(v, x, atw, p))
-        print(f"block_apply_gdfn {h}x{w}x{c} heads {heads}: rel err "
+        print(f"{tag}block_apply_gdfn {h}x{w}x{c} heads {heads}: rel err "
               f"{ek:.3e} (plain {ep:.3e}); kernel {t_k:.4f} ms, plain "
               f"{t_p:.4f} ms", flush=True)
         _record(report, "block_apply_gdfn", [1, h, w, c], n_blocks, t_k, t_p,
                 (kern2.float() - plain2.float()).abs().max().item(),
                 bound_block_apply_gdfn(h, w, c))
     return report
+
+
+def phase_gated():
+    """CG-IR's gated pair on the card (phase 2e): ``fused_block`` with a
+    per-sample (2, heads) temperature and a (2, C) output gate, K1, the
+    finalize that folds the gate into A^T W_proj, K2, on a batch of two
+    whose images, temperatures and gates differ, held by phase 2's rule
+    against ``reference_block(..., gate=)`` (fp32 oracle, bf16 plain); two
+    runs give the same bits."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import block as K
+
+    for i, (h, w, c, heads) in enumerate(GATED_SHAPES):
+        gen = torch.Generator().manual_seed(900 + i)
+        temp = torch.exp(0.3 * torch.randn(2, heads, generator=gen))
+        gate = torch.sigmoid(torch.randn(2, c, generator=gen))
+        p = random_block(c, heads, seed=950 + i)._replace(
+            temperature=temp.cuda())
+        gate = gate.cuda()
+        x = torch.randn((2, h, w, c), generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        shape = f"2x{h}x{w}x{c} heads {heads}"
+        kern = K.fused_block(x, p, heads, gate=gate)
+        torch.cuda.synchronize()
+        msg = _check_rule("gated fused_block", shape, kern,
+                          K.reference_block(x, p, heads, gate=gate),
+                          K.reference_block(x.float(), p, heads, gate=gate))
+        check_twice_and_batch2("gated fused_block", shape,
+                               lambda: K.fused_block(x, p, heads, gate=gate),
+                               kern)
+        print(f"gated fused_block {shape}: rel err {msg}", flush=True)
+
+
+def merge_path(report, extra, path):
+    """Adds K1/K2's per-shape rows of another model's block shapes to
+    ``report`` (tagged with ``path``) and that model's per-forward sums
+    under ``by_path``; ``report``'s own sums stay Restormer-base's."""
+    for name, r in extra.items():
+        base = report[name]
+        base["max_abs_err"] = max(base["max_abs_err"], r["max_abs_err"])
+        base["per_shape"] += [dict(row, path=path) for row in r["per_shape"]]
+        base.setdefault("by_path", {})[path] = {
+            k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
 
 
 def _check_rule(name, shape, kern, plain, oracle):
@@ -606,19 +700,25 @@ def _try_rows(label, table, c, th, smem_of, limit):
     return True
 
 
-def phase_sweep(group, rows, warps=None):
+def phase_sweep(group, rows, warps=None, shapes="restormer"):
     """The kernels of ``group`` alone (``--tail``: K2 and K3, which share
     the GDFN tail; ``--front``: K1 and K4, which share the block front;
     ``--msfn``: K7 at DRSformer's shapes): phase 2's rule, two equal runs,
-    a batch of two at 64x64 x 384, and the kernel's and plain version's
-    times at the five block shapes, once per tile height in ``rows`` that
-    fits the card (none given: the wrappers' own choice), in blocks of
-    ``warps`` warps (None: the wrappers' own choice)."""
+    a batch of two at the widest level, and the kernel's and plain
+    version's times at the five block shapes, once per tile height in
+    ``rows`` that fits the card (none given: the wrappers' own choice), in
+    blocks of ``warps`` warps (None: the wrappers' own choice). With
+    ``shapes`` "measnet" or "nerd_rain", K1 or K2 alone at that model's
+    block shapes."""
     import torch
 
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     drs = group == "msfn"
-    levels = DRS_LEVELS if drs else LEVELS
+    levels = DRS_LEVELS if drs else {
+        "restormer": LEVELS, "measnet": MEASNET_LEVELS,
+        "nerd_rain": NERD_LEVELS}[shapes]
+    pair_only = shapes != "restormer"
+    widest = max(lv[2] for lv in levels)
     sums = {}
     for i, (h, w, c, heads, n_blocks) in enumerate(levels):
         p = (random_drs_block(c, heads, seed=300 + i) if drs
@@ -628,6 +728,8 @@ def phase_sweep(group, rows, warps=None):
         for name, (kern_fn, plain_fn, oracle_fn, batch2, mod, rows_table,
                    warps_table, warps_of, smem_of) in _sweep_calls(
                        group, x, p, heads, c).items():
+            if pair_only and name not in ("block_front", "block_apply_gdfn"):
+                continue
             wtable, table = getattr(mod, warps_table), getattr(mod, rows_table)
             with _kept(c, table, wtable):
                 if warps is not None:
@@ -645,7 +747,7 @@ def phase_sweep(group, rows, warps=None):
                         _check_rule(name, where, k, pl, o) for k, pl, o in
                         zip(_outputs(kern), _outputs(plain), _outputs(oracle)))
                     check_twice_and_batch2(name, where, kern_fn, kern,
-                                           batch2 if c == 384 else None)
+                                           batch2 if c == widest else None)
                     t_k = time_cuda(kern_fn)
                     detail = (f" ({warps_of()} warps, {smem_of(th)} B shared)"
                               if th is not None else "")
@@ -1142,6 +1244,7 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected,
     if perturb is not None:
         perturb(model)
     restore = make_restore_fn(cfg, model)
+    print(f"{tag} serving: pad_multiple {cfg['pad_multiple']}", flush=True)
     rng = np.random.default_rng(0)
     images = [rng.random((512, 512, 3), dtype=np.float32),
               rng.random((512, 512, 3), dtype=np.float32),
@@ -1166,10 +1269,14 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected,
 
     # agreement: fused bf16 vs plain fp32 (oracle), against plain bf16
     x = torch.from_numpy(images[0]).permute(2, 0, 1)[None].cuda()
+
+    def image(out):  # NeRD-Rain returns its 7 scales, the restoration first
+        return out[0] if isinstance(out, tuple) else out
+
     with torch.inference_mode():
-        out_fused = model(x)
-        out_ref = plain_variant(cfg, model, False)(x)
-        out_plain = plain_variant(cfg, model, True)(x)
+        out_fused = image(model(x))
+        out_ref = image(plain_variant(cfg, model, False)(x))
+        out_plain = image(plain_variant(cfg, model, True)(x))
     err_fused = (out_fused - out_ref).abs().max().item()
     err_plain = (out_plain - out_ref).abs().max().item()
     del out_ref, out_plain
@@ -1376,6 +1483,21 @@ def phase_ska_sweep(rows, ring=None, split=None):
                   f"({SKA_PER_FORWARD} calls)", flush=True)
 
 
+def _perturbed_batchnorm(m, randn):
+    """Seeded running statistics and affine of BatchNorm ``m``."""
+    m.running_mean.copy_(0.1 * randn(m.running_mean))
+    m.running_var.copy_(0.5 + randn(m.running_var).abs())
+    m.weight.add_(0.1 * randn(m.weight))
+    m.bias.add_(0.1 * randn(m.bias))
+
+
+def _randn_from(seed):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return lambda like: torch.randn(like.shape, generator=gen).to(like.device)
+
+
 def perturb_lsnet(model, seed):
     """Seeded, non-trivial BatchNorm statistics and affines and LeViT
     attention biases, so no BN is the identity and every bias counts."""
@@ -1384,20 +1506,34 @@ def perturb_lsnet(model, seed):
 
     from image_restoration_tpu_torch.models.lsnet import LeViTAttention
 
-    gen = torch.Generator().manual_seed(seed)
-
-    def randn(like):
-        return torch.randn(like.shape, generator=gen).to(like.device)
-
+    randn = _randn_from(seed)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.modules.batchnorm._BatchNorm):
-                m.running_mean.copy_(0.1 * randn(m.running_mean))
-                m.running_var.copy_(0.5 + randn(m.running_var).abs())
-                m.weight.add_(0.1 * randn(m.weight))
-                m.bias.add_(0.1 * randn(m.bias))
+                _perturbed_batchnorm(m, randn)
             elif isinstance(m, LeViTAttention):
                 m.attention_biases.copy_(0.2 * randn(m.attention_biases))
+
+
+def perturb_measnet(model, seed):
+    """Seeded BatchNorm statistics and affines in every FD, as
+    ``perturb_lsnet`` gives them, and non-trivial ``param_alpha`` and
+    ``param_beta`` in every FreqBlock: the init's zero alpha makes a
+    FreqBlock return its input, so nothing it computes would reach the
+    output."""
+    import torch
+    from torch import nn
+
+    from image_restoration_tpu_torch.models.measnet import FreqBlock
+
+    randn = _randn_from(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                _perturbed_batchnorm(m, randn)
+            elif isinstance(m, FreqBlock):
+                m.param_alpha.copy_(0.5 * randn(m.param_alpha))
+                m.param_beta.copy_(1.0 + 0.2 * randn(m.param_beta))
 
 
 def phase_lsnet(gpu, profile_dir):
@@ -1879,6 +2015,12 @@ def main(argv=None):
                          "wrapper's rows a strip or at each of TH, with the "
                          "host time of a wrapper call and its parts timed "
                          "apart; prints no result line")
+    ap.add_argument("--shapes", default="restormer",
+                    choices=["restormer", "measnet", "nerd_rain"],
+                    help="with --tail or --front: the block shapes; "
+                         "measnet and nerd_rain run K2 or K1 alone at "
+                         "MEASNet's five (C 32, 64, 128, 256) or "
+                         "NeRD-Rain's nine")
     ap.add_argument("--warps", type=int, default=None,
                     help="with --tail, --front or --msfn (8 or 16): warps a "
                          "block at every width; with --attn (4 or 8): K6's "
@@ -1916,6 +2058,9 @@ def main(argv=None):
         ap.error("--ring: 2 or 3 with --attn, 1 or 2 with --ska")
     if args.split is not None and args.ska is None:
         ap.error("--split goes with --ska")
+    if args.shapes != "restormer" and args.tail is None and \
+            args.front is None:
+        ap.error("--shapes goes with --tail or --front")
 
     import torch
 
@@ -1952,7 +2097,8 @@ def main(argv=None):
                                         for rows in sweeps.values()):
         for group, rows in sweeps.items():
             if rows is not None:
-                phase_sweep(group, rows, args.warps)
+                phase_sweep(group, rows, args.warps,
+                            "restormer" if group == "msfn" else args.shapes)
         if args.mefc is not None:
             phase_mefc_sweep(args.mefc)
         if args.attn is not None:
@@ -1964,6 +2110,11 @@ def main(argv=None):
         return 0
 
     report = phase_kernels()
+    merge_path(report, phase_kernels(MEASNET_LEVELS, 1000, "measnet "),
+               "measnet")
+    merge_path(report, phase_kernels(NERD_LEVELS, 1100, "nerd_rain "),
+               "nerd_rain")
+    phase_gated()
     report.update(phase_drs_kernels())
     report.update(phase_ska_kernels())
     report.update(phase_3k_kernels())
@@ -1997,11 +2148,33 @@ def main(argv=None):
             {"block_front": BLOCKS_PER_FORWARD,
              "block_apply_gdfn": BLOCKS_PER_FORWARD},
             perturb=lambda m: perturb_adair(m, seed=800)),
+        "cg_ir": phase_slice(
+            gpu, args.profile, "cg_ir",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": BLOCKS_PER_FORWARD}),
+        "measnet": phase_slice(
+            gpu, args.profile, "measnet",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": MEASNET_BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": MEASNET_BLOCKS_PER_FORWARD},
+            perturb=lambda m: perturb_measnet(m, seed=1200)),
+        "nerd_rain": phase_slice(
+            gpu, args.profile, "nerd_rain",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": NERD_BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": NERD_BLOCKS_PER_FORWARD}),
     }
     by_path["eval"], by_path["eval_drsformer"] = phase_eval(gpu)
     ms_is = {"block_front": "sum over the 44 blocks of one Restormer-base "
-                            "512x512 forward of per-call CUDA-event medians",
-             "block_apply_gdfn": "the same, 44 blocks",
+                            "512x512 forward of per-call CUDA-event medians "
+                            "(CG-IR's 44 have the same shapes); by_path "
+                            "holds MEASNet's 40 and NeRD-Rain's 78",
+             "block_apply_gdfn": "the same, 44 blocks; by_path as "
+                                 "block_front's",
              "ln_gdfn": "the same, 44 blocks of the three-kernel variant",
              "ln_qkv_dwconv": "the same, 44 blocks of the three-kernel "
                               "variant",
@@ -2029,7 +2202,9 @@ def main(argv=None):
                         "bound_by": max(r["bound_by_ms"],
                                         key=r["bound_by_ms"].get),
                         "library_ms": None,
-                        "ms_is": ms_is[name], "per_shape": r["per_shape"]})
+                        "ms_is": ms_is[name], "per_shape": r["per_shape"],
+                        **({"by_path": r["by_path"]} if "by_path" in r
+                           else {})})
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,10 @@ Usage:
   python -m image_restoration_tpu_torch.cli.infer --model adair \
       --ckpt adair.pth --input degraded/ --output_dir restored/
 
+  # CG-IR, MEASNet or NeRD-Rain (NeRD-Rain pads to multiples of 16)
+  python -m image_restoration_tpu_torch.cli.infer --model nerd_rain \
+      --ckpt nerd_rain.npz --input rainy/ --output_dir derained/
+
   # the three-kernel Restormer block, on restormer or adair
   python -m image_restoration_tpu_torch.cli.infer --model restormer \
       --set model_kwargs.fused_block=False \
@@ -21,7 +25,8 @@ Usage:
   python -m image_restoration_tpu_torch.cli.infer --model restormer \
       --ckpt restormer.pth --lq_dir rainy/ --tile 128 --output_dir out/
 
-Each image is reflect-padded to a multiple of ``--pad_multiple`` (8), run
+Each image is reflect-padded to a multiple of ``--pad_multiple`` (8; 16
+for NeRD-Rain, ``utils/options.py`` ``OPTION_DEFAULTS``), run
 through the model and cropped back, or with ``--tile`` cut into windows,
 as the JAX ``cli/infer.py`` does. ``--lq_dir`` stands in for ``--input``;
 a video file (``.mp4``, ...) is decoded and re-encoded by an ``ffmpeg`` on
@@ -32,7 +37,10 @@ flags above every block runs ``kernels/mdta.py``,
 ``kernels/attn_core.py`` (two kernels) and ``kernels/gdfn.py`` instead.
 DRSformer runs every block through pass 1 of ``kernels/block.py`` and
 ``kernels/drs_block.py``'s MSFN pass, and its two MEFC Subnets step by step
-through ``kernels/mefc.py``.
+through ``kernels/mefc.py``. CG-IR, MEASNet and NeRD-Rain run every block
+through the pair of ``kernels/block.py`` (CG-IR's with its per-sample
+temperature and output gate in the finalize), the rest in plain torch;
+NeRD-Rain's first output, the full-scale restoration, is the image.
 """
 
 from __future__ import annotations

@@ -15,7 +15,9 @@ Prints one line per benchmark and writes ``results.json`` under
 ``--output_dir``, as the JAX CLI does. The forward runs on the GPU unless
 ``--device cpu`` is given, with TF32 off (``utils/precision.py``
 ``full_fp32``, the JAX CLI's "highest"); on the GPU Restormer and AdaIR run
-every block through K1/K2 and DRSformer through K1/K7/K8 (``cli/infer.py``).
+every block through K1/K2 and DRSformer through K1/K7/K8 (``cli/infer.py``),
+as do CG-IR, MEASNet and NeRD-Rain (K1/K2; NeRD-Rain pads to multiples of
+16 unless ``--pad_multiple`` is given).
 """
 
 from __future__ import annotations

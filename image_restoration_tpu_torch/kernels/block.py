@@ -7,7 +7,8 @@ Port of image_restoration_tpu/kernels/block_pallas.py. One block is
   the per-channel sums of squares of q and k over the image, so q and k
   never reach device memory;
 * :func:`finalize` (plain torch, O(C^2)): norm rescale, temperature,
-  per-head softmax, and the fold of A^T into W_proj;
+  per-head softmax, and the fold of A^T into W_proj (with CG-IR's
+  per-sample output gate folded in as A^T diag(gate) W_proj);
 * pass 2, :func:`block_apply_gdfn` (CUDA ``csrc/block_apply_gdfn.cu``):
   x + v @ (A^T W_proj) + b, LN2, the gated-Dconv FFN, and its residual.
 
@@ -75,7 +76,7 @@ class BlockParams(NamedTuple):
     qkv_b: Optional[Tensor]
     dw_w: Tensor               # (3C, 1, 3, 3)
     dw_b: Optional[Tensor]
-    temperature: Tensor        # (heads, 1, 1)
+    temperature: Tensor        # (heads, 1, 1), or per sample (B, heads)
     proj_w: Tensor             # (C, C, 1, 1)
     proj_b: Optional[Tensor]
     ln2_w: Tensor
@@ -146,8 +147,9 @@ def block_front_ref(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
 def attention_softmax(gram, ss, temperature):
     """The per-head attention A (B, heads, ch, ch) fp32 from the Gram and
     the sums of squares: logits are the Gram rescaled by the q and k norms
-    (normalization commutes with the contraction), times the per-head
-    temperature; A is their softmax over the last axis."""
+    (normalization commutes with the contraction), times the temperature,
+    per head (heads, 1, 1) or per sample and head (B, heads); A is their
+    softmax over the last axis."""
     b, heads, ch, _ = gram.shape
     qn = torch.sqrt(ss[:, 0]).clamp_min(1e-12).reshape(b, heads, ch)
     kn = torch.sqrt(ss[:, 1]).clamp_min(1e-12).reshape(b, heads, ch)
@@ -156,18 +158,23 @@ def attention_softmax(gram, ss, temperature):
     return torch.softmax(logits, dim=-1)
 
 
-def finalize(gram, ss, temperature, proj_w, dtype):
+def finalize(gram, ss, temperature, proj_w, dtype, gate=None):
     """A^T W_proj per batch, (B, C, C) in ``dtype``.
 
     A (:func:`attention_softmax`) is block-diagonal over heads, so A^T
     W_proj is computed head by head. W_proj is rounded to ``dtype`` first,
-    as the TPU kernel packs it.
+    as the TPU kernel packs it. ``gate`` (B, C), CG-IR's per-channel output
+    gate on the attention output before project_out, folds in as A^T
+    diag(gate) W_proj, in fp32 before the product and rounded after it
+    (``block_pallas.py:587-598``): (gate * (A v)) W = v (A^T diag(gate) W).
     """
     b, heads, ch, _ = gram.shape
     c = heads * ch
-    a = attention_softmax(gram, ss, temperature)
+    at = attention_softmax(gram, ss, temperature).transpose(-1, -2)
+    if gate is not None:
+        at = at * gate.float().reshape(b, heads, 1, ch)
     wp = proj_w.reshape(c, c).t().to(dtype).float().reshape(heads, ch, c)
-    return torch.matmul(a.transpose(-1, -2), wp).reshape(b, c, c).to(dtype)
+    return torch.matmul(at, wp).reshape(b, c, c).to(dtype)
 
 
 def gdfn_tail_ref(ao, p: GDFNParams, dt, eps: float = 1e-5):
@@ -191,10 +198,13 @@ def block_apply_gdfn_ref(v, x, atw, p: BlockParams, eps: float = 1e-5):
     return gdfn_tail_ref(ao, p.gdfn(), x.dtype, eps)
 
 
-def reference_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5):
+def reference_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5,
+                    gate=None):
     """The block as the plain composition of its ops, on (B, H, W, C):
     counterpart of the JAX ``block_pallas._reference_block``. Every conv runs
-    in x's dtype; LN statistics, norms and softmax in fp32."""
+    in x's dtype; LN statistics, norms and softmax in fp32. ``gate`` (B, C)
+    multiplies the attention output, rounded to x's dtype, before
+    project_out (the JAX ``attn_core_pallas._reference_core``)."""
     dt = x.dtype
 
     def ln(t, w, bias):
@@ -210,6 +220,8 @@ def reference_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5):
     qkv = conv(qkv, p.dw_w, p.dw_b, groups=qkv.shape[-1], padding=1)
     q, k, v = (t.permute(0, 3, 1, 2) for t in qkv.chunk(3, dim=-1))
     attn = mdta_attention(q, k, v, p.temperature, num_heads)
+    if gate is not None:
+        attn = attn * gate.to(dt)[:, :, None, None]
     x = x + conv(attn.permute(0, 2, 3, 1), p.proj_w, p.proj_b)
     hid = conv(ln(x, p.ln2_w, p.ln2_b), p.in_w, p.in_b)
     hid = conv(hid, p.dw2_w, p.dw2_b, groups=hid.shape[-1], padding=1)
@@ -250,19 +262,27 @@ def _check_params(p: BlockParams, x):
 # sweep on an H100 80GB HBM3 (700 W) at the block shapes of Restormer-base
 # on a 512x512 image (8/4/2 rows x 8/16 warps for K2 and K3,
 # ``chip_smoke.py --tail 8 4 2 --warps N``); the slowest choice ran up to
-# 2x longer. Other widths, or a card with less shared memory, take the rule
-# of ``_pick_tile_rows``.
-_APPLY_TILE_ROWS = {48: 8, 96: 4, 192: 8, 384: 2}
+# 2x longer. The entries for C 32, 64, 128 and 256 are the fastest at
+# MEASNet's block shapes (``chip_smoke.py --tail 8 4 2 1 --warps 8|16
+# --shapes measnet``, NVIDIA H100 80GB HBM3, 700.00 W; K2 alone, summed
+# over the forward's calls of each width). Other widths, or a card with
+# less shared memory, take the rule of ``_pick_tile_rows``.
+_APPLY_TILE_ROWS = {32: 4, 48: 8, 64: 8, 96: 4, 128: 8, 192: 8, 256: 2,
+                    384: 2}
 # Warps per block of K2 and K3 (csrc/gdfn.cuh is built for 8 and 16), from
-# the same sweep: 16 warps win where a tile's products are long (C >= 192),
+# the same sweeps: 16 warps win where a tile's products are long (C >= 128),
 # 8 where more blocks share an SM.
-_APPLY_WARPS = {48: 8, 96: 8, 192: 16, 384: 16}
+_APPLY_WARPS = {32: 8, 48: 8, 64: 8, 96: 8, 128: 16, 192: 16, 256: 16,
+                384: 16}
 # Tile heights and warps of K1 (csrc/front.cuh, built for 8 and 16 warps),
 # the fastest in ``chip_smoke.py --front 8 4 2 1 --warps 8|16`` on the same
-# card; K4 has its own (kernels/mdta.py). At C = 384 only 8 warps hold the
-# Gram and only th <= 2 fits; at 192, th = 8 does not fit.
-_FRONT_TILE_ROWS = {48: 8, 96: 8, 192: 4, 384: 2}
-_FRONT_WARPS = {48: 8, 96: 16, 192: 16, 384: 8}
+# card (C 32-256: ``--shapes measnet``, NVIDIA H100 80GB HBM3, 700.00 W);
+# K4 has its own (kernels/mdta.py). At C = 384 only 8 warps hold the Gram
+# and only th <= 2 fits; at 192, th = 8 does not fit, nor at 256.
+_FRONT_TILE_ROWS = {32: 8, 48: 8, 64: 8, 96: 8, 128: 8, 192: 4, 256: 2,
+                    384: 2}
+_FRONT_WARPS = {32: 8, 48: 8, 64: 8, 96: 16, 128: 16, 192: 16, 256: 16,
+                384: 8}
 
 
 def _apply_warps(c: int) -> int:
@@ -452,8 +472,11 @@ def block_apply_gdfn(v, x, atw, p: BlockParams, eps: float = 1e-5):
 block_apply_gdfn.launches = 0
 
 
-def fused_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5):
-    """One whole TransformerBlock on (B, H, W, C): pass 1, finalize, pass 2."""
+def fused_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5,
+                gate=None):
+    """One whole TransformerBlock on (B, H, W, C): pass 1, finalize, pass 2.
+    ``p.temperature`` may be per sample (B, heads), and ``gate`` (B, C) an
+    output gate, as :func:`finalize` takes them (CG-IR's CGTB)."""
     v, gram, ss = block_front(x, p.front(), num_heads, eps)
-    atw = finalize(gram, ss, p.temperature, p.proj_w, x.dtype)
+    atw = finalize(gram, ss, p.temperature, p.proj_w, x.dtype, gate)
     return block_apply_gdfn(v, x, atw, p, eps)

@@ -1,4 +1,4 @@
 from image_restoration_tpu_torch.models.registry import (  # noqa: F401
     KEY_MAPS, MODELS, get_model, register_model)
 from image_restoration_tpu_torch.models import (  # noqa: F401
-    adair, drsformer, lsnet, restormer)
+    adair, cg_ir, drsformer, lsnet, measnet, nerd_rain, restormer)

@@ -137,6 +137,23 @@ def adaptive_rect_mask(h: int, w: int, h_frac, w_frac, n: int = 128):
     return (row_in & col_in).float()
 
 
+def frequency_bands(x, h_frac, w_frac, n: int, dtype):
+    """(high, low) bands of NCHW ``x``: |ifft2| of its centred spectrum
+    outside and inside the per-sample rectangle of
+    :func:`adaptive_rect_mask`, FFTs in fp32 with ``norm="forward"`` and the
+    shifts as rolls by (h // 2, w // 2), cast to ``dtype``."""
+    h, w = x.shape[-2:]
+    mask = adaptive_rect_mask(h, w, h_frac, w_frac, n)
+    fft = torch.fft.fft2(x.float(), norm="forward")
+    fft = torch.roll(fft, (h // 2, w // 2), dims=(-2, -1))  # fftshift
+
+    def band(masked):
+        z = torch.roll(masked, (-(h // 2), -(w // 2)), dims=(-2, -1))
+        return torch.fft.ifft2(z, norm="forward").abs().to(dtype)
+
+    return band(fft * (1.0 - mask)), band(fft * mask)
+
+
 class FreModule(nn.Module):
     """Adaptive frequency learning block (model.py:295-372) on a 3-channel
     image."""
@@ -168,16 +185,7 @@ class FreModule(nn.Module):
         # learned per-sample low-pass extents
         thr = self.rate_conv(x.mean(dim=(2, 3), keepdim=True))
         thr = torch.sigmoid(thr.reshape(b, 2))
-        mask = adaptive_rect_mask(h, w, thr[:, 0], thr[:, 1], self.mask_n)
-        fft = torch.fft.fft2(x.float(), norm="forward")
-        fft = torch.roll(fft, (h // 2, w // 2), dims=(-2, -1))  # fftshift
-
-        def band(masked):
-            z = torch.roll(masked, (-(h // 2), -(w // 2)), dims=(-2, -1))
-            return torch.fft.ifft2(z, norm="forward").abs().to(dt)
-
-        high = band(fft * (1.0 - mask))
-        low = band(fft * mask)
+        high, low = frequency_bands(x, thr[:, 0], thr[:, 1], self.mask_n, dt)
         high = self.channel_cross_l(high, y)
         low = self.channel_cross_h(low, y)
         agg = self.frequency_refine(low, high)

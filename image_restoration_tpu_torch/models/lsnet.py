@@ -25,12 +25,15 @@ from collections import OrderedDict
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from image_restoration_tpu_torch.models.registry import register_model
-from image_restoration_tpu_torch.ops.common import Conv
-from image_restoration_tpu_torch.ops.layernorm import BatchNorm1d, BatchNorm2d
+from image_restoration_tpu_torch.ops.common import Conv, Linear
+from image_restoration_tpu_torch.ops.layernorm import (
+    BatchNorm1d,
+    BatchNorm2d,
+    GroupNorm,
+)
 from image_restoration_tpu_torch.ops.ska import ska
 
 
@@ -64,36 +67,6 @@ class ConvBN(nn.Sequential):
         self.add_module("c", Conv(a, b, ks, stride, pad, groups, bias=False,
                                   dtype=dtype))
         self.add_module("bn", BatchNorm2d(b))
-
-
-class Linear(nn.Linear):
-    """``nn.Linear`` computing in ``dtype`` (flax ``Dense(dtype=...)``)."""
-
-    def __init__(self, a: int, b: int, dtype=None):
-        super().__init__(a, b)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype or torch.promote_types(x.dtype,
-                                                       self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
-
-
-class GroupNorm(nn.GroupNorm):
-    """GroupNorm as flax computes it: fp32 statistics with the fast
-    variance E[x^2] - E[x]^2 (clipped at 0), normalisation, scale and bias
-    in fp32, one rounding to the input dtype. Groups are consecutive
-    channels, as in torch."""
-
-    def forward(self, x):
-        b, c, h, w = x.shape
-        g = self.num_groups
-        xf = _nhwc(x).float().reshape(b, h, w, g, c // g)
-        mu = xf.mean((1, 2, 4), keepdim=True)
-        var = ((xf * xf).mean((1, 2, 4), keepdim=True) - mu * mu).clamp_min(0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, c // g)
-        y = (xf - mu) * mul + self.bias.reshape(g, c // g)
-        return _nchw(y.reshape(b, h, w, c).to(x.dtype))
 
 
 class SqueezeExcite(nn.Module):

@@ -40,12 +40,26 @@ def normalized_channel_logits(q, k, eps: float = 1e-12):
                   * torch.clamp(kn, min=eps)[..., None, :])
 
 
+def normalized_channel_logits_tok_minor(q, k, eps: float = 1e-12):
+    """:func:`normalized_channel_logits` for the token-minor layout
+    (the JAX ``normalized_channel_logits_tok_minor``): q, k (..., C, N) ->
+    fp32 (..., C, C)."""
+    qf, kf = q.float(), k.float()
+    raw = torch.matmul(qf, kf.transpose(-1, -2))
+    qn = torch.sqrt((qf * qf).sum(-1))
+    kn = torch.sqrt((kf * kf).sum(-1))
+    return raw / (torch.clamp(qn, min=eps)[..., :, None]
+                  * torch.clamp(kn, min=eps)[..., None, :])
+
+
 def mdta_attention(q, k, v, temperature, num_heads: int):
     """Core MDTA contraction on NCHW q, k, v; returns NCHW in v's dtype.
 
     Channels are head-major ('b (head c) h w', Restormer.py:117). Products
     take operands in the activation dtype and accumulate in fp32; the norms,
     temperature and softmax are fp32, as in the JAX ``mdta_attention``.
+    ``temperature`` is (heads, 1, 1), or per sample (B, heads) or (B,
+    heads, 1, 1) (CG-IR's context-predicted temperature).
     """
     b, c, h, w = q.shape
     ch = c // num_heads

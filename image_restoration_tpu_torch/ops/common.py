@@ -1,8 +1,11 @@
-"""Shared conv/activation primitives.
+"""Shared conv/dense/activation primitives.
 
 ``Conv`` is ``nn.Conv2d`` (OIHW weight, torch padding and groups) with the
 JAX package's compute-dtype rule (ops/common.py ``Conv``): parameters stay
 fp32 and input, weight and bias are cast to the compute dtype at the call.
+``GroupedConv`` is the same for rectangular kernels with per-side padding
+(the JAX ``GroupedConv``, without its custom gradient), and ``Linear`` the
+same rule for flax's ``Dense``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,44 @@ class Conv(nn.Conv2d):
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
                         self.padding, self.dilation, self.groups)
+
+
+class GroupedConv(Conv):
+    """``Conv`` with an (kh, kw) kernel and (ph, pw) padding, as the JAX
+    ``GroupedConv`` takes them (``padding=[(0, 0), (p, p)]`` is ``(0, p)``
+    here): MEASNet's striped 1xk and kx1 depthwise convs."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Sequence[int], padding: Sequence[int] = (0, 0),
+                 groups: int = 1, bias: bool = True, dtype=None):
+        super().__init__(in_channels, out_channels, tuple(kernel_size),
+                         padding=tuple(padding), groups=groups, bias=bias,
+                         dtype=dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` (flax ``Dense(dtype=...)``);
+    with ``dtype=None`` in the promotion of the input's and the weight's
+    dtypes."""
+
+    def __init__(self, a: int, b: int, bias: bool = True, dtype=None):
+        super().__init__(a, b, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype or torch.promote_types(x.dtype,
+                                                       self.weight.dtype)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+def layer_scale_init(value: float):
+    """Initializer of a constant layer scale (the JAX ``layer_scale_init``):
+    ``init(shape)`` is a tensor of ``value``."""
+    def init(shape, dtype=torch.float32):
+        return torch.full(tuple(shape), value, dtype=dtype)
+
+    return init
 
 
 def _reflect_pad_after(x, pad: int, dim: int):

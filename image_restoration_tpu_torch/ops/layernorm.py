@@ -1,4 +1,5 @@
-"""Channel LayerNorms of the Restormer family, and BatchNorm.
+"""Channel LayerNorms of the Restormer family, LayerNorm2d, GroupNorm and
+BatchNorm.
 
 The bodies normalize the last axis, as the reference's bodies do after its
 ``to_3d`` reshape (Restormer.py:19-70). ``LayerNorm`` takes NCHW and views it
@@ -65,6 +66,41 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return self.body(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class LayerNorm2d(nn.Module):
+    """The NAFNet-style channel LayerNorm (the JAX ``LayerNorm2d``, eps
+    1e-6) over the channels of NCHW: fp32 statistics, biased variance,
+    ``(x - mu) / sqrt(var + eps) * w + b`` in fp32, cast back to x's
+    dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        y = layer_norm_f32(x.permute(0, 2, 3, 1), self.weight, self.bias,
+                           self.eps)
+        return y.to(x.dtype).permute(0, 3, 1, 2)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over NCHW as flax computes it: fp32 statistics with the
+    fast variance E[x^2] - E[x]^2 (clipped at 0), normalisation, scale and
+    bias in fp32, one rounding to the input dtype. Groups are consecutive
+    channels, as in torch."""
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        g = self.num_groups
+        xf = x.permute(0, 2, 3, 1).float().reshape(b, h, w, g, c // g)
+        mu = xf.mean((1, 2, 4), keepdim=True)
+        var = ((xf * xf).mean((1, 2, 4), keepdim=True) - mu * mu).clamp_min(0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, c // g)
+        y = (xf - mu) * mul + self.bias.reshape(g, c // g)
+        return y.reshape(b, h, w, c).to(x.dtype).permute(0, 3, 1, 2)
 
 
 class _Fp32BatchNorm:

@@ -33,6 +33,19 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     # model_kwargs.*); serving runs every LSConv's SKA as the CUDA kernel
     "lsnet": dict(embed_dim=[64, 128, 192, 256], depth=[1, 2, 3, 4],
                   use_pallas_ska=True),
+    # CG-IR, MEASNet and NeRD-Rain large (JAX utils/options.py:52,54,48);
+    # serving runs every TransformerBlock as the two-kernel pair
+    "cg_ir": dict(dim=48, num_blocks=[4, 6, 6, 8], heads=[1, 2, 4, 8],
+                  fused_block=True),
+    "measnet": dict(dim=32, fused_block=True),
+    "nerd_rain": dict(dim=48, num_blocks=[2, 3, 3], heads=[1, 2, 4],
+                      fused_block=True),
+}
+
+# Per-model defaults of top-level options. NeRD-Rain's quarter-scale
+# branch halves twice, so its inputs are padded to multiples of 16.
+OPTION_DEFAULTS: Dict[str, Dict[str, Any]] = {
+    "nerd_rain": dict(pad_multiple=16),
 }
 
 
@@ -64,7 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lpips_ckpt", type=str, default=None,
                    help="torch .pth with vgg16+lpips-head weights; enables "
                         "the LPIPS column")
-    p.add_argument("--pad_multiple", type=int, default=8)
+    p.add_argument("--pad_multiple", type=int, default=None,
+                   help="pad H and W to a multiple of this (default: 8; "
+                        "16 for nerd_rain)")
     p.add_argument("--save_images", type=str, default=None)
     p.add_argument("--output_dir", type=str, default="results")
     p.add_argument("--input", type=str, default=None,
@@ -90,11 +105,19 @@ def _set_dotted(cfg: dict, key: str, value: str):
 
 def parse_options(argv=None, parser=None) -> dict:
     """The config dict of ``argv`` parsed by ``parser`` (default
-    :func:`build_parser`): every argument, ``model_kwargs`` from
-    :data:`MODEL_DEFAULTS`, then the ``--set`` overrides."""
+    :func:`build_parser`): every argument, options left unset from the
+    model's :data:`OPTION_DEFAULTS` (``pad_multiple`` 8 otherwise),
+    ``model_kwargs`` from :data:`MODEL_DEFAULTS`, then the ``--set``
+    overrides."""
     args = (parser or build_parser()).parse_args(argv)
     cfg = {k: v for k, v in vars(args).items() if k != "overrides"}
-    cfg["model_kwargs"] = copy.deepcopy(MODEL_DEFAULTS.get(cfg["model"].lower(), {}))
+    model = cfg["model"].lower()
+    for k, v in OPTION_DEFAULTS.get(model, {}).items():
+        if cfg.get(k) is None:
+            cfg[k] = v
+    if "pad_multiple" in cfg and cfg["pad_multiple"] is None:
+        cfg["pad_multiple"] = 8
+    cfg["model_kwargs"] = copy.deepcopy(MODEL_DEFAULTS.get(model, {}))
     for ov in args.overrides:
         k, _, v = ov.partition("=")
         _set_dotted(cfg, k, v)

@@ -1,0 +1,142 @@
+"""The block kernel pair (K1 ``block_front``, K2 ``block_apply_gdfn``) at
+the shapes CG-IR, MEASNet and NeRD-Rain give it, on the card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device: the
+kernels have no CPU mode. This file imports no jax, so it runs on a
+machine that has only PyTorch:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_family_cuda.py -q
+
+Rule (tests/test_tpu_kernels.py's, phase 2 of ``chip_smoke.py``): with the
+fp32 plain version as the oracle, the kernel's max error relative to the
+oracle's max magnitude is below max(3 x the plain bf16 version's, 4e-3).
+
+- K1 and K2 at MEASNet's (``MODEL_DEFAULTS["measnet"]``, dim 32) block
+  shapes serving a 512x512 image: 512^2 x 32 (1 head), 256^2 x 64 (2),
+  128^2 x 128 (4), 64^2 x 256 (8) and 512^2 x 64 (1 head, decoder level
+  1 and refinement), each at the wrappers' launch tables; two runs give
+  the same bits.
+- CG-IR's gated block: ``fused_block(..., gate=)`` (K1, the finalize with
+  a per-sample (2, heads) temperature and the (2, C) gate folded into A^T
+  W_proj, K2) on a batch of two whose images, temperatures and gates
+  differ, against ``reference_block(..., gate=)`` (the oracle in fp32,
+  the plain version in bf16); two runs give the same bits.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from image_restoration_tpu_torch.kernels import block as K
+
+# (H, W, C, heads) of MEASNet's K1/K2 calls at a 512x512 input
+MEASNET_SHAPES = [(512, 512, 32, 1), (256, 256, 64, 2), (128, 128, 128, 4),
+                  (64, 64, 256, 8), (512, 512, 64, 1)]
+# (batch, H, W, C, heads) of the gated block
+GATED_SHAPES = [(2, 40, 36, 48, 1), (2, 24, 20, 192, 4), (2, 16, 16, 384, 8)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _params(rng, c, heads, device):
+    """Seeded WithBias BlockParams without conv biases (the families'
+    defaults), torch layout."""
+    hidden = int(c * 2.66)
+
+    def mk(*shape, sc=0.05, base=0.0):
+        a = base + sc * rng.standard_normal(shape)
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    return K.BlockParams(
+        mk(c, sc=0.1, base=1.0), mk(c, sc=0.1),
+        mk(3 * c, c, 1, 1, sc=c ** -0.5), None,
+        mk(3 * c, 1, 3, 3, sc=0.3), None,
+        mk(heads, 1, 1, sc=0.3, base=1.0),
+        mk(c, c, 1, 1, sc=c ** -0.5), None,
+        mk(c, sc=0.1, base=1.0), mk(c, sc=0.1),
+        mk(2 * hidden, c, 1, 1, sc=c ** -0.5), None,
+        mk(2 * hidden, 1, 3, 3, sc=0.3), None,
+        mk(c, hidden, 1, 1, sc=hidden ** -0.5), None)
+
+
+def _rel(got, oracle):
+    scale = oracle.float().abs().max().item() + 1e-12
+    return (got.float() - oracle.float()).abs().max().item() / scale
+
+
+def _holds(got, plain, oracle):
+    return _rel(got, oracle) < max(3 * _rel(plain, oracle), 4e-3)
+
+
+def _case(cuda, h, w, c, heads, seed, batch=1):
+    rng = np.random.default_rng(seed)
+    p = _params(rng, c, heads, cuda)
+    x = torch.from_numpy(rng.standard_normal((batch, h, w, c))
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    return rng, p, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,heads", MEASNET_SHAPES)
+def test_block_front_at_measnet_widths(cuda, h, w, c, heads):
+    _, p, x = _case(cuda, h, w, c, heads, seed=c + heads)
+    f = p.front()
+    oracle = K.block_front_ref(x.float(), f, heads)
+    plain = K.block_front_ref(x, f, heads)
+    got = K.block_front(x, f, heads)
+    again = K.block_front(x, f, heads)
+    torch.cuda.synchronize()
+    for name, o, pl, g, a in zip(("v", "gram", "sumsq"), oracle, plain, got,
+                                 again):
+        assert g.shape == pl.shape and g.dtype == pl.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _holds(g, pl, o), name
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,heads", MEASNET_SHAPES)
+def test_block_apply_gdfn_at_measnet_widths(cuda, h, w, c, heads):
+    _, p, x = _case(cuda, h, w, c, heads, seed=10 + c + heads)
+    v, gram, ss = K.block_front_ref(x, p.front(), heads)
+    atw = K.finalize(gram, ss, p.temperature, p.proj_w, torch.bfloat16)
+    oracle = K.block_apply_gdfn_ref(v.float(), x.float(), atw.float(), p)
+    plain = K.block_apply_gdfn_ref(v, x, atw, p)
+    got = K.block_apply_gdfn(v, x, atw, p)
+    again = K.block_apply_gdfn(v, x, atw, p)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    assert _holds(got, plain, oracle)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,heads", GATED_SHAPES)
+def test_gated_fused_block_batch2(cuda, b, h, w, c, heads):
+    rng, p, x = _case(cuda, h, w, c, heads, seed=20 + c, batch=b)
+    temp = torch.from_numpy(np.exp(0.3 * rng.standard_normal((b, heads)))
+                            .astype(np.float32)).to(cuda)
+    gate = torch.sigmoid(torch.from_numpy(
+        rng.standard_normal((b, c)).astype(np.float32))).to(cuda)
+    p = p._replace(temperature=temp)
+    n1, n2 = K.block_front.launches, K.block_apply_gdfn.launches
+    got = K.fused_block(x, p, heads, gate=gate)
+    again = K.fused_block(x, p, heads, gate=gate)
+    torch.cuda.synchronize()
+    assert K.block_front.launches - n1 == 2
+    assert K.block_apply_gdfn.launches - n2 == 2
+    oracle = K.reference_block(x.float(), p, heads, gate=gate)
+    plain = K.reference_block(x, p, heads, gate=gate)
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert _holds(got, plain, oracle)
+    assert torch.equal(got, again)
+    ungated = K.reference_block(x.float(), p, heads)
+    assert _rel(ungated, oracle) > 4e-3  # the gate reaches the output

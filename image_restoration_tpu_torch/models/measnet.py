@@ -25,6 +25,8 @@ and are unused, and FreqBlock's low band is empty whenever H < 2 x 128.
 
 The stacks are Restormer TransformerBlocks through ``BlockStackMixin``
 (40 a forward at the defaults), so ``fused_block`` runs each as K1 + K2.
+MESE's calibration applies a stride-4 conv twice at decoder level 3 (1/8
+scale), so inputs need H and W of at least 128, as in the reference.
 Parameters stay fp32 and ``dtype`` is the compute dtype, as in JAX; FD's
 BatchNorm computes in fp32 from its running statistics.
 """

@@ -131,13 +131,31 @@ Phases, any failure ends the run with a nonzero exit code:
    plain fp32 model at 328x488 and 488x328. ms/img per benchmark follow:
    the host clock around the evaluate loop, and inside it the forward and
    the metrics by CUDA events.
+2f. K1 and K2 as phase 2 at MoCE-IR's block parameters (WithBias LN, a
+   bias on every conv, GDFN hidden 2C) and its four block shapes serving a
+   512x512 image: 512^2 x 48 (1 head, 8 blocks), 256^2 x 96 (2, 6),
+   128^2 x 192 (4, 6) and 64^2 x 384 (8, 8; batch 2 there);
+3h. MoCE-IR from its serving defaults (the big config, ``fused_block``)
+   served as phase 3: 28 K1 + 28 K2 launches per forward, finite outputs,
+   phase 3's rule against its plain fp32 model. Every decoder block's
+   expert pick in the kernel bf16, plain bf16 and plain fp32 models and
+   the smallest top-1/top-2 softmax gap are printed; a pick of the kernel
+   model that differs from the plain fp32 model's fails the phase. The
+   host syncs of one forward are counted (the switched top-1 adapter reads
+   each decoder block's pick on the host);
+3i. IGMoCE-IR (its zero-initialised residual scales seeded,
+   ``perturb_igmoce``), LumiSenseMoE and the patch-routed MoCE-IR from
+   their serving defaults, served the same way without a kernel: every
+   kernel's launch count must read 0; their picks are printed, not held.
 Each serving phase sets the launch counts to 0 just before its forwards
 and reads them just after; the kernels line's ``launches_by_path`` lists
 phase 3f's two ``main`` runs as ``eval`` (Restormer-base, 7 forwards) and
-``eval_drsformer`` (3 forwards), and phase 3g's as ``cg_ir``, ``measnet``
-and ``nerd_rain``. K1's and K2's rows keep Restormer-base's per-forward
-sums; their ``by_path`` holds MEASNet's and NeRD-Rain's, and their
-``per_shape`` rows of those shapes carry a ``path``.
+``eval_drsformer`` (3 forwards), phase 3g's as ``cg_ir``, ``measnet``
+and ``nerd_rain``, phase 3h's as ``moce_ir`` and phase 3i's (zeros) as
+``igmoce_ir``, ``lumisense_moe`` and ``moce_ir_patch``. K1's and K2's
+rows keep Restormer-base's per-forward sums; their ``by_path`` holds
+MEASNet's, NeRD-Rain's and MoCE-IR's, and their ``per_shape`` rows of
+those shapes carry a ``path``.
 
 Every kernel's row carries its bound: the largest of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s, its
@@ -212,6 +230,21 @@ NERD_LEVELS = [
     (512, 512, 48, 1, 12), (256, 256, 96, 2, 18), (128, 128, 192, 4, 9),
 ]
 NERD_BLOCKS_PER_FORWARD = sum(lv[-1] for lv in NERD_LEVELS)  # 78
+# MoCE-IR big (MODEL_DEFAULTS["moce_ir"]: dim 48, levels 4, blocks 4/6/6/8,
+# 4 refinement, heads 1/2/4/8) at a 512x512 input: its encoder, latent and
+# refinement EncoderBlocks (WithBias LN, a bias on every conv, GDFN hidden
+# 2C) run the pair; its 10 decoder blocks are plain torch.
+MOCE_LEVELS = [
+    (512, 512, 48, 1, 8),
+    (256, 256, 96, 2, 6),
+    (128, 128, 192, 4, 6),
+    (64, 64, 384, 8, 8),
+]
+MOCE_BLOCKS_PER_FORWARD = sum(lv[-1] for lv in MOCE_LEVELS)  # 28
+MOCE_DECODER_BLOCKS = 10  # 4 + 4 + 2: one routing pick read on the host each
+MOCE_BLOCK = dict(expansion=2.0, bias=True)
+# The MoCE family's other three models run no kernel (plain XLA in JAX).
+KERNEL_FREE = ("igmoce_ir", "lumisense_moe", "moce_ir_patch")
 # CG-IR's 44 CGTBs have Restormer-base's block shapes (LEVELS); the gated
 # pair runs at batch 2 at two of them in phase 2e.
 GATED_SHAPES = [(128, 128, 192, 4), (64, 64, 384, 8)]
@@ -233,6 +266,8 @@ EVAL_SIZES = [(321, 481), (321, 481), (481, 321)]
 GOPRO_SIZE = (720, 1280)
 EVAL_BENCHES = ["derain", "denoise_25", "deblur"]
 EVAL_IMAGES = {"derain": 3, "denoise_25": 3, "deblur": 1}
+# The model options that route work through a kernel.
+KERNEL_FLAGS = ("fused_block", "fused_attn", "fused_gdfn", "use_pallas_ska")
 # The three-kernel Restormer block (K4, K5 + K6, K3) instead of the pair.
 THREE_KERNEL = ("model_kwargs.fused_block=False",
                 "model_kwargs.fused_attn=True", "model_kwargs.fused_gdfn=True")
@@ -305,10 +340,11 @@ def time_cuda(fn, reps=15, warmup=3, head_start_ms=2.0):
     return statistics.median(times)
 
 
-def random_block(c, heads, seed):
+def random_block(c, heads, seed, expansion=2.66, bias=False):
     """A TransformerBlock's parameters on the GPU, from ``seed``: the
-    module's own init, with LN affine and temperature perturbed so every
-    term of the kernels is exercised."""
+    module's own init (GDFN ``expansion``; with ``bias`` a bias on every
+    conv, as MoCE-IR's EncoderBlock), with LN affine and temperature
+    perturbed so every term of the kernels is exercised."""
     import torch
 
     from image_restoration_tpu_torch.models.restormer import TransformerBlock
@@ -316,7 +352,7 @@ def random_block(c, heads, seed):
     gen = torch.Generator().manual_seed(seed)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        blk = TransformerBlock(c, heads)
+        blk = TransformerBlock(c, heads, expansion, use_bias=bias)
     with torch.no_grad():
         for mod in (blk.norm1.body, blk.norm2.body):
             mod.weight.add_(0.2 * torch.randn(c, generator=gen))
@@ -373,11 +409,11 @@ def bound_block_front(h, w, c, heads):
                     2 * 9 * 3 * c * n)
 
 
-def bound_block_apply_gdfn(h, w, c):
+def bound_block_apply_gdfn(h, w, c, expansion=2.66):
     """K2: read v and x, write out (bf16), A^T W_proj and the GDFN
     weights; v A^T W, the content|gate 1x1 and the out 1x1 on the tensor
     cores, the 3x3 depthwise over 2 hidden in fp32."""
-    n, hid = h * w, int(c * 2.66)
+    n, hid = h * w, int(c * expansion)
     nbytes = 3 * 2 * n * c + 2 * c * c + 2 * 3 * hid * c + 4 * 18 * hid
     tc = 2 * n * c * c + 2 * n * c * 2 * hid + 2 * n * hid * c
     return roofline(nbytes, tc, 2 * 9 * 2 * hid * n)
@@ -446,10 +482,12 @@ def _bound(plain):
     return max(3.0 * plain, 4e-3)
 
 
-def phase_kernels(levels=LEVELS, seed=100, tag=""):
+def phase_kernels(levels=LEVELS, seed=100, tag="", expansion=2.66,
+                  bias=False):
     """K1 and K2 at ``levels`` (Restormer-base's by default), phase 2's
     rule, two equal runs, a batch of two at the widest level, and the
-    times; printed with ``tag``."""
+    times; printed with ``tag``. ``expansion`` and ``bias`` are
+    ``random_block``'s."""
     import torch
 
     from image_restoration_tpu_torch.kernels import block as K
@@ -457,7 +495,7 @@ def phase_kernels(levels=LEVELS, seed=100, tag=""):
     report = _new_report(("block_front", "block_apply_gdfn"))
     widest = max(lv[2] for lv in levels)
     for i, (h, w, c, heads, n_blocks) in enumerate(levels):
-        p = random_block(c, heads, seed=seed + i)
+        p = random_block(c, heads, seed + i, expansion, bias)
         gen = torch.Generator().manual_seed(seed + 100 + i)
         x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
 
@@ -509,7 +547,7 @@ def phase_kernels(levels=LEVELS, seed=100, tag=""):
               f"{t_p:.4f} ms", flush=True)
         _record(report, "block_apply_gdfn", [1, h, w, c], n_blocks, t_k, t_p,
                 (kern2.float() - plain2.float()).abs().max().item(),
-                bound_block_apply_gdfn(h, w, c))
+                bound_block_apply_gdfn(h, w, c, expansion))
     return report
 
 
@@ -1193,8 +1231,7 @@ def plain_variant(cfg, model, bf16):
     from image_restoration_tpu_torch.cli.train import build_model
 
     mk = cfg["model_kwargs"]
-    off = {k: False for k in ("fused_block", "fused_attn", "fused_gdfn",
-                              "use_pallas_ska") if k in mk}
+    off = {k: False for k in KERNEL_FLAGS if k in mk}
     m = build_model(dict(cfg, bf16=bf16, model_kwargs=dict(mk, **off)))
     m.load_state_dict(model.state_dict())
     return m
@@ -1217,14 +1254,19 @@ def perturb_adair(model, seed):
 
 
 def phase_slice(gpu, profile_dir, model_name, counters, expected,
-                overrides=(), tag=None, perturb=None):
+                overrides=(), tag=None, perturb=None, kernel_free=False,
+                inspect=None):
     """Serve ``model_name`` from ``build_model`` with its serving defaults
     and the ``--set`` ``overrides`` (its seeded weights passed through
     ``perturb`` first, if given): three restores with the ``counters``
     (name -> wrapper) set to 0 just before and read just after, each
     expected to count ``expected[name]`` per forward; then the agreement
     with the plain fp32 model (every kernel flag off) and the timings,
-    printed under ``tag``. Returns the launch counts."""
+    printed under ``tag``. The serving defaults must turn a kernel path on,
+    or, with ``kernel_free``, must have no kernel flag at all (a model the
+    JAX package serves without a Pallas kernel). ``inspect(tag, model,
+    plain16, plain32, x)``, if given, runs beside the agreement check.
+    Returns the launch counts."""
     import torch
 
     from image_restoration_tpu_torch.cli.infer import make_restore_fn
@@ -1237,9 +1279,13 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected,
     cfg = parse_options(["--model", model_name, "--device", "cuda",
                          "--seed", "0"] + sets)
     mk = cfg["model_kwargs"]
-    check(cfg["bf16"] and (mk.get("fused_block") or (
-        mk.get("fused_attn") and mk.get("fused_gdfn"))),
-          f"{tag}: not bf16 with fused blocks or the three-kernel block")
+    if kernel_free:
+        check(cfg["bf16"] and not set(mk) & set(KERNEL_FLAGS),
+              f"{tag}: not bf16, or a kernel flag in a kernel-free model")
+    else:
+        check(cfg["bf16"] and (mk.get("fused_block") or (
+            mk.get("fused_attn") and mk.get("fused_gdfn"))),
+              f"{tag}: not bf16 with fused blocks or the three-kernel block")
     model = load_params(cfg, build_model(cfg))
     if perturb is not None:
         perturb(model)
@@ -1273,13 +1319,18 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected,
     def image(out):  # NeRD-Rain returns its 7 scales, the restoration first
         return out[0] if isinstance(out, tuple) else out
 
+    plain32 = plain_variant(cfg, model, False)
+    plain16 = plain_variant(cfg, model, True)
     with torch.inference_mode():
         out_fused = image(model(x))
-        out_ref = image(plain_variant(cfg, model, False)(x))
-        out_plain = image(plain_variant(cfg, model, True)(x))
+        out_ref = image(plain32(x))
+        out_plain = image(plain16(x))
     err_fused = (out_fused - out_ref).abs().max().item()
     err_plain = (out_plain - out_ref).abs().max().item()
     del out_ref, out_plain
+    if inspect is not None:
+        inspect(tag, model, plain16, plain32, x)
+    del plain32, plain16
     print(f"{tag} serving: max |fused bf16 - plain fp32| "
           f"{err_fused:.4e}, max |plain bf16 - plain fp32| {err_plain:.4e}",
           flush=True)
@@ -1534,6 +1585,126 @@ def perturb_measnet(model, seed):
             elif isinstance(m, FreqBlock):
                 m.param_alpha.copy_(0.5 * randn(m.param_alpha))
                 m.param_beta.copy_(1.0 + 0.2 * randn(m.param_beta))
+
+
+def perturb_igmoce(model, seed):
+    """Seeded, non-trivial residual scales in IGMoCE-IR: every
+    IGEncoderBlock's ``gamma`` (its attention and gate branches) and
+    ``beta`` (its FFN), and every SpAM's ``beta``, start at zero, so at
+    the init nothing those branches compute would reach the output."""
+    import torch
+
+    from image_restoration_tpu_torch.models.igmoce_ir import (
+        IGEncoderBlock,
+        SpAM,
+    )
+
+    randn = _randn_from(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (IGEncoderBlock, SpAM)):
+                m.beta.copy_(0.5 * randn(m.beta))
+            if isinstance(m, IGEncoderBlock):
+                m.gamma.copy_(0.5 * randn(m.gamma))
+
+
+def _record_routes(model):
+    """Hooks on every MoE router of ``model``: each call appends (picks,
+    the smallest gap between the k-th and (k+1)-th softmax score). Returns
+    the list and the hooks' handles."""
+    import torch
+
+    from image_restoration_tpu_torch.models.moce_ir import RoutingFunction
+    from image_restoration_tpu_torch.models.moce_ir_patch import (
+        PatchRoutingFunction,
+    )
+
+    routes = []
+
+    def hook(mod, inputs, out):
+        s = torch.sort(torch.softmax(mod.logits(*inputs), -1), -1,
+                       descending=True).values
+        routes.append((out[1].tolist(),
+                       (s[:, mod.k - 1] - s[:, mod.k]).min().item()))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (RoutingFunction, PatchRoutingFunction))]
+    return routes, handles
+
+
+def host_syncs(fn):
+    """The host syncs ``fn`` makes, as {"file:line": count} of the
+    innermost frame of this repository's code that led to each: CUDA's
+    sync debug mode warns at each ("called a synchronizing CUDA
+    operation"; turning the mode on warns once that it is a prototype)."""
+    import collections
+    import os
+    import traceback
+    import warnings
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    seen = collections.Counter()
+
+    def record(message, category, filename, lineno, *rest):
+        if "called a synchronizing" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(here)]
+        f = ours[-1] if ours else None
+        seen[f"{os.path.relpath(f.filename, here)}:{f.lineno}" if f
+             else f"{os.path.basename(filename)}:{lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return seen
+
+
+def inspect_routes(strict):
+    """``phase_slice``'s ``inspect`` for the MoCE family: each router's
+    picks in the kernel bf16, plain bf16 and plain fp32 models and the
+    smallest top-k gap over them, and the host syncs of one kernel-model
+    forward. With ``strict`` a pick of the kernel model that differs from
+    the plain fp32 model's fails the phase."""
+    import torch
+
+    def inspect(tag, model, plain16, plain32, x):
+        picks = {}
+        for name, m in (("kernel bf16", model), ("plain bf16", plain16),
+                        ("plain fp32", plain32)):
+            routes, handles = _record_routes(m)
+            with torch.inference_mode():
+                m(x)
+            for h in handles:
+                h.remove()
+            picks[name] = routes
+            flat = [p for r, _ in routes for row in r for p in row]
+            shown = (str([r[0][0] for r, _ in routes]) if len(flat) == len(
+                routes) else f"{len(flat)} picks over {len(routes)} routers")
+            print(f"{tag} routing {name}: picks {shown}, smallest top-k gap "
+                  f"{min(g for _, g in routes):.4e}", flush=True)
+        diff = [i for i, (a, b) in enumerate(zip(picks["kernel bf16"],
+                                                 picks["plain fp32"]))
+                if a[0] != b[0]]
+        print(f"{tag} routing: routers whose picks differ between the kernel "
+              f"bf16 and plain fp32 models: {diff or 'none'}", flush=True)
+        if strict:
+            check(not diff, f"{tag}: routers {diff} pick other experts in "
+                  f"the kernel model than in the plain fp32 model")
+        with torch.inference_mode():
+            syncs = host_syncs(lambda: model(x))
+        print(f"{tag} serving: {sum(syncs.values())} host syncs a forward "
+              f"({dict(syncs)})", flush=True)
+
+    return inspect
 
 
 def phase_lsnet(gpu, profile_dir):
@@ -2079,6 +2250,7 @@ def main(argv=None):
     from image_restoration_tpu_torch.kernels import gdfn as KG
     from image_restoration_tpu_torch.kernels import mdta as KQ
     from image_restoration_tpu_torch.kernels import mefc as KM
+    from image_restoration_tpu_torch.kernels import ska as KS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2115,6 +2287,8 @@ def main(argv=None):
     merge_path(report, phase_kernels(NERD_LEVELS, 1100, "nerd_rain "),
                "nerd_rain")
     phase_gated()
+    merge_path(report, phase_kernels(MOCE_LEVELS, 1300, "moce_ir ",
+                                     **MOCE_BLOCK), "moce_ir")
     report.update(phase_drs_kernels())
     report.update(phase_ska_kernels())
     report.update(phase_3k_kernels())
@@ -2167,12 +2341,34 @@ def main(argv=None):
              "block_apply_gdfn": KB.block_apply_gdfn},
             {"block_front": NERD_BLOCKS_PER_FORWARD,
              "block_apply_gdfn": NERD_BLOCKS_PER_FORWARD}),
+        "moce_ir": phase_slice(
+            gpu, args.profile, "moce_ir",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": MOCE_BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": MOCE_BLOCKS_PER_FORWARD},
+            inspect=inspect_routes(strict=True)),
     }
+    every_kernel = {
+        "block_front": KB.block_front,
+        "block_apply_gdfn": KB.block_apply_gdfn, "ln_gdfn": KG.fused_ln_gdfn,
+        "ln_qkv_dwconv": KQ.ln_qkv_dwconv, "attn_acc": KA.attn_acc,
+        "attn_apply": KA.attn_apply, "drs_apply_msfn": KD.drs_apply_msfn,
+        "mefc_step": KM.mefc_step, "ska": KS.ska}
+    check(set(every_kernel) == set(KERNELS), "a kernel without its counter")
+    for name in KERNEL_FREE:
+        by_path[name] = phase_slice(
+            gpu, args.profile, name, every_kernel,
+            dict.fromkeys(every_kernel, 0), kernel_free=True,
+            inspect=inspect_routes(strict=False),
+            perturb=(lambda m: perturb_igmoce(m, seed=1400))
+            if name == "igmoce_ir" else None)
     by_path["eval"], by_path["eval_drsformer"] = phase_eval(gpu)
     ms_is = {"block_front": "sum over the 44 blocks of one Restormer-base "
                             "512x512 forward of per-call CUDA-event medians "
                             "(CG-IR's 44 have the same shapes); by_path "
-                            "holds MEASNet's 40 and NeRD-Rain's 78",
+                            "holds MEASNet's 40, NeRD-Rain's 78 and "
+                            "MoCE-IR's 28",
              "block_apply_gdfn": "the same, 44 blocks; by_path as "
                                  "block_front's",
              "ln_gdfn": "the same, 44 blocks of the three-kernel variant",

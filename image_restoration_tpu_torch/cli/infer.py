@@ -15,6 +15,11 @@ Usage:
   python -m image_restoration_tpu_torch.cli.infer --model nerd_rain \
       --ckpt nerd_rain.npz --input rainy/ --output_dir derained/
 
+  # the MoCE family: moce_ir (a reference .pth or a JAX .npz), igmoce_ir,
+  # lumisense_moe, moce_ir_patch
+  python -m image_restoration_tpu_torch.cli.infer --model moce_ir \
+      --ckpt moce_ir.pth --input degraded/ --output_dir restored/
+
   # the three-kernel Restormer block, on restormer or adair
   python -m image_restoration_tpu_torch.cli.infer --model restormer \
       --set model_kwargs.fused_block=False \
@@ -41,6 +46,10 @@ through ``kernels/mefc.py``. CG-IR, MEASNet and NeRD-Rain run every block
 through the pair of ``kernels/block.py`` (CG-IR's with its per-sample
 temperature and output gate in the finalize), the rest in plain torch;
 NeRD-Rain's first output, the full-scale restoration, is the image.
+MoCE-IR runs its encoder, latent and refinement blocks through the pair
+and its complexity-expert decoder in plain torch; IGMoCE-IR, LumiSenseMoE
+and the patch-routed MoCE-IR run in plain torch, as the JAX package runs
+them without a kernel.
 """
 
 from __future__ import annotations

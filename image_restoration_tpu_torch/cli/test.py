@@ -17,7 +17,8 @@ Prints one line per benchmark and writes ``results.json`` under
 ``full_fp32``, the JAX CLI's "highest"); on the GPU Restormer and AdaIR run
 every block through K1/K2 and DRSformer through K1/K7/K8 (``cli/infer.py``),
 as do CG-IR, MEASNet and NeRD-Rain (K1/K2; NeRD-Rain pads to multiples of
-16 unless ``--pad_multiple`` is given).
+16 unless ``--pad_multiple`` is given) and MoCE-IR's encoder (K1/K2);
+IGMoCE-IR, LumiSenseMoE and the patch-routed MoCE-IR run in plain torch.
 """
 
 from __future__ import annotations
@@ -42,6 +43,20 @@ def _unflatten(flat):
     return tree
 
 
+def _map_keys(sd, own, key_map):
+    """A torch checkpoint's keys that the model does not hold, through the
+    model's key map: dropped where it gives None, renamed where it gives a
+    key the model holds (MoCE-IR's reference ``.layers.`` level), kept as
+    they are otherwise, so that the strict load names them."""
+    out = {}
+    for k, v in sd.items():
+        if k in own:
+            out[k] = v
+        elif (mapped := key_map(k)) is not None:
+            out[mapped if mapped in own else k] = v
+    return out
+
+
 def load_params(cfg, model):
     """Load ``cfg["ckpt"]`` into ``model`` with a strict ``load_state_dict``.
 
@@ -50,10 +65,13 @@ def load_params(cfg, model):
     through ``utils.jax_bridge``, with the key map ``cfg["model"]`` was
     registered with; it holds params only, so BatchNorm statistics (LSNet)
     stay at the model's init, as in the JAX ``cli/robust.py``. From a torch
-    checkpoint, keys that the key map sends to None and the model does not
-    hold are dropped first: parameters the reference defines but never uses
-    (AdaIR's ``fre*.conv`` and ``fre*.score_gen``). Without ``--ckpt`` the
-    model keeps its random init.
+    checkpoint, keys the model does not hold go through the key map first
+    (:func:`_map_keys`): those it sends to None are dropped (parameters the
+    reference defines but never uses, such as AdaIR's ``fre*.conv`` and
+    ``fre*.score_gen``, and MoCE-IR's ``routing.complexity`` statistic), and
+    those it renames to a key of the model take that key (MoCE-IR's
+    ``.layers.`` level). Without ``--ckpt`` the model keeps its random
+    init.
     Returns the model.
     """
     path = cfg.get("ckpt")
@@ -78,9 +96,7 @@ def load_params(cfg, model):
 
         sd = load_torch_checkpoint(path, prefer_ema=cfg.get("prefer_ema", False))
         if key_map is not None:
-            own = model.state_dict()
-            sd = {k: v for k, v in sd.items()
-                  if k in own or key_map(k) is not None}
+            sd = _map_keys(sd, model.state_dict(), key_map)
     else:
         raise ValueError(f"{path}: the port reads torch .pth/.pt/.ckpt/.state "
                          f"and JAX .npz checkpoints (export orbax runs with "

@@ -46,10 +46,12 @@ from image_restoration_tpu_torch.ops.resample import (
 
 class ChannelCrossAttention(nn.Module):
     """MDTA-style C x C cross attention: q from x, k and v from y, with a
-    3x3 depthwise conv on kv (model.py:177-232)."""
+    ``kv_kernel`` x ``kv_kernel`` depthwise conv on kv: 3 in AdaIR
+    (model.py:177-232), 7 in the MoCE family's mixer
+    (moce_ir_orignal.py:270-304)."""
 
     def __init__(self, dim: int, num_heads: int, bias: bool = False,
-                 dtype=None):
+                 dtype=None, kv_kernel: int = 3):
         super().__init__()
         self.num_heads = num_heads
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
@@ -57,8 +59,9 @@ class ChannelCrossAttention(nn.Module):
         self.q_dwconv = Conv(dim, dim, 3, padding=1, groups=dim, bias=bias,
                              dtype=dtype)
         self.kv = Conv(dim, dim * 2, 1, bias=bias, dtype=dtype)
-        self.kv_dwconv = Conv(dim * 2, dim * 2, 3, padding=1,
-                              groups=dim * 2, bias=bias, dtype=dtype)
+        self.kv_dwconv = Conv(dim * 2, dim * 2, kv_kernel,
+                              padding=kv_kernel // 2, groups=dim * 2,
+                              bias=bias, dtype=dtype)
         self.project_out = Conv(dim, dim, 1, bias=bias, dtype=dtype)
 
     def forward(self, x, y):

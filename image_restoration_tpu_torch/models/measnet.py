@@ -18,7 +18,8 @@ Serving is eval only: ``TokenMoE`` has no noise path (the JAX one adds
 noise only in training), no balance loss is computed, and
 ``stpg_g_mese2``/``stpg_g_mese3``, whose outputs feed only that loss, are
 built (so checkpoints load) but not run. Top-k picks keep the lower index
-on ties, as ``jax.lax.top_k`` does (``topk_lower_index``). The reference
+on ties, as ``jax.lax.top_k`` does (``ops/moe.py`` ``topk_lower_index``,
+the MoCE routers' rule too). The reference
 quirks the JAX module lists stay: FreqBlock's ``initial_conv`` and
 ``score_generator``, MEE's ``norm_2`` and FD's ``lamb_l``/``lamb_h`` exist
 and are unused, and FreqBlock's low band is empty whenever H < 2 x 128.
@@ -58,6 +59,7 @@ from image_restoration_tpu_torch.ops.common import (
     gelu_exact,
 )
 from image_restoration_tpu_torch.ops.layernorm import BatchNorm2d, LayerNorm2d
+from image_restoration_tpu_torch.ops.moe import topk_lower_index
 from image_restoration_tpu_torch.ops.resample import (
     Downsample,
     Upsample,
@@ -65,15 +67,6 @@ from image_restoration_tpu_torch.ops.resample import (
 )
 
 _EPS64 = 2.220446049250313e-16  # np.finfo(float).eps (STPG_G_MESE.py:26)
-
-
-def topk_lower_index(x, k: int):
-    """(values, indices) of the k largest entries along the last axis,
-    ties broken toward the lower index (``jax.lax.top_k``'s order), which
-    ``torch.topk`` does not promise: a stable descending sort keeps equal
-    entries in index order."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def _nhwc(x):

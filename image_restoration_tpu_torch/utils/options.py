@@ -40,6 +40,21 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "measnet": dict(dim=32, fused_block=True),
     "nerd_rain": dict(dim=48, num_blocks=[2, 3, 3], heads=[1, 2, 4],
                       fused_block=True),
+    # MoCE-IR big (MoCE-IR-main/src/options.py:69-84; JAX
+    # utils/options.py:35-40); serving runs every encoder, latent and
+    # refinement block as the two-kernel pair, the decoder in plain torch
+    "moce_ir": dict(dim=48, levels=4, num_blocks=[4, 6, 6, 8],
+                    num_dec_blocks=[2, 4, 4], heads=[1, 2, 4, 8],
+                    num_refinement_blocks=4, topk=1, num_experts=4, rank=2,
+                    stage_depth=[1, 1, 1], rank_type="spread",
+                    depth_type="constant", with_complexity=True,
+                    complexity_scale="max", fused_block=True),
+    # IGMoCE-IR (JAX utils/options.py:53), LumiSenseMoE and the
+    # patch-routed MoCE-IR (their JAX field defaults): plain torch, as
+    # plain XLA in JAX
+    "igmoce_ir": dict(dim=48, num_blocks=[4, 6, 6, 8], heads=[1, 2, 4, 8]),
+    "lumisense_moe": dict(),
+    "moce_ir_patch": dict(),
 }
 
 # Per-model defaults of top-level options. NeRD-Rain's quarter-scale

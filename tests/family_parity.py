@@ -1,8 +1,10 @@
-"""Shared helpers of the port's parity tests for CG-IR, NeRD-Rain and
-MEASNet (tests/test_torch_cg_ir.py, test_torch_nerd_rain.py,
-test_torch_measnet.py): seeded parameter trees, the JAX -> port weight
-load, and a module pair run on the same numpy inputs in fp32 (JAX at
-"highest" matmul precision, torch with TF32 off)."""
+"""Shared helpers of the port's parity tests for CG-IR, NeRD-Rain, MEASNet
+and the MoCE family (tests/test_torch_cg_ir.py, test_torch_nerd_rain.py,
+test_torch_measnet.py, test_torch_moce_ir.py, test_torch_igmoce_ir.py,
+test_torch_lumisense_moe.py, test_torch_moce_ir_patch.py): seeded
+parameter trees, the JAX -> port weight load, a module pair run on the
+same numpy inputs in fp32 (JAX at "highest" matmul precision, torch with
+TF32 off), and the MoE routers' pick margins."""
 
 import functools
 
@@ -13,6 +15,9 @@ import torch
 from image_restoration_tpu_torch.utils.jax_bridge import state_dict_from_jax
 
 RTOL, ATOL = 1e-4, 1e-5
+# Least gap between the k-th and (k+1)-th softmax score of a MoE router for
+# its pick to be the same in both packages: fp32 rounding is ~1e-7.
+GAP_MIN = 1e-5
 
 
 def randomized(shapes, rng, scale=0.5):
@@ -78,3 +83,25 @@ def pair(jmod, tmod, rng, *inputs, to_torch=nchw, batch_stats=None):
     with torch.no_grad():
         got = tmod(*(to_torch(x) for x in inputs))
     return want, got
+
+
+def kth_gap(logits, k):
+    """Smallest gap between the k-th and (k+1)-th softmax score of each
+    row of (N, E) logits."""
+    s = torch.sort(torch.softmax(torch.as_tensor(logits).float(), -1), -1,
+                   descending=True).values
+    return (s[:, k - 1] - s[:, k]).min().item()
+
+
+def routing_gaps(model):
+    """Hooks every router of ``model``; returns the list the gaps of its
+    forwards go to."""
+    gaps = []
+
+    def hook(mod, inputs, _):
+        gaps.append(kth_gap(mod.logits(*inputs), mod.k))
+
+    for m in model.modules():
+        if hasattr(m, "logits") and hasattr(m, "k"):
+            m.register_forward_hook(hook)
+    return gaps

@@ -21,6 +21,13 @@ oracle's max magnitude is below max(3 x the plain bf16 version's, 4e-3).
   W_proj, K2) on a batch of two whose images, temperatures and gates
   differ, against ``reference_block(..., gate=)`` (the oracle in fp32,
   the plain version in bf16); two runs give the same bits.
+- MoCE-IR's EncoderBlock parameters (``MODEL_DEFAULTS["moce_ir"]``): a
+  WithBias LN, a bias on every conv and a GDFN hidden width of 2C, at its
+  block shapes serving a 512x512 image: 512^2 x 48 (1 head), 256^2 x 96
+  (2), 128^2 x 192 (4) and 64^2 x 384 (8). K1 and K2 each, two runs
+  bit-equal; then the whole block (``fused_block``) on a batch of two whose
+  images differ at 64^2 x 384 and 128^2 x 192, against
+  ``reference_block``.
 """
 
 import numpy as np
@@ -34,6 +41,9 @@ MEASNET_SHAPES = [(512, 512, 32, 1), (256, 256, 64, 2), (128, 128, 128, 4),
                   (64, 64, 256, 8), (512, 512, 64, 1)]
 # (batch, H, W, C, heads) of the gated block
 GATED_SHAPES = [(2, 40, 36, 48, 1), (2, 24, 20, 192, 4), (2, 16, 16, 384, 8)]
+# (H, W, C, heads) of MoCE-IR's K1/K2 calls at a 512x512 input
+MOCE_SHAPES = [(512, 512, 48, 1), (256, 256, 96, 2), (128, 128, 192, 4),
+               (64, 64, 384, 8)]
 
 
 @pytest.fixture
@@ -45,25 +55,29 @@ def cuda():
     return torch.device("cuda")
 
 
-def _params(rng, c, heads, device):
-    """Seeded WithBias BlockParams without conv biases (the families'
-    defaults), torch layout."""
-    hidden = int(c * 2.66)
+def _params(rng, c, heads, device, expansion=2.66, bias=False):
+    """Seeded WithBias BlockParams, torch layout: without conv biases at
+    GDFN expansion 2.66 (the families' defaults), or MoCE-IR's encoder
+    block (``expansion=2.0, bias=True``)."""
+    hidden = int(c * expansion)
 
     def mk(*shape, sc=0.05, base=0.0):
         a = base + sc * rng.standard_normal(shape)
         return torch.from_numpy(a.astype(np.float32)).to(device)
 
+    def b(n):
+        return mk(n, sc=0.1) if bias else None
+
     return K.BlockParams(
         mk(c, sc=0.1, base=1.0), mk(c, sc=0.1),
-        mk(3 * c, c, 1, 1, sc=c ** -0.5), None,
-        mk(3 * c, 1, 3, 3, sc=0.3), None,
+        mk(3 * c, c, 1, 1, sc=c ** -0.5), b(3 * c),
+        mk(3 * c, 1, 3, 3, sc=0.3), b(3 * c),
         mk(heads, 1, 1, sc=0.3, base=1.0),
-        mk(c, c, 1, 1, sc=c ** -0.5), None,
+        mk(c, c, 1, 1, sc=c ** -0.5), b(c),
         mk(c, sc=0.1, base=1.0), mk(c, sc=0.1),
-        mk(2 * hidden, c, 1, 1, sc=c ** -0.5), None,
-        mk(2 * hidden, 1, 3, 3, sc=0.3), None,
-        mk(c, hidden, 1, 1, sc=hidden ** -0.5), None)
+        mk(2 * hidden, c, 1, 1, sc=c ** -0.5), b(2 * hidden),
+        mk(2 * hidden, 1, 3, 3, sc=0.3), b(2 * hidden),
+        mk(c, hidden, 1, 1, sc=hidden ** -0.5), b(c))
 
 
 def _rel(got, oracle):
@@ -75,9 +89,9 @@ def _holds(got, plain, oracle):
     return _rel(got, oracle) < max(3 * _rel(plain, oracle), 4e-3)
 
 
-def _case(cuda, h, w, c, heads, seed, batch=1):
+def _case(cuda, h, w, c, heads, seed, batch=1, **block):
     rng = np.random.default_rng(seed)
-    p = _params(rng, c, heads, cuda)
+    p = _params(rng, c, heads, cuda, **block)
     x = torch.from_numpy(rng.standard_normal((batch, h, w, c))
                          .astype(np.float32)).to(cuda, torch.bfloat16)
     return rng, p, x
@@ -140,3 +154,52 @@ def test_gated_fused_block_batch2(cuda, b, h, w, c, heads):
     assert torch.equal(got, again)
     ungated = K.reference_block(x.float(), p, heads)
     assert _rel(ungated, oracle) > 4e-3  # the gate reaches the output
+
+
+MOCE_BLOCK = dict(expansion=2.0, bias=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,heads", MOCE_SHAPES)
+def test_block_pair_at_moce_ir_shapes(cuda, h, w, c, heads):
+    """K1, then K2 on K1's plain outputs, with every conv bias and hidden
+    2C (padded to a multiple of 32: 96 at C 48, 768 at C 384)."""
+    _, p, x = _case(cuda, h, w, c, heads, seed=30 + c, **MOCE_BLOCK)
+    assert p.out_w.shape[1] == 2 * c and p.in_b is not None
+    f = p.front()
+    oracle = K.block_front_ref(x.float(), f, heads)
+    plain = K.block_front_ref(x, f, heads)
+    got = K.block_front(x, f, heads)
+    again = K.block_front(x, f, heads)
+    torch.cuda.synchronize()
+    for name, o, pl, g, a in zip(("v", "gram", "sumsq"), oracle, plain, got,
+                                 again):
+        assert torch.isfinite(g).all(), name
+        assert _holds(g, pl, o), name
+        assert torch.equal(g, a), name
+    v, gram, ss = plain
+    atw = K.finalize(gram, ss, p.temperature, p.proj_w, torch.bfloat16)
+    oracle = K.block_apply_gdfn_ref(v.float(), x.float(), atw.float(), p)
+    plain = K.block_apply_gdfn_ref(v, x, atw, p)
+    got = K.block_apply_gdfn(v, x, atw, p)
+    again = K.block_apply_gdfn(v, x, atw, p)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert _holds(got, plain, oracle)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,heads", MOCE_SHAPES[2:])
+def test_moce_ir_block_batch2(cuda, h, w, c, heads):
+    _, p, x = _case(cuda, h, w, c, heads, seed=40 + c, batch=2,
+                    **MOCE_BLOCK)
+    got = K.fused_block(x, p, heads)
+    torch.cuda.synchronize()
+    oracle = K.reference_block(x.float(), p, heads)
+    plain = K.reference_block(x, p, heads)
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert _holds(got, plain, oracle)
+    for i in range(2):  # each image as its own batch of one
+        one = K.fused_block(x[i:i + 1].contiguous(), p, heads)
+        assert _holds(one[0], plain[i], oracle[i])

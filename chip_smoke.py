@@ -147,15 +147,43 @@ Phases, any failure ends the run with a nonzero exit code:
    ``perturb_igmoce``), LumiSenseMoE and the patch-routed MoCE-IR from
    their serving defaults, served the same way without a kernel: every
    kernel's launch count must read 0; their picks are printed, not held.
+2g. K1 and K2 as phase 2 at the five block shapes of a Restormer-base
+   training step (batch 8 of 128x128 patches: 128^2 x 48, 64^2 x 96,
+   32^2 x 192, 16^2 x 384, 128^2 x 96, all on the batch of 8), two runs
+   bit-equal, each timed. Then ``fused_block``'s backward on a batch of 8
+   at 16^2 x 384 and 128^2 x 48: its gradients of x and every parameter
+   under a fixed linear loss against ``reference_block``'s, which it
+   recomputes (largest relative difference printed, below 4e-3: cuDNN's
+   run-to-run order), with no K1 or K2 launch in the backward; forward +
+   backward timed beside ``reference_block``'s.
+4. training: a seeded synthetic five-task AIO tree (``TASK_SPECS``'
+   layout, four 256x256 images a task, two validation pairs) and
+   ``cli/train.py`` ``main`` with Restormer-base's port defaults in bf16
+   (``fused_block``), batch 8 of 128x128 patches, the five default tasks,
+   ``--warmup_epochs 0 --ema_decay 0.999 --lr 2e-4`` (the JAX CLI's lr),
+   30 steps, validation and saves every 10: 44 K1 + 44 K2 launches a
+   forward (the 30 steps' and the 6 validation forwards'), every logged
+   loss finite, the mean of the last five below the first, the
+   checkpoints and ``best`` written; ``--resume`` continues from step 30
+   to 33; ``cli/test.py --ckpt`` scores the final checkpoint on phase
+   3f's synthetic tree with a finite PSNR. Gradient rule: on a batch of 2
+   at 128x128, the relative L2 error of all parameter gradients of the
+   kernel bf16 model against the plain fp32 model within 3x the plain
+   bf16 model's (printed per level). Then a training step alone on a
+   batch on the card: its launches (44 + 44, none in the backward), the
+   host syncs of a step that does not log, step ms by CUDA events
+   (median of 10 after three warm-up steps), images/s and peak memory,
+   for the kernel model and the plain bf16 model.
 Each serving phase sets the launch counts to 0 just before its forwards
 and reads them just after; the kernels line's ``launches_by_path`` lists
 phase 3f's two ``main`` runs as ``eval`` (Restormer-base, 7 forwards) and
 ``eval_drsformer`` (3 forwards), phase 3g's as ``cg_ir``, ``measnet``
 and ``nerd_rain``, phase 3h's as ``moce_ir`` and phase 3i's (zeros) as
-``igmoce_ir``, ``lumisense_moe`` and ``moce_ir_patch``. K1's and K2's
-rows keep Restormer-base's per-forward sums; their ``by_path`` holds
-MEASNet's, NeRD-Rain's and MoCE-IR's, and their ``per_shape`` rows of
-those shapes carry a ``path``.
+``igmoce_ir``, ``lumisense_moe`` and ``moce_ir_patch``, and phase 4's
+first ``main`` run as ``train``. K1's and K2's rows keep
+Restormer-base's per-forward sums; their ``by_path`` holds MEASNet's,
+NeRD-Rain's, MoCE-IR's and a training step's, and their ``per_shape``
+rows of those shapes carry a ``path``.
 
 Every kernel's row carries its bound: the largest of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s, its
@@ -245,6 +273,24 @@ MOCE_DECODER_BLOCKS = 10  # 4 + 4 + 2: one routing pick read on the host each
 MOCE_BLOCK = dict(expansion=2.0, bias=True)
 # The MoCE family's other three models run no kernel (plain XLA in JAX).
 KERNEL_FREE = ("igmoce_ir", "lumisense_moe", "moce_ir_patch")
+# Restormer-base training at the JAX CLI's defaults: batch 8 of 128x128
+# patches; a step's forward runs the 44 blocks at these shapes (H, W, C,
+# heads, blocks), each on the batch of 8.
+TRAIN_BATCH, TRAIN_PATCH = 8, 128
+TRAIN_LEVELS = [
+    (128, 128, 48, 1, 4),
+    (64, 64, 96, 2, 12),
+    (32, 32, 192, 4, 12),
+    (16, 16, 384, 8, 8),
+    (128, 128, 96, 1, 8),
+]
+# fused_block's backward is checked at the deepest and the widest map
+BACKWARD_SHAPES = [(16, 16, 384, 8), (128, 128, 48, 1)]
+# Phase 4's run of cli/train.py: steps, validation and save period, the
+# learning rate (the JAX CLI's default), the steps after the resume, the
+# synthetic tree's images a task (256x256) and validation pairs.
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_LR, RESUME_STEPS = 30, 10, 2e-4, 3
+TRAIN_IMAGES, VAL_IMAGES = 4, 2
 # CG-IR's 44 CGTBs have Restormer-base's block shapes (LEVELS); the gated
 # pair runs at batch 2 at two of them in phase 2e.
 GATED_SHAPES = [(128, 128, 192, 4), (64, 64, 384, 8)]
@@ -399,22 +445,23 @@ def roofline(nbytes, tc_flops=0.0, fp32_flops=0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_block_front(h, w, c, heads):
-    """K1: read x, write v (bf16), the fp32 Gram and sums of squares; the
-    qkv 1x1 and q^T k on the tensor cores, the 3x3 depthwise in fp32."""
-    n, ch = h * w, c // heads
-    nbytes = 2 * n * c * 2 + 4 * (heads * ch * ch + 2 * c) \
+def bound_block_front(h, w, c, heads, b=1):
+    """K1 on a batch of ``b``: read x, write v (bf16), the fp32 Gram and
+    sums of squares of each image; the qkv 1x1 and q^T k on the tensor
+    cores, the 3x3 depthwise in fp32."""
+    n, ch = b * h * w, c // heads
+    nbytes = 2 * n * c * 2 + 4 * b * (heads * ch * ch + 2 * c) \
         + 2 * 3 * c * c + 4 * (27 * c + 2 * c)
     return roofline(nbytes, 2 * n * c * 3 * c + 2 * n * c * ch,
                     2 * 9 * 3 * c * n)
 
 
-def bound_block_apply_gdfn(h, w, c, expansion=2.66):
-    """K2: read v and x, write out (bf16), A^T W_proj and the GDFN
-    weights; v A^T W, the content|gate 1x1 and the out 1x1 on the tensor
-    cores, the 3x3 depthwise over 2 hidden in fp32."""
-    n, hid = h * w, int(c * expansion)
-    nbytes = 3 * 2 * n * c + 2 * c * c + 2 * 3 * hid * c + 4 * 18 * hid
+def bound_block_apply_gdfn(h, w, c, expansion=2.66, b=1):
+    """K2 on a batch of ``b``: read v and x, write out (bf16), each image's
+    A^T W_proj and the GDFN weights; v A^T W, the content|gate 1x1 and the
+    out 1x1 on the tensor cores, the 3x3 depthwise over 2 hidden in fp32."""
+    n, hid = b * h * w, int(c * expansion)
+    nbytes = 3 * 2 * n * c + 2 * b * c * c + 2 * 3 * hid * c + 4 * 18 * hid
     tc = 2 * n * c * c + 2 * n * c * 2 * hid + 2 * n * hid * c
     return roofline(nbytes, tc, 2 * 9 * 2 * hid * n)
 
@@ -483,21 +530,22 @@ def _bound(plain):
 
 
 def phase_kernels(levels=LEVELS, seed=100, tag="", expansion=2.66,
-                  bias=False):
-    """K1 and K2 at ``levels`` (Restormer-base's by default), phase 2's
-    rule, two equal runs, a batch of two at the widest level, and the
-    times; printed with ``tag``. ``expansion`` and ``bias`` are
-    ``random_block``'s."""
+                  bias=False, batch=1):
+    """K1 and K2 at ``levels`` (Restormer-base's by default) on a batch of
+    ``batch``, phase 2's rule, two equal runs, a batch of two at the
+    widest level (when ``batch`` is 1), and the times; printed with
+    ``tag``. ``expansion`` and ``bias`` are ``random_block``'s."""
     import torch
 
     from image_restoration_tpu_torch.kernels import block as K
 
     report = _new_report(("block_front", "block_apply_gdfn"))
-    widest = max(lv[2] for lv in levels)
+    widest = max(lv[2] for lv in levels) if batch == 1 else None
     for i, (h, w, c, heads, n_blocks) in enumerate(levels):
         p = random_block(c, heads, seed + i, expansion, bias)
         gen = torch.Generator().manual_seed(seed + 100 + i)
-        x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
+        x = torch.randn((batch, h, w, c), generator=gen).to("cuda",
+                                                            torch.bfloat16)
 
         oracle = K.block_front_ref(x.float(), p, heads)
         plain = K.block_front_ref(x, p, heads)
@@ -521,8 +569,8 @@ def phase_kernels(levels=LEVELS, seed=100, tag="", expansion=2.66,
         print(f"{tag}block_front {h}x{w}x{c} heads {heads}: rel err "
               f"{'; '.join(errs)}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
               flush=True)
-        _record(report, "block_front", [1, h, w, c], n_blocks, t_k, t_p,
-                abs_front, bound_block_front(h, w, c, heads))
+        _record(report, "block_front", [batch, h, w, c], n_blocks, t_k, t_p,
+                abs_front, bound_block_front(h, w, c, heads, batch))
 
         v, gram, ss = plain
         atw = K.finalize(gram, ss, p.temperature, p.proj_w, torch.bfloat16)
@@ -545,9 +593,9 @@ def phase_kernels(levels=LEVELS, seed=100, tag="", expansion=2.66,
         print(f"{tag}block_apply_gdfn {h}x{w}x{c} heads {heads}: rel err "
               f"{ek:.3e} (plain {ep:.3e}); kernel {t_k:.4f} ms, plain "
               f"{t_p:.4f} ms", flush=True)
-        _record(report, "block_apply_gdfn", [1, h, w, c], n_blocks, t_k, t_p,
-                (kern2.float() - plain2.float()).abs().max().item(),
-                bound_block_apply_gdfn(h, w, c, expansion))
+        _record(report, "block_apply_gdfn", [batch, h, w, c], n_blocks, t_k,
+                t_p, (kern2.float() - plain2.float()).abs().max().item(),
+                bound_block_apply_gdfn(h, w, c, expansion, batch))
     return report
 
 
@@ -2145,6 +2193,338 @@ def phase_eval(gpu):
     return launches, drs_launches
 
 
+def phase_block_backward():
+    """Phase 2g's backward: ``fused_block`` on a batch of 8 at
+    ``BACKWARD_SHAPES``, its gradients (x and every parameter) under a
+    fixed linear loss against ``reference_block``'s, which its backward
+    recomputes, so they differ only by cuDNN's run-to-run order; the
+    backward launches neither kernel. Times forward + backward of both."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import block as K
+
+    for i, (h, w, c, heads) in enumerate(BACKWARD_SHAPES):
+        p = random_block(c, heads, 1600 + i)
+        p = K.BlockParams(*(None if t is None else t.clone().requires_grad_()
+                            for t in p))
+        gen = torch.Generator(device="cuda").manual_seed(1700 + i)
+        x = torch.randn((TRAIN_BATCH, h, w, c), generator=gen,
+                        device="cuda").to(torch.bfloat16).requires_grad_()
+        g = torch.randn(x.shape, generator=gen, device="cuda")
+        leaves = [x] + [t for t in p if t is not None]
+        counts = (K.block_front.launches, K.block_apply_gdfn.launches)
+        out = K.fused_block(x, p, heads)
+        fwd = (K.block_front.launches - counts[0],
+               K.block_apply_gdfn.launches - counts[1])
+        got = torch.autograd.grad((out.float() * g).sum(), leaves)
+        torch.cuda.synchronize()
+        bwd = (K.block_front.launches - counts[0] - fwd[0],
+               K.block_apply_gdfn.launches - counts[1] - fwd[1])
+        want = torch.autograd.grad(
+            (K.reference_block(x, p, heads).float() * g).sum(), leaves)
+        worst = max(rel_err(a, b) for a, b in zip(got, want))
+        shape = f"{TRAIN_BATCH}x{h}x{w}x{c} heads {heads}"
+        check(fwd == (1, 1) and bwd == (0, 0),
+              f"fused_block backward at {shape}: launches forward {fwd}, "
+              f"backward {bwd}")
+        check(all(t.isfinite().all().item() for t in got) and worst < 4e-3,
+              f"fused_block backward at {shape}: gradients off "
+              f"reference_block's by {worst:.3e}")
+
+        def fused_step():
+            o = K.fused_block(x, p, heads)
+            torch.autograd.grad((o.float() * g).sum(), leaves)
+
+        def plain_step():
+            o = K.reference_block(x, p, heads)
+            torch.autograd.grad((o.float() * g).sum(), leaves)
+
+        t_f, t_p = time_cuda(fused_step, reps=10), time_cuda(plain_step,
+                                                            reps=10)
+        print(f"fused_block backward {shape}: largest relative difference "
+              f"of {len(leaves)} gradients from reference_block's "
+              f"{worst:.3e}; launches forward {fwd}, backward {bwd}; "
+              f"forward + backward {t_f:.4f} ms (reference_block "
+              f"{t_p:.4f} ms)", flush=True)
+
+
+def _train_tree(root, seed=0):
+    """Phase 4's seeded five-task AIO tree in ``TASK_SPECS``' layout:
+    clean 256x256 images under ``denoising/`` (the three noise levels are
+    synthesised on the card), rain pairs under ``deraining/RainTrainL``,
+    hazy images under ``dehazing/RESIDE/part1`` with their clear images,
+    and a validation pair folder ``val/{lq,gt}``."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+
+    def save(rel, arr):
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(arr.astype(np.uint8)).save(path)
+
+    def rain(gt):
+        streaks = (rng.random(gt.shape[:2]) > 0.97)[..., None] * 80.0
+        return np.clip(gt + rng.standard_normal(gt.shape) * 8.0 + streaks,
+                       0, 255)
+
+    for i in range(TRAIN_IMAGES):
+        save(f"denoising/{i:03d}.png", _smooth_image(rng, 256, 256))
+        gt = _smooth_image(rng, 256, 256)
+        save(f"deraining/RainTrainL/gt/norain-{i:03d}.png", gt)
+        save(f"deraining/RainTrainL/rainy/norain-{i:03d}.png", rain(gt))
+        gt = _smooth_image(rng, 256, 256)
+        save(f"dehazing/RESIDE/clear/{i:03d}.png", gt)
+        save(f"dehazing/RESIDE/part1/{i:03d}_0.8_0.2.png", gt * 0.6 + 90)
+    for i in range(VAL_IMAGES):
+        gt = _smooth_image(rng, 256, 256)
+        save(f"val/gt/{i:03d}.png", gt)
+        save(f"val/lq/{i:03d}.png", rain(gt))
+
+
+def _grad_groups(grads):
+    """{level: flat fp32 gradient} by the parameter's top-level module."""
+    import torch
+
+    groups = {}
+    for name, g in grads.items():
+        groups.setdefault(name.split(".")[0], []).append(g.float().flatten())
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def _train_grad_rule(cfg):
+    """Phase 4's gradient rule: one batch of 2 at 128x128; the relative L2
+    error of all parameter gradients of the kernel bf16 model against the
+    plain fp32 model within 3x the plain bf16 model's. Printed per
+    level."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.train.recipes import default_recipe
+    from image_restoration_tpu_torch.train.trainer import loss_and_grads
+
+    gen = torch.Generator(device="cuda").manual_seed(1800)
+    gt = torch.rand((2, 3, TRAIN_PATCH, TRAIN_PATCH), generator=gen,
+                    device="cuda")
+    lq = (gt + 0.1 * torch.randn(gt.shape, generator=gen,
+                                 device="cuda")).clamp(0, 1)
+    batch, recipe = {"lq": lq, "gt": gt}, default_recipe({"l1": 1.0})
+    kern = build_model(cfg).train()
+    groups = {}
+    for tag, bf16 in (("kernel", True), ("plain32", False), ("plain16", True)):
+        model = kern if tag == "kernel" else \
+            plain_variant(cfg, kern, bf16).train()
+        with contextlib.nullcontext() if tag == "kernel" else \
+                _no_kernels():
+            grads = loss_and_grads(model, recipe, batch)[1]
+        groups[tag] = _grad_groups(grads)
+        del model, grads
+    oracle = groups["plain32"]
+
+    def rel(tag, keys):
+        num = sum(float((groups[tag][k] - oracle[k]).norm()) ** 2
+                  for k in keys)
+        den = sum(float(oracle[k].norm()) ** 2 for k in keys)
+        return (num / den) ** 0.5
+
+    for k in oracle:
+        print(f"train gradient rule {k}: kernel bf16 {rel('kernel', [k]):.4e}"
+              f", plain bf16 {rel('plain16', [k]):.4e}", flush=True)
+    ek, ep = rel("kernel", list(oracle)), rel("plain16", list(oracle))
+    print(f"train gradient rule, all parameters: kernel bf16 {ek:.4e}, plain "
+          f"bf16 {ep:.4e} (relative L2 against the plain fp32 model)",
+          flush=True)
+    check(np.isfinite(ek) and ek <= 3 * ep, f"train gradients: kernel error "
+          f"{ek:.4e} above 3 x {ep:.4e}")
+
+
+@contextlib.contextmanager
+def _no_kernels():
+    """Fails the phase if a kernel launches inside (the plain models)."""
+    from image_restoration_tpu_torch.kernels import block as K
+
+    before = (K.block_front.launches, K.block_apply_gdfn.launches)
+    yield
+    check((K.block_front.launches, K.block_apply_gdfn.launches) == before,
+          "a plain model launched a kernel")
+
+
+def _train_step_times(gpu, cfg, profile_dir):
+    """Step ms by CUDA events (median of 10 after three warm-up steps) of
+    the kernel model and of the plain bf16 model on one batch of 8 at
+    128x128 on the card, images/s, peak memory, the launches of one step
+    and the host syncs of a step that does not log. Returns the launches
+    of the counted step."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.kernels import block as K
+    from image_restoration_tpu_torch.train.trainer import (
+        TrainerConfig, TrainState, make_optimizer, make_train_step,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1900)
+    shape = (TRAIN_BATCH, 3, TRAIN_PATCH, TRAIN_PATCH)
+    gt = torch.rand(shape, generator=gen, device="cuda")
+    batch = {"gt": gt, "lq": (gt + 0.1 * torch.randn(
+        shape, generator=gen, device="cuda")).clamp(0, 1)}
+    tcfg = TrainerConfig(learning_rate=TRAIN_LR, ema_decay=0.999)
+    out = {}
+    kern = build_model(cfg)
+    for tag in ("kernel", "plain bf16"):
+        model = kern if tag == "kernel" else plain_variant(cfg, kern, True)
+        model.train()
+        tx = make_optimizer(tcfg)
+        state = TrainState.create(model, tx, ema_decay=tcfg.ema_decay)
+        step = make_train_step(model, tx, tcfg)
+        for _ in range(3):
+            step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if tag == "kernel":
+            K.block_front.launches = K.block_apply_gdfn.launches = 0
+            syncs = host_syncs(lambda: step(state, batch))
+            torch.cuda.synchronize()
+            out = {"block_front": K.block_front.launches,
+                   "block_apply_gdfn": K.block_apply_gdfn.launches}
+            print(f"train step launches {out}; host syncs of a step that "
+                  f"does not log: {sum(syncs.values())} {dict(syncs)}",
+                  flush=True)
+            check(out == dict.fromkeys(out, BLOCKS_PER_FORWARD),
+                  f"a training step launched {out}, expected "
+                  f"{BLOCKS_PER_FORWARD} of each in its forward and none in "
+                  f"its backward")
+            kernel_step = (step, state)
+        print(f"train step {tag}, Restormer-base bf16 batch {TRAIN_BATCH} x "
+              f"{TRAIN_PATCH}^2 on {gpu}: {ms:.3f} ms (CUDA events, median "
+              f"of 10 after 3 warm-up steps; min {min(times):.3f}, max "
+              f"{max(times):.3f}), {TRAIN_BATCH / (ms / 1e3):.2f} images/s, "
+              f"peak memory {peak:.3f} GiB", flush=True)
+        del model, state, step, tx
+    if profile_dir:  # after both timings, which it would perturb
+        step, state = kernel_step
+        _profile(lambda b: step(state, b), [batch, batch], profile_dir,
+                 "train", gpu, f"train steps at batch {TRAIN_BATCH} x "
+                 f"{TRAIN_PATCH}^2")
+    return out
+
+
+def phase_train(gpu, profile_dir):
+    """Phase 4: train Restormer-base through ``cli/train.py`` ``main`` on a
+    seeded synthetic five-task tree at the port defaults in bf16, batch 8
+    of 128x128, with validation and saves every 10 steps; resume; score
+    the final checkpoint through ``cli/test.py``; the gradient rule; the
+    step times. Returns the launch counts of the ``main`` run."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+
+    from image_restoration_tpu_torch.cli import test as T
+    from image_restoration_tpu_torch.cli import train as TR
+    from image_restoration_tpu_torch.kernels import block as K
+    from image_restoration_tpu_torch.utils.options import (
+        build_train_parser, parse_options,
+    )
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ir_train_") as tmp:
+        data = os.path.join(tmp, "data")
+        _train_tree(data)
+        argv = ["--model", "restormer", "--device", "cuda",
+                "--data_file_dir", data, "--batch_size", str(TRAIN_BATCH),
+                "--patch_size", str(TRAIN_PATCH), "--warmup_epochs", "0",
+                "--ema_decay", "0.999", "--lr", str(TRAIN_LR),
+                "--save_every", str(TRAIN_EVERY), "--val_every",
+                str(TRAIN_EVERY), "--val_lq_dir", f"{data}/val/lq",
+                "--val_gt_dir", f"{data}/val/gt", "--log_every", "1",
+                "--ckpt_dir", os.path.join(tmp, "exp"), "--name", "smoke"]
+        cfg = parse_options(argv, build_train_parser())
+        check(cfg["bf16"] and cfg["model_kwargs"].get("fused_block")
+              and cfg["de_type"] == ["denoise_15", "denoise_25",
+                                     "denoise_50", "derain", "dehaze"],
+              "phase 4: not the port's bf16 fused_block defaults on the five "
+              "AIO tasks")
+        n_val = TRAIN_STEPS // TRAIN_EVERY * VAL_IMAGES
+        K.block_front.launches = K.block_apply_gdfn.launches = 0
+        t1 = time.perf_counter()
+        state = TR.main(argv, max_steps_override=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {"block_front": K.block_front.launches,
+                    "block_apply_gdfn": K.block_apply_gdfn.launches}
+        n_fwd = TRAIN_STEPS + n_val
+        print(f"train: {TRAIN_STEPS} steps + {n_val} validation forwards in "
+              f"{wall:.1f} s (host clock, loading, saves and validation "
+              f"included), launches {launches}", flush=True)
+        check(launches == dict.fromkeys(launches, n_fwd * BLOCKS_PER_FORWARD),
+              f"train: {launches} for {TRAIN_STEPS} steps and {n_val} "
+              f"validation forwards, expected {BLOCKS_PER_FORWARD} each")
+        exp = os.path.join(tmp, "exp", "smoke")
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        losses = [e["train/total"] for e in logged if "train/total" in e]
+        vals = [e["val/psnr"] for e in logged if "val/psnr" in e]
+        print(f"train losses (lr {TRAIN_LR}): first {losses[0]:.5f}, mean of "
+              f"the last five {np.mean(losses[-5:]):.5f}; all "
+              f"{[round(v, 5) for v in losses]}; validation PSNR {vals}",
+              flush=True)
+        check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
+              and len(vals) == TRAIN_STEPS // TRAIN_EVERY
+              and np.isfinite(vals).all(), "train: a loss or PSNR is not "
+              "finite, or missing")
+        check(np.mean(losses[-5:]) < losses[0], "train: the loss did not "
+              "fall")
+        ckpts = sorted(os.listdir(os.path.join(exp, "ckpt")))
+        print(f"train: checkpoints {ckpts}", flush=True)
+        want = {f"{s}.pth" for s in range(TRAIN_EVERY, TRAIN_STEPS + 1,
+                                          TRAIN_EVERY)} | {"best"}
+        check(want <= set(ckpts), f"train: checkpoints {ckpts}")
+
+        state = TR.main(argv + ["--resume"],
+                        max_steps_override=TRAIN_STEPS + RESUME_STEPS)
+        torch.cuda.synchronize()
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            steps = [json.loads(line)["step"] for line in f]
+        check(state.step == TRAIN_STEPS + RESUME_STEPS
+              and steps[-1] == TRAIN_STEPS + RESUME_STEPS - 1
+              and TRAIN_STEPS in steps and steps.count(TRAIN_STEPS) == 1,
+              f"train: resume reached step {state.step}, logged {steps}")
+        del state
+
+        bench = os.path.join(tmp, "bench")
+        write_eval_tree(bench)
+        final = os.path.join(exp, "ckpt",
+                             f"{TRAIN_STEPS + RESUME_STEPS}.pth")
+        results = T.main(["--model", "restormer", "--device", "cuda",
+                          "--ckpt", final,
+                          "--benchmarks", "derain", "--data_file_dir",
+                          bench, "--output_dir", os.path.join(tmp, "r")])
+        print(f"train: cli/test.py --ckpt {os.path.basename(final)}: "
+              f"{results}", flush=True)
+        check(np.isfinite(results["derain"]["psnr"])
+              and results["derain"]["n"] == EVAL_IMAGES["derain"],
+              f"train: scoring the checkpoint gave {results}")
+    _train_grad_rule(cfg)
+    _train_step_times(gpu, cfg, profile_dir)
+    print(f"train: phase 4 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -2289,6 +2669,10 @@ def main(argv=None):
     phase_gated()
     merge_path(report, phase_kernels(MOCE_LEVELS, 1300, "moce_ir ",
                                      **MOCE_BLOCK), "moce_ir")
+    merge_path(report, phase_kernels(TRAIN_LEVELS, 1500,
+                                     f"train batch {TRAIN_BATCH} ",
+                                     batch=TRAIN_BATCH), "train")
+    phase_block_backward()
     report.update(phase_drs_kernels())
     report.update(phase_ska_kernels())
     report.update(phase_3k_kernels())
@@ -2364,11 +2748,13 @@ def main(argv=None):
             perturb=(lambda m: perturb_igmoce(m, seed=1400))
             if name == "igmoce_ir" else None)
     by_path["eval"], by_path["eval_drsformer"] = phase_eval(gpu)
+    by_path["train"] = phase_train(gpu, args.profile)
     ms_is = {"block_front": "sum over the 44 blocks of one Restormer-base "
                             "512x512 forward of per-call CUDA-event medians "
                             "(CG-IR's 44 have the same shapes); by_path "
-                            "holds MEASNet's 40, NeRD-Rain's 78 and "
-                            "MoCE-IR's 28",
+                            "holds MEASNet's 40, NeRD-Rain's 78, "
+                            "MoCE-IR's 28 and the 44 of a training step's "
+                            "forward (batch 8 at 128x128)",
              "block_apply_gdfn": "the same, 44 blocks; by_path as "
                                  "block_front's",
              "ln_gdfn": "the same, 44 blocks of the three-kernel variant",

@@ -1,9 +1,30 @@
-"""Model construction shared by the port's entry points
-(image_restoration_tpu/cli/train.py ``build_model``). The training loop
-itself comes with the training port."""
+"""Training entry point — the `src/train.py` surface of the reference zoo
+(image_restoration_tpu/cli/train.py; MoCE-IR-main/src/train.py:92-148 call
+stack, SURVEY.md §3.1), and the model construction the port's entry points
+share.
+
+Usage:
+  python -m image_restoration_tpu_torch.cli.train --model restormer \
+      --data_file_dir data/ --de_type derain --patch_size 128 --batch_size 8
+
+One process on one GPU (``--device cpu`` to run on the CPU): degradations
+synthesised on the device, torch checkpoints with auto-resume
+(``train/checkpoint.py``), in-training validation with save-best. On the
+GPU, Restormer's default ``fused_block`` runs every TransformerBlock's
+forward through K1/K2 (``kernels/block.py``), and its backward recomputes
+the plain block, as JAX's ``fused_block`` VJP does. What does not train
+yet raises: ``--mesh`` (multi-GPU), the MoCE family's routers (train-mode
+routing noise and aux losses), MEASNet's (the same), the three-kernel
+block and DRSformer's and LSNet's kernels (their VJPs), ``--style_ckpt``
+and ``--vgg_ckpt`` and the recipes of models the port does not have
+(ROADMAP Queue 1 items 4-6).
+"""
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 
@@ -37,3 +58,276 @@ def build_model(cfg, device=None):
         torch.manual_seed(cfg.get("seed", 0))
         model = get_model(cfg["model"], **kwargs)
     return model.to(device or default_device(cfg)).eval()
+
+
+def build_dataset(cfg):
+    from image_restoration_tpu_torch.data.datasets import (
+        CDD11, AIOTrainDataset, PairedFolderDataset,
+    )
+
+    kind = cfg.get("trainset", "aio")
+    if kind == "aio":
+        return AIOTrainDataset(cfg["data_file_dir"], cfg["de_type"],
+                               cfg["patch_size"], seed=cfg.get("seed", 0),
+                               name_list_dir=cfg.get("name_list_dir"))
+    if kind == "cdd11":
+        return CDD11(cfg["data_file_dir"], "train", cfg.get("cdd11_split", "all"),
+                     cfg["patch_size"], seed=cfg.get("seed", 0))
+    if kind == "paired":
+        ds = PairedFolderDataset(cfg["lq_dir"], cfg["gt_dir"])
+        return _PatchWrapper(ds, cfg["patch_size"], cfg.get("seed", 0))
+    raise ValueError(kind)
+
+
+class _PatchWrapper:
+    """Random-crop+augment adapter over a full-image paired dataset."""
+
+    def __init__(self, ds, patch, seed):
+        from image_restoration_tpu_torch.data.augment import (
+            paired_random_crop, random_augmentation,
+        )
+
+        self.ds, self.patch = ds, patch
+        self.rng = np.random.default_rng(seed)
+        self._crop, self._aug = paired_random_crop, random_augmentation
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        item = self.ds[i]
+        lq, gt = self._crop(item["lq"], item["gt"], self.patch, self.rng)
+        lq, gt = self._aug(lq, gt, rng=self.rng)
+        return dict(item, lq=lq, gt=gt)
+
+
+def make_lr_schedule(cfg, steps_per_epoch: int):
+    from image_restoration_tpu_torch.train import schedulers as S
+
+    total = cfg.get("max_steps") or cfg["epochs"] * steps_per_epoch
+    name = cfg.get("scheduler", "linear_warmup_cosine")
+    if name == "linear_warmup_cosine":
+        return S.linear_warmup_cosine(cfg["lr"], cfg.get("warmup_epochs", 15) * steps_per_epoch,
+                                      total, eta_min=1e-6), total
+    if name == "cosine":
+        return S.cosine_annealing(cfg["lr"], total, eta_min=1e-6), total
+    if name == "cosine_restart_cyclic":
+        sc = cfg.get("scheduler_kwargs", {})
+        return S.cosine_annealing_restart_cyclic(cfg["lr"], **sc), total
+    if name == "multistep":
+        sc = cfg.get("scheduler_kwargs", {"milestones": [total // 2, total * 3 // 4]})
+        return S.multistep(cfg["lr"], **sc), total
+    return S.SCHEDULES[name](cfg["lr"]), total
+
+
+# forward kwargs implied by a recipe (heads that must exist at init time
+# too, e.g. DarkIR's side projection); DarkIR is not ported yet
+RECIPE_APPLY_KWARGS = {"darkir": {"side_loss": True}}
+
+# The JAX package trains its MoE families with train=True (noisy top-k
+# routing and the balance aux loss, its models' ``uses_moe_rng``). Their
+# port routes in eval only: MoCE-IR's and the patch model's routers raise
+# in train mode, and these two would train without either, so they are
+# refused until the MoCE family's training slice (ROADMAP Queue 1 item 4).
+MOE_TRAIN_PENDING = ("measnet", "igmoce_ir", "lumisense_moe")
+
+
+def model_apply_kwargs(model) -> dict:
+    """Train-time forward kwargs from the model's class flag
+    ``uses_moe_rng`` (JAX ``cli/train.py`` ``model_apply_kwargs``): none
+    of the port's models sets it yet."""
+    if getattr(type(model), "uses_moe_rng", False):
+        return {"train": True}
+    return {}
+
+
+def _refuse_unported(cfg):
+    pending = {
+        "mesh": "--mesh: multi-GPU training (torch.distributed/DDP) is "
+                "ROADMAP Queue 1 item 6",
+        "style_ckpt": "--style_ckpt grafts MWFormer's StyleFilter, which "
+                      "the port does not have yet (ROADMAP Queue 1 item 5)",
+        "vgg_ckpt": "--vgg_ckpt feeds the transweather recipe, whose model "
+                    "the port does not have yet (ROADMAP Queue 1 item 5)",
+    }
+    for key, msg in pending.items():
+        if cfg.get(key):
+            raise NotImplementedError(msg)
+    if cfg["model"].lower() in MOE_TRAIN_PENDING:
+        raise NotImplementedError(
+            f"{cfg['model']} trains with noisy MoE routing and its balance "
+            f"loss, which is the MoCE family's training slice (ROADMAP "
+            f"Queue 1 item 4)")
+
+
+def build_validator(cfg, model, pad_multiple: int = 8):
+    """In-training validation closure -> mean PSNR over a paired folder
+    (NeRD-Rain train.py:176-189: forward, per-image PSNR, mean)."""
+    from image_restoration_tpu_torch.data.datasets import PairedFolderDataset
+    from image_restoration_tpu_torch.eval.metrics import psnr
+    from image_restoration_tpu_torch.eval.tiled import pad_test
+    from image_restoration_tpu_torch.train.trainer import make_eval_step
+
+    if not (cfg.get("val_lq_dir") and cfg.get("val_gt_dir")):
+        return None
+    ds = PairedFolderDataset(cfg["val_lq_dir"], cfg["val_gt_dir"])
+    n = len(ds)
+    if cfg.get("val_max_images"):
+        n = min(n, cfg["val_max_images"])
+    eval_fn = make_eval_step(model, use_ema=bool(cfg.get("ema_decay")))
+    device = next(model.parameters()).device
+
+    def image(a):
+        return torch.from_numpy(a).permute(2, 0, 1)[None].to(device)
+
+    def validate(state):
+        vals = []
+        for i in range(n):
+            item = ds[i]
+            out = pad_test(lambda z: eval_fn(state, z), image(item["lq"]),
+                           pad_multiple)
+            vals.append(psnr(out.float(), image(item["gt"]))[0])
+        return float(torch.stack(vals).mean())
+
+    return validate
+
+
+def main(argv=None, max_steps_override: int | None = None):
+    """Train as ``argv`` says; returns the final ``TrainState``."""
+    from image_restoration_tpu_torch.data.degradations import (
+        degrade_batch, mixup_device, step_generator,
+    )
+    from image_restoration_tpu_torch.data.pipeline import (
+        Loader, make_train_iterator,
+    )
+    from image_restoration_tpu_torch.train.checkpoint import CheckpointManager
+    from image_restoration_tpu_torch.train.progressive import (
+        ProgressiveSchedule, ReduceLROnPlateau,
+    )
+    from image_restoration_tpu_torch.train.trainer import (
+        TrainerConfig, TrainState, make_optimizer, make_train_step,
+        set_lr_scale,
+    )
+    from image_restoration_tpu_torch.utils.logging import (
+        MessageLogger, count_params,
+    )
+    from image_restoration_tpu_torch.utils.options import (
+        build_train_parser, dump_effective_config, parse_options,
+    )
+
+    cfg = parse_options(argv, build_train_parser())
+    _refuse_unported(cfg)
+    exp_dir = os.path.join(cfg["ckpt_dir"], cfg["name"])
+    os.makedirs(exp_dir, exist_ok=True)
+    dump_effective_config(cfg, os.path.join(exp_dir, "config.yaml"))
+
+    device = default_device(cfg)
+    seed = cfg.get("seed", 0)
+    model = build_model(cfg, device).train()
+    dataset = build_dataset(cfg)
+    loader = Loader(dataset, cfg["batch_size"], seed=seed,
+                    num_threads=cfg.get("num_workers", 8))
+    steps_per_epoch = max(len(loader), 1)
+    lr_sched, total_steps = make_lr_schedule(cfg, steps_per_epoch)
+    if max_steps_override:
+        total_steps = max_steps_override
+
+    recipe = cfg.get("recipe", "default")
+    apply_kwargs = {**model_apply_kwargs(model),
+                    **RECIPE_APPLY_KWARGS.get(recipe, {})}
+    tcfg = TrainerConfig(
+        learning_rate=lr_sched, weight_decay=cfg.get("weight_decay", 0.0),
+        grad_clip=cfg.get("grad_clip"), ema_decay=cfg.get("ema_decay"),
+        loss=cfg["loss"], aux_loss_weight=cfg.get("aux_loss_weight", 0.0),
+        recipe=recipe, apply_kwargs=apply_kwargs,
+        plateau=bool(cfg.get("plateau")),
+        accumulate_grad_batches=cfg.get("accumulate_grad_batches", 1),
+        freeze_prefixes=tuple(cfg.get("freeze") or ()),
+    )
+    tx = make_optimizer(tcfg)
+    print(f"model={cfg['model']} params={count_params(model)/1e6:.2f}M "
+          f"total_steps={total_steps} device={device}")
+    if tcfg.freeze_prefixes:
+        print(f"frozen param subtrees: {list(tcfg.freeze_prefixes)}")
+    state = TrainState.create(model, tx, ema_decay=tcfg.ema_decay)
+
+    ckpt = CheckpointManager(os.path.join(exp_dir, "ckpt"),
+                             save_every=cfg.get("save_every", 1000))
+    start_step = 0
+    if cfg.get("resume"):
+        restored, step = ckpt.restore(state)
+        if restored is not None:
+            state, start_step = restored, step
+            print(f"resumed from step {step}")
+
+    logger = MessageLogger(exp_dir, total_steps, use_tb=cfg.get("tb"),
+                           use_wandb=cfg.get("wandb"))
+    step_fn = make_train_step(model, tx, tcfg)
+
+    # progressive patch/batch schedule (HOGformer/Restormer recipe): a
+    # host transform in the prefetch thread
+    prog = None
+    if cfg.get("prog_iters"):
+        prog = ProgressiveSchedule(cfg["prog_iters"], cfg["prog_gt_sizes"],
+                                   cfg["prog_batch_sizes"],
+                                   scale=cfg.get("scale", 1))
+        print(f"progressive schedule: {prog.num_buckets()} shape buckets")
+    prog_rng = np.random.default_rng(seed + 7)
+    transform = (lambda s, arrays: prog.apply_batch(arrays, s, prog_rng)) if prog else None
+
+    plateau = None
+    if cfg.get("plateau"):
+        plateau = ReduceLROnPlateau(factor=cfg.get("plateau_factor", 0.5),
+                                    patience=cfg.get("plateau_patience", 3),
+                                    window=cfg.get("plateau_window", 1000))
+    mixup = bool(cfg.get("mixup"))
+    validate = build_validator(cfg, model, cfg.get("pad_multiple", 8))
+    val_every = cfg.get("val_every", 0)
+    best_psnr = -1.0
+    log_every = cfg.get("log_every", 100)
+
+    saved = start_step
+    it = make_train_iterator(loader, device,
+                             start_epoch=start_step // steps_per_epoch,
+                             transform=transform, start_step=start_step)
+    try:
+        for step in range(start_step, total_steps):
+            batch = degrade_batch(next(it),
+                                  step_generator(seed, step, device))
+            lq, gt = batch["lq"], batch["gt"]
+            if mixup:
+                lq, gt = mixup_device(lq, gt, cfg.get("mixup_beta", 1.2),
+                                      bool(cfg.get("mixup_identity")),
+                                      step_generator(seed, step, device, 2))
+            state, logs = step_fn(state, {"lq": lq, "gt": gt})
+            if step % log_every == 0 or step == total_steps - 1:
+                logger.log(step, logs)
+            if plateau is not None:
+                new_scale = plateau.push_loss(float(logs["total"]))
+                if new_scale is not None:
+                    set_lr_scale(state.opt_state, new_scale)
+            if val_every and (step + 1) % val_every == 0 and validate is not None:
+                val_psnr = validate(state)
+                logger.log(step, {"psnr": val_psnr}, prefix="val")
+                if ckpt.maybe_save_best(step + 1, state, val_psnr):
+                    best_psnr = val_psnr
+                    saved = step + 1
+                    print(f"step {step + 1}: new best val PSNR {val_psnr:.3f}")
+            # a step's state is written once, whichever save asks first
+            if saved != step + 1 and ckpt.should_save(step + 1):
+                ckpt.save(step + 1, state)
+                saved = step + 1
+        if saved != total_steps:
+            ckpt.save(total_steps, state, force=True)
+    finally:
+        it.close()
+        loader.close()
+        logger.close()
+    if best_psnr >= 0:
+        print(f"best val PSNR: {best_psnr:.3f}")
+    print(f"done: {total_steps} steps; checkpoints in {exp_dir}/ckpt")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Evaluation data: benchmark datasets, file clients, the MATLAB bicubic
-and the test-time noise (numpy, as in image_restoration_tpu/data). The
-training mixture and the device-side degradations come with the training
-port."""
+"""Data: the all-in-one training mixture and the benchmark datasets, file
+clients, the MATLAB bicubic and the host-side test noise (numpy, as in
+image_restoration_tpu/data); the device-side training noise and mixup
+(``degradations.py``), the sampler and the loader (``pipeline.py``)."""

@@ -1,7 +1,12 @@
-"""Evaluation datasets: CDD-11, paired folders and the benchmarks
-(image_restoration_tpu/data/datasets.py, whose classes these copy).
+"""Datasets: the all-in-one training mixture, CDD-11, paired folders and
+the benchmarks (image_restoration_tpu/data/datasets.py, whose classes these
+copy).
 
 Behavioral spec (SURVEY.md §2.3):
+* AIO training mixture with per-task oversampling (derain x120, LOL x20,
+  GoPro x5, denoise x3 — MoCE-IR-main/src/data/dataset_utils.py:241-329)
+* denoise tasks draw CLEAN patches; noise is synthesized later, on the
+  device (``data/degradations.py`` ``degrade_batch``)
 * dehaze GT-name derivation: <root>/clear/<name-before-'_'><ext>
   (dataset_utils.py:342-347)
 * CDD-11 with underscore-count single/double/triple subset filtering
@@ -10,16 +15,16 @@ Behavioral spec (SURVEY.md §2.3):
   (IRBenchmarks :350-470) and SR benchmark folders (HR + LR_bicubic/XN).
 
 Item -> dict of numpy HWC float32 [0,1] plus metadata (de_id, sigma,
-name), as in the JAX package; ``eval/benchmarks.py`` moves them to the
-device as NCHW tensors. The AIO training mixture (``TaskSpec``,
-``AIOTrainDataset``) comes with the training port.
+name), as in the JAX package; ``eval/benchmarks.py`` and
+``data/pipeline.py`` move them to the device as NCHW tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import os
-from typing import List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 from PIL import Image
@@ -49,6 +54,140 @@ def dehaze_gt_name(hazy_path: str) -> str:
     stem = os.path.basename(hazy_path).split("_")[0]
     ext = os.path.splitext(hazy_path)[1]
     return os.path.join(d, "clear", stem + ext)
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskSpec:
+    """One degradation task in the AIO mixture."""
+
+    name: str
+    lq_dir: Optional[str]         # None => synthetic (clean-only)
+    gt_dir: str
+    repeat: int = 1
+    sigma: float = 0.0            # >0 => synthesize gaussian noise
+    dehaze_gt_rule: bool = False  # derive GT name from hazy name
+
+
+# canonical 5-task AIO layout (relative to data root), mirroring the
+# reference's directory conventions and oversample ratios
+TASK_SPECS: Dict[str, TaskSpec] = {
+    "denoise_15": TaskSpec("denoise_15", None, "denoising", repeat=3, sigma=15),
+    "denoise_25": TaskSpec("denoise_25", None, "denoising", repeat=3, sigma=25),
+    "denoise_50": TaskSpec("denoise_50", None, "denoising", repeat=3, sigma=50),
+    "derain": TaskSpec("derain", "deraining/RainTrainL/rainy", "deraining/RainTrainL/gt", repeat=120),
+    "dehaze": TaskSpec("dehaze", "dehazing/RESIDE", "dehazing/RESIDE/clear", dehaze_gt_rule=True),
+    "synllie": TaskSpec("synllie", "llie/LOLv1/Train/input", "llie/LOLv1/Train/target", repeat=20),
+    "deblur": TaskSpec("deblur", "deblurring/GoPro/crop/train/input_crops",
+                       "deblurring/GoPro/crop/train/target_crops", repeat=5),
+}
+
+
+def adair_rain_gt(rainy_path: str) -> str:
+    """AdaIR derain GT rule (dataset_utils.py:133-135):
+    ``.../rainy/rain-N.png -> .../gt/norain-N.png``."""
+    return rainy_path.split("rainy")[0] + "gt/norain-" + rainy_path.split("rain-")[-1]
+
+
+def adair_haze_gt(hazy_path: str) -> str:
+    """AdaIR dehaze GT rule (dataset_utils.py:148-153):
+    ``.../synthetic/partK/NAME_a_b.jpg -> .../original/NAME.jpg``."""
+    d = hazy_path.split("synthetic")[0] + "original/"
+    stem = hazy_path.split("/")[-1].split("_")[0]
+    return d + stem + "." + hazy_path.split(".")[-1]
+
+
+# AdaIR name-list protocol: txt file under data_file_dir per task
+# (dataset_utils.py:60-116) + per-task image base dir relative to data root.
+ADAIR_NAME_LISTS: Dict[str, tuple] = {
+    # task -> (list file, base dir, gt rule or None for synthetic)
+    "denoise_15": ("noisy/denoise.txt", "denoising", None),
+    "denoise_25": ("noisy/denoise.txt", "denoising", None),
+    "denoise_50": ("noisy/denoise.txt", "denoising", None),
+    "derain": ("rainy/rainTrain.txt", "deraining", adair_rain_gt),
+    "dehaze": ("hazy/hazy_outside.txt", "dehazing", adair_haze_gt),
+}
+
+
+class AIOTrainDataset:
+    """All-in-one training mixture (AIOTrainDataset, dataset_utils.py:137-347)."""
+
+    def __init__(self, data_root: str, de_type: Sequence[str], patch_size: int = 128,
+                 seed: int = 0, specs: Optional[Dict[str, TaskSpec]] = None,
+                 name_list_dir: Optional[str] = None):
+        self.root = data_root
+        self.patch_size = patch_size
+        self.rng = np.random.default_rng(seed)
+        specs = specs or TASK_SPECS
+        self.de_type = list(de_type)
+        self.de_ids = {t: i for i, t in enumerate(self.de_type)}
+        self.items: List[tuple] = []  # (lq_path|None, gt_path, de_id, sigma)
+        for t in self.de_type:
+            spec = specs[t]
+            if name_list_dir is not None and t in ADAIR_NAME_LISTS:
+                # AdaIR txt name-list front-end (dataset_utils.py:60-116):
+                # IDs come from data_file_dir/<task>/<list>.txt, one relative
+                # path per line, resolved against the task's base dir; GT
+                # names derived by the AdaIR string rules. Oversampling
+                # ratios follow the folder-scan specs.
+                list_file, base, gt_rule = ADAIR_NAME_LISTS[t]
+                with open(os.path.join(name_list_dir, list_file)) as f:
+                    ids = [ln.strip() for ln in f if ln.strip()]
+                paths = [os.path.join(data_root, base, i) for i in ids]
+                if gt_rule is None:  # synthetic denoise over clean ids
+                    entries = [(None, p, self.de_ids[t], spec.sigma)
+                               for p in paths]
+                else:
+                    entries = [(p, gt_rule(p), self.de_ids[t], 0.0)
+                               for p in paths]
+                self.items += entries * spec.repeat
+                continue
+            if spec.lq_dir is None:  # synthetic denoise over clean sets
+                gt_root = os.path.join(data_root, spec.gt_dir)
+                clean = []
+                for sub in sorted(os.listdir(gt_root)) if os.path.isdir(gt_root) else []:
+                    p = os.path.join(gt_root, sub)
+                    clean += _list_images(p) if os.path.isdir(p) else []
+                clean += _list_images(gt_root)
+                entries = [(None, g, self.de_ids[t], spec.sigma) for g in clean]
+            elif spec.dehaze_gt_rule:
+                lqs = []
+                base = os.path.join(data_root, spec.lq_dir)
+                for part in sorted(glob.glob(os.path.join(base, "part*"))) or [base]:
+                    lqs += _list_images(part)
+                lqs = [p for p in lqs if "clear" not in p]
+                entries = [(p, dehaze_gt_name(p), self.de_ids[t], 0.0) for p in lqs]
+            else:
+                lqs = _list_images(os.path.join(data_root, spec.lq_dir))
+                gts = _list_images(os.path.join(data_root, spec.gt_dir))
+                assert len(lqs) == len(gts), f"{t}: {len(lqs)} lq vs {len(gts)} gt"
+                entries = [(l, g, self.de_ids[t], 0.0) for l, g in zip(lqs, gts)]
+            self.items += entries * spec.repeat
+        if not self.items:
+            raise ValueError(f"no training items found under {data_root} for {de_type}")
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx: int) -> dict:
+        lq_path, gt_path, de_id, sigma = self.items[idx]
+        ps = self.patch_size
+        if lq_path is None:  # synthetic: crop clean, augment; noise added on device
+            hr = crop_img_to_base(_imread(gt_path), 16)
+            hr, _ = paired_random_crop(hr, hr, ps, self.rng)
+            hr = random_augmentation(hr, rng=self.rng)[0]
+            lq = hr
+        else:
+            lq = crop_img_to_base(_imread(lq_path), 16)
+            hr = crop_img_to_base(_imread(gt_path), 16)
+            lq, hr = paired_random_crop(lq, hr, ps, self.rng)
+            lq, hr = random_augmentation(lq, hr, rng=self.rng)
+        return {
+            "lq": lq.astype(np.float32) / 255.0,
+            "gt": hr.astype(np.float32) / 255.0,
+            "de_id": np.int32(de_id),
+            "sigma": np.float32(sigma),
+            "name": gt_path,
+        }
 
 
 class CDD11:

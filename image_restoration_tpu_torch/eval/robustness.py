@@ -7,8 +7,9 @@
 * **ImageNet-A / -R**: top-1 restricted to their 200-class subsets by a
   mask over the model's 1000 logits (``robust_subsets``), built from the
   sorted training-class wnids (torchvision ImageFolder order).
-* **FGSM / PGD** need gradients through SKA, whose backward comes with the
-  training port: ``adv`` raises NotImplementedError until then.
+* **FGSM / PGD** need gradients through SKA, whose backward comes with
+  LSNet's training slice (ROADMAP Queue 2 A1): ``adv`` raises
+  NotImplementedError until then.
 
 The JAX package jits one (params, images) -> hits program; here
 :func:`batch_hits` is the per-batch scorer, one forward of the model in
@@ -148,7 +149,7 @@ def evaluate_folder(model, root: str, batch_size: int = 64,
     if adv is not None:
         raise NotImplementedError(
             f"adv={adv!r}: FGSM/PGD differentiate through SKA, whose backward "
-            f"comes with the LSNet training port")
+            f"comes with the LSNet training slice (ROADMAP Queue 2 A1)")
     _, samples = _list_imagefolder(root)
     n = h1 = h5 = 0
     for i in range(0, len(samples), batch_size):

@@ -17,9 +17,17 @@ wrapper launches its kernel, or raises if the kernel cannot take the input;
 on a CPU tensor it runs its plain version (``block_front_ref``,
 ``block_apply_gdfn_ref``), which rounds where the kernel rounds when given
 bf16 and does not round at all in fp32. Each wrapper counts its launches in
-``.launches``. Forward only: on CUDA tensors that require grad,
-``backward()`` raises (``kernels/forward_only.py``); the plain versions
-differentiate.
+``.launches``.
+
+:func:`fused_block` differentiates as the JAX ``fused_block`` custom VJP
+does (``block_pallas.py:634-676``): its forward runs the two passes and
+keeps only the block input, the parameters and the gate; its backward
+recomputes :func:`reference_block` from them and differentiates that, one
+block's plain graph at a time. Neither package has a backward kernel.
+:func:`block_front` and :func:`block_apply_gdfn` called alone stay forward
+only, as JAX's ``run_front`` has no VJP: on CUDA tensors that require
+grad, their ``backward()`` raises (``kernels/forward_only.py``); their
+plain versions differentiate.
 """
 
 from __future__ import annotations
@@ -472,11 +480,50 @@ def block_apply_gdfn(v, x, atw, p: BlockParams, eps: float = 1e-5):
 block_apply_gdfn.launches = 0
 
 
+def _block_passes(x, p: BlockParams, num_heads, eps, gate):
+    v, gram, ss = block_front(x, p.front(), num_heads, eps)
+    atw = finalize(gram, ss, p.temperature, p.proj_w, x.dtype, gate)
+    return block_apply_gdfn(v, x, atw, p, eps)
+
+
+class _FusedBlock(torch.autograd.Function):
+    """The JAX ``fused_block`` custom VJP: ``_fwd`` keeps (x, params,
+    gate), ``_bwd`` is ``jax.vjp`` of ``_reference_block`` at them. The
+    forward saves no v, Gram or hidden map, so a training step holds one
+    block's plain graph at a time, during its backward."""
+
+    @staticmethod
+    def forward(ctx, num_heads, eps, x, gate, *params):
+        ctx.num_heads, ctx.eps = num_heads, eps
+        ctx.save_for_backward(x, gate, *params)
+        return _block_passes(x, BlockParams(*params), num_heads, eps, gate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gate, *params = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip((x, gate, *params), needs)]
+            out = reference_block(leaves[0], BlockParams(*leaves[2:]),
+                                  ctx.num_heads, ctx.eps, gate=leaves[1])
+            wanted = [t for t, n in zip(leaves, needs) if t is not None and n]
+            grads = iter(torch.autograd.grad(out, wanted, g,
+                                             allow_unused=True))
+        return (None, None, *(next(grads) if t is not None and n else None
+                              for t, n in zip(leaves, needs)))
+
+
 def fused_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5,
                 gate=None):
     """One whole TransformerBlock on (B, H, W, C): pass 1, finalize, pass 2.
     ``p.temperature`` may be per sample (B, heads), and ``gate`` (B, C) an
-    output gate, as :func:`finalize` takes them (CG-IR's CGTB)."""
-    v, gram, ss = block_front(x, p.front(), num_heads, eps)
-    atw = finalize(gram, ss, p.temperature, p.proj_w, x.dtype, gate)
-    return block_apply_gdfn(v, x, atw, p, eps)
+    output gate, as :func:`finalize` takes them (CG-IR's CGTB).
+
+    Differentiable in x, every parameter and ``gate``: the backward is
+    that of :func:`reference_block`, recomputed (:class:`_FusedBlock`).
+    Without a gradient to take, the passes run as they are."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, gate, *p)):
+        return _FusedBlock.apply(num_heads, eps, x, gate, *p)
+    return _block_passes(x, p, num_heads, eps, gate)

@@ -5,9 +5,14 @@ autograd cannot see: the result would carry no ``grad_fn``, and a
 ``loss.backward()`` through it would silently leave the parameters without
 gradients. :func:`forward_only` runs the launch inside a
 ``torch.autograd.Function`` whenever a gradient could flow, so that
-``backward()`` raises instead. The JAX kernels differentiate through custom
-VJPs that recompute the plain composition; the CUDA backward passes come
-with the port's training slice.
+``backward()`` raises instead.
+
+The JAX kernels differentiate through custom VJPs that recompute the plain
+composition. The port has that backward for the whole block pair,
+``kernels/block.py`` ``fused_block``; the passes it is made of
+(``block_front`` and ``block_apply_gdfn`` called alone, as JAX's
+``run_front`` has no VJP) and the K3-K9 wrappers still come here. Their
+VJPs are the next training slices (ROADMAP Queue 2 A1 and A3).
 """
 
 from __future__ import annotations
@@ -24,9 +29,10 @@ class _ForwardOnly(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            f"{ctx.name}: the CUDA kernel is forward only; its backward "
-            f"comes with the port's training slice. Run the plain version "
-            f"(CPU tensors, or the model with its kernel flag off) to "
+            f"{ctx.name}: the CUDA kernel is forward only; its VJP is a "
+            f"later training slice (ROADMAP Queue 2 A1, A3). Run the plain "
+            f"version (CPU tensors, or the model with its kernel flag off), "
+            f"or the whole block through kernels/block.py fused_block, to "
             f"differentiate.")
 
 

@@ -14,8 +14,8 @@ moce_ir.py), NCHW.
   shared branch) routed by an image gate plus a frequency gate; a channel
   cross attention (7x7 kv) re-injects the shared branch; LN, GDFN.
 
-Serving is eval only: no routing noise, no aux loss (the training port
-brings both). Top-k picks keep the lower index on ties (``ops/moe.py``).
+Serving is eval only: no routing noise, no aux loss (the MoCE family's
+training slice, ROADMAP Queue 1 item 4, brings both). Top-k picks keep the lower index on ties (``ops/moe.py``).
 At batch 1 with top-1 routing the adapter runs only the picked expert,
 scaled by its gate; it reads the pick on the host (one sync a decoder
 block). Every other case is the dense combine, so the windows of a tiled
@@ -212,7 +212,8 @@ class RoutingFunction(nn.Module):
         if self.training:
             raise NotImplementedError(
                 "MoE routing serves eval only: the routing noise and the "
-                "aux losses come with the training port")
+                "aux losses are the MoCE family's training slice (ROADMAP "
+                "Queue 1 item 4)")
         return noisy_topk_gates(self.logits(x, freq_emb), self.k)
 
 

@@ -74,7 +74,8 @@ class PatchRoutingFunction(nn.Module):
         if self.training:
             raise NotImplementedError(
                 "MoE routing serves eval only: the routing noise and the "
-                "aux losses come with the training port")
+                "aux losses are the MoCE family's training slice (ROADMAP "
+                "Queue 1 item 4)")
         return noisy_topk_gates(self.logits(x, freq_emb), self.k)
 
 

@@ -6,7 +6,8 @@ positions and zero elsewhere, so a dense combine of every expert's output
 (:func:`dense_moe_combine`) equals the reference's sparse dispatch. Eval
 adds no noise: the reference's eval-time gate noise makes eval stochastic,
 and the JAX package treats it as a defect. The training path (the noise,
-``importance_loss`` and ``load_loss``) comes with the training port.
+``importance_loss`` and ``load_loss``) is the MoCE family's training slice
+(ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -1,11 +1,14 @@
-"""Options of the port's inference surface.
+"""Options of the port's entry points (image_restoration_tpu/utils/options.py).
 
-The subset of image_restoration_tpu/utils/options.py that the port's entry
-points share: the model and its defaults, the seed, the checkpoint, the
-precision and the device, with dotted ``--set a.b=c`` overrides, and the
-evaluation and inference options of ``cli/test.py`` and ``cli/infer.py``
-(with the JAX defaults). ``cli/robust.py`` adds its own arguments. The
-training options come with the training port.
+:func:`build_parser` holds what the entry points share: the model and its
+defaults, the seed, the checkpoint, the precision and the device, with
+dotted ``--set a.b=c`` overrides, and the evaluation and inference options
+of ``cli/test.py`` and ``cli/infer.py`` (with the JAX defaults).
+``cli/robust.py`` adds its own arguments, and :func:`build_train_parser`
+the training options of ``cli/train.py`` (JAX ``utils/options.py:84-156``),
+with ``--config``: a YAML file whose keys become defaults (explicit flags
+win), read when ``pyyaml`` imports and refused otherwise, as in JAX. The
+effective config is dumped per experiment (:func:`dump_effective_config`).
 """
 
 from __future__ import annotations
@@ -13,7 +16,13 @@ from __future__ import annotations
 import argparse
 import ast
 import copy
+import os
 from typing import Any, Dict
+
+try:
+    import yaml
+except ImportError:  # pragma: no cover - the GPU host may lack pyyaml
+    yaml = None
 
 MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     # Restormer-base (Restormer.py defaults); serving runs every block as
@@ -107,6 +116,102 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def build_train_parser() -> argparse.ArgumentParser:
+    """:func:`build_parser` plus the training options, with the JAX
+    defaults (JAX ``utils/options.py:84-156``)."""
+    p = build_parser()
+    p.add_argument("--config", type=str, default=None, help="YAML config file")
+    # data (mirrors MoCE/AdaIR option names)
+    p.add_argument("--de_type", nargs="+",
+                   default=["denoise_15", "denoise_25", "denoise_50", "derain", "dehaze"])
+    p.add_argument("--patch_size", type=int, default=128)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--trainset", type=str, default="aio",
+                   choices=["aio", "cdd11", "paired"])
+    p.add_argument("--cdd11_split", type=str, default="all")
+    p.add_argument("--gt_dir", type=str, default=None)
+    # optimization
+    p.add_argument("--epochs", type=int, default=120)
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--scheduler", type=str, default="linear_warmup_cosine")
+    p.add_argument("--warmup_epochs", type=int, default=15)
+    p.add_argument("--grad_clip", type=float, default=None)
+    p.add_argument("--ema_decay", type=float, default=None)
+    p.add_argument("--loss", nargs="+", default=["l1=1.0"],
+                   help="terms name=weight, e.g. l1=1.0 fft=0.1")
+    p.add_argument("--aux_loss_weight", type=float, default=0.01)
+    p.add_argument("--recipe", type=str, default="default",
+                   help="loss recipe: default|nerd_rain")
+    # mixup (BasicSR mixing_augs, image_restoration_model.py:145-170)
+    p.add_argument("--mixup", action="store_true")
+    p.add_argument("--mixup_beta", type=float, default=1.2)
+    p.add_argument("--mixup_identity", action="store_true",
+                   help="use_identity: sometimes skip the mix")
+    # progressive patch/batch schedule (BasicSR train.py:296-326)
+    p.add_argument("--prog_iters", nargs="+", type=int, default=None,
+                   help="group lengths, e.g. 92000 64000 48000 36000 36000 24000")
+    p.add_argument("--prog_gt_sizes", nargs="+", type=int, default=None)
+    p.add_argument("--prog_batch_sizes", nargs="+", type=int, default=None)
+    p.add_argument("--accumulate_grad_batches", type=int, default=1,
+                   help="micro-steps per optimizer step (Lightning "
+                        "accumulate_grad_batches, MoCE-IR train.py:128-135)")
+    p.add_argument("--freeze", nargs="+", default=None,
+                   help="top-level param subtree prefixes to freeze")
+    p.add_argument("--style_ckpt", type=str, default=None,
+                   help="stage-1 StyleFilter checkpoint (MWFormer; refused "
+                        "until the port has the model)")
+    p.add_argument("--vgg_ckpt", type=str, default=None,
+                   help="torchvision vgg16 .pth for the transweather recipe "
+                        "(refused until the port has the model)")
+    # plateau LR (BasicSR ReduceLROnPlateau branch, train.py:285-293)
+    p.add_argument("--plateau", action="store_true")
+    p.add_argument("--plateau_factor", type=float, default=0.5)
+    p.add_argument("--plateau_patience", type=int, default=3)
+    p.add_argument("--plateau_window", type=int, default=1000)
+    # in-training validation (NeRD-Rain train.py:176-198 best-PSNR cycle)
+    p.add_argument("--val_lq_dir", type=str, default=None)
+    p.add_argument("--val_gt_dir", type=str, default=None)
+    p.add_argument("--val_max_images", type=int, default=0,
+                   help="cap validation set size (0 = all)")
+    p.add_argument("--mesh", nargs="+", type=int, default=None,
+                   help="mesh shape (refused: multi-GPU is ROADMAP Queue 1 "
+                        "item 6)")
+    # io
+    p.add_argument("--ckpt_dir", type=str, default="train_ckpt")
+    p.add_argument("--name", type=str, default="exp")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--save_every", type=int, default=1000,
+                   help="periodic checkpoint every N steps (0: none)")
+    p.add_argument("--log_every", type=int, default=100)
+    p.add_argument("--val_every", type=int, default=0)
+    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--tb", action="store_true")
+    return p
+
+
+def parse_loss_terms(terms) -> Dict[str, float]:
+    if isinstance(terms, dict):
+        return {k: float(v) for k, v in terms.items()}
+    out = {}
+    for t in terms:
+        k, _, v = t.partition("=")
+        out[k] = float(v) if v else 1.0
+    return out
+
+
+def dump_effective_config(cfg: dict, path: str):
+    """The config as YAML, or its ``repr`` without pyyaml."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        if yaml is not None:
+            yaml.safe_dump(dict(cfg), f, sort_keys=True)
+        else:
+            f.write(repr(cfg))
+
+
 def _set_dotted(cfg: dict, key: str, value: str):
     node = cfg
     parts = key.split(".")
@@ -118,22 +223,42 @@ def _set_dotted(cfg: dict, key: str, value: str):
         node[parts[-1]] = value
 
 
+def _read_config(path: str) -> dict:
+    if yaml is None:
+        raise RuntimeError("pyyaml unavailable; cannot read --config")
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
+
+
 def parse_options(argv=None, parser=None) -> dict:
     """The config dict of ``argv`` parsed by ``parser`` (default
-    :func:`build_parser`): every argument, options left unset from the
-    model's :data:`OPTION_DEFAULTS` (``pad_multiple`` 8 otherwise),
-    ``model_kwargs`` from :data:`MODEL_DEFAULTS`, then the ``--set``
-    overrides."""
-    args = (parser or build_parser()).parse_args(argv)
-    cfg = {k: v for k, v in vars(args).items() if k != "overrides"}
+    :func:`build_parser`): every argument, a ``--config`` file's keys where
+    the flag was left at its default, options left unset from the model's
+    :data:`OPTION_DEFAULTS` (``pad_multiple`` 8 otherwise),
+    ``model_kwargs`` from :data:`MODEL_DEFAULTS` updated by the file's,
+    then the ``--set`` overrides; ``loss`` (training) as a {name: weight}
+    dict."""
+    parser = parser or build_parser()
+    args = parser.parse_args(argv)
+    ns = {k: v for k, v in vars(args).items()
+          if k not in ("overrides", "config")}
+    cfg = _read_config(args.config) if getattr(args, "config", None) else {}
+    defaults = vars(parser.parse_args([]))
+    for k, v in ns.items():
+        if k not in cfg or v != defaults.get(k):  # explicit flags win
+            cfg[k] = v
     model = cfg["model"].lower()
     for k, v in OPTION_DEFAULTS.get(model, {}).items():
         if cfg.get(k) is None:
             cfg[k] = v
     if "pad_multiple" in cfg and cfg["pad_multiple"] is None:
         cfg["pad_multiple"] = 8
-    cfg["model_kwargs"] = copy.deepcopy(MODEL_DEFAULTS.get(model, {}))
+    mcfg = copy.deepcopy(MODEL_DEFAULTS.get(model, {}))
+    mcfg.update(cfg.get("model_kwargs") or {})
+    cfg["model_kwargs"] = mcfg
     for ov in args.overrides:
         k, _, v = ov.partition("=")
         _set_dotted(cfg, k, v)
+    if "loss" in cfg:
+        cfg["loss"] = parse_loss_terms(cfg["loss"])
     return cfg

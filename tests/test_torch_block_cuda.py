@@ -28,9 +28,12 @@ shares with K3: heights that are no multiple of the tile rows (8 at c 48
 and 192, 4 at 96, 2 at 384), widths that are no multiple of 16, hidden
 widths 127 and 1021 (padded to 128 and 1024 with zero weights), a batch of
 two, both LN types, with and without conv biases. Two runs must give the
-same bits. A ``backward()`` through a wrapper raises ``NotImplementedError``
-(the kernels are forward only) instead of leaving the parameters without
-gradients.
+same bits. Both also run Restormer-base's latent level in training, a
+batch of 8 at 16x16 x 384. A ``backward()`` through ``block_front`` or
+``block_apply_gdfn`` alone raises ``NotImplementedError`` (the passes are
+forward only) instead of leaving the parameters without gradients; through
+``fused_block`` it is ``reference_block``'s, recomputed (the JAX custom
+VJP), and launches neither kernel.
 """
 
 import numpy as np
@@ -59,12 +62,13 @@ FRONT_CASES = [
     (2, 6, 35, 192, 4, "BiasFree", True, 16),
     (2, 5, 19, 384, 8, "BiasFree", True, 8),
     (1, 3, 16, 384, 8, "WithBias", False, 8),
+    (8, 16, 16, 384, 8, "WithBias", False, 8),
 ]
 # (batch, h, w, c, heads, ln_type)
 TAIL_CASES = [(1, 13, 21, 48, 1, "WithBias"), (2, 7, 37, 48, 1, "BiasFree"),
               (1, 10, 33, 96, 2, "BiasFree"), (1, 19, 24, 192, 4, "WithBias"),
               (2, 5, 19, 384, 8, "BiasFree"), (2, 3, 16, 384, 8, "WithBias"),
-              (1, 1, 1, 48, 1, "BiasFree")]
+              (1, 1, 1, 48, 1, "BiasFree"), (8, 16, 16, 384, 8, "WithBias")]
 
 
 @pytest.fixture
@@ -203,11 +207,24 @@ def test_backward_through_the_kernels_raises(cuda):
     out = K.block_apply_gdfn(v, x.clone().requires_grad_(), atw, p)
     with pytest.raises(NotImplementedError, match="block_apply_gdfn"):
         out.float().sum().backward()
-    # a parameter that requires grad is enough
+    # the whole block differentiates: the backward recomputes
+    # reference_block (up to cuDNN's run-to-run order) and launches nothing
     pg = p._replace(out_w=p.out_w.clone().requires_grad_())
-    out = K.fused_block(x, pg, 1)
-    with pytest.raises(NotImplementedError, match="block_apply_gdfn"):
-        out.float().sum().backward()
+    xg = x.clone().requires_grad_()
+    before = (K.block_front.launches, K.block_apply_gdfn.launches)
+    out = K.fused_block(xg, pg, 1)
+    assert (K.block_front.launches, K.block_apply_gdfn.launches) == (
+        before[0] + 1, before[1] + 1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    got = torch.autograd.grad((out.float() * g).sum(), [xg, pg.out_w])
+    assert (K.block_front.launches, K.block_apply_gdfn.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = K.reference_block(xg, pg, 1)
+    want = torch.autograd.grad((ref.float() * g).sum(), [xg, pg.out_w])
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        assert _rel(a, b) < 4e-3
     # serving: nothing requires grad, or grad mode is off
     before = K.block_apply_gdfn.launches
     assert not K.block_apply_gdfn(v, x, atw, p).requires_grad

@@ -11,6 +11,7 @@ Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
     python3 chip_smoke.py --attn [PIX ...] [--warps 4|8] [--cols N]
                                  [--groups N] [--ring 2|3] [--walk N]
     python3 chip_smoke.py --ska [TH ...] [--ring 1|2] [--split 1|2|4|8]
+    python3 chip_smoke.py --learn DIM [--init torch|lecun]
 
 The second form checks and times only the two kernels that share the GDFN
 tail (K2, K3), at the wrappers' tile height and warps or at those given: the
@@ -41,8 +42,15 @@ unit's channel repeats as given; the plain versions, the
 timer's floor (a one-value ``zero_``), copies of x and w, and the host
 time of a wrapper call and of its parts are timed apart (the sweep behind
 ``kernels/ska.py`` ``_SKA_*``). With no option it touches no table, so
-copied into an older tree it times that tree's K9. None of them prints a
-result line.
+copied into an older tree it times that tree's K9. The eighth runs
+``tools/learn_run.py``'s overfit configuration (its synthetic rain set
+and its argv, 2000 steps, the run behind ``LEARN_r03.json``) through the
+port's ``cli/train.py`` at ``model_kwargs.dim`` DIM: 24 is JAX's (plain
+blocks: ``build_model`` turns ``fused_block`` off at head width 24), 48
+puts K1/K2 in every forward; it prints the loss and validation PSNR
+curves as one JSON line. ``--init lecun`` redraws the seeded model's
+convs as the JAX package's flax init draws them (``lecun_init``), the
+init behind ``LEARN_r03.json``. None of them prints a result line.
 
 Phases, any failure ends the run with a nonzero exit code:
 1. device and build: the card's name and power limit; the CUDA kernels are
@@ -153,9 +161,32 @@ Phases, any failure ends the run with a nonzero exit code:
    bit-equal, each timed. Then ``fused_block``'s backward on a batch of 8
    at 16^2 x 384 and 128^2 x 48: its gradients of x and every parameter
    under a fixed linear loss against ``reference_block``'s, which it
-   recomputes (largest relative difference printed, below 4e-3: cuDNN's
-   run-to-run order), with no K1 or K2 launch in the backward; forward +
-   backward timed beside ``reference_block``'s.
+   recomputes (largest relative difference printed, below 4e-3; cuDNN
+   held to its deterministic algorithms), with no K1 or K2 launch in the
+   backward; forward + backward timed beside ``reference_block``'s, as
+   phase 2h does for the other kernel APIs.
+2b train, 2d train. DRSformer's kernels (K1 with DRSformer's front, K7;
+   K8 at its two MEFC Subnets' steps, each image with its own mix
+   weights) and the three-kernel block's (K4, K5, K6, K3) as phases 2b
+   and 2d at the shapes of a training step's forward (batch 8 of
+   128x128 patches), two runs bit-equal, each timed.
+2c cls_train, 2c robust. K9 and SKA's two backward kernels as phases 2c
+   and 2c backward at LSNet-T's two SKA shapes (14^2 x 128, 7^2 x 192) on
+   a batch of 32, the classification step's, and at LSNet-B's on a batch
+   of 16, the attack's.
+2c backward. SKA's two backward kernels (``ska_bwd_x``, ``ska_bwd_w``,
+   ``csrc/ska_bwd.cu``) at phase 2c's shapes, bf16 and fp32: the bits of
+   ``ska_bwd_plain`` (the same products and sums in the same order), phase
+   2c's rule against the fp32 plain version, two runs bit-equal, each
+   image of a batch of two as it is alone; timed, with the plain version;
+2h. the kernel APIs' VJPs: ``ln_qkv_dwconv``, ``fused_mdta_core``,
+   ``fused_ln_gdfn`` and ``fused_drs_block`` on a batch of 8 at 16x16 x
+   384 (8 heads), ``fused_mefc_steps`` on a batch of 8 at 128x128 x 48
+   (four steps): the gradients of the input and of every parameter under
+   a fixed linear loss against the plain recompute's (below 4e-3), the
+   forward's output against the plain composition by phase 2's rule, the
+   forward's launches as expected and none in the backward; forward +
+   backward timed beside the plain composition's.
 4. training: a seeded synthetic five-task AIO tree (``TASK_SPECS``'
    layout, four 256x256 images a task, two validation pairs) and
    ``cli/train.py`` ``main`` with Restormer-base's port defaults in bf16
@@ -173,17 +204,46 @@ Phases, any failure ends the run with a nonzero exit code:
    batch on the card: its launches (44 + 44, none in the backward), the
    host syncs of a step that does not log, step ms by CUDA events
    (median of 10 after three warm-up steps), images/s and peak memory,
-   for the kernel model and the plain bf16 model.
+   for the kernel model and the plain bf16 model. Then DRSformer the same
+   way (its port defaults, ``fused_block``): 12 steps on the same tree,
+   validation and saves every 6: 40 K1 + 40 K7 + 8 K8 launches a forward
+   (the steps' and the validation's), none in a backward, no K2; finite
+   losses; the L1 loss on a fixed batch lower with the final
+   checkpoint's parameters than with the initial model's; ``cli/test.py
+   --ckpt`` scores its final checkpoint with a finite PSNR; step ms and
+   peak memory against the plain bf16 model. Then the three-kernel
+   Restormer-base: a step launches 44 each of K4, K5, K6 and K3 (in its
+   forward), no K1 or K2; step ms and peak memory against the plain bf16
+   model.
+5. LSNet differentiates through SKA's backward kernels: LSNet-B in fp32
+   (``cli/robust.py``'s default), seeded weights and BatchNorm statistics
+   as a ``.pth`` ``--ckpt``; 16 seeded 224x224 images in an ImageFolder
+   tree of 1000 class dirs, each image under the class the model predicts
+   for it. One attacked batch, FGSM and PGD (``fgsm_pgd_attack``): every
+   iterate in the 1/255 ball and in the normalized image of [0, 1], 9 K9
+   + 9 ``ska_bwd_x`` + 9 ``ska_bwd_w`` launches per iteration.
+   ``cli/robust.py`` clean, ``--adv FGSM`` and ``--adv PGD``: clean top-1
+   at least 90% (100% but for a near-tie), each attack's no higher. Then
+   five ``train/classification.py`` ``make_cls_train_step`` steps of
+   LSNet-T in bf16 (AdamW) on one seeded batch of 32: finite losses, the
+   last below the first, its 2 LSConvs' SKA a step through K9 and each
+   backward kernel (10 launches of each in the five steps).
+Each phase's seconds are printed.
 Each serving phase sets the launch counts to 0 just before its forwards
 and reads them just after; the kernels line's ``launches_by_path`` lists
 phase 3f's two ``main`` runs as ``eval`` (Restormer-base, 7 forwards) and
 ``eval_drsformer`` (3 forwards), phase 3g's as ``cg_ir``, ``measnet``
 and ``nerd_rain``, phase 3h's as ``moce_ir`` and phase 3i's (zeros) as
-``igmoce_ir``, ``lumisense_moe`` and ``moce_ir_patch``, and phase 4's
-first ``main`` run as ``train``. K1's and K2's rows keep
-Restormer-base's per-forward sums; their ``by_path`` holds MEASNet's,
-NeRD-Rain's, MoCE-IR's and a training step's, and their ``per_shape``
-rows of those shapes carry a ``path``.
+``igmoce_ir``, ``lumisense_moe`` and ``moce_ir_patch``, phase 4's first
+``main`` run as ``train``, its DRSformer run as ``train_drsformer`` and
+the three-kernel step as ``train_3k``, and phase 5's ``cli/robust.py``
+runs as ``robust_clean``, ``robust_fgsm`` and ``robust_pgd`` and its
+classification steps as ``cls_train``. Each kernel's row keeps the
+serving path's per-forward sums; its ``by_path`` holds those of the other
+paths that phase 2 checks it at (K1/K2: MEASNet's, NeRD-Rain's,
+MoCE-IR's and a training step's; K1, K7, K8: ``train_drsformer``; K3-K6:
+``train_3k``; K9 and its backward kernels: ``cls_train`` and ``robust``),
+and its ``per_shape`` rows of those shapes carry a ``path``.
 
 Every kernel's row carries its bound: the largest of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s, its
@@ -195,7 +255,8 @@ its time. No single PyTorch call computes any of these functions, so
 depthwise convs and a Gram reduction or a GDFN/MSFN in one pass; K5 is a
 per-head Gram and two sums of squares; K6 is two chained products with a
 bf16 rounding between them and a residual; K8 an eight-op mixture; K9 a
-dynamic conv whose weights vary per pixel.
+dynamic conv whose weights vary per pixel, and ``ska_bwd_x`` and
+``ska_bwd_w`` its two gradients.
 
 The line before the last is a JSON object of the kernels; before it, the
 card's name and power limit as nvidia-smi gives them. The last line is
@@ -291,11 +352,23 @@ BACKWARD_SHAPES = [(16, 16, 384, 8), (128, 128, 48, 1)]
 # synthetic tree's images a task (256x256) and validation pairs.
 TRAIN_STEPS, TRAIN_EVERY, TRAIN_LR, RESUME_STEPS = 30, 10, 2e-4, 3
 TRAIN_IMAGES, VAL_IMAGES = 4, 2
+# DRSformer's run in phase 4: steps, and the validation and save period.
+DRS_TRAIN_STEPS, DRS_TRAIN_EVERY = 12, 6
+# Phase 5: images of the attacked ImageFolder tree (one batch, 224x224),
+# and LSNet-T's classification steps and their batch.
+ADV_IMAGES = 16
+CLS_STEPS, CLS_BATCH = 5, 32
 # CG-IR's 44 CGTBs have Restormer-base's block shapes (LEVELS); the gated
 # pair runs at batch 2 at two of them in phase 2e.
 GATED_SHAPES = [(128, 128, 192, 4), (64, 64, 384, 8)]
 MEFC_STEPS = [(512, 512, 48, 4), (512, 512, 96, 4)]  # (H, W, C, steps)
 MEFC_STEPS_PER_FORWARD = sum(lv[-1] for lv in MEFC_STEPS)  # 8
+# DRSformer's training forward (batch 8 of 128x128 patches): its blocks and
+# MEFC steps at a quarter of the 512x512 side.
+DRS_TRAIN_LEVELS = [(h * TRAIN_PATCH // 512, w * TRAIN_PATCH // 512, c, heads,
+                     n) for h, w, c, heads, n in DRS_LEVELS]
+MEFC_TRAIN_STEPS = [(h * TRAIN_PATCH // 512, w * TRAIN_PATCH // 512, c, n)
+                    for h, w, c, n in MEFC_STEPS]
 # LSNet-B (lsnet.py:221-222) classifying a batch of 64 at 224x224: SKA runs
 # in every LSConv, at (H, W, C, wc, calls per forward); stage 3's odd
 # blocks are attention, so 2 + 3 + 4 = 9 calls.
@@ -304,6 +377,11 @@ LSNET_B = ["--set", "model_kwargs.embed_dim=(128,256,384,512)",
 LSNET_BATCH = 64
 SKA_SHAPES = [(28, 28, 128, 16, 2), (14, 14, 256, 32, 3), (7, 7, 384, 48, 4)]
 SKA_PER_FORWARD = sum(lv[-1] for lv in SKA_SHAPES)  # 9
+# LSNet-T (MODEL_DEFAULTS["lsnet"]: embed 64/128/192/256, depth 1/2/3/4) at
+# 224x224 has one LSConv in stage 1 and one in stage 2: SKA at these shapes
+# in a classification step's forward (batch CLS_BATCH).
+LSNET_T_SKA_SHAPES = [(14, 14, 128, 16, 1), (7, 7, 192, 24, 1)]
+LSNET_T_SKA_PER_FORWARD = sum(lv[-1] for lv in LSNET_T_SKA_SHAPES)  # 2
 # The synthetic benchmark tree of phase 3f, (H, W) per image in the JAX
 # layout of eval/benchmarks.py: Rain100L- and BSD68-shaped (481x321 and
 # 321x481 images) and GoPro-shaped (1280x720); the benchmarks it scores
@@ -336,6 +414,11 @@ KERNELS = {
     "mefc_step": (CSRC + "mefc_step.cu",
                   "image_restoration_tpu/kernels/mefc_pallas.py:129"),
     "ska": (CSRC + "ska.cu", "image_restoration_tpu/kernels/ska_pallas.py:30"),
+    # the backward of JAX's SKA custom VJP, XLA in JAX (no Pallas kernel)
+    "ska_bwd_x": (CSRC + "ska_bwd.cu",
+                  "image_restoration_tpu/kernels/ska_pallas.py:109"),
+    "ska_bwd_w": (CSRC + "ska_bwd.cu",
+                  "image_restoration_tpu/kernels/ska_pallas.py:109"),
 }
 # The card's published peaks (NVIDIA H100 SXM data sheet), per ms.
 HBM_BYTES_PER_MS = 3.35e9
@@ -466,56 +549,61 @@ def bound_block_apply_gdfn(h, w, c, expansion=2.66, b=1):
     return roofline(nbytes, tc, 2 * 9 * 2 * hid * n)
 
 
-def bound_ln_qkv_dwconv(h, w, c):
-    """K4: read x, write the 3C-wide qkv map (bf16) and the weights; the
-    qkv 1x1 on the tensor cores, the 3x3 depthwise over 3C in fp32."""
-    n = h * w
+def bound_ln_qkv_dwconv(h, w, c, b=1):
+    """K4 on a batch of ``b``: read x, write the 3C-wide qkv map (bf16) and
+    the weights; the qkv 1x1 on the tensor cores, the 3x3 depthwise over 3C
+    in fp32."""
+    n = b * h * w
     nbytes = 2 * n * c + 2 * n * 3 * c + 2 * 3 * c * c + 4 * (27 * c + 2 * c)
     return roofline(nbytes, 2 * n * c * 3 * c, 2 * 9 * 3 * c * n)
 
 
-def bound_attn_acc(h, w, c, heads):
-    """K5: read q and k (bf16), write the fp32 Gram and sums of squares;
-    q^T k per head on the tensor cores, the squares in fp32."""
-    n, ch = h * w, c // heads
-    nbytes = 2 * 2 * n * c + 4 * (heads * ch * ch + 2 * c)
+def bound_attn_acc(h, w, c, heads, b=1):
+    """K5 on a batch of ``b``: read q and k (bf16), write each image's fp32
+    Gram and sums of squares; q^T k per head on the tensor cores, the
+    squares in fp32."""
+    n, ch = b * h * w, c // heads
+    nbytes = 2 * 2 * n * c + 4 * b * (heads * ch * ch + 2 * c)
     return roofline(nbytes, 2 * n * c * ch, 2 * 2 * n * c)
 
 
-def bound_attn_apply(h, w, c, heads):
-    """K6: read v and x, write out (bf16), A^T per head and W_proj; v A^T
-    per head and t W_proj on the tensor cores."""
-    n, ch = h * w, c // heads
-    nbytes = 3 * 2 * n * c + 2 * (heads * ch * ch + c * c)
+def bound_attn_apply(h, w, c, heads, b=1):
+    """K6 on a batch of ``b``: read v and x, write out (bf16), each image's
+    A^T per head and W_proj; v A^T per head and t W_proj on the tensor
+    cores."""
+    n, ch = b * h * w, c // heads
+    nbytes = 3 * 2 * n * c + 2 * (b * heads * ch * ch + c * c)
     return roofline(nbytes, 2 * n * c * ch + 2 * n * c * c)
 
 
-def bound_ln_gdfn(h, w, c):
-    """K3: read x, write out (bf16), the GDFN weights; the content|gate 1x1
-    and the out 1x1 on the tensor cores, the 3x3 depthwise over 2 hidden in
-    fp32."""
-    n, hid = h * w, int(c * 2.66)
+def bound_ln_gdfn(h, w, c, b=1):
+    """K3 on a batch of ``b``: read x, write out (bf16), the GDFN weights;
+    the content|gate 1x1 and the out 1x1 on the tensor cores, the 3x3
+    depthwise over 2 hidden in fp32."""
+    n, hid = b * h * w, int(c * 2.66)
     nbytes = 2 * 2 * n * c + 2 * 3 * hid * c + 4 * 18 * hid + 4 * 2 * c
     tc = 2 * n * c * 2 * hid + 2 * n * hid * c
     return roofline(nbytes, tc, 2 * 9 * 2 * hid * n)
 
 
-def bound_drs_apply_msfn(h, w, c):
-    """K7: as K2 with MSFN: project_in to 2H, the 3x3 and 5x5 banks over
-    2H and the grouped 3x3 and 5x5 over H pairs in fp32, project_out."""
-    n, hid = h * w, int(c * 2.66)
-    nbytes = 3 * 2 * n * c + 2 * c * c + 2 * 4 * hid * c \
+def bound_drs_apply_msfn(h, w, c, b=1):
+    """K7 on a batch of ``b``: as K2 with MSFN: project_in to 2H, the 3x3
+    and 5x5 banks over 2H and the grouped 3x3 and 5x5 over H pairs in fp32,
+    project_out."""
+    n, hid = b * h * w, int(c * 2.66)
+    nbytes = 3 * 2 * n * c + 2 * b * c * c + 2 * 4 * hid * c \
         + 4 * (2 * hid * 34 + 2 * hid * 34)
     tc = 2 * n * c * c + 2 * 2 * n * c * 2 * hid
     return roofline(nbytes, tc, 2 * n * (2 * hid * 34 + 2 * hid * 34))
 
 
-def bound_mefc_step(h, w, c):
-    """K8: read x, write out (bf16), the 8 folded C x C mix matrices and
-    the 4 inner 1x1s; 12 C x C products per pixel on the tensor cores; the
-    84 + 84 + 83 depthwise taps and the 9-tap pool per channel in fp32."""
-    n = h * w
-    nbytes = 2 * 2 * n * c + 2 * 12 * c * c + 4 * 251 * c
+def bound_mefc_step(h, w, c, b=1):
+    """K8 on a batch of ``b``: read x, write out (bf16), each image's 8
+    folded C x C mix matrices and the 4 inner 1x1s; 12 C x C products per
+    pixel on the tensor cores; the 84 + 84 + 83 depthwise taps and the
+    9-tap pool per channel in fp32."""
+    n = b * h * w
+    nbytes = 2 * 2 * n * c + 2 * (8 * b + 4) * c * c + 4 * 251 * c
     return roofline(nbytes, 12 * 2 * n * c * c, 2 * n * c * 251 + 9 * n * c)
 
 
@@ -632,9 +720,9 @@ def phase_gated():
 
 
 def merge_path(report, extra, path):
-    """Adds K1/K2's per-shape rows of another model's block shapes to
-    ``report`` (tagged with ``path``) and that model's per-forward sums
-    under ``by_path``; ``report``'s own sums stay Restormer-base's."""
+    """Adds each kernel's per-shape rows of another path's shapes to
+    ``report`` (tagged with ``path``) and that path's per-forward sums
+    under ``by_path``; ``report``'s own sums stay the serving path's."""
     for name, r in extra.items():
         base = report[name]
         base["max_abs_err"] = max(base["max_abs_err"], r["max_abs_err"])
@@ -993,10 +1081,12 @@ def phase_attn_sweep(pixels, warps=None, cols=None, groups=None,
                   f"{tot[1]:.3f} ms (plain {tot[3]:.3f})", flush=True)
 
 
-def phase_3k_kernels():
-    """K4, K5, K6 and K3 at the block shapes of Restormer-base, each on its
-    plain version's inputs, against the plain version with the fp32 plain
-    chain as the oracle."""
+def phase_3k_kernels(levels=LEVELS, batch=1, tag=""):
+    """K4, K5, K6 and K3 at ``levels`` (Restormer-base's serving shapes by
+    default) on a batch of ``batch``, each on its plain version's inputs,
+    against the plain version with the fp32 plain chain as the oracle; a
+    batch of two at the widest level when ``batch`` is 1. Printed with
+    ``tag``."""
     import torch
 
     from image_restoration_tpu_torch.kernels import attn_core as KA
@@ -1005,11 +1095,13 @@ def phase_3k_kernels():
 
     report = _new_report(("ln_gdfn", "ln_qkv_dwconv", "attn_acc",
                           "attn_apply"))
-    for i, (h, w, c, heads, n_blocks) in enumerate(LEVELS):
+    widest = max(lv[2] for lv in levels) if batch == 1 else None
+    for i, (h, w, c, heads, n_blocks) in enumerate(levels):
         p = random_block(c, heads, seed=100 + i)
         gen = torch.Generator().manual_seed(200 + i)
-        x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
-        shape = f"{h}x{w}x{c} heads {heads}"
+        x = torch.randn((batch, h, w, c), generator=gen).to("cuda",
+                                                            torch.bfloat16)
+        shape = f"{batch}x{h}x{w}x{c} heads {heads}"
         f = p.front()
 
         def run(name, kern_fn, plain_fn, oracle, bound, to_plain=None):
@@ -1029,10 +1121,10 @@ def phase_3k_kernels():
                       f"{errs} against its plain version, above {to_plain}")
                 msg += "; against plain " + ", ".join(f"{e:.3e}" for e in errs)
             t_k, t_p = time_cuda(kern_fn), time_cuda(plain_fn)
-            print(f"{name} {shape}: rel err {msg}; kernel {t_k:.4f} ms, "
-                  f"plain {t_p:.4f} ms, bound {bound[0]:.4f} ms "
+            print(f"{tag}{name} {shape}: rel err {msg}; kernel {t_k:.4f} "
+                  f"ms, plain {t_p:.4f} ms, bound {bound[0]:.4f} ms "
                   f"({bound[1]})", flush=True)
-            _record(report, name, [1, h, w, c], n_blocks, t_k, t_p,
+            _record(report, name, [batch, h, w, c], n_blocks, t_k, t_p,
                     (kerns[0].float() - plains[0].float()).abs().max().item(),
                     bound)
             return plains
@@ -1040,37 +1132,37 @@ def phase_3k_kernels():
         oqkv = KM.ln_qkv_dwconv_ref(x.float(), f)
         (qkv,) = run("ln_qkv_dwconv", lambda: KM.ln_qkv_dwconv(x, f),
                      lambda: KM.ln_qkv_dwconv_ref(x, f), oqkv,
-                     bound_ln_qkv_dwconv(h, w, c))
+                     bound_ln_qkv_dwconv(h, w, c, batch))
         check_twice_and_batch2(
             "ln_qkv_dwconv", shape, lambda: KM.ln_qkv_dwconv(x, f),
             KM.ln_qkv_dwconv(x, f),
             _batch2(KM.ln_qkv_dwconv, KM.ln_qkv_dwconv_ref, (x,), f)
-            if c == 384 else None)
+            if c == widest else None)
         # K5 and its plain version widen the same bf16 map exactly, so both
         # errors against the oracle are the map's rounding; the kernel is
         # also held to its plain version: fp32 sums in another order.
         gram, ss = run("attn_acc", lambda: KA.attn_acc(qkv, heads),
                        lambda: KA.attn_acc_ref(qkv, heads),
                        KA.attn_acc_ref(oqkv, heads),
-                       bound_attn_acc(h, w, c, heads), to_plain=1e-5)
+                       bound_attn_acc(h, w, c, heads, batch), to_plain=1e-5)
         at = KA.finalize_at(gram, ss, p.temperature, torch.bfloat16)
-        check_attn_twice_and_batch2(shape, qkv, x, at, p, heads, c == 384)
+        check_attn_twice_and_batch2(shape, qkv, x, at, p, heads, c == widest)
         oracle = KA.attn_apply_ref(qkv.float(), x.float(), at.float(),
                                    p.proj_w, p.proj_b)
         del oqkv
         (x2,) = run("attn_apply",
                     lambda: KA.attn_apply(qkv, x, at, p.proj_w, p.proj_b),
                     lambda: KA.attn_apply_ref(qkv, x, at, p.proj_w, p.proj_b),
-                    oracle, bound_attn_apply(h, w, c, heads))
+                    oracle, bound_attn_apply(h, w, c, heads, batch))
         g = p.gdfn()
         run("ln_gdfn", lambda: KG.fused_ln_gdfn(x2, g),
             lambda: KG.ln_gdfn_ref(x2, g), KG.ln_gdfn_ref(x2.float(), g),
-            bound_ln_gdfn(h, w, c))
+            bound_ln_gdfn(h, w, c, batch))
         check_twice_and_batch2(
             "ln_gdfn", shape, lambda: KG.fused_ln_gdfn(x2, g),
             KG.fused_ln_gdfn(x2, g),
             _batch2(KG.fused_ln_gdfn, KG.ln_gdfn_ref, (x2,), g)
-            if c == 384 else None)
+            if c == widest else None)
     return report
 
 
@@ -1111,19 +1203,48 @@ def random_mefc_steps(c, n_steps, seed):
     return steps, torch.softmax(logits, -1).to("cuda", torch.bfloat16)
 
 
-def phase_drs_kernels():
+def phase_drs_kernels(levels=DRS_LEVELS, mefc=MEFC_STEPS, batch=1, tag="",
+                      front=False):
+    """K7 at DRSformer's block shapes ``levels`` and K8 at its MEFC steps
+    ``mefc`` (the 512x512 serving forward's by default) on a batch of
+    ``batch``: phase 2's rule, two equal runs, a batch of two at the widest
+    level (when ``batch`` is 1), the times; printed with ``tag``. With
+    ``front``, K1 at the blocks' shapes too (DRSformer's front: LN with
+    bias, no conv bias), in the report as "block_front"."""
     import torch
 
     from image_restoration_tpu_torch.kernels import block as KB
     from image_restoration_tpu_torch.kernels import drs_block as K
     from image_restoration_tpu_torch.kernels import mefc as M
 
-    report = _new_report(("drs_apply_msfn", "mefc_step"))
-    for i, (h, w, c, heads, n_blocks) in enumerate(DRS_LEVELS):
+    report = _new_report(("drs_apply_msfn", "mefc_step")
+                         + (("block_front",) if front else ()))
+    widest = max(lv[2] for lv in levels) if batch == 1 else None
+    for i, (h, w, c, heads, n_blocks) in enumerate(levels):
         p = random_drs_block(c, heads, seed=300 + i)
         gen = torch.Generator().manual_seed(400 + i)
-        x = torch.randn((1, h, w, c), generator=gen).to("cuda", torch.bfloat16)
+        x = torch.randn((batch, h, w, c), generator=gen).to("cuda",
+                                                            torch.bfloat16)
+        shape = f"{batch}x{h}x{w}x{c}"
         v, gram, ss = KB.block_front_ref(x, p.front(), heads)
+        if front:
+            kern = KB.block_front(x, p.front(), heads)
+            torch.cuda.synchronize()
+            msg = "; ".join(_check_rule("block_front", f"DRSformer {shape}",
+                                        k, pl, o) for k, pl, o in zip(
+                kern, (v, gram, ss), KB.block_front_ref(x.float(), p.front(),
+                                                        heads)))
+            check_twice_and_batch2(
+                "block_front", f"DRSformer {shape}",
+                lambda: KB.block_front(x, p.front(), heads), kern)
+            t_k = time_cuda(lambda: KB.block_front(x, p.front(), heads))
+            t_p = time_cuda(lambda: KB.block_front_ref(x, p.front(), heads))
+            print(f"{tag}block_front DRSformer {shape} heads {heads}: rel "
+                  f"err {msg}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
+                  flush=True)
+            _record(report, "block_front", [batch, h, w, c], n_blocks, t_k,
+                    t_p, (kern[0].float() - v.float()).abs().max().item(),
+                    bound_block_front(h, w, c, heads, batch))
         atw = K.tksa_finalize(gram, ss, p.temperature, p.mix, p.proj_w,
                               torch.bfloat16)
         oracle = K.drs_apply_msfn_ref(v.float(), x.float(), atw.float(), p)
@@ -1132,53 +1253,58 @@ def phase_drs_kernels():
         torch.cuda.synchronize()
         ek, ep = rel_err(kern, oracle), rel_err(plain, oracle)
         check(torch.isfinite(kern).all().item(),
-              f"drs_apply_msfn not finite at {h}x{w}x{c}")
-        check(ek < _bound(ep), f"drs_apply_msfn at {h}x{w}x{c}: rel err "
+              f"drs_apply_msfn not finite at {shape}")
+        check(ek < _bound(ep), f"drs_apply_msfn at {shape}: rel err "
               f"{ek:.3e} above max(3 x {ep:.3e}, 4e-3)")
         del oracle
         check_twice_and_batch2(
-            "drs_apply_msfn", f"{h}x{w}x{c}",
+            "drs_apply_msfn", shape,
             lambda: K.drs_apply_msfn(v, x, atw, p), kern,
             _batch2(K.drs_apply_msfn, K.drs_apply_msfn_ref, (v, x, atw), p)
-            if c == 384 else None)
+            if c == widest else None)
         t_k = time_cuda(lambda: K.drs_apply_msfn(v, x, atw, p))
         t_p = time_cuda(lambda: K.drs_apply_msfn_ref(v, x, atw, p))
-        print(f"drs_apply_msfn {h}x{w}x{c} heads {heads}: rel err {ek:.3e} "
-              f"(plain {ep:.3e}); kernel {t_k:.4f} ms, plain {t_p:.4f} ms",
-              flush=True)
-        _record(report, "drs_apply_msfn", [1, h, w, c], n_blocks, t_k, t_p,
-                (kern.float() - plain.float()).abs().max().item(),
-                bound_drs_apply_msfn(h, w, c))
+        print(f"{tag}drs_apply_msfn {shape} heads {heads}: rel err "
+              f"{ek:.3e} (plain {ep:.3e}); kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms", flush=True)
+        _record(report, "drs_apply_msfn", [batch, h, w, c], n_blocks, t_k,
+                t_p, (kern.float() - plain.float()).abs().max().item(),
+                bound_drs_apply_msfn(h, w, c, batch))
 
-    for i, (h, w, c, n_steps) in enumerate(MEFC_STEPS):
+    for i, (h, w, c, n_steps) in enumerate(mefc):
         t_k, t_p, msg, abs_err = _mefc_shape(i, h, w, c, n_steps,
-                                             batch2=c == 96)
-        print(f"mefc_step {h}x{w}x{c}, {n_steps} steps: rel err {msg}; "
-              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median over the "
-              f"steps)", flush=True)
-        _record(report, "mefc_step", [1, h, w, c], n_steps, t_k, t_p, abs_err,
-                bound_mefc_step(h, w, c))
+                                             batch2=batch == 1 and c == 96,
+                                             batch=batch)
+        print(f"{tag}mefc_step {batch}x{h}x{w}x{c}, {n_steps} steps: rel "
+              f"err {msg}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median "
+              f"over the steps)", flush=True)
+        _record(report, "mefc_step", [batch, h, w, c], n_steps, t_k, t_p,
+                abs_err, bound_mefc_step(h, w, c, batch))
     return report
 
 
-def _mefc_shape(i, h, w, c, n_steps, batch2, plain=True):
-    """K8 at shape ``i`` of MEFC_STEPS, each step on the plain chain's
-    input: phase 2's rule, two bit-equal runs and, with ``batch2``, the rule
-    on a batch of two whose images have different mix weights (the second
-    image's M has its ops flipped). Returns the kernel's and (with
-    ``plain``) the plain version's median ms over the steps, the errors and
-    the max |kernel - plain|."""
+def _mefc_shape(i, h, w, c, n_steps, batch2, plain=True, batch=1):
+    """K8 at shape ``i`` of MEFC_STEPS (or of MEFC_TRAIN_STEPS) on a batch
+    of ``batch`` whose images have their own mix weights, each step on the
+    plain chain's input: phase 2's rule, two bit-equal runs and, with
+    ``batch2``, the rule on a batch of two whose images have different mix
+    weights (the second image's M has its ops flipped). Returns the
+    kernel's and (with ``plain``) the plain version's median ms over the
+    steps, the errors and the max |kernel - plain|."""
     import torch
 
     from image_restoration_tpu_torch.kernels import mefc as M
 
     steps, mix = random_mefc_steps(c, n_steps, seed=500 + i)
     gen = torch.Generator().manual_seed(600 + i)
-    x = torch.randn((1, h, w, c), generator=gen).abs()
+    if batch > 1:
+        mix = torch.softmax(torch.randn((batch, n_steps, 8), generator=gen),
+                            -1).to("cuda", torch.bfloat16)
+    x = torch.randn((batch, h, w, c), generator=gen).abs()
     x = x.to("cuda", torch.bfloat16)
     errs, t_ks, t_ps, abs_err = [], [], [], 0.0
     for st, sp in enumerate(steps):
-        where = f"{h}x{w}x{c} step {st}"
+        where = f"{batch}x{h}x{w}x{c} step {st}"
         m = M.fold_step(sp, mix[:, st], torch.bfloat16)
         oracle = M.mefc_step_ref(
             x.float(), sp, M.fold_step(sp, mix[:, st], torch.float32))
@@ -1406,17 +1532,17 @@ def phase_slice(gpu, profile_dir, model_name, counters, expected,
     return launches
 
 
-def _ska_inputs(i, h, w, c, wc):
-    """Shape ``i`` of SKA_SHAPES at batch 64: fp32 x and w, their bf16
-    copies, the fp32 plain version (the oracle) and the bf16 one."""
+def _ska_inputs(i, h, w, c, wc, batch=LSNET_BATCH):
+    """Shape ``i`` of SKA_SHAPES (or another table) at batch ``batch``: fp32
+    x and w, their bf16 copies, the fp32 plain version (the oracle) and the
+    bf16 one."""
     import torch
 
     from image_restoration_tpu_torch.ops.ska import ska_plain
 
     gen = torch.Generator(device="cuda").manual_seed(800 + i)
-    x = torch.randn((LSNET_BATCH, h, w, c), generator=gen, device="cuda")
-    wt = torch.randn((LSNET_BATCH, h, w, wc, 9), generator=gen,
-                     device="cuda")
+    x = torch.randn((batch, h, w, c), generator=gen, device="cuda")
+    wt = torch.randn((batch, h, w, wc, 9), generator=gen, device="cuda")
     xb, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
     return x, wt, xb, wb, ska_plain(x, wt), ska_plain(xb, wb)
 
@@ -1440,15 +1566,15 @@ def _ska_rule(where, kern, oracle, plain=None):
     return err, ep
 
 
-def phase_ska_kernels():
-    """K9 against ska_plain at LSNet-B's shapes, bf16 and fp32."""
+def phase_ska_kernels(shapes=SKA_SHAPES, b=LSNET_BATCH, tag=""):
+    """K9 against ska_plain at ``shapes`` (LSNet-B's by default) on a batch
+    of ``b``, bf16 and fp32; printed with ``tag``."""
     from image_restoration_tpu_torch.kernels import ska as K
     from image_restoration_tpu_torch.ops.ska import ska_plain
 
     report = _new_report(("ska",))
-    b = LSNET_BATCH
-    for i, (h, w, c, wc, calls) in enumerate(SKA_SHAPES):
-        x, wt, xb, wb, oracle, plain = _ska_inputs(i, h, w, c, wc)
+    for i, (h, w, c, wc, calls) in enumerate(shapes):
+        x, wt, xb, wb, oracle, plain = _ska_inputs(i, h, w, c, wc, b)
         kern = K.ska(xb, wb)
         ek, ep = _ska_rule(f"{h}x{w}x{c}", kern, oracle, plain)
         e32, _ = _ska_rule(f"{h}x{w}x{c}", K.ska(x, wt), oracle)
@@ -1459,8 +1585,8 @@ def phase_ska_kernels():
         t_p32 = time_cuda(lambda: ska_plain(x, wt))
         bound = bound_ska(b, h, w, c, wc, 2)
         bound32 = bound_ska(b, h, w, c, wc, 4)
-        print(f"ska {b}x{h}x{w}x{c} wc {wc}: bf16 rel err {ek:.3e} (plain "
-              f"{ep:.3e}), kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+        print(f"{tag}ska {b}x{h}x{w}x{c} wc {wc}: bf16 rel err {ek:.3e} "
+              f"(plain {ep:.3e}), kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
               f"{bound[0]:.4f} ms ({bound[1]}); fp32 rel err {e32:.3e}, "
               f"kernel {t_k32:.4f} ms, plain {t_p32:.4f} ms, bound "
               f"{bound32[0]:.4f} ms", flush=True)
@@ -2195,57 +2321,27 @@ def phase_eval(gpu):
 
 def phase_block_backward():
     """Phase 2g's backward: ``fused_block`` on a batch of 8 at
-    ``BACKWARD_SHAPES``, its gradients (x and every parameter) under a
-    fixed linear loss against ``reference_block``'s, which its backward
-    recomputes, so they differ only by cuDNN's run-to-run order; the
-    backward launches neither kernel. Times forward + backward of both."""
+    ``BACKWARD_SHAPES`` by ``_check_vjp``: its gradients (x and every
+    parameter) against ``reference_block``'s, which its backward
+    recomputes; K1 and K2 once in the forward, neither in the backward;
+    forward + backward timed beside ``reference_block``'s."""
     import torch
 
     from image_restoration_tpu_torch.kernels import block as K
 
+    counters = {"block_front": K.block_front,
+                "block_apply_gdfn": K.block_apply_gdfn}
     for i, (h, w, c, heads) in enumerate(BACKWARD_SHAPES):
         p = random_block(c, heads, 1600 + i)
-        p = K.BlockParams(*(None if t is None else t.clone().requires_grad_()
-                            for t in p))
         gen = torch.Generator(device="cuda").manual_seed(1700 + i)
         x = torch.randn((TRAIN_BATCH, h, w, c), generator=gen,
-                        device="cuda").to(torch.bfloat16).requires_grad_()
-        g = torch.randn(x.shape, generator=gen, device="cuda")
-        leaves = [x] + [t for t in p if t is not None]
-        counts = (K.block_front.launches, K.block_apply_gdfn.launches)
-        out = K.fused_block(x, p, heads)
-        fwd = (K.block_front.launches - counts[0],
-               K.block_apply_gdfn.launches - counts[1])
-        got = torch.autograd.grad((out.float() * g).sum(), leaves)
-        torch.cuda.synchronize()
-        bwd = (K.block_front.launches - counts[0] - fwd[0],
-               K.block_apply_gdfn.launches - counts[1] - fwd[1])
-        want = torch.autograd.grad(
-            (K.reference_block(x, p, heads).float() * g).sum(), leaves)
-        worst = max(rel_err(a, b) for a, b in zip(got, want))
-        shape = f"{TRAIN_BATCH}x{h}x{w}x{c} heads {heads}"
-        check(fwd == (1, 1) and bwd == (0, 0),
-              f"fused_block backward at {shape}: launches forward {fwd}, "
-              f"backward {bwd}")
-        check(all(t.isfinite().all().item() for t in got) and worst < 4e-3,
-              f"fused_block backward at {shape}: gradients off "
-              f"reference_block's by {worst:.3e}")
-
-        def fused_step():
-            o = K.fused_block(x, p, heads)
-            torch.autograd.grad((o.float() * g).sum(), leaves)
-
-        def plain_step():
-            o = K.reference_block(x, p, heads)
-            torch.autograd.grad((o.float() * g).sum(), leaves)
-
-        t_f, t_p = time_cuda(fused_step, reps=10), time_cuda(plain_step,
-                                                            reps=10)
-        print(f"fused_block backward {shape}: largest relative difference "
-              f"of {len(leaves)} gradients from reference_block's "
-              f"{worst:.3e}; launches forward {fwd}, backward {bwd}; "
-              f"forward + backward {t_f:.4f} ms (reference_block "
-              f"{t_p:.4f} ms)", flush=True)
+                        device="cuda").to(torch.bfloat16)
+        _check_vjp(f"fused_block backward {TRAIN_BATCH}x{h}x{w}x{c} heads "
+                   f"{heads}",
+                   lambda x, *q: K.fused_block(x, K.BlockParams(*q), heads),
+                   lambda x, *q: K.reference_block(x, K.BlockParams(*q),
+                                                   heads),
+                   (x, *p), counters, dict.fromkeys(counters, 1))
 
 
 def _train_tree(root, seed=0):
@@ -2351,16 +2447,17 @@ def _no_kernels():
           "a plain model launched a kernel")
 
 
-def _train_step_times(gpu, cfg, profile_dir):
-    """Step ms by CUDA events (median of 10 after three warm-up steps) of
-    the kernel model and of the plain bf16 model on one batch of 8 at
-    128x128 on the card, images/s, peak memory, the launches of one step
-    and the host syncs of a step that does not log. Returns the launches
-    of the counted step."""
+def _train_step_times(gpu, cfg, profile_dir, counters, per_forward,
+                      label="Restormer-base", warmup=3, reps=10):
+    """Step ms by CUDA events (median of ``reps`` after ``warmup`` warm-up
+    steps) of the kernel model ``cfg`` builds and of its plain bf16 model
+    on one batch of 8 at 128x128 on the card, images/s, peak memory, the
+    launches of one step (``counters`` must each count ``per_forward``:
+    a forward's, none in the backward) and the host syncs of a step that
+    does not log. Returns the launches of the counted step."""
     import torch
 
     from image_restoration_tpu_torch.cli.train import build_model
-    from image_restoration_tpu_torch.kernels import block as K
     from image_restoration_tpu_torch.train.trainer import (
         TrainerConfig, TrainState, make_optimizer, make_train_step,
     )
@@ -2379,12 +2476,12 @@ def _train_step_times(gpu, cfg, profile_dir):
         tx = make_optimizer(tcfg)
         state = TrainState.create(model, tx, ema_decay=tcfg.ema_decay)
         step = make_train_step(model, tx, tcfg)
-        for _ in range(3):
+        for _ in range(warmup):
             step(state, batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
-        for _ in range(10):
+        for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -2395,24 +2492,23 @@ def _train_step_times(gpu, cfg, profile_dir):
         ms = statistics.median(times)
         peak = torch.cuda.max_memory_allocated() / 2**30
         if tag == "kernel":
-            K.block_front.launches = K.block_apply_gdfn.launches = 0
+            for fn in counters.values():
+                fn.launches = 0
             syncs = host_syncs(lambda: step(state, batch))
             torch.cuda.synchronize()
-            out = {"block_front": K.block_front.launches,
-                   "block_apply_gdfn": K.block_apply_gdfn.launches}
-            print(f"train step launches {out}; host syncs of a step that "
-                  f"does not log: {sum(syncs.values())} {dict(syncs)}",
+            out = {name: fn.launches for name, fn in counters.items()}
+            print(f"train step {label} launches {out}; host syncs of a step "
+                  f"that does not log: {sum(syncs.values())} {dict(syncs)}",
                   flush=True)
-            check(out == dict.fromkeys(out, BLOCKS_PER_FORWARD),
-                  f"a training step launched {out}, expected "
-                  f"{BLOCKS_PER_FORWARD} of each in its forward and none in "
-                  f"its backward")
+            check(out == per_forward, f"a {label} training step launched "
+                  f"{out}, expected {per_forward} in its forward and none "
+                  f"in its backward")
             kernel_step = (step, state)
-        print(f"train step {tag}, Restormer-base bf16 batch {TRAIN_BATCH} x "
+        print(f"train step {tag}, {label} bf16 batch {TRAIN_BATCH} x "
               f"{TRAIN_PATCH}^2 on {gpu}: {ms:.3f} ms (CUDA events, median "
-              f"of 10 after 3 warm-up steps; min {min(times):.3f}, max "
-              f"{max(times):.3f}), {TRAIN_BATCH / (ms / 1e3):.2f} images/s, "
-              f"peak memory {peak:.3f} GiB", flush=True)
+              f"of {reps} after {warmup} warm-up steps; min {min(times):.3f}, "
+              f"max {max(times):.3f}), {TRAIN_BATCH / (ms / 1e3):.2f} "
+              f"images/s, peak memory {peak:.3f} GiB", flush=True)
         del model, state, step, tx
     if profile_dir:  # after both timings, which it would perturb
         step, state = kernel_step
@@ -2426,8 +2522,11 @@ def phase_train(gpu, profile_dir):
     """Phase 4: train Restormer-base through ``cli/train.py`` ``main`` on a
     seeded synthetic five-task tree at the port defaults in bf16, batch 8
     of 128x128, with validation and saves every 10 steps; resume; score
-    the final checkpoint through ``cli/test.py``; the gradient rule; the
-    step times. Returns the launch counts of the ``main`` run."""
+    the final checkpoint through ``cli/test.py``; then DRSformer the same
+    way (``_train_drsformer``); the gradient rule; the step times; the
+    three-kernel Restormer's step (``_train_three_kernel``). Returns the
+    launch counts of the ``main`` runs and of the three-kernel step, by
+    path."""
     import json
     import os
     import tempfile
@@ -2519,10 +2618,636 @@ def phase_train(gpu, profile_dir):
         check(np.isfinite(results["derain"]["psnr"])
               and results["derain"]["n"] == EVAL_IMAGES["derain"],
               f"train: scoring the checkpoint gave {results}")
+        t2 = time.perf_counter()
+        drs = _train_drsformer(gpu, data, bench, tmp)
+        print(f"train: the DRSformer run took {time.perf_counter() - t2:.1f} "
+              f"s", flush=True)
     _train_grad_rule(cfg)
-    _train_step_times(gpu, cfg, profile_dir)
+    _train_step_times(gpu, cfg, profile_dir,
+                      {"block_front": K.block_front,
+                       "block_apply_gdfn": K.block_apply_gdfn},
+                      dict.fromkeys(("block_front", "block_apply_gdfn"),
+                                    BLOCKS_PER_FORWARD))
+    three = _train_three_kernel(gpu)
     print(f"train: phase 4 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"train": launches, "train_drsformer": drs, "train_3k": three}
+
+
+def bound_ska_bwd(b, h, w, c, wc, esize):
+    """``ska_bwd_x`` or ``ska_bwd_w`` (the same count for both): read go
+    and w (gx) or go and x (gw), write gx or gw; 9 fp32 multiply-adds per
+    channel of a pixel (gx: the taps; gw: the repeats of each of the
+    9 wc weights)."""
+    n = b * h * w
+    return roofline(esize * (2 * n * c + n * wc * 9), 0.0, 2 * 9 * n * c)
+
+
+def phase_ska_bwd_kernels(shapes=SKA_SHAPES, b=LSNET_BATCH, tag=""):
+    """SKA's two backward kernels (``csrc/ska_bwd.cu``) at ``shapes``
+    (LSNet-B's three SKA shapes by default) on a batch of ``b``, bf16 and
+    fp32: the bits of ``ska_bwd_plain`` (the same products and sums in the
+    same order), K9's rule against the fp32 plain version, two runs
+    bit-equal, each image of a batch of two as it is alone; the times of
+    both against the plain version; printed with ``tag``."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import ska as K
+    from image_restoration_tpu_torch.ops.ska import ska_bwd_plain
+
+    report = _new_report(("ska_bwd_x", "ska_bwd_w"))
+    for i, (h, w, c, wc, calls) in enumerate(shapes):
+        gen = torch.Generator(device="cuda").manual_seed(2000 + i)
+        x, wt, go = (torch.randn(s, generator=gen, device="cuda") for s in
+                     ((b, h, w, c), (b, h, w, wc, 9), (b, h, w, c)))
+        oracle = ska_bwd_plain(x, wt, go)
+        where = f"{b}x{h}x{w}x{c} wc {wc}"
+        out = {}
+        for dt in (torch.bfloat16, torch.float32):
+            xd, wd, gd = x.to(dt), wt.to(dt), go.to(dt)
+            plain = ska_bwd_plain(xd, wd, gd)
+            for k, (name, fn) in enumerate((("ska_bwd_x", K.ska_bwd_x),
+                                            ("ska_bwd_w", K.ska_bwd_w))):
+                kern, again = fn(xd, wd, gd), fn(xd, wd, gd)
+                two = fn(xd[:2], wd[:2], gd[:2])
+                torch.cuda.synchronize()
+                what = f"{name} {dt} at {where}"
+                check(torch.equal(kern, plain[k]), f"{what}: not the bits of "
+                      f"ska_bwd_plain (max |diff| "
+                      f"{(kern.float() - plain[k].float()).abs().max():.3e})")
+                check(torch.equal(kern, again), f"{what}: two runs differ")
+                check(torch.equal(two[1:], fn(xd[1:2], wd[1:2], gd[1:2])) and
+                      torch.equal(two, kern[:2]), f"{what}: the images of a "
+                      f"batch are not independent")
+                err = rel_err(kern, oracle[k])
+                if dt == torch.float32:
+                    check(err <= 1e-5, f"{what}: rel err {err:.3e} above 1e-5")
+                else:
+                    ep = rel_err(plain[k], oracle[k])
+                    check(err < _bound(ep), f"{what}: rel err {err:.3e} above "
+                          f"max(3 x {ep:.3e}, 4e-3)")
+                out[name, dt] = (err, time_cuda(lambda: fn(xd, wd, gd)))
+            t_p = time_cuda(lambda: ska_bwd_plain(xd, wd, gd))
+            out["plain", dt] = t_p
+        for name in ("ska_bwd_x", "ska_bwd_w"):
+            (e16, t16), (e32, t32) = (out[name, torch.bfloat16],
+                                      out[name, torch.float32])
+            bound = bound_ska_bwd(b, h, w, c, wc, 2)
+            bound32 = bound_ska_bwd(b, h, w, c, wc, 4)
+            print(f"{tag}{name} {where}: the bits of ska_bwd_plain, two runs "
+                  f"equal; bf16 rel err {e16:.3e}, kernel {t16:.4f} ms, "
+                  f"bound {bound[0]:.4f} ms ({bound[1]}); fp32 rel err "
+                  f"{e32:.3e}, kernel {t32:.4f} ms, bound {bound32[0]:.4f} "
+                  f"ms; ska_bwd_plain (both gradients) bf16 "
+                  f"{out['plain', torch.bfloat16]:.4f} ms, fp32 "
+                  f"{out['plain', torch.float32]:.4f} ms", flush=True)
+            _record(report, name, [b, h, w, c, wc], calls, t16,
+                    out["plain", torch.bfloat16], 0.0, bound, fp32_ms=t32,
+                    fp32_plain_ms=out["plain", torch.float32],
+                    fp32_bound_ms=bound32[0], fp32_max_rel_err=e32,
+                    plain_is="ska_bwd_plain, both gradients in one call")
+    return report
+
+
+def _check_vjp(tag, api, reference, inputs, counters, fwd_expected):
+    """A kernel API's VJP on the card: its forward launches
+    ``fwd_expected`` of ``counters``, its output holds phase 2's rule
+    against the plain composition (``reference``; the oracle is
+    ``reference`` on the inputs widened to fp32), its backward launches
+    none, and its gradients of every input are the plain recompute's
+    (``reference``, what its backward differentiates) within 4e-3 of
+    their largest magnitude (the
+    largest difference is printed: with cuDNN's deterministic algorithms
+    the two are one computation). Forward + backward timed against the
+    plain composition's."""
+    import torch
+
+    def leaves():
+        return [None if t is None else t.detach().clone().requires_grad_()
+                for t in inputs]
+
+    got_leaves = leaves()
+    before = {k: f.launches for k, f in counters.items()}
+    # cuDNN's deterministic algorithms, so that the two differentiations of
+    # one composition sum in one order
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = api(*got_leaves)
+    fwd = {k: f.launches - before[k] for k, f in counters.items()}
+    with torch.no_grad():
+        fwd_msg = _check_rule(
+            f"{tag} forward", "the plain composition's inputs", out.detach(),
+            reference(*inputs),
+            reference(*(None if t is None else t.float() for t in inputs)))
+    gen = torch.Generator(device="cuda").manual_seed(2100)
+    g = torch.randn(out.shape, generator=gen, device="cuda")
+    wanted = [t for t in got_leaves if t is not None]
+    got = torch.autograd.grad((out.float() * g).sum(), wanted)
+    torch.cuda.synchronize()
+    bwd = {k: f.launches - before[k] - fwd[k] for k, f in counters.items()}
+    ref_leaves = leaves()
+    ref_wanted = [t for t in ref_leaves if t is not None]
+    want = torch.autograd.grad((reference(*ref_leaves).float() * g).sum(),
+                               ref_wanted)
+    torch.backends.cudnn.deterministic = deterministic
+    worst = max(rel_err(a, b) for a, b in zip(got, want))
+    check(fwd == fwd_expected and not any(bwd.values()),
+          f"{tag}: launches forward {fwd}, backward {bwd}")
+    check(all(t.isfinite().all().item() for t in got) and worst < 4e-3,
+          f"{tag}: gradients off the plain recompute's by {worst:.3e}")
+
+    def step(fn, ls, ws):
+        return lambda: torch.autograd.grad((fn(*ls).float() * g).sum(), ws)
+
+    t_k = time_cuda(step(api, got_leaves, wanted), reps=10)
+    t_p = time_cuda(step(reference, ref_leaves, ref_wanted), reps=10)
+    print(f"{tag}: forward rel err {fwd_msg}; largest relative difference "
+          f"of {len(got)} gradients from the plain recompute's "
+          f"{worst:.3e}; launches forward {fwd}, "
+          f"backward {bwd}; forward + backward {t_k:.4f} ms (plain "
+          f"{t_p:.4f} ms)", flush=True)
+
+
+def phase_vjps():
+    """The kernel APIs' VJPs (phase 2h): the three-kernel block's
+    ``ln_qkv_dwconv``, ``fused_mdta_core`` and ``fused_ln_gdfn`` at
+    Restormer-base's training latent (batch 8 at 16x16 x 384, 8 heads),
+    ``fused_drs_block`` at DRSformer's (the same shape), and
+    ``fused_mefc_steps`` at the Subnet's training shape (batch 8 at
+    128x128 x 48, four steps), by ``_check_vjp``."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import attn_core as KA
+    from image_restoration_tpu_torch.kernels import block as KB
+    from image_restoration_tpu_torch.kernels import drs_block as KD
+    from image_restoration_tpu_torch.kernels import gdfn as KG
+    from image_restoration_tpu_torch.kernels import mdta as KQ
+    from image_restoration_tpu_torch.kernels import mefc as KM
+
+    counters = {"block_front": KB.block_front,
+                "block_apply_gdfn": KB.block_apply_gdfn,
+                "ln_qkv_dwconv": KQ.ln_qkv_dwconv, "attn_acc": KA.attn_acc,
+                "attn_apply": KA.attn_apply, "ln_gdfn": KG.fused_ln_gdfn,
+                "drs_apply_msfn": KD.drs_apply_msfn,
+                "mefc_step": KM.mefc_step}
+    none = dict.fromkeys(counters, 0)
+    h, w, c, heads = BACKWARD_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(2200)
+    x = torch.randn((TRAIN_BATCH, h, w, c), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    p = random_block(c, heads, 2300)
+    shape = f"{TRAIN_BATCH}x{h}x{w}x{c} heads {heads}"
+    _check_vjp(f"ln_qkv_dwconv VJP {shape}",
+               lambda x, *q: KQ.ln_qkv_dwconv(x, KB.FrontParams(*q)),
+               lambda x, *q: KB.reference_front(x, KB.FrontParams(*q)),
+               (x, *p.front()), counters, dict(none, ln_qkv_dwconv=1))
+    qkv = KQ.ln_qkv_dwconv(x, p.front())
+    _check_vjp(f"fused_mdta_core VJP {shape}",
+               lambda *t: KA.fused_mdta_core(*t, heads),
+               lambda *t: KB.reference_core(*t, heads),
+               (qkv, x, p.temperature, p.proj_w, p.proj_b), counters,
+               dict(none, attn_acc=1, attn_apply=1))
+    _check_vjp(f"fused_ln_gdfn VJP {shape}",
+               lambda x, *q: KG.fused_ln_gdfn(x, KB.GDFNParams(*q)),
+               lambda x, *q: KB.reference_ln_gdfn(x, KB.GDFNParams(*q)),
+               (x, *p.gdfn()), counters, dict(none, ln_gdfn=1))
+    pd = random_drs_block(c, heads, 2400)
+    _check_vjp(f"fused_drs_block VJP {shape}",
+               lambda x, *q: KD.fused_drs_block(x, KD.DRSBlockParams(*q),
+                                                heads),
+               lambda x, *q: KD.reference_drs_block(
+                   x, KD.DRSBlockParams(*q), heads),
+               (x, *pd), counters, dict(none, block_front=1,
+                                        drs_apply_msfn=1))
+    hm, wm, cm, n_steps = TRAIN_PATCH, TRAIN_PATCH, MEFC_STEPS[0][2], \
+        MEFC_STEPS[0][3]
+    steps, _ = random_mefc_steps(cm, n_steps, seed=2500)
+    mix = torch.softmax(torch.randn((TRAIN_BATCH, n_steps, 8),
+                                    generator=gen, device="cuda"), -1)
+    xm = torch.randn((TRAIN_BATCH, hm, wm, cm), generator=gen,
+                     device="cuda").abs().to(torch.bfloat16)
+    _check_vjp(f"fused_mefc_steps VJP {TRAIN_BATCH}x{hm}x{wm}x{cm}, "
+               f"{n_steps} steps",
+               lambda x, wt, *f: KM.fused_mefc_steps(x, KM._unflat(f), wt),
+               lambda x, wt, *f: KM.reference_steps(x, KM._unflat(f), wt),
+               (xm, mix.to(torch.bfloat16), *KM._flat(steps)), counters,
+               dict(none, mefc_step=n_steps))
+
+
+def _train_drsformer(gpu, data, bench, tmp):
+    """Phase 4's DRSformer run: ``cli/train.py`` ``main`` at its port
+    defaults in bf16 (``fused_block``: K1 + K7 in every block, K8 in every
+    MEFC step), batch 8 of 128x128 on the same synthetic tree, validation
+    and saves every ``DRS_TRAIN_EVERY`` steps: the launches of every
+    forward (the steps' and the validation's), none in a backward; the
+    loss on a fixed batch falls; ``cli/test.py --ckpt`` scores the final
+    checkpoint with a finite PSNR. Returns the launch counts of the
+    run."""
+    import json
+    import os
+
+    import torch
+
+    from image_restoration_tpu_torch.cli import test as T
+    from image_restoration_tpu_torch.cli import train as TR
+    from image_restoration_tpu_torch.kernels import block as KB
+    from image_restoration_tpu_torch.kernels import drs_block as KD
+    from image_restoration_tpu_torch.kernels import mefc as KM
+    from image_restoration_tpu_torch.utils.options import (
+        build_train_parser, parse_options,
+    )
+
+    argv = ["--model", "drsformer", "--device", "cuda",
+            "--data_file_dir", data, "--batch_size", str(TRAIN_BATCH),
+            "--patch_size", str(TRAIN_PATCH), "--warmup_epochs", "0",
+            "--ema_decay", "0.999", "--lr", str(TRAIN_LR),
+            "--save_every", str(DRS_TRAIN_EVERY), "--val_every",
+            str(DRS_TRAIN_EVERY), "--val_lq_dir", f"{data}/val/lq",
+            "--val_gt_dir", f"{data}/val/gt", "--log_every", "1",
+            "--ckpt_dir", os.path.join(tmp, "exp"), "--name", "drs"]
+    cfg = parse_options(argv, build_train_parser())
+    check(cfg["bf16"] and cfg["model_kwargs"].get("fused_block"),
+          "phase 4: not DRSformer's bf16 fused_block defaults")
+    counters = {"block_front": KB.block_front,
+                "block_apply_gdfn": KB.block_apply_gdfn,
+                "drs_apply_msfn": KD.drs_apply_msfn,
+                "mefc_step": KM.mefc_step}
+    per_forward = {"block_front": DRS_BLOCKS_PER_FORWARD,
+                   "block_apply_gdfn": 0,
+                   "drs_apply_msfn": DRS_BLOCKS_PER_FORWARD,
+                   "mefc_step": MEFC_STEPS_PER_FORWARD}
+    for fn in counters.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    TR.main(argv, max_steps_override=DRS_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {k: f.launches for k, f in counters.items()}
+    n_val = DRS_TRAIN_STEPS // DRS_TRAIN_EVERY * VAL_IMAGES
+    n_fwd = DRS_TRAIN_STEPS + n_val
+    print(f"train drsformer: {DRS_TRAIN_STEPS} steps + {n_val} validation "
+          f"forwards in {wall:.1f} s (host clock), launches {launches}",
+          flush=True)
+    check(launches == {k: n_fwd * n for k, n in per_forward.items()},
+          f"train drsformer: {launches} for {n_fwd} forwards, expected "
+          f"{per_forward} each")
+    exp = os.path.join(tmp, "exp", "drs")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [e["train/total"] for e in logged if "train/total" in e]
+    vals = [e["val/psnr"] for e in logged if "val/psnr" in e]
+    print(f"train drsformer losses (lr {TRAIN_LR}): first {losses[0]:.5f}, "
+          f"mean of the last five {np.mean(losses[-5:]):.5f}; all "
+          f"{[round(v, 5) for v in losses]}; validation PSNR {vals}",
+          flush=True)
+    check(len(losses) == DRS_TRAIN_STEPS and np.isfinite(losses).all()
+          and np.isfinite(vals).all(), "train drsformer: a loss or PSNR is "
+          "not finite, or missing")
+    # the logged losses are of the steps' batches, whose tasks differ: the
+    # fall is measured on one fixed batch, by the initial model (the seeded
+    # init main started from) and by the final checkpoint's parameters
+    final = os.path.join(exp, "ckpt", f"{DRS_TRAIN_STEPS}.pth")
+    model = TR.build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(2900)
+    gt = torch.rand((2, 3, TRAIN_PATCH, TRAIN_PATCH), generator=gen,
+                    device="cuda")
+    lq = (gt + 0.1 * torch.randn(gt.shape, generator=gen,
+                                 device="cuda")).clamp(0, 1)
+    fixed = []
+    for params in (None, torch.load(final, map_location="cuda")["params"]):
+        if params is not None:
+            model.load_state_dict(params)
+        with torch.inference_mode():
+            fixed.append((model(lq) - gt).abs().mean().item())
+    del model
+    print(f"train drsformer: L1 on a fixed batch of 2 at {TRAIN_PATCH}^2: "
+          f"initial model {fixed[0]:.5f}, after {DRS_TRAIN_STEPS} steps "
+          f"{fixed[1]:.5f}", flush=True)
+    check(np.isfinite(fixed).all() and fixed[1] < fixed[0],
+          "train drsformer: the loss did not fall")
+    results = T.main(["--model", "drsformer", "--device", "cuda",
+                      "--ckpt", final, "--benchmarks", "derain",
+                      "--data_file_dir", bench,
+                      "--output_dir", os.path.join(tmp, "rd")])
+    print(f"train drsformer: cli/test.py --ckpt "
+          f"{os.path.basename(final)}: {results}", flush=True)
+    check(np.isfinite(results["derain"]["psnr"]),
+          f"train drsformer: scoring the checkpoint gave {results}")
+    _train_step_times(gpu, cfg, None, counters, per_forward,
+                      "DRSformer", warmup=2, reps=5)
     return launches
+
+
+def _train_three_kernel(gpu):
+    """Phase 4's three-kernel Restormer step: Restormer-base with
+    ``fused_attn`` and ``fused_gdfn`` (K4, K5 + K6, K3) takes training
+    steps on a batch of 8 at 128x128: 44 launches of each a step's
+    forward, none in its backward (and no K1 or K2); step ms and peak
+    memory against the plain bf16 model. Returns the launches of one
+    step."""
+    from image_restoration_tpu_torch.kernels import attn_core as KA
+    from image_restoration_tpu_torch.kernels import block as KB
+    from image_restoration_tpu_torch.kernels import gdfn as KG
+    from image_restoration_tpu_torch.kernels import mdta as KQ
+    from image_restoration_tpu_torch.utils.options import (
+        build_train_parser, parse_options,
+    )
+
+    cfg = parse_options(["--model", "restormer", "--device", "cuda"]
+                        + [a for kv in THREE_KERNEL for a in ("--set", kv)],
+                        build_train_parser())
+    counters = {"ln_qkv_dwconv": KQ.ln_qkv_dwconv, "attn_acc": KA.attn_acc,
+                "attn_apply": KA.attn_apply, "ln_gdfn": KG.fused_ln_gdfn,
+                "block_front": KB.block_front,
+                "block_apply_gdfn": KB.block_apply_gdfn}
+    per_forward = dict.fromkeys(counters, BLOCKS_PER_FORWARD)
+    per_forward.update(block_front=0, block_apply_gdfn=0)
+    return _train_step_times(gpu, cfg, None, counters, per_forward,
+                             "Restormer-base three-kernel", warmup=2, reps=5)
+
+
+def _class_tree(root, model, n, size, seed):
+    """``n`` seeded images of ``size``^2 in an ImageFolder tree of 1000
+    class dirs, each image under the class ``model`` predicts for it as
+    ``cli/robust.py`` loads it (so the clean accuracy is 100%); returns
+    the tree's path."""
+    import os
+
+    import torch
+    from PIL import Image
+
+    from image_restoration_tpu_torch.eval.robustness import _load_batch
+
+    rng = np.random.default_rng(seed)
+    imgs = [_smooth_image(rng, size, size) for _ in range(n)]
+    os.makedirs(os.path.join(root, "flat"))
+    paths = []
+    for i, img in enumerate(imgs):
+        paths.append(os.path.join(root, "flat", f"{i:03d}.png"))
+        Image.fromarray(img).save(paths[-1])
+    x = torch.from_numpy(_load_batch(paths, size)).cuda()
+    with torch.inference_mode():
+        pred = model(x.permute(0, 3, 1, 2)).argmax(-1).tolist()
+    tree = os.path.join(root, "tree")
+    for c in range(1000):
+        os.makedirs(os.path.join(tree, f"c{c:03d}"))
+    for i, (p, c) in enumerate(zip(paths, pred)):
+        os.replace(p, os.path.join(tree, f"c{c:03d}", f"{i:03d}.png"))
+    return tree
+
+
+def phase_lsnet_grad(gpu):
+    """Phase 5, LSNet differentiates through SKA's backward kernels:
+    ``cli/robust.py`` with and without ``--adv FGSM`` and ``--adv PGD`` at
+    LSNet-B (fp32, the CLI's default; seeded weights and BatchNorm
+    statistics passed as a ``.pth`` ``--ckpt``) on a seeded ImageFolder
+    tree whose images sit under the classes the model predicts for them:
+    clean accuracy 100% (at least 90%: a near-tie may flip between two
+    batch orders), accuracy under attack no higher; one attacked
+    batch stays in the eps-ball and the normalized image of [0, 1], and
+    each of its backwards launches 9 ``ska_bwd_x`` + 9 ``ska_bwd_w``. Then
+    five ``make_cls_train_step`` steps of LSNet-T (bf16, AdamW) on a seeded
+    batch: finite, falling loss, its 2 SKAs a step launched once each
+    forward and differentiated by the two kernels. Returns the launch
+    counts by path."""
+    import os
+    import tempfile
+
+    import torch
+
+    from image_restoration_tpu_torch.cli import robust as CR
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.eval import robustness as R
+    from image_restoration_tpu_torch.kernels import ska as KS
+    from image_restoration_tpu_torch.models.lsnet import LSConv
+    from image_restoration_tpu_torch.train import classification as TC
+    from image_restoration_tpu_torch.train import trainer as TT
+    from image_restoration_tpu_torch.utils.options import parse_options
+
+    counters = {"ska": KS.ska, "ska_bwd_x": KS.ska_bwd_x,
+                "ska_bwd_w": KS.ska_bwd_w}
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: f.launches for k, f in counters.items()}
+
+    by_path = {}
+    argv = ["--device", "cuda", "--seed", "0", *LSNET_B]
+    cfg = parse_options(argv, CR.build_argparser())
+    check(not cfg["bf16"] and cfg["model_kwargs"]["use_pallas_ska"],
+          "cli/robust.py defaults are not fp32 with the SKA kernel")
+    model = build_model(cfg)
+    perturb_lsnet(model, seed=2600)
+    n, size = ADV_IMAGES, 224
+    with tempfile.TemporaryDirectory(prefix="ir_adv_") as tmp:
+        ckpt = os.path.join(tmp, "lsnet_b.pth")
+        torch.save(model.state_dict(), ckpt)
+        tree = _class_tree(tmp, model, n, size, seed=2700)
+        # one attacked batch: the ball, the box, the backward's launches
+        x = torch.from_numpy(R._load_batch(
+            sorted(os.path.join(d, f) for d, _, fs in os.walk(tree)
+                   for f in fs), size)).cuda()
+        with torch.no_grad():
+            labels = model(x.permute(0, 3, 1, 2)).argmax(-1)
+        std = torch.from_numpy(R.IMAGENET_STD).cuda()
+        mean = torch.from_numpy(R.IMAGENET_MEAN).cuda()
+        for adv, iters, alpha in (("FGSM", 1, 1.0), ("PGD", 5, 0.5)):
+            zero()
+            xa = R.fgsm_pgd_attack(model, x, labels, max_iters=iters,
+                                   alpha=alpha / 255.0,
+                                   random_init=adv == "PGD")
+            got = read()
+            ball = (xa - x).abs() / (1.0 / 255.0 / std)
+            inside = ((xa >= (0 - mean) / std - 1e-6)
+                      & (xa <= (1 - mean) / std + 1e-6)).all().item()
+            print(f"lsnet {adv} on {n} images at {size}^2: launches {got}; "
+                  f"largest |step| {ball.max().item():.6f} of the ball; in "
+                  f"the normalized box: {inside}", flush=True)
+            check(ball.max().item() <= 1 + 1e-5 and inside,
+                  f"lsnet {adv}: an iterate left the eps-ball or the box")
+            check(got == {"ska": iters * SKA_PER_FORWARD,
+                          "ska_bwd_x": iters * SKA_PER_FORWARD,
+                          "ska_bwd_w": iters * SKA_PER_FORWARD},
+                  f"lsnet {adv}: launches {got}, expected {SKA_PER_FORWARD} "
+                  f"of each a forward and backward")
+        acc = {}
+        for adv in (None, "FGSM", "PGD"):
+            zero()
+            t0 = time.perf_counter()
+            res = CR.main(argv + ["--ckpt", ckpt, "--insk_path", tree,
+                                  "--batch_size", str(n)]
+                          + (["--adv", adv] if adv else []))
+            by_path[f"robust_{adv or 'clean'}".lower()] = got = read()
+            acc[adv] = res["imagenet_sketch"]["acc1"]
+            print(f"lsnet cli/robust.py {'--adv ' + adv if adv else 'clean'}"
+                  f": top-1 {acc[adv]:.2f}% of {res['imagenet_sketch']['n']}"
+                  f", launches {got}, {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        check(acc[None] >= 90.0 and acc["FGSM"] <= acc[None]
+              and acc["PGD"] <= acc[None], f"lsnet accuracies {acc}: clean "
+              f"under 90% (the tree holds each image under its prediction), "
+              f"or an attack raised the accuracy")
+    del model
+
+    # LSNet-T takes five classification steps on one seeded batch
+    tcfg = parse_options(["--model", "lsnet", "--device", "cuda", "--seed",
+                          "0"])
+    net = build_model(tcfg)
+    check(net.dtype == torch.bfloat16, "LSNet-T for training is not bf16")
+    gen = torch.Generator(device="cuda").manual_seed(2800)
+    images = torch.randn((CLS_BATCH, 3, 224, 224), generator=gen,
+                         device="cuda")
+    labels = torch.randint(0, 1000, (CLS_BATCH,), generator=gen,
+                           device="cuda")
+    tx = TT.Optimizer(TT.TrainerConfig(learning_rate=1e-3,
+                                       weight_decay=0.05))
+    state = TT.TrainState.create(net, tx, ema_decay=0.999)
+    step = TC.make_cls_train_step(net, tx, smoothing=0.1, ema_decay=0.999)
+    losses = []
+    zero()
+    for _ in range(CLS_STEPS):
+        state, logs = step(state, {"image": images, "label": labels})
+        losses.append(float(logs["loss"]))
+    got = read()
+    by_path["cls_train"] = got
+    print(f"lsnet-t make_cls_train_step: {CLS_STEPS} steps at batch "
+          f"{CLS_BATCH}, losses {[round(v, 5) for v in losses]}, launches "
+          f"{got}", flush=True)
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"lsnet-t classification losses {losses}: not finite or not "
+          f"falling")
+    n_ska = sum(isinstance(m, LSConv) for m in net.modules())
+    check(n_ska == LSNET_T_SKA_PER_FORWARD, f"lsnet-t has {n_ska} LSConvs, "
+          f"not {LSNET_T_SKA_PER_FORWARD}")
+    check(got == dict.fromkeys(counters, CLS_STEPS * LSNET_T_SKA_PER_FORWARD),
+          f"lsnet-t: launches {got} in {CLS_STEPS} steps, expected "
+          f"{LSNET_T_SKA_PER_FORWARD} of K9 a forward and of each backward "
+          f"kernel a backward")
+    return by_path
+
+
+LEARN_STEPS = 2000  # tools/learn_run.py's default
+
+
+def lecun_init(model, seed):
+    """Redraws ``model``'s conv weights as flax's default initializer, the
+    JAX package's, draws them (``lecun_normal``: a normal truncated at two
+    standard deviations and rescaled to std 1/sqrt(fan_in)) and zeroes
+    their biases, from ``seed``; LayerNorms and temperatures keep their
+    ones and zeros, as in both packages."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                std = m.weight[0].numel() ** -0.5 / 0.87962566103423978
+                w = torch.empty(m.weight.shape)
+                torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                            generator=gen)
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
+def phase_learn(gpu, dim, init="torch"):
+    """``--learn DIM``: the overfit run behind ``LEARN_r03.json`` through
+    the port's ``cli/train.py`` ``main``: ``tools/learn_run.py``'s
+    synthetic rain set (its ``write_dataset``, four 128x128 pairs, seed 7)
+    and its argv (a Restormer with blocks 2/2/2/2, 2 refinement blocks,
+    heads 1/2/4/8 at ``model_kwargs.dim`` DIM; batch 4 of 64x64 patches,
+    lr 1e-3, warm-up-free cosine, EMA 0.99, clip 1.0, 2000 steps,
+    validation on the training pairs every 100), in bf16 on the card.
+    Prints the loss and validation PSNR curves, the best validation PSNR
+    and its step, the input's PSNR, the K1/K2 launches and the wall time
+    as one JSON line. ``init`` "lecun" redraws the seeded model's convs
+    as the JAX package's flax init draws them (:func:`lecun_init`)."""
+    import importlib.util
+    import json
+    import os
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from image_restoration_tpu_torch.cli import train as TR
+    from image_restoration_tpu_torch.kernels import block as KB
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "learn_run", os.path.join(here, "tools", "learn_run.py"))
+    learn_run = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(learn_run)  # imports jax only in its main()
+    with tempfile.TemporaryDirectory(prefix="ir_learn_") as work:
+        lq_dir, gt_dir = learn_run.write_dataset(os.path.join(work, "data"))
+        exp_dir = os.path.join(work, "exp")
+        argv = [
+            "--model", "restormer", "--trainset", "paired",
+            "--lq_dir", lq_dir, "--gt_dir", gt_dir,
+            "--patch_size", "64", "--batch_size", "4", "--epochs", "1",
+            "--lr", "1e-3", "--scheduler", "linear_warmup_cosine",
+            "--warmup_epochs", "0", "--max_steps", str(LEARN_STEPS),
+            "--ema_decay", "0.99", "--grad_clip", "1.0",
+            "--val_every", str(max(LEARN_STEPS // 20, 1)),
+            "--val_lq_dir", lq_dir, "--val_gt_dir", gt_dir,
+            "--ckpt_dir", exp_dir, "--name", "overfit",
+            "--save_every", "100000", "--log_every", "25",
+            "--set", f"model_kwargs.dim={dim}",
+            "--set", "model_kwargs.num_blocks=(2,2,2,2)",
+            "--set", "model_kwargs.num_refinement_blocks=2",
+            "--set", "model_kwargs.heads=(1,2,4,8)",
+            "--device", "cuda",
+        ]
+        KB.block_front.launches = KB.block_apply_gdfn.launches = 0
+        build = TR.build_model
+        if init == "lecun":
+            def build_lecun(cfg, device=None):
+                model = build(cfg, device)
+                lecun_init(model, cfg.get("seed", 0))
+                return model
+            TR.build_model = build_lecun
+        t0 = time.perf_counter()
+        try:
+            TR.main(argv)
+        finally:
+            TR.build_model = build
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"block_front": KB.block_front.launches,
+                    "block_apply_gdfn": KB.block_apply_gdfn.launches}
+        with open(os.path.join(exp_dir, "overfit", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        with open(os.path.join(exp_dir, "overfit", "ckpt", "best")) as f:
+            best_step, best_psnr = f.read().split()
+        psnr0 = []
+        for i in range(4):
+            a, b = (np.asarray(Image.open(os.path.join(d, f"{i}.png")),
+                               np.float64) / 255 for d in (lq_dir, gt_dir))
+            psnr0.append(-10 * np.log10(np.mean((a - b) ** 2)))
+    psnr_curve = [(e["step"], round(e["val/psnr"], 3)) for e in logged
+                  if "val/psnr" in e]
+    loss_curve = [(e["step"], round(e["train/total"], 5)) for e in logged
+                  if "train/total" in e]
+    out = {"learn": f"restormer dim={dim} blocks=(2,2,2,2), {init} init",
+           "device": gpu, "steps": LEARN_STEPS,
+           "input_psnr": round(float(np.mean(psnr0)), 3),
+           "best_val_psnr": round(float(best_psnr), 3),
+           "best_step": int(best_step), "wall_s": round(wall, 1),
+           "launches": launches, "psnr_curve": psnr_curve,
+           "loss_curve": loss_curve[::4]}
+    print(json.dumps(out), flush=True)
+    check(np.isfinite(float(best_psnr)), "learn: no finite validation PSNR")
+
+
+def timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, with the phase's seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main(argv=None):
@@ -2566,6 +3291,16 @@ def main(argv=None):
                          "wrapper's rows a strip or at each of TH, with the "
                          "host time of a wrapper call and its parts timed "
                          "apart; prints no result line")
+    ap.add_argument("--learn", type=int, default=None, metavar="DIM",
+                    help="only the overfit run of tools/learn_run.py (its "
+                         "synthetic rain set and its cli/train.py argv, "
+                         "2000 steps) through the port's cli/train.py at "
+                         "model_kwargs.dim=DIM; prints the PSNR curve and "
+                         "no result line")
+    ap.add_argument("--init", default="torch", choices=["torch", "lecun"],
+                    help="with --learn: the model's seeded init as the "
+                         "port draws it (torch's defaults) or its convs "
+                         "redrawn as the JAX package's flax init draws them")
     ap.add_argument("--shapes", default="restormer",
                     choices=["restormer", "measnet", "nerd_rain"],
                     help="with --tail or --front: the block shapes; "
@@ -2612,6 +3347,11 @@ def main(argv=None):
     if args.shapes != "restormer" and args.tail is None and \
             args.front is None:
         ap.error("--shapes goes with --tail or --front")
+    if args.learn is not None and (args.mefc is not None or any(
+            getattr(args, k) is not None for k in ("attn", "ska", *sweeps))):
+        ap.error("--learn runs alone")
+    if args.init != "torch" and args.learn is None:
+        ap.error("--init goes with --learn")
 
     import torch
 
@@ -2661,21 +3401,43 @@ def main(argv=None):
         print(gpu)
         return 0
 
-    report = phase_kernels()
-    merge_path(report, phase_kernels(MEASNET_LEVELS, 1000, "measnet "),
-               "measnet")
-    merge_path(report, phase_kernels(NERD_LEVELS, 1100, "nerd_rain "),
-               "nerd_rain")
-    phase_gated()
-    merge_path(report, phase_kernels(MOCE_LEVELS, 1300, "moce_ir ",
-                                     **MOCE_BLOCK), "moce_ir")
-    merge_path(report, phase_kernels(TRAIN_LEVELS, 1500,
-                                     f"train batch {TRAIN_BATCH} ",
-                                     batch=TRAIN_BATCH), "train")
-    phase_block_backward()
-    report.update(phase_drs_kernels())
-    report.update(phase_ska_kernels())
-    report.update(phase_3k_kernels())
+    if args.learn is not None:
+        phase_learn(gpu, args.learn, args.init)
+        print(gpu)
+        return 0
+
+    t_run = time.perf_counter()
+    report = timed("2", phase_kernels)
+    merge_path(report, timed("2e measnet", phase_kernels, MEASNET_LEVELS,
+                             1000, "measnet "), "measnet")
+    merge_path(report, timed("2e nerd_rain", phase_kernels, NERD_LEVELS,
+                             1100, "nerd_rain "), "nerd_rain")
+    timed("2e gated", phase_gated)
+    merge_path(report, timed("2f", phase_kernels, MOCE_LEVELS, 1300,
+                             "moce_ir ", **MOCE_BLOCK), "moce_ir")
+    merge_path(report, timed("2g", phase_kernels, TRAIN_LEVELS, 1500,
+                             f"train batch {TRAIN_BATCH} ",
+                             batch=TRAIN_BATCH), "train")
+    timed("2g backward", phase_block_backward)
+    report.update(timed("2b", phase_drs_kernels))
+    merge_path(report, timed(
+        "2b train", phase_drs_kernels, DRS_TRAIN_LEVELS, MEFC_TRAIN_STEPS,
+        TRAIN_BATCH, f"train_drsformer batch {TRAIN_BATCH} ", front=True),
+        "train_drsformer")
+    report.update(timed("2c", phase_ska_kernels))
+    report.update(timed("2c backward", phase_ska_bwd_kernels))
+    for path, shapes, b in (("cls_train", LSNET_T_SKA_SHAPES, CLS_BATCH),
+                            ("robust", SKA_SHAPES, ADV_IMAGES)):
+        merge_path(report, timed(f"2c {path}", phase_ska_kernels, shapes, b,
+                                 f"{path} "), path)
+        merge_path(report, timed(f"2c {path} backward", phase_ska_bwd_kernels,
+                                 shapes, b, f"{path} "), path)
+    report.update(timed("2d", phase_3k_kernels))
+    merge_path(report, timed("2d train", phase_3k_kernels, TRAIN_LEVELS,
+                             TRAIN_BATCH, f"train_3k batch {TRAIN_BATCH} "),
+               "train_3k")
+    timed("2h", phase_vjps)
+    t_serve = time.perf_counter()
     by_path = {
         "restormer": phase_slice(
             gpu, args.profile, "restormer",
@@ -2738,7 +3500,8 @@ def main(argv=None):
         "block_apply_gdfn": KB.block_apply_gdfn, "ln_gdfn": KG.fused_ln_gdfn,
         "ln_qkv_dwconv": KQ.ln_qkv_dwconv, "attn_acc": KA.attn_acc,
         "attn_apply": KA.attn_apply, "drs_apply_msfn": KD.drs_apply_msfn,
-        "mefc_step": KM.mefc_step, "ska": KS.ska}
+        "mefc_step": KM.mefc_step, "ska": KS.ska,
+        "ska_bwd_x": KS.ska_bwd_x, "ska_bwd_w": KS.ska_bwd_w}
     check(set(every_kernel) == set(KERNELS), "a kernel without its counter")
     for name in KERNEL_FREE:
         by_path[name] = phase_slice(
@@ -2747,28 +3510,49 @@ def main(argv=None):
             inspect=inspect_routes(strict=False),
             perturb=(lambda m: perturb_igmoce(m, seed=1400))
             if name == "igmoce_ir" else None)
-    by_path["eval"], by_path["eval_drsformer"] = phase_eval(gpu)
-    by_path["train"] = phase_train(gpu, args.profile)
+    print(f"phase 3 (serving, 3-3i but 3f): "
+          f"{time.perf_counter() - t_serve:.1f} s", flush=True)
+    by_path["eval"], by_path["eval_drsformer"] = timed("3f", phase_eval, gpu)
+    by_path.update(timed("4", phase_train, gpu, args.profile))
+    by_path.update(timed("5", phase_lsnet_grad, gpu))
+    for name in ("ska_bwd_x", "ska_bwd_w"):
+        check(sum(n.get(name, 0) for n in by_path.values()) > 0,
+              f"{name} never launched on a path")
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s after the build",
+          flush=True)
     ms_is = {"block_front": "sum over the 44 blocks of one Restormer-base "
                             "512x512 forward of per-call CUDA-event medians "
                             "(CG-IR's 44 have the same shapes); by_path "
                             "holds MEASNet's 40, NeRD-Rain's 78, "
-                            "MoCE-IR's 28 and the 44 of a training step's "
-                            "forward (batch 8 at 128x128)",
+                            "MoCE-IR's 28, the 44 of a training step's "
+                            "forward (batch 8 at 128x128) and the 40 of a "
+                            "DRSformer training step's",
              "block_apply_gdfn": "the same, 44 blocks; by_path as "
                                  "block_front's",
-             "ln_gdfn": "the same, 44 blocks of the three-kernel variant",
-             "ln_qkv_dwconv": "the same, 44 blocks of the three-kernel "
-                              "variant",
-             "attn_acc": "the same, 44 blocks of the three-kernel variant",
-             "attn_apply": "the same, 44 blocks of the three-kernel variant",
+             "ln_gdfn": "the same, 44 blocks of the three-kernel variant; "
+                        "by_path holds the 44 of a training step's forward "
+                        "(train_3k, batch 8 at 128x128)",
+             "ln_qkv_dwconv": "as ln_gdfn's",
+             "attn_acc": "as ln_gdfn's",
+             "attn_apply": "as ln_gdfn's",
              "drs_apply_msfn": "sum over the 40 blocks of one DRSformer "
-                               "512x512 forward of per-call CUDA-event medians",
+                               "512x512 forward of per-call CUDA-event "
+                               "medians; by_path holds the 40 of a training "
+                               "step's forward (batch 8 at 128x128)",
              "mefc_step": "sum over the 8 steps of one DRSformer 512x512 "
                           "forward of per-shape medians of per-call "
-                          "CUDA-event medians",
+                          "CUDA-event medians; by_path holds a training "
+                          "step's 8 (batch 8 at 128x128)",
              "ska": "sum over the 9 calls of one LSNet-B forward of a batch "
-                    "of 64 at 224x224 of per-call CUDA-event medians, bf16"}
+                    "of 64 at 224x224 of per-call CUDA-event medians, bf16; "
+                    "by_path holds LSNet-T's 2 at batch 32 (cls_train) and "
+                    "LSNet-B's 9 at batch 16 (robust; its fp32 times, the "
+                    "attack's dtype, are in per_shape)",
+             "ska_bwd_x": "sum over the 9 calls of one LSNet-B backward of a "
+                          "batch of 64 at 224x224 of per-call CUDA-event "
+                          "medians, bf16; plain_ms is ska_bwd_plain's, which "
+                          "computes both gradients; by_path as ska's",
+             "ska_bwd_w": "the same as ska_bwd_x's"}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

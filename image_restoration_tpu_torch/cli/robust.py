@@ -10,8 +10,10 @@ ImageFolder trees.
 The model is LSNet-T unless ``--set model_kwargs.*`` says otherwise
 (``utils/options.py``), fp32 as the JAX CLI classifies unless ``--bf16``,
 on the GPU unless ``--device cpu``; on the GPU every LSConv runs SKA as the
-CUDA kernel of ``kernels/ska.py``. ``--adv FGSM|PGD`` needs SKA's backward and is refused
-until LSNet's training slice (ROADMAP Queue 1 item 4, Queue 2 A1).
+CUDA kernel of ``kernels/ska.py``. ``--adv FGSM|PGD`` attacks the
+ImageNet-A/R/Sketch batches before scoring them (``eval/robustness.py``
+``fgsm_pgd_attack``), differentiating every SKA through its backward
+kernels on the GPU.
 """
 
 from __future__ import annotations

@@ -10,14 +10,21 @@ Usage:
 One process on one GPU (``--device cpu`` to run on the CPU): degradations
 synthesised on the device, torch checkpoints with auto-resume
 (``train/checkpoint.py``), in-training validation with save-best. On the
-GPU, Restormer's default ``fused_block`` runs every TransformerBlock's
-forward through K1/K2 (``kernels/block.py``), and its backward recomputes
-the plain block, as JAX's ``fused_block`` VJP does. What does not train
-yet raises: ``--mesh`` (multi-GPU), the MoCE family's routers (train-mode
-routing noise and aux losses), MEASNet's (the same), the three-kernel
-block and DRSformer's and LSNet's kernels (their VJPs), ``--style_ckpt``
-and ``--vgg_ckpt`` and the recipes of models the port does not have
-(ROADMAP Queue 1 items 4-6).
+GPU every kernel flag trains, each kernel API differentiating as its JAX
+custom VJP does (the forward launches the kernels, the backward
+recomputes the plain composition): Restormer's default ``fused_block``
+runs every TransformerBlock's forward through K1/K2 (``kernels/block.py``);
+``--set model_kwargs.fused_block=False --set model_kwargs.fused_attn=True
+--set model_kwargs.fused_gdfn=True`` the three-kernel block (K4, K5/K6,
+K3); DRSformer's default ``fused_block`` every block through K1 + K7 and
+every MEFC step through K8. :func:`build_model` turns off a flag the
+model cannot run on (fp32, or a head width the kernels do not take) and
+says so. What does not train yet raises: ``--mesh`` (multi-GPU), the MoCE
+family's routers (train-mode routing noise and aux losses), MEASNet's
+(the same), ``--style_ckpt`` and ``--vgg_ckpt`` and the recipes of
+models the port does not have (ROADMAP Queue 1 items 4-6). LSNet's
+classification step is ``train/classification.py``, with no CLI, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +47,11 @@ def default_device(cfg) -> torch.device:
     return torch.device("cuda")
 
 
+# The models' kernel flags: the pair (K1 + K2; DRSformer's K1 + K7 and
+# K8), and the three-kernel block's halves (K4 + K5/K6, K3).
+KERNEL_FLAGS = ("fused_block", "fused_attn", "fused_gdfn")
+
+
 def build_model(cfg, device=None):
     """Registry model from ``cfg["model"]`` and ``cfg["model_kwargs"]``.
 
@@ -47,6 +59,14 @@ def build_model(cfg, device=None):
     The random init is drawn from ``cfg["seed"]`` without touching the
     caller's global RNG state. Returned in eval mode on ``device`` (default:
     :func:`default_device`).
+
+    A kernel flag (:data:`KERNEL_FLAGS`) the model cannot run on is turned
+    off, with one printed line saying which and why: every flag when the
+    model does not compute in bf16 (the kernels take bf16), and a flag
+    whose kernels do not take a block's width (what each module that holds
+    a flag reports from its ``kernel_misfits()``, by the wrappers' rules).
+    The model is then built again with the flag off and runs those blocks
+    plain.
     """
     from image_restoration_tpu_torch.models import get_model
 
@@ -54,9 +74,28 @@ def build_model(cfg, device=None):
               for k, v in cfg.get("model_kwargs", {}).items()}
     if cfg.get("bf16", True):
         kwargs.setdefault("dtype", torch.bfloat16)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.get("seed", 0))
-        model = get_model(cfg["model"], **kwargs)
+
+    def build():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.get("seed", 0))
+            return get_model(cfg["model"], **kwargs)
+
+    on = [f for f in KERNEL_FLAGS if kwargs.get(f)]
+    if on and kwargs.get("dtype") != torch.bfloat16:
+        why = {f: f"the model computes in {kwargs.get('dtype') or 'float32'}"
+                  f" and the kernels take bfloat16" for f in on}
+    else:
+        model = build()
+        why = {}
+        for m in model.modules():
+            if hasattr(m, "kernel_misfits"):
+                for flag, reason in m.kernel_misfits().items():
+                    why.setdefault(flag, reason)
+    for flag, reason in why.items():
+        print(f"build_model: {flag} off: {reason}")
+        kwargs[flag] = False
+    if why:
+        model = build()
     return model.to(device or default_device(cfg)).eval()
 
 

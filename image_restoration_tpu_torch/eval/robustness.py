@@ -7,9 +7,10 @@
 * **ImageNet-A / -R**: top-1 restricted to their 200-class subsets by a
   mask over the model's 1000 logits (``robust_subsets``), built from the
   sorted training-class wnids (torchvision ImageFolder order).
-* **FGSM / PGD** need gradients through SKA, whose backward comes with
-  LSNet's training slice (ROADMAP Queue 2 A1): ``adv`` raises
-  NotImplementedError until then.
+* **FGSM / PGD** (:func:`fgsm_pgd_attack`, ``evaluate_folder(adv=)``):
+  the images are attacked in normalized space before they are scored,
+  differentiating the model (on the GPU every SKA through the kernels of
+  ``kernels/ska.py``, forward and backward).
 
 The JAX package jits one (params, images) -> hits program; here
 :func:`batch_hits` is the per-batch scorer, one forward of the model in
@@ -105,6 +106,57 @@ def batch_hits(model, images, labels, mask: Optional[np.ndarray] = None):
     return masked_topk_hits(logits, y, mask)
 
 
+def fgsm_pgd_attack(model, images, labels, epsilon: float = 1.0 / 255.0,
+                    alpha: Optional[float] = None, max_iters: int = 1,
+                    random_init: bool = False,
+                    generator: Optional[torch.Generator] = None,
+                    init_noise=None, mean=IMAGENET_MEAN, std=IMAGENET_STD):
+    """FGSM (1 iteration, no random start) / PGD (random start) in
+    normalized space, as JAX's ``fgsm_pgd_attack`` (robust.py:23-38).
+
+    ``images``: normalized (B, H, W, 3) tensor on the model's device,
+    ``labels`` (B,). The ball and the step are ``epsilon / std`` and
+    ``alpha / std`` per channel (``alpha`` defaults to ``epsilon``); each
+    iterate takes a step along the sign of the cross entropy's gradient,
+    is clipped to the ball around ``images`` and to the normalized image
+    of [0, 1]. PGD's random start is ``images + u * eps`` with u uniform in
+    [-1, 1): ``init_noise`` when given (the tests hand both packages the
+    same u), else drawn from ``generator`` (default: a generator on the
+    images' device seeded 0, as JAX's default key is ``PRNGKey(0)``).
+    Returns the attacked images, detached. The model runs as it is set
+    (eval for scoring); only the images are differentiated.
+    """
+    dt, dev = images.dtype, images.device
+    std = torch.as_tensor(std, dtype=dt, device=dev)
+    mean = torch.as_tensor(mean, dtype=dt, device=dev)
+    eps = epsilon / std
+    step = (alpha if alpha is not None else epsilon) / std
+    lower, upper = (0.0 - mean) / std, (1.0 - mean) / std
+    labels = torch.as_tensor(labels, dtype=torch.long, device=dev)
+
+    x0 = images.detach()
+    x = x0
+    if random_init:
+        if init_noise is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            init_noise = torch.rand(x0.shape, generator=generator,
+                                    device=dev, dtype=dt) * 2 - 1
+        x = x0 + torch.as_tensor(init_noise, dtype=dt, device=dev) * eps
+    x = torch.clamp(x, lower, upper)
+    for _ in range(max_iters):
+        x = x.detach().requires_grad_()
+        with torch.enable_grad():
+            logp = torch.log_softmax(model(x.permute(0, 3, 1, 2)).float(),
+                                     dim=-1)
+            loss = -logp.gather(1, labels[:, None]).mean()
+            (g,) = torch.autograd.grad(loss, x)
+        x = x.detach() + step * torch.sign(g)
+        x = torch.clamp(x, x0 - eps, x0 + eps)
+        x = torch.clamp(x, lower, upper)
+    return x.detach()
+
+
 def _list_imagefolder(root: str) -> Tuple[Sequence[str],
                                           Sequence[Tuple[str, int]]]:
     """(sorted class names, [(path, class index), ...]), torchvision
@@ -145,18 +197,28 @@ def evaluate_folder(model, root: str, batch_size: int = 64,
                     adv: Optional[str] = None):
     """Accuracy over one ImageFolder tree (robust.py:10-63):
     {"acc1": %, "acc5": %, "n": count}; each image's label is its class
-    dir's index in the tree."""
-    if adv is not None:
-        raise NotImplementedError(
-            f"adv={adv!r}: FGSM/PGD differentiate through SKA, whose backward "
-            f"comes with the LSNet training slice (ROADMAP Queue 2 A1)")
+    dir's index in the tree. With ``adv`` "FGSM" or "PGD" each batch is
+    attacked first, as JAX's ``evaluate_folder`` does: epsilon 1/255;
+    FGSM one iteration of step 1/255, PGD five of step 0.5/255 from a
+    random start (a generator seeded 0 for every batch, as JAX's default
+    key)."""
+    if adv not in (None, "FGSM", "PGD"):
+        raise ValueError(f"adv={adv!r}: FGSM or PGD")
     _, samples = _list_imagefolder(root)
+    device = next(model.parameters()).device
     n = h1 = h5 = 0
     for i in range(0, len(samples), batch_size):
         chunk = samples[i:i + batch_size]
         imgs = _load_batch([p for p, _ in chunk], input_size)
-        t1, t5 = batch_hits(model, imgs, np.array([l for _, l in chunk]),
-                            mask)
+        labels = np.array([l for _, l in chunk])
+        if adv is not None:
+            imgs = fgsm_pgd_attack(
+                model, torch.from_numpy(imgs).to(device), labels,
+                epsilon=1.0 / 255.0,
+                alpha=0.5 / 255.0 if adv == "PGD" else 1.0 / 255.0,
+                max_iters=5 if adv == "PGD" else 1,
+                random_init=adv == "PGD")
+        t1, t5 = batch_hits(model, imgs, labels, mask)
         h1 += int(t1.sum())
         h5 += int(t5.sum())
         n += len(chunk)

@@ -23,15 +23,20 @@ bits). K6 reads W_proj as the parameter holds it, (out, in) fp32, and
 rounds it to bf16 as each block stages it, so :func:`attn_apply` packs no
 weights on a launch.
 
-:func:`fused_mdta_core` chains the three. Kernel functions take
+:func:`fused_mdta_core` chains the three, and differentiates as the JAX
+``fused_mdta_core`` custom VJP does (``attn_core_pallas.py:188-218``): the
+forward launches K5 and K6 and keeps only qkv, x, the temperature and
+W_proj, b_proj; the backward recomputes ``kernels/block.py``
+``reference_core`` (JAX ``_reference_core``) and differentiates that,
+launching nothing (:class:`_MdtaCore`). Kernel functions take
 (B, H, W, C) contiguous tensors and the (B, H, W, 3C) qkv map, channels
 [q | k | v], head-major. On a CUDA tensor a wrapper launches its kernel, or
 raises if the kernel cannot take the input; on a CPU tensor it runs its
 plain version (``attn_acc_ref``, ``attn_apply_ref``), which rounds where the
 kernel rounds when given bf16 and does not round at all in fp32. Each
-wrapper counts its launches in ``.launches``. Forward only: on CUDA
-tensors that require grad ``backward()`` raises
-(``kernels/forward_only.py``).
+wrapper counts its launches in ``.launches``. :func:`attn_acc` and
+:func:`attn_apply` called alone are forward only: on CUDA tensors that
+require grad their ``backward()`` raises (``kernels/forward_only.py``).
 """
 
 from __future__ import annotations
@@ -39,13 +44,27 @@ from __future__ import annotations
 import torch
 
 from image_restoration_tpu_torch.kernels.block import (
+    RecomputeVJP,
     _check_input,
     _f32,
     _matmul_1x1,
     _ptr,
     attention_softmax,
+    recompute_vjp,
+    reference_core,
+    takes_width,
 )
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
+
+# The head widths csrc/attn_core.cu builds K5 and K6 for (dispatch_ch).
+HEAD_WIDTHS = (16, 32, 48, 64, 96, 128)
+
+
+def attn_takes(c: int, heads: int) -> bool:
+    """The (C, heads) K5 and K6 take: C a multiple of 16 split into heads
+    of a width in :data:`HEAD_WIDTHS`."""
+    return (heads > 0 and c % heads == 0 and takes_width(c)
+            and c // heads in HEAD_WIDTHS)
 
 def attn_acc_ref(qkv, num_heads: int):
     """Plain version of :func:`attn_acc`: the per-head Gram q^T k
@@ -80,13 +99,31 @@ def attn_apply_ref(qkv, x, at, proj_w, proj_b):
     return (x.float() + _matmul_1x1(t, proj_w, proj_b, dt)).to(dt)
 
 
-def fused_mdta_core(qkv, x, temperature, proj_w, proj_b, num_heads: int):
-    """x + project_out(MDTA(q, k, v)) on (B, H, W, C) x: :func:`attn_acc`,
-    :func:`finalize_at` and :func:`attn_apply`. On CPU tensors this is the
-    chain of the plain versions."""
+class _MdtaCore(RecomputeVJP):
+    """The JAX ``fused_mdta_core`` custom VJP: ``_fwd`` keeps (qkv, x,
+    temperature, w_proj, b_proj), ``_bwd`` is ``jax.vjp`` of
+    ``_reference_core`` at them (no b_proj, no gradient for it)."""
+
+
+def _mdta_core(qkv, x, temperature, proj_w, proj_b, num_heads):
     gram, ss = attn_acc(qkv, num_heads)
     at = finalize_at(gram, ss, temperature, x.dtype)
     return attn_apply(qkv, x, at, proj_w, proj_b)
+
+
+def fused_mdta_core(qkv, x, temperature, proj_w, proj_b, num_heads: int):
+    """x + project_out(MDTA(q, k, v)) on (B, H, W, C) x: :func:`attn_acc`,
+    :func:`finalize_at` and :func:`attn_apply`. On CPU tensors this is the
+    chain of the plain versions.
+
+    Differentiable in qkv, x, the temperature, W_proj and b_proj: the
+    backward is that of ``reference_core``, recomputed. Without a gradient
+    to take, this is the three steps themselves."""
+    return recompute_vjp(
+        _MdtaCore,
+        lambda *t: _mdta_core(*t, num_heads),
+        lambda *t: reference_core(*t, num_heads),
+        (qkv, x, temperature, proj_w, proj_b))
 
 
 def _check_qkv(qkv, num_heads):
@@ -94,10 +131,11 @@ def _check_qkv(qkv, num_heads):
     b, h, w, c3 = qkv.shape
     c = c3 // 3
     ch = c // num_heads
-    if c3 % 3 or c % 16 or ch % 16 or ch * num_heads != c:
+    if c3 % 3 or not attn_takes(c, num_heads):
         raise ValueError(f"the attention kernels need a (B, H, W, 3C) map "
-                         f"with C and C/heads multiples of 16, got "
-                         f"{tuple(qkv.shape)} with {num_heads} heads")
+                         f"with C a multiple of 16 and C/heads one of "
+                         f"{HEAD_WIDTHS}, got {tuple(qkv.shape)} with "
+                         f"{num_heads} heads")
     if qkv.data_ptr() % 16:
         raise ValueError("qkv must start on a 16-byte boundary (the kernels "
                          "copy 16 bytes at a time)")

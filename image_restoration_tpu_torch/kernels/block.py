@@ -23,7 +23,8 @@ bf16 and does not round at all in fp32. Each wrapper counts its launches in
 does (``block_pallas.py:634-676``): its forward runs the two passes and
 keeps only the block input, the parameters and the gate; its backward
 recomputes :func:`reference_block` from them and differentiates that, one
-block's plain graph at a time. Neither package has a backward kernel.
+block's plain graph at a time (:class:`RecomputeVJP`, which the other
+kernel APIs' VJPs share). Neither package has a backward kernel for it.
 :func:`block_front` and :func:`block_apply_gdfn` called alone stay forward
 only, as JAX's ``run_front`` has no VJP: on CUDA tensors that require
 grad, their ``backward()`` raises (``kernels/forward_only.py``); their
@@ -206,6 +207,54 @@ def block_apply_gdfn_ref(v, x, atw, p: BlockParams, eps: float = 1e-5):
     return gdfn_tail_ref(ao, p.gdfn(), x.dtype, eps)
 
 
+def _conv_dt(t, wt, bias, dt, groups=1, padding=0):
+    """Zero-padded conv of a (B, H, W, N) tensor with its weights and bias
+    rounded to ``dt`` (the JAX references' ``conv_general_dilated`` in the
+    compute dtype)."""
+    bias = None if bias is None else bias.to(dt)
+    out = F.conv2d(t.permute(0, 3, 1, 2), wt.to(dt), bias, padding=padding,
+                   groups=groups)
+    return out.permute(0, 2, 3, 1)
+
+
+def reference_front(x, p: FrontParams, eps: float = 1e-5):
+    """dwconv3(qkv1x1(LN1(x))), (B, H, W, 3C), as the plain composition of
+    its ops: counterpart of the JAX ``mdta_pallas._reference``, which the
+    ``fused_ln_qkv_dwconv`` VJP differentiates. The LN output and both convs
+    in x's dtype, LN statistics in fp32."""
+    dt = x.dtype
+    y = layer_norm_f32(x, p.ln1_w, p.ln1_b, eps).to(dt)
+    qkv = _conv_dt(y, p.qkv_w, p.qkv_b, dt)
+    return _conv_dt(qkv, p.dw_w, p.dw_b, dt, groups=qkv.shape[-1], padding=1)
+
+
+def reference_core(qkv, x, temperature, proj_w, proj_b, num_heads: int,
+                   gate=None):
+    """x + project_out(MDTA(q, k, v)) on the (B, H, W, 3C) map, as the plain
+    composition of its ops: counterpart of the JAX
+    ``attn_core_pallas._reference_core``. ``gate`` (B, C) multiplies the
+    attention output, rounded to x's dtype, before project_out."""
+    dt = x.dtype
+    q, k, v = (t.permute(0, 3, 1, 2) for t in qkv.chunk(3, dim=-1))
+    attn = mdta_attention(q, k, v, temperature, num_heads)
+    if gate is not None:
+        attn = attn * gate.to(dt)[:, :, None, None]
+    return x + _conv_dt(attn.permute(0, 2, 3, 1), proj_w, proj_b, dt)
+
+
+def reference_ln_gdfn(x, p: GDFNParams, eps: float = 1e-5):
+    """x + GDFN(LN2(x)) as the plain composition of its ops: counterpart of
+    the JAX ``gdfn_pallas._reference_ln_gdfn``. Every conv in x's dtype,
+    the LN statistics and gelu in fp32."""
+    dt = x.dtype
+    hid = _conv_dt(layer_norm_f32(x, p.ln_w, p.ln_b, eps).to(dt), p.in_w,
+                   p.in_b, dt)
+    hid = _conv_dt(hid, p.dw_w, p.dw_b, dt, groups=hid.shape[-1], padding=1)
+    cont, gate = hid.chunk(2, dim=-1)
+    act = gelu_exact(cont.float()).to(dt) * gate
+    return x + _conv_dt(act, p.out_w, p.out_b, dt)
+
+
 def reference_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5,
                     gate=None):
     """The block as the plain composition of its ops, on (B, H, W, C):
@@ -213,29 +262,53 @@ def reference_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5,
     in x's dtype; LN statistics, norms and softmax in fp32. ``gate`` (B, C)
     multiplies the attention output, rounded to x's dtype, before
     project_out (the JAX ``attn_core_pallas._reference_core``)."""
-    dt = x.dtype
+    qkv = reference_front(x, p.front(), eps)
+    x = reference_core(qkv, x, p.temperature, p.proj_w, p.proj_b, num_heads,
+                       gate)
+    return reference_ln_gdfn(x, p.gdfn(), eps)
 
-    def ln(t, w, bias):
-        return layer_norm_f32(t, w, bias, eps).to(dt)
 
-    def conv(t, wt, bias, groups=1, padding=0):
-        bias = None if bias is None else bias.to(dt)
-        out = F.conv2d(t.permute(0, 3, 1, 2), wt.to(dt), bias,
-                       padding=padding, groups=groups)
-        return out.permute(0, 2, 3, 1)
+# ------------------------------------------------------- differentiable ---
 
-    qkv = conv(ln(x, p.ln1_w, p.ln1_b), p.qkv_w, p.qkv_b)
-    qkv = conv(qkv, p.dw_w, p.dw_b, groups=qkv.shape[-1], padding=1)
-    q, k, v = (t.permute(0, 3, 1, 2) for t in qkv.chunk(3, dim=-1))
-    attn = mdta_attention(q, k, v, p.temperature, num_heads)
-    if gate is not None:
-        attn = attn * gate.to(dt)[:, :, None, None]
-    x = x + conv(attn.permute(0, 2, 3, 1), p.proj_w, p.proj_b)
-    hid = conv(ln(x, p.ln2_w, p.ln2_b), p.in_w, p.in_b)
-    hid = conv(hid, p.dw2_w, p.dw2_b, groups=hid.shape[-1], padding=1)
-    cont, gate = hid.chunk(2, dim=-1)
-    act = gelu_exact(cont.float()).to(dt) * gate
-    return x + conv(act, p.out_w, p.out_b)
+class RecomputeVJP(torch.autograd.Function):
+    """A kernel API with the semantics of its JAX custom VJP: the forward
+    runs ``launch`` on the inputs and saves only them (the residuals of
+    JAX's ``_fwd``: the input and the parameters, no intermediate map); the
+    backward differentiates ``reference``, the plain composition JAX's
+    ``_bwd`` differentiates, recomputed from them on detached leaves, and
+    launches no kernel. A training step so holds one call's plain graph at
+    a time, during its backward. Each kernel API subclasses it, which names
+    its nodes in the graph (``_FusedBlockBackward``)."""
+
+    @staticmethod
+    def forward(ctx, launch, reference, *inputs):
+        ctx.reference = reference
+        ctx.save_for_backward(*inputs)
+        return launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, needs)]
+            out = ctx.reference(*leaves)
+            wanted = [t for t, n in zip(leaves, needs) if t is not None and n]
+            grads = iter(torch.autograd.grad(out, wanted, g,
+                                             allow_unused=True))
+        return (None, None, *(next(grads) if t is not None and n else None
+                              for t, n in zip(leaves, needs)))
+
+
+def recompute_vjp(fn, launch, reference, inputs):
+    """``launch(*inputs)``, differentiable in every tensor of ``inputs``
+    (None allowed) through ``fn``, a :class:`RecomputeVJP` subclass. With
+    nothing to differentiate (no input requires grad, or grad mode is off)
+    this is ``launch(*inputs)`` itself."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return fn.apply(launch, reference, *inputs)
+    return launch(*inputs)
 
 
 # ---------------------------------------------------------------- kernels ---
@@ -245,6 +318,44 @@ _HIDDEN_CHUNK = 32  # csrc/gdfn.cuh NH: hidden padded to this
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def takes_width(c: int) -> bool:
+    """The channel widths K1-K4 and K7 take: multiples of 16 (the 16-wide
+    fragments of their products)."""
+    return c > 0 and c % 16 == 0
+
+
+def front_takes(c: int, heads: int) -> bool:
+    """The (C, heads) K1 takes, and so the pair of :func:`fused_block` (K2
+    needs only :func:`takes_width`): C and the head width C / heads
+    multiples of 16."""
+    return (heads > 0 and c % heads == 0 and takes_width(c)
+            and takes_width(c // heads))
+
+
+def block_misfits(c: int, heads: int, fused_block: bool = False,
+                  fused_attn: bool = False, fused_gdfn: bool = False) -> dict:
+    """{flag: why} for each kernel flag that is on for a block of C
+    channels in ``heads`` heads whose kernels do not take that width, by
+    the rules the wrappers check (:func:`front_takes` for K1 and the pair,
+    ``kernels/attn_core.py`` ``attn_takes`` for K4-K6, :func:`takes_width`
+    for K3)."""
+    from image_restoration_tpu_torch.kernels.attn_core import (
+        HEAD_WIDTHS, attn_takes,
+    )
+
+    shape = f"a block has C {c} in {heads} heads of {c / heads:g}"
+    why = {}
+    if fused_block and not front_takes(c, heads):
+        why["fused_block"] = (f"{shape} (K1 takes C and C/heads multiples "
+                              f"of 16)")
+    if fused_attn and not attn_takes(c, heads):
+        why["fused_attn"] = (f"{shape} (K4-K6 take C a multiple of 16 and "
+                             f"C/heads one of {HEAD_WIDTHS})")
+    if fused_gdfn and not takes_width(c):
+        why["fused_gdfn"] = f"{shape} (K3 takes C a multiple of 16)"
+    return why
 
 
 def _check_input(name, t, like):
@@ -359,7 +470,7 @@ def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
     _check_input("x", x, x)
     b, h, w, c = x.shape
     ch = c // num_heads
-    if c % 16 or ch % 16 or ch * num_heads != c:
+    if not front_takes(c, num_heads):
         raise ValueError(f"block_front needs C and C/heads multiples of 16, "
                          f"got C={c}, heads={num_heads}")
     if x.data_ptr() % 16:
@@ -441,7 +552,7 @@ def block_apply_gdfn(v, x, atw, p: BlockParams, eps: float = 1e-5):
     for name, t in (("v", v), ("x", x), ("atw", atw)):
         _check_input(name, t, x)
     b, h, w, c = x.shape
-    if c % 16 or v.shape != x.shape or atw.shape != (b, c, c):
+    if not takes_width(c) or v.shape != x.shape or atw.shape != (b, c, c):
         raise ValueError(f"block_apply_gdfn: v {tuple(v.shape)}, x "
                          f"{tuple(x.shape)}, atw {tuple(atw.shape)}; C must "
                          f"be a multiple of 16")
@@ -486,32 +597,9 @@ def _block_passes(x, p: BlockParams, num_heads, eps, gate):
     return block_apply_gdfn(v, x, atw, p, eps)
 
 
-class _FusedBlock(torch.autograd.Function):
-    """The JAX ``fused_block`` custom VJP: ``_fwd`` keeps (x, params,
-    gate), ``_bwd`` is ``jax.vjp`` of ``_reference_block`` at them. The
-    forward saves no v, Gram or hidden map, so a training step holds one
-    block's plain graph at a time, during its backward."""
-
-    @staticmethod
-    def forward(ctx, num_heads, eps, x, gate, *params):
-        ctx.num_heads, ctx.eps = num_heads, eps
-        ctx.save_for_backward(x, gate, *params)
-        return _block_passes(x, BlockParams(*params), num_heads, eps, gate)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, gate, *params = ctx.saved_tensors
-        needs = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_(n)
-                      for t, n in zip((x, gate, *params), needs)]
-            out = reference_block(leaves[0], BlockParams(*leaves[2:]),
-                                  ctx.num_heads, ctx.eps, gate=leaves[1])
-            wanted = [t for t, n in zip(leaves, needs) if t is not None and n]
-            grads = iter(torch.autograd.grad(out, wanted, g,
-                                             allow_unused=True))
-        return (None, None, *(next(grads) if t is not None and n else None
-                              for t, n in zip(leaves, needs)))
+class _FusedBlock(RecomputeVJP):
+    """The JAX ``fused_block`` custom VJP: ``_fwd`` keeps (x, gate,
+    params), ``_bwd`` is ``jax.vjp`` of ``_reference_block`` at them."""
 
 
 def fused_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5,
@@ -523,7 +611,10 @@ def fused_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5,
     Differentiable in x, every parameter and ``gate``: the backward is
     that of :func:`reference_block`, recomputed (:class:`_FusedBlock`).
     Without a gradient to take, the passes run as they are."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, gate, *p)):
-        return _FusedBlock.apply(num_heads, eps, x, gate, *p)
-    return _block_passes(x, p, num_heads, eps, gate)
+    return recompute_vjp(
+        _FusedBlock,
+        lambda x, gate, *q: _block_passes(x, BlockParams(*q), num_heads, eps,
+                                          gate),
+        lambda x, gate, *q: reference_block(x, BlockParams(*q), num_heads,
+                                            eps, gate=gate),
+        (x, gate, *p))

@@ -37,6 +37,8 @@ _SIGNATURES = {
     "ir_mefc_step": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "ir_ska_blocks": (_I, [_I] * 7),
     "ir_ska": (_I, [_P] * 3 + [_I] * 11 + [_P]),
+    "ir_ska_bwd_x": (_I, [_P] * 3 + [_I] * 7 + [_P]),
+    "ir_ska_bwd_w": (_I, [_P] * 3 + [_I] * 7 + [_P]),
     "ir_ln_qkv_dwconv_smem": (_I, [_I] * 3),
     "ir_ln_qkv_dwconv": (_I, [_P] * 8 + [_I] * 6 + [_F, _P]),
     "ir_attn_acc_smem": (_I, [_I] * 4),

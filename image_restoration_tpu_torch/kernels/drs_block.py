@@ -26,9 +26,15 @@ Kernel functions take (B, H, W, C) contiguous tensors. On a CUDA tensor a
 wrapper launches its kernel, or raises if the kernel cannot take the input;
 on a CPU tensor it runs its plain version, which rounds where the kernel
 rounds when given bf16 and does not round at all in fp32. Each wrapper
-counts its launches in ``.launches``. Forward only: on CUDA
-tensors that require grad ``backward()`` raises
-(``kernels/forward_only.py``).
+counts its launches in ``.launches``.
+
+:func:`fused_drs_block` differentiates as the JAX ``fused_drs_block``
+custom VJP does (``drs_block_pallas.py:630-659``): the forward launches K1
+and K7 and keeps only the block input and the parameters; the backward
+recomputes :func:`reference_drs_block` (JAX ``_reference_drs_block``) and
+differentiates that, launching nothing (:class:`_DRSBlock`).
+:func:`drs_apply_msfn` called alone is forward only: on CUDA tensors that
+require grad its ``backward()`` raises (``kernels/forward_only.py``).
 """
 
 from __future__ import annotations
@@ -42,12 +48,15 @@ import torch.nn.functional as F
 
 from image_restoration_tpu_torch.kernels.block import (
     FrontParams,
+    RecomputeVJP,
     _check_input,
     _check_params,
     _f32,
     _matmul_1x1,
     _ptr,
     block_front,
+    recompute_vjp,
+    takes_width,
 )
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
 from image_restoration_tpu_torch.ops.attention import (
@@ -391,7 +400,7 @@ def drs_apply_msfn(v, x, atw, p: DRSBlockParams, eps: float = 1e-5):
     for name, t in (("v", v), ("x", x), ("atw", atw)):
         _check_input(name, t, x)
     b, h, w, c = x.shape
-    if c % 16 or v.shape != x.shape or atw.shape != (b, c, c):
+    if not takes_width(c) or v.shape != x.shape or atw.shape != (b, c, c):
         raise ValueError(f"drs_apply_msfn: v {tuple(v.shape)}, x "
                          f"{tuple(x.shape)}, atw {tuple(atw.shape)}; C must "
                          f"be a multiple of 16")
@@ -430,9 +439,27 @@ def drs_apply_msfn(v, x, atw, p: DRSBlockParams, eps: float = 1e-5):
 drs_apply_msfn.launches = 0
 
 
-def fused_drs_block(x, p: DRSBlockParams, num_heads: int, eps: float = 1e-5):
-    """One whole DRSformer TransformerBlock on (B, H, W, C): pass 1 (the
-    Restormer block's), the TKSA finalize, pass 2."""
+def _drs_passes(x, p: DRSBlockParams, num_heads, eps):
     v, gram, ss = block_front(x, p.front(), num_heads, eps)
     atw = tksa_finalize(gram, ss, p.temperature, p.mix, p.proj_w, x.dtype)
     return drs_apply_msfn(v, x, atw, p, eps)
+
+
+class _DRSBlock(RecomputeVJP):
+    """The JAX ``fused_drs_block`` custom VJP: ``_fwd`` keeps (x, params),
+    ``_bwd`` is ``jax.vjp`` of ``_reference_drs_block`` at them."""
+
+
+def fused_drs_block(x, p: DRSBlockParams, num_heads: int, eps: float = 1e-5):
+    """One whole DRSformer TransformerBlock on (B, H, W, C): pass 1 (the
+    Restormer block's), the TKSA finalize, pass 2.
+
+    Differentiable in x and every parameter (``mix`` included): the
+    backward is that of :func:`reference_drs_block`, recomputed. Without a
+    gradient to take, the passes run as they are."""
+    return recompute_vjp(
+        _DRSBlock,
+        lambda x, *q: _drs_passes(x, DRSBlockParams(*q), num_heads, eps),
+        lambda x, *q: reference_drs_block(x, DRSBlockParams(*q), num_heads,
+                                          eps),
+        (x, *p))

@@ -7,12 +7,14 @@ gradients. :func:`forward_only` runs the launch inside a
 ``torch.autograd.Function`` whenever a gradient could flow, so that
 ``backward()`` raises instead.
 
-The JAX kernels differentiate through custom VJPs that recompute the plain
-composition. The port has that backward for the whole block pair,
-``kernels/block.py`` ``fused_block``; the passes it is made of
-(``block_front`` and ``block_apply_gdfn`` called alone, as JAX's
-``run_front`` has no VJP) and the K3-K9 wrappers still come here. Their
-VJPs are the next training slices (ROADMAP Queue 2 A1 and A3).
+The JAX kernel APIs differentiate through custom VJPs, and so do the
+port's (``kernels/block.py`` ``RecomputeVJP``: ``fused_block``,
+``ln_qkv_dwconv``, ``fused_mdta_core``, ``fused_ln_gdfn``,
+``fused_drs_block``, ``fused_mefc_steps``; ``kernels/ska.py`` ``ska``).
+What comes here are the passes those APIs are made of, called alone:
+``block_front``, ``block_apply_gdfn``, ``attn_acc``, ``attn_apply``,
+``drs_apply_msfn`` and ``mefc_step``. JAX has no VJP for them either (its
+``run_front`` has none).
 """
 
 from __future__ import annotations
@@ -29,11 +31,11 @@ class _ForwardOnly(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            f"{ctx.name}: the CUDA kernel is forward only; its VJP is a "
-            f"later training slice (ROADMAP Queue 2 A1, A3). Run the plain "
-            f"version (CPU tensors, or the model with its kernel flag off), "
-            f"or the whole block through kernels/block.py fused_block, to "
-            f"differentiate.")
+            f"{ctx.name}: the CUDA kernel called alone is forward only, as "
+            f"the JAX pass has no VJP. Differentiate through the kernel API "
+            f"it belongs to (fused_block, fused_mdta_core, fused_drs_block, "
+            f"fused_mefc_steps), or the plain version (CPU tensors, or the "
+            f"model with its kernel flag off).")
 
 
 def _tensors(inputs):

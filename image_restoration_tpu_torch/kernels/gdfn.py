@@ -12,9 +12,13 @@ x, and shares its device code and weight packing.
 On a CUDA tensor the wrapper launches the kernel, or raises if the kernel
 cannot take the input; on a CPU tensor it runs :func:`ln_gdfn_ref`, which
 rounds where the kernel rounds when given bf16 and does not round at all in
-fp32. The wrapper counts its launches in ``.launches``. Forward only: on CUDA
-tensors that require grad ``backward()`` raises
-(``kernels/forward_only.py``).
+fp32. The wrapper counts its launches in ``.launches``.
+
+:func:`fused_ln_gdfn` differentiates as the JAX ``fused_ln_gdfn`` custom
+VJP does (``gdfn_pallas.py:261-283``): the forward launches K3 and keeps
+only x and the parameters; the backward recomputes ``kernels/block.py``
+``reference_ln_gdfn`` (JAX ``_reference_ln_gdfn``) and differentiates
+that, launching nothing (:class:`_LnGdfn`).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from image_restoration_tpu_torch.kernels.block import (
     _apply_warps,
     _HIDDEN_CHUNK,
     GDFNParams,
+    RecomputeVJP,
     _check_input,
     _check_params,
     _pick_tile_rows,
@@ -33,8 +38,10 @@ from image_restoration_tpu_torch.kernels.block import (
     _tiles,
     gdfn_tail_ref,
     gdfn_weights,
+    recompute_vjp,
+    reference_ln_gdfn,
+    takes_width,
 )
-from image_restoration_tpu_torch.kernels.forward_only import forward_only
 
 
 def ln_gdfn_ref(x, p: GDFNParams, eps: float = 1e-5):
@@ -42,19 +49,34 @@ def ln_gdfn_ref(x, p: GDFNParams, eps: float = 1e-5):
     return gdfn_tail_ref(x.float(), p, x.dtype, eps)
 
 
+class _LnGdfn(RecomputeVJP):
+    """The JAX ``fused_ln_gdfn`` custom VJP: ``_fwd`` keeps (x, params),
+    ``_bwd`` is ``jax.vjp`` of ``_reference_ln_gdfn`` at them."""
+
+
 def fused_ln_gdfn(x, p: GDFNParams, eps: float = 1e-5):
     """x + GDFN(LN2(x)), (B, H, W, C) in x's dtype.
 
     x: (B, H, W, C) bf16 on the GPU, C a multiple of 16.
     p: GDFNParams (``BlockParams.gdfn()``).
+
+    Differentiable in x and every parameter: the backward is that of
+    ``reference_ln_gdfn``, recomputed. Without a gradient to take, this is
+    the launch itself.
     """
+    return recompute_vjp(
+        _LnGdfn, lambda x, *q: _fused_ln_gdfn(x, GDFNParams(*q), eps),
+        lambda x, *q: reference_ln_gdfn(x, GDFNParams(*q), eps), (x, *p))
+
+
+def _fused_ln_gdfn(x, p: GDFNParams, eps):
     if x.device.type == "cpu":
         return ln_gdfn_ref(x, p, eps)
     from image_restoration_tpu_torch.kernels.build import load_library
 
     _check_input("x", x, x)
     b, h, w, c = x.shape
-    if c % 16:
+    if not takes_width(c):
         raise ValueError(f"fused_ln_gdfn needs C a multiple of 16, got {c}")
     if x.data_ptr() % 16:
         raise ValueError("x must start on a 16-byte boundary (the kernel "
@@ -69,19 +91,16 @@ def fused_ln_gdfn(x, p: GDFNParams, eps: float = 1e-5):
                          lambda t: _tiles(b, h, w, t), x.device)
     wcg, bcg, dwcg, dbcg, wo, bo, ln_w, ln_b = gdfn_weights(p, c, hp)
 
-    def launch():
-        out = torch.empty_like(x)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            code = lib.lib.ir_ln_gdfn(
-                x.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), wcg.data_ptr(),
-                _ptr(bcg), dwcg.data_ptr(), _ptr(dbcg), wo.data_ptr(), _ptr(bo),
-                out.data_ptr(), b, h, w, c, hp, th, warps, float(eps), stream)
-        lib.check(code, "fused_ln_gdfn")
-        fused_ln_gdfn.launches += 1
-        return out
-
-    return forward_only("fused_ln_gdfn", (x, *p), launch)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.lib.ir_ln_gdfn(
+            x.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), wcg.data_ptr(),
+            _ptr(bcg), dwcg.data_ptr(), _ptr(dbcg), wo.data_ptr(), _ptr(bo),
+            out.data_ptr(), b, h, w, c, hp, th, warps, float(eps), stream)
+    lib.check(code, "fused_ln_gdfn")
+    fused_ln_gdfn.launches += 1
+    return out
 
 
 fused_ln_gdfn.launches = 0

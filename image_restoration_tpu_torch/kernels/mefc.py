@@ -19,8 +19,15 @@ chip. Everything is bias-free, as in the reference.
 On a CUDA tensor :func:`mefc_step` launches its kernel or raises; on a CPU
 tensor it runs :func:`mefc_step_ref`, which rounds where the kernel rounds
 when given bf16 and does not round at all in fp32. ``mefc_step.launches``
-counts launches. Forward only: on CUDA
-tensors that require grad ``backward()`` raises
+counts launches.
+
+:func:`fused_mefc_steps` differentiates as the JAX ``fused_mefc_steps``
+custom VJP does (``mefc_pallas.py:313-335``): the forward launches K8 once
+a step and keeps only x, every step's parameters and the (B, steps, 8)
+weights; the backward recomputes :func:`reference_steps` (JAX
+``_reference_steps``) and differentiates that, launching nothing
+(:class:`_MEFCSteps`). :func:`mefc_step` called alone is forward only: on
+CUDA tensors that require grad its ``backward()`` raises
 (``kernels/forward_only.py``).
 """
 
@@ -32,10 +39,13 @@ import torch
 import torch.nn.functional as F
 
 from image_restoration_tpu_torch.kernels.block import (
+    RecomputeVJP,
     _check_input,
     _matmul_1x1,
     _pick_tile_rows,
     _tiles,
+    recompute_vjp,
+    takes_width,
 )
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
 
@@ -149,6 +159,12 @@ def reference_steps(x, steps: List[StepParams], weights):
 
 # ---------------------------------------------------------------- kernels ---
 
+def mefc_takes(c: int) -> bool:
+    """The widths K8 is built for (csrc/mefc_step.cu, its W1 product's
+    fragments): multiples of 16 up to 128."""
+    return takes_width(c) and c <= 128
+
+
 def _taps(ws):
     """Depthwise weights [(C, 1, k, k)] -> fp32 (sum k^2, C), tap-major."""
     return torch.cat([w.reshape(w.shape[0], -1).t().float() for w in ws]
@@ -202,9 +218,9 @@ def mefc_step(x, sp: StepParams, m):
     _check_input("x", x, x)
     _check_input("m", m, x)
     b, h, w, c = x.shape
-    if c % 16 or m.shape != (b, NUM_OPS, c, c):
+    if not mefc_takes(c) or m.shape != (b, NUM_OPS, c, c):
         raise ValueError(f"mefc_step: x {tuple(x.shape)}, m {tuple(m.shape)};"
-                         f" C must be a multiple of 16")
+                         f" C must be a multiple of 16 up to 128")
     if x.data_ptr() % 16 or m.data_ptr() % 16:
         raise ValueError("x and m must start on a 16-byte boundary (the "
                          "kernel copies 16 bytes at a time)")
@@ -234,9 +250,47 @@ def mefc_step(x, sp: StepParams, m):
 mefc_step.launches = 0
 
 
-def fused_mefc_steps(x, steps: List[StepParams], weights):
-    """The Subnet's op-mixture steps on (B, H, W, C): per step, the fold and
-    one :func:`mefc_step`. ``weights`` (B, steps, 8) in x's dtype."""
-    for st, sp in enumerate(steps):
+def _flat(steps: List[StepParams]):
+    """Every step's tensors in one list (field by field, lists unrolled)."""
+    return [t for sp in steps for f in sp
+            for t in (f if isinstance(f, list) else [f])]
+
+
+# the StepParams fields' lengths: four SepConv lists, two DilConv lists, wcat
+_FIELD_SIZES = (len(SEP_KS),) * 4 + (len(DIL_KS),) * 2 + (1,)
+
+
+def _unflat(flat) -> List[StepParams]:
+    steps, i = [], 0
+    while i < len(flat):
+        fields = []
+        for n in _FIELD_SIZES:
+            fields.append(list(flat[i:i + n]) if n > 1 else flat[i])
+            i += n
+        steps.append(StepParams(*fields))
+    return steps
+
+
+def _steps(x, weights, *flat):
+    for st, sp in enumerate(_unflat(flat)):
         x = mefc_step(x, sp, fold_step(sp, weights[:, st], x.dtype))
     return x
+
+
+class _MEFCSteps(RecomputeVJP):
+    """The JAX ``fused_mefc_steps`` custom VJP: ``_fwd`` keeps (x,
+    raw_steps, weights), ``_bwd`` is ``jax.vjp`` of ``_reference_steps``
+    at them."""
+
+
+def fused_mefc_steps(x, steps: List[StepParams], weights):
+    """The Subnet's op-mixture steps on (B, H, W, C): per step, the fold and
+    one :func:`mefc_step`. ``weights`` (B, steps, 8) in x's dtype.
+
+    Differentiable in x, every step's parameters and ``weights``: the
+    backward is that of :func:`reference_steps`, recomputed. Without a
+    gradient to take, the steps run as they are."""
+    return recompute_vjp(
+        _MEFCSteps, _steps,
+        lambda x, weights, *flat: reference_steps(x, _unflat(flat), weights),
+        (x, weights, *_flat(steps)))

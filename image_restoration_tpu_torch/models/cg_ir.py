@@ -34,7 +34,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from image_restoration_tpu_torch.kernels.block import BlockParams, fused_block
+from image_restoration_tpu_torch.kernels.block import (
+    BlockParams, block_misfits, fused_block,
+)
 from image_restoration_tpu_torch.models.registry import register_model
 from image_restoration_tpu_torch.models.restormer import (
     OverlapPatchEmbed,
@@ -189,13 +191,17 @@ class CGTB(nn.Module):
                  context_dim: int = 64, fused_block: bool = False,
                  dtype=None):
         super().__init__()
-        self.num_heads = num_heads
+        self.dim, self.num_heads = dim, num_heads
         self.fused_block = fused_block
         self.norm1 = LayerNorm(dim, ln_type)
         self.attn = ContextAdaptiveGatedAttention(dim, num_heads, use_bias,
                                                   context_dim, dtype=dtype)
         self.norm2 = LayerNorm(dim, ln_type)
         self.ffn = GDFN(dim, expansion, use_bias, dtype=dtype)
+
+    def kernel_misfits(self) -> dict:
+        """The kernel flags on that this block's width rules out."""
+        return block_misfits(self.dim, self.num_heads, self.fused_block)
 
     def block_params(self, context_emb):
         """(BlockParams with the per-sample fp32 temperature (B, heads),

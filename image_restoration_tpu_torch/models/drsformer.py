@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from image_restoration_tpu_torch.kernels.block import block_misfits
 from image_restoration_tpu_torch.kernels.drs_block import (
     DRSBlockParams,
     fused_drs_block,
@@ -37,6 +38,7 @@ from image_restoration_tpu_torch.kernels.mefc import (
     StepParams,
     avg_pool3x3_exclude_pad,
     fused_mefc_steps,
+    mefc_takes,
 )
 from image_restoration_tpu_torch.models.registry import register_model
 from image_restoration_tpu_torch.ops.attention import tksa_attention
@@ -119,12 +121,17 @@ class TransformerBlock(nn.Module):
                  bias: bool = False, ln_type: str = "WithBias",
                  fused_block: bool = False, dtype=None):
         super().__init__()
-        self.num_heads = num_heads
+        self.dim, self.num_heads = dim, num_heads
         self.fused_block = fused_block
         self.norm1 = LayerNorm(dim, ln_type)
         self.attn = TKSA(dim, num_heads, bias, dtype=dtype)
         self.norm2 = LayerNorm(dim, ln_type)
         self.ffn = MSFN(dim, expansion, bias, dtype=dtype)
+
+    def kernel_misfits(self) -> dict:
+        """The kernel flags on that this block's width rules out (K1's
+        rule; K7 takes every width K1 does)."""
+        return block_misfits(self.dim, self.num_heads, self.fused_block)
 
     def block_params(self) -> DRSBlockParams:
         n1, n2, at, ff = self.norm1.body, self.norm2.body, self.attn, self.ffn
@@ -249,10 +256,18 @@ class GroupOLs(nn.Module):
 
     def __init__(self, c: int, steps: int, fused: bool = False, dtype=None):
         super().__init__()
-        self.fused = fused
+        self.c, self.fused = c, fused
         self.preprocess = ReLUConv(c, dtype)
         self._ops = nn.ModuleList([OperationLayer(c, dtype)
                                    for _ in range(steps)])
+
+    def kernel_misfits(self) -> dict:
+        """{"fused_block": why} when the steps are fused at a width K8 does
+        not take (``kernels/mefc.py`` ``mefc_takes``), else {}."""
+        if not self.fused or mefc_takes(self.c):
+            return {}
+        return {"fused_block": f"an MEFC Subnet is {self.c} wide (K8 takes "
+                               f"multiples of 16 up to 128)"}
 
     def forward(self, x, weights):
         s0 = self.preprocess(x)

@@ -40,7 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from image_restoration_tpu_torch.kernels.block import BlockParams, fused_block
+from image_restoration_tpu_torch.kernels.block import (
+    BlockParams, block_misfits, fused_block,
+)
 from image_restoration_tpu_torch.models.adair import ChannelCrossAttention
 from image_restoration_tpu_torch.models.registry import register_model
 from image_restoration_tpu_torch.ops.attention import MDTA
@@ -259,12 +261,16 @@ class EncoderBlock(nn.Module):
                  use_bias: bool = True, ln_type: str = "WithBias",
                  fused_block: bool = False, dtype=None):
         super().__init__()
-        self.num_heads = num_heads
+        self.dim, self.num_heads = dim, num_heads
         self.fused_block = fused_block
         self.norms = nn.ModuleList([LayerNorm(dim, ln_type),
                                     LayerNorm(dim, ln_type)])
         self.mixer = MDTA(dim, num_heads, use_bias, dtype=dtype)
         self.ffn = GDFN(dim, expansion, use_bias, dtype=dtype)
+
+    def kernel_misfits(self) -> dict:
+        """The kernel flags on that this block's width rules out."""
+        return block_misfits(self.dim, self.num_heads, self.fused_block)
 
     def block_params(self) -> BlockParams:
         n1, n2 = self.norms[0].body, self.norms[1].body

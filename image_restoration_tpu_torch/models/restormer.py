@@ -26,7 +26,9 @@ import torch
 from torch import nn
 
 from image_restoration_tpu_torch.kernels.attn_core import fused_mdta_core
-from image_restoration_tpu_torch.kernels.block import BlockParams, fused_block
+from image_restoration_tpu_torch.kernels.block import (
+    BlockParams, block_misfits, fused_block,
+)
 from image_restoration_tpu_torch.kernels.gdfn import fused_ln_gdfn
 from image_restoration_tpu_torch.kernels.mdta import ln_qkv_dwconv
 from image_restoration_tpu_torch.models.registry import register_model
@@ -49,7 +51,7 @@ class TransformerBlock(nn.Module):
                  fused_block: bool = False, fused_attn: bool = False,
                  fused_gdfn: bool = False, dtype=None):
         super().__init__()
-        self.num_heads = num_heads
+        self.dim, self.num_heads = dim, num_heads
         self.fused_block = fused_block
         self.fused_attn = fused_attn
         self.fused_gdfn = fused_gdfn
@@ -57,6 +59,11 @@ class TransformerBlock(nn.Module):
         self.attn = MDTA(dim, num_heads, use_bias, dtype=dtype)
         self.norm2 = LayerNorm(dim, ln_type)
         self.ffn = GDFN(dim, expansion, use_bias, dtype=dtype)
+
+    def kernel_misfits(self) -> dict:
+        """The kernel flags on that this block's width rules out."""
+        return block_misfits(self.dim, self.num_heads, self.fused_block,
+                             self.fused_attn, self.fused_gdfn)
 
     def block_params(self) -> BlockParams:
         n1, n2, at, ff = self.norm1.body, self.norm2.body, self.attn, self.ffn

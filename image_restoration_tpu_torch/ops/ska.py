@@ -12,7 +12,9 @@ neighbouring channels), with zero padding p = (k - 1) / 2. Sums are fp32;
 the result is rounded once to x's dtype.
 
 :func:`ska_plain` is the plain PyTorch version (the JAX ``ska_xla``); the
-CUDA kernel's wrapper is ``kernels/ska.py`` ``ska``.
+CUDA kernel's wrapper is ``kernels/ska.py`` ``ska``. :func:`ska_bwd_plain`
+is the plain version of its backward (the JAX ``ska_pallas._ska_bwd``),
+which the two backward kernels of ``kernels/ska.py`` compute.
 """
 
 from __future__ import annotations
@@ -55,6 +57,45 @@ def ska_plain(x, w):
             wk = wf[..., kh * ks + kw].repeat(1, 1, 1, c // wc)
             out += xp[:, kh:kh + h, kw:kw + wd, :] * wk
     return out.to(x.dtype)
+
+
+def ska_bwd_plain(x, w, go):
+    """(gx, gw), the gradients of :func:`ska_plain` at (x, w) under the
+    output gradient ``go``, as the JAX ``_ska_bwd`` computes them
+    (``ska_pallas.py:109-135``), in fp32 and cast to x's and w's dtypes at
+    the end:
+
+    * gx: over the k^2 taps in order, the product go * w_k (w_k tiled over
+      the channels: channel c takes w[..., c mod wc, k]) shifted back by
+      the tap's offset, added;
+    * gw[..., c', k]: the products go[..., c' + r wc] * x shifted by tap k,
+      summed over the repeats r in order.
+    """
+    b, h, wd, c, wc, ks = ska_shape(x, w)
+    pad = (ks - 1) // 2
+    reps = c // wc
+
+    def padded(t):
+        return F.pad(t, (0, 0, pad, pad, pad, pad))
+
+    gof = go.float()
+    xp = padded(x.float())
+    gx = torch.zeros((b, h, wd, c), dtype=torch.float32, device=x.device)
+    gw = []
+    for kh in range(ks):
+        for kw in range(ks):
+            k = kh * ks + kw
+            wk = w[..., k].float().repeat(1, 1, 1, reps)
+            pp = padded(gof * wk)
+            gx += pp[:, 2 * pad - kh:2 * pad - kh + h,
+                     2 * pad - kw:2 * pad - kw + wd, :]
+            prod = (gof * xp[:, kh:kh + h, kw:kw + wd, :]).reshape(
+                b, h, wd, reps, wc)
+            acc = prod[..., 0, :]
+            for r in range(1, reps):
+                acc = acc + prod[..., r, :]
+            gw.append(acc)
+    return gx.to(x.dtype), torch.stack(gw, dim=-1).to(w.dtype)
 
 
 def ska(x, w, use_kernel: bool = False):

@@ -260,6 +260,22 @@ def loss_and_grads(model, recipe, batch, apply_kwargs=None, params=None):
     return logs, grads
 
 
+def apply_updates(state: TrainState, params, updates, ema_decay) -> None:
+    """Adds ``updates`` (None on a micro-batch that does not step) to
+    ``params`` in place, then ticks the state's EMA, when it has one and
+    ``ema_decay`` is set: ``decay * ema + (1 - decay) * params``. The EMA
+    thus ticks once per OPTIMIZER step, not per micro-batch."""
+    if updates is None:
+        return
+    plist = list(params.values())
+    with torch.no_grad():
+        torch._foreach_add_(plist, list(updates.values()))
+        if state.ema_params is not None and ema_decay:
+            ema = [state.ema_params[k] for k in params]
+            torch._foreach_mul_(ema, ema_decay)
+            torch._foreach_add_(ema, plist, alpha=1 - ema_decay)
+
+
 def make_train_step(model, tx: Optimizer, cfg: TrainerConfig) -> Callable:
     """The train step ``(state, batch) -> (state, logs)``.
 
@@ -279,22 +295,13 @@ def make_train_step(model, tx: Optimizer, cfg: TrainerConfig) -> Callable:
         recipe = make_recipe(cfg.recipe, **dict(cfg.recipe_kwargs))
     apply_kwargs = dict(cfg.apply_kwargs)
     params = dict(model.named_parameters())
-    plist = list(params.values())
 
     def step_fn(state: TrainState, batch):
         model.train()
         logs, grads = loss_and_grads(model, recipe, batch, apply_kwargs,
                                      params)
         updates, state.opt_state = tx.update(grads, state.opt_state, params)
-        if updates is not None:
-            with torch.no_grad():
-                torch._foreach_add_(plist, list(updates.values()))
-                if state.ema_params is not None:
-                    # EMA ticks once per OPTIMIZER step, not per micro-batch
-                    d = cfg.ema_decay
-                    ema = [state.ema_params[k] for k in params]
-                    torch._foreach_mul_(ema, d)
-                    torch._foreach_add_(ema, plist, alpha=1 - d)
+        apply_updates(state, params, updates, cfg.ema_decay)
         state.step += 1
         return state, {k: v.detach() for k, v in logs.items()}
 

@@ -231,7 +231,9 @@ def test_mefc_step_every_launch_setting(cuda, monkeypatch, c):
 
 @pytest.mark.cuda
 def test_backward_through_the_kernels_raises(cuda):
-    """The kernels are forward only: a gradient must not vanish silently."""
+    """The passes called alone are forward only (as in JAX): a gradient
+    must not vanish silently. Through fused_drs_block and fused_mefc_steps
+    it is their VJPs' (tests/test_torch_vjp_cuda.py)."""
     p, x, v, atw = _msfn_inputs(cuda, 19, 37, 48, 1, 2.66, "WithBias", seed=3)
     out = K.drs_apply_msfn(v, x.clone().requires_grad_(), atw, p)
     with pytest.raises(NotImplementedError, match="drs_apply_msfn"):

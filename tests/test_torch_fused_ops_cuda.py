@@ -26,8 +26,12 @@ of 16 warps, with the same two-runs check. The attention core (K5, K6)
 runs ATTN_CASES: ragged tiles, fewer tiles than blocks, blocks that walk
 several tiles, batch 2 with different images, C = 384's column groups,
 and each entry of ``kernels/attn_core.py``'s launch tables forced in turn,
-with two bit-equal runs of both kernels. A ``backward()`` through a wrapper
-raises ``NotImplementedError``: the kernels are forward only.
+with two bit-equal runs of both kernels. A ``backward()`` through
+``attn_acc`` or ``attn_apply`` called alone raises ``NotImplementedError``
+(the passes are forward only, as in JAX); through ``ln_qkv_dwconv``,
+``fused_mdta_core`` and ``fused_ln_gdfn`` it is the recomputed reference's
+(the JAX custom VJPs) and launches no kernel
+(tests/test_torch_vjp_cuda.py holds them at more shapes).
 """
 
 import pytest
@@ -35,6 +39,7 @@ import torch
 from test_torch_block_cuda import FRONT_CASES, TAIL_CASES, _inputs, _rel
 
 from image_restoration_tpu_torch.kernels import attn_core as KA
+from image_restoration_tpu_torch.kernels import block as KB
 from image_restoration_tpu_torch.kernels import gdfn as KG
 from image_restoration_tpu_torch.kernels import mdta as KM
 
@@ -201,10 +206,21 @@ def test_ln_gdfn_tail_edges_and_two_equal_runs(cuda, b, h, w, c, heads,
 def test_backward_through_the_kernels_raises(cuda):
     p, x = _inputs(cuda, 24, 20, 48, 1, "WithBias", seed=2)
     xg = x.clone().requires_grad_()
-    qkv = KM.ln_qkv_dwconv(xg, p.front())
-    with pytest.raises(NotImplementedError, match="ln_qkv_dwconv"):
-        qkv.float().sum().backward()
-    qkv = qkv.detach().requires_grad_()
+    fns = (KM.ln_qkv_dwconv, KA.attn_acc, KA.attn_apply, KG.fused_ln_gdfn)
+    # ln_qkv_dwconv and fused_ln_gdfn differentiate (their JAX custom VJPs):
+    # the backward recomputes the reference and launches nothing
+    for api, ref, params in ((KM.ln_qkv_dwconv, KB.reference_front,
+                              p.front()),
+                             (KG.fused_ln_gdfn, KB.reference_ln_gdfn,
+                              p.gdfn())):
+        out = api(xg, params)
+        before = [f.launches for f in fns]
+        (got,) = torch.autograd.grad(out.float().sum(), xg)
+        torch.cuda.synchronize()
+        assert [f.launches for f in fns] == before
+        (want,) = torch.autograd.grad(ref(xg, params).float().sum(), xg)
+        assert torch.isfinite(got).all() and _rel(got, want) < 4e-3
+    qkv = KM.ln_qkv_dwconv(x, p.front()).requires_grad_()
     gram, ss = KA.attn_acc(qkv, 1)
     with pytest.raises(NotImplementedError, match="attn_acc"):
         (gram.sum() + ss.sum()).backward()
@@ -212,9 +228,6 @@ def test_backward_through_the_kernels_raises(cuda):
                         torch.bfloat16)
     out = KA.attn_apply(qkv, x, at, p.proj_w, p.proj_b)
     with pytest.raises(NotImplementedError, match="attn_apply"):
-        out.float().sum().backward()
-    out = KG.fused_ln_gdfn(xg, p.gdfn())
-    with pytest.raises(NotImplementedError, match="fused_ln_gdfn"):
         out.float().sum().backward()
     before = KG.fused_ln_gdfn.launches
     assert not KG.fused_ln_gdfn(x, p.gdfn()).requires_grad

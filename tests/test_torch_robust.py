@@ -10,8 +10,12 @@ rule.
   LSNet in both packages, fp32: the same hit counts, with and without a
   subset mask. ``imagenet_c_eval`` on a two-corruption tree: the same
   accuracies and CEs.
-* ``cli/robust.py --device cpu`` end to end writes its JSON; ``--adv``
-  is refused with NotImplementedError (it needs SKA's backward).
+* ``cli/robust.py --device cpu`` end to end writes its JSON; with
+  ``--adv FGSM`` and ``--adv PGD`` (the pair's weights through ``--ckpt``)
+  it scores the attacked images as JAX's ``evaluate_folder(..., adv=)``
+  does: the same hit counts. The attack differentiates every SKA through
+  ``kernels/ska.py`` ``_SKA``; PGD starts from the port's seeded draw and
+  JAX's ``PRNGKey(0)`` draw, each within the 1/255 ball.
 * Entry points run on the GPU unless ``--device cpu`` is given: without a
   GPU, ``build_model`` raises and names ``--device cpu``.
 """
@@ -64,7 +68,8 @@ def pair():
     torch.backends.cudnn.allow_tf32 = False
     jnet = JL.LSNet(**TINY)
     x = jnp.zeros((1, 32, 32, 3))
-    variables = jnet.init(jax.random.PRNGKey(0), x)
+    # compiled: op by op, the init takes most of this file's time
+    variables = jax.jit(jnet.init)(jax.random.PRNGKey(0), x)
     rng = np.random.default_rng(0)
     variables = jax.tree.map(
         lambda a: (np.asarray(a) + 0.1 * rng.standard_normal(a.shape))
@@ -135,7 +140,9 @@ def test_imagenet_c_eval_matches_jax(pair, tmp_path):
     assert got == want
 
 
-def test_cli_end_to_end_and_adv_refusal(tmp_path):
+def test_cli_end_to_end_and_adv_refusal(pair, tmp_path):
+    """The CLI end to end, and ``--adv``, once refused, now scoring the
+    attacked images as the JAX CLI does."""
     _write_tree(str(tmp_path / "a"), np.random.default_rng(4),
                 classes=("n01498041", "n01531178", "n99999999"), n=2)
     _write_tree(str(tmp_path / "sk"), np.random.default_rng(5), n=2)
@@ -147,9 +154,17 @@ def test_cli_end_to_end_and_adv_refusal(tmp_path):
                                   "--out_json", str(out)])
     assert res["imagenet_a"]["n"] == 6 and res["imagenet_sketch"]["n"] == 6
     assert json.loads(out.read_text()) == res
-    with pytest.raises(NotImplementedError, match="SKA"):
-        cli_robust.main(argv + ["--ina_path", str(tmp_path / "a"),
-                                "--adv", "FGSM"])
+
+    apply_fn, variables, tnet = pair
+    ckpt = tmp_path / "lsnet.pth"
+    torch.save(tnet.state_dict(), ckpt)
+    sk = str(tmp_path / "sk")
+    for adv in ("FGSM", "PGD"):
+        got = cli_robust.main(argv + ["--insk_path", sk, "--ckpt", str(ckpt),
+                                      "--adv", adv])["imagenet_sketch"]
+        want = JR.evaluate_folder(apply_fn, variables, sk, batch_size=4,
+                                  input_size=32, adv=adv)
+        assert got == want and got["n"] == 6, adv
 
 
 def test_entry_points_need_a_gpu_or_an_explicit_cpu(monkeypatch):

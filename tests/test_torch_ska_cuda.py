@@ -115,11 +115,20 @@ def test_unaligned_view_and_launch_count(cuda):
 
 @pytest.mark.cuda
 def test_backward_through_the_kernel_raises(cuda):
-    """The kernel is forward only: a gradient must not vanish silently."""
+    """A gradient must not vanish silently: through the kernel it is SKA's
+    VJP (``_SKA``), whose backward kernels give the plain backward's bits
+    (tests/test_torch_vjp_cuda.py holds them at every shape)."""
+    from image_restoration_tpu_torch.ops.ska import ska_bwd_plain
+
     x, w = _inputs(CASES[0], cuda, seed=5)
     out = K.ska(x.requires_grad_(), w)
-    with pytest.raises(NotImplementedError, match="ska"):
-        out.sum().backward()
+    before = K.ska.launches, K.ska_bwd_x.launches, K.ska_bwd_w.launches
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (K.ska.launches, K.ska_bwd_x.launches, K.ska_bwd_w.launches) == (
+        before[0], before[1] + 1, before[2])
+    assert torch.equal(x.grad, ska_bwd_plain(x.detach(), w,
+                                             torch.ones_like(out))[0])
     with torch.no_grad():
         assert not K.ska(x, w).requires_grad
     assert not K.ska(x.detach(), w).requires_grad

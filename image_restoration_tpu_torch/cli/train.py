@@ -19,12 +19,16 @@ runs every TransformerBlock's forward through K1/K2 (``kernels/block.py``);
 K3); DRSformer's default ``fused_block`` every block through K1 + K7 and
 every MEFC step through K8. :func:`build_model` turns off a flag the
 model cannot run on (fp32, or a head width the kernels do not take) and
-says so. What does not train yet raises: ``--mesh`` (multi-GPU), the MoCE
-family's routers (train-mode routing noise and aux losses), MEASNet's
-(the same), ``--style_ckpt`` and ``--vgg_ckpt`` and the recipes of
-models the port does not have (ROADMAP Queue 1 items 4-6). LSNet's
-classification step is ``train/classification.py``, with no CLI, as in
-JAX.
+says so. The MoCE family (``moce_ir``, ``igmoce_ir``, ``lumisense_moe``,
+``moce_ir_patch``) trains with ``train=True``: noisy top-k routing, its
+balance loss weighted into the default recipe by ``--aux_loss_weight``,
+the noise drawn each step from ``step_generator(seed, step, device, 1)``
+(the JAX loop's ``fold_in(fold_in(rng, step), 1)``). What does not train
+raises: MEASNet, which the JAX CLI cannot train either (it keeps no
+``batch_stats``); ``--mesh`` (multi-GPU), ``--style_ckpt`` and
+``--vgg_ckpt`` and the recipes of models the port does not have (ROADMAP
+Queue 1 items 5-6). LSNet's classification step is
+``train/classification.py``, with no CLI, as in JAX.
 """
 
 from __future__ import annotations
@@ -163,18 +167,11 @@ def make_lr_schedule(cfg, steps_per_epoch: int):
 # too, e.g. DarkIR's side projection); DarkIR is not ported yet
 RECIPE_APPLY_KWARGS = {"darkir": {"side_loss": True}}
 
-# The JAX package trains its MoE families with train=True (noisy top-k
-# routing and the balance aux loss, its models' ``uses_moe_rng``). Their
-# port routes in eval only: MoCE-IR's and the patch model's routers raise
-# in train mode, and these two would train without either, so they are
-# refused until the MoCE family's training slice (ROADMAP Queue 1 item 4).
-MOE_TRAIN_PENDING = ("measnet", "igmoce_ir", "lumisense_moe")
-
-
 def model_apply_kwargs(model) -> dict:
     """Train-time forward kwargs from the model's class flag
-    ``uses_moe_rng`` (JAX ``cli/train.py`` ``model_apply_kwargs``): none
-    of the port's models sets it yet."""
+    ``uses_moe_rng`` (JAX ``cli/train.py`` ``model_apply_kwargs``): the
+    MoE families train with ``train=True``, and the step then passes its
+    routing noise's generator."""
     if getattr(type(model), "uses_moe_rng", False):
         return {"train": True}
     return {}
@@ -192,11 +189,12 @@ def _refuse_unported(cfg):
     for key, msg in pending.items():
         if cfg.get(key):
             raise NotImplementedError(msg)
-    if cfg["model"].lower() in MOE_TRAIN_PENDING:
+    if cfg["model"].lower() == "measnet":
         raise NotImplementedError(
-            f"{cfg['model']} trains with noisy MoE routing and its balance "
-            f"loss, which is the MoCE family's training slice (ROADMAP "
-            f"Queue 1 item 4)")
+            "measnet: the JAX cli/train.py cannot train MEASNet (it keeps "
+            "no batch_stats, which FD's BatchNorm updates in training), so "
+            "neither does this CLI; the model trains at model level: "
+            "model(img, train=True, generator=g)")
 
 
 def build_validator(cfg, model, pad_multiple: int = 8):
@@ -272,6 +270,7 @@ def main(argv=None, max_steps_override: int | None = None):
         total_steps = max_steps_override
 
     recipe = cfg.get("recipe", "default")
+    moe_rng = bool(model_apply_kwargs(model))
     apply_kwargs = {**model_apply_kwargs(model),
                     **RECIPE_APPLY_KWARGS.get(recipe, {})}
     tcfg = TrainerConfig(
@@ -338,7 +337,9 @@ def main(argv=None, max_steps_override: int | None = None):
                 lq, gt = mixup_device(lq, gt, cfg.get("mixup_beta", 1.2),
                                       bool(cfg.get("mixup_identity")),
                                       step_generator(seed, step, device, 2))
-            state, logs = step_fn(state, {"lq": lq, "gt": gt})
+            noise = (step_generator(seed, step, device, 1) if moe_rng
+                     else None)
+            state, logs = step_fn(state, {"lq": lq, "gt": gt}, noise)
             if step % log_every == 0 or step == total_steps - 1:
                 logger.log(step, logs)
             if plateau is not None:

@@ -23,7 +23,6 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from image_restoration_tpu_torch.kernels.block import block_misfits
@@ -42,7 +41,7 @@ from image_restoration_tpu_torch.kernels.mefc import (
 )
 from image_restoration_tpu_torch.models.registry import register_model
 from image_restoration_tpu_torch.ops.attention import tksa_attention
-from image_restoration_tpu_torch.ops.common import Conv
+from image_restoration_tpu_torch.ops.common import Conv, Linear
 from image_restoration_tpu_torch.ops.layernorm import LayerNorm
 from image_restoration_tpu_torch.ops.resample import Downsample, Upsample
 
@@ -227,16 +226,12 @@ class OALayer(nn.Module):
         self.steps = steps
         self.dtype = dtype
         n = steps * NUM_OPS
-        self.ca_fc = nn.Sequential(nn.Linear(c, 2 * n), nn.ReLU(),
-                                   nn.Linear(2 * n, n))
+        self.ca_fc = nn.Sequential(Linear(c, 2 * n, dtype=dtype), nn.ReLU(),
+                                   Linear(2 * n, n, dtype=dtype))
 
     def forward(self, x):
-        dt = self.dtype or x.dtype
-        y = x.float().mean(dim=(2, 3)).to(dt)
-        for layer in self.ca_fc:
-            y = (F.linear(y, layer.weight.to(dt), layer.bias.to(dt))
-                 if isinstance(layer, nn.Linear) else layer(y))
-        return y.reshape(-1, self.steps, NUM_OPS)
+        y = x.float().mean(dim=(2, 3)).to(self.dtype or x.dtype)
+        return self.ca_fc(y).reshape(-1, self.steps, NUM_OPS)
 
 
 class ReLUConv(nn.Module):

@@ -15,7 +15,9 @@ fusion irfft2(rfft2(a) + rfft2(b)) is a + b, summed in fp32; its dim/2
 channels are tiled twice; the FFN residual is anchored on the normed
 tensor. Holistic LayerNorms normalise over H, W and C jointly. No internal
 pad: ``make_restore_fn``'s multiple of 8 covers the three downsamples.
-Plain torch throughout (plain XLA in JAX); eval only, as MoCE-IR.
+Plain torch throughout (plain XLA in JAX). Training routes with noise and
+returns the aux loss as MoCE-IR does (``forward(img, train=True,
+generator=g)``).
 Attribute paths follow the JAX tree (``enc.0.0.1.mixer.qkv.weight``);
 :func:`igmoce_key_map` maps a reference state_dict onto them.
 """
@@ -31,6 +33,7 @@ from image_restoration_tpu_torch.models.adair import ChannelCrossAttention
 from image_restoration_tpu_torch.models.moce_ir import (
     RoutingFunction,
     expert_banks,
+    expert_complexity,
     gap,
 )
 from image_restoration_tpu_torch.models.registry import register_model
@@ -95,6 +98,23 @@ class LN(nn.Module):
         return self.body(x)
 
 
+def _polar(re, im):
+    """(sqrt(re^2 + im^2), atan2(im, re)), the JAX package's values, with
+    the reference's gradient where re^2 + im^2 is 0: there its
+    ``torch.abs`` and ``torch.angle`` of the complex coefficient
+    differentiate to 0, while sqrt and atan2 differentiate to NaN (JAX
+    igmoce_ir.py:101 does; a bf16 map whose rfft2 has an exactly zero
+    coefficient then turns every parameter NaN in one update)."""
+    sq = re * re + im * im
+    nz = sq > 0
+    one, zero = torch.ones_like(sq), torch.zeros_like(sq)
+    mag = torch.where(nz, torch.sqrt(torch.where(nz, sq, one)), zero)
+    pha = torch.where(nz, torch.atan2(torch.where(nz, im, zero),
+                                      torch.where(nz, re, one)),
+                      torch.atan2(im, re).detach())
+    return mag, pha
+
+
 class FreMLPExp(nn.Module):
     """An fp32 MLP on the rfft2 magnitude (``norm="backward"``), the phase
     kept (igmoce_ir.py:130-150): 1x1 to ``expansion`` x dim, leaky ReLU
@@ -111,8 +131,7 @@ class FreMLPExp(nn.Module):
     def forward(self, x):
         h, w = x.shape[-2:]
         z = torch.fft.rfft2(x.float(), norm="backward")
-        mag = torch.sqrt(z.real * z.real + z.imag * z.imag)
-        pha = torch.atan2(z.imag, z.real)
+        mag, pha = _polar(z.real, z.imag)
         m = self.process1(mag)
         z = torch.complex(m * torch.cos(pha), m * torch.sin(pha))
         return torch.fft.irfft2(z, s=(h, w), norm="backward").to(x.dtype)
@@ -222,25 +241,35 @@ class IGEncoderBlock(nn.Module):
 class IGAdapterLayer(nn.Module):
     """MoCE-IR's adapter routed on the image gate alone (the reference's
     ``freq_gate`` exists in its checkpoints and is never used), always
-    combined densely, then ``proj_out``."""
+    combined densely, then ``proj_out``; in training ``(out, aux)`` with
+    the noise, balance loss and complexity bias of MoCE-IR's
+    ``AdapterLayer`` (JAX igmoce_ir.py:249-271)."""
 
     def __init__(self, dim: int, rank: int, num_experts: int = 4,
-                 top_k: int = 1, rank_type: str = "constant", dtype=None):
+                 top_k: int = 1, rank_type: str = "constant",
+                 with_complexity: bool = False, complexity_scale: str = "max",
+                 dtype=None):
         super().__init__()
-        self.routing = RoutingFunction(dim, dim, num_experts, top_k,
-                                       use_freq_gate=False)
+        self.routing = RoutingFunction(
+            dim, dim, num_experts, top_k,
+            expert_complexity(dim, rank, num_experts, rank_type,
+                              complexity_scale) if with_complexity else None,
+            use_freq_gate=False)
         self.experts = expert_banks(dim, rank, num_experts, rank_type, dtype)
         self.proj_out = Conv(dim, dim, 1, bias=False, dtype=dtype)
 
-    def forward(self, x, shared):
-        gates, _, _ = self.routing(x)
+    def forward(self, x, shared, train=False, generator=None):
+        gates, _, _, aux = self.routing(x, None, train=train,
+                                        generator=generator)
         out = dense_moe_combine(gates, [e[0](x, shared) for e in self.experts])
-        return self.proj_out(out)
+        out = self.proj_out(out)
+        return (out, aux) if train else out
 
 
 class IGDecoderBlock(nn.Module):
     """MoCE-IR's DecoderBlock with a SpAM shared branch (dilations 1, 2, 4)
-    and the image-gated adapter (igmoce_ir.py decoder)."""
+    and the image-gated adapter (igmoce_ir.py decoder); in training
+    ``(x, aux)``."""
 
     def __init__(self, dim: int, num_heads: int, expansion: int = 2,
                  use_bias: bool = False, ln_type: str = "HolisticWithBias",
@@ -255,12 +284,15 @@ class IGDecoderBlock(nn.Module):
                                            dtype=dtype, kv_kernel=7)
         self.ffn = GDFN(dim, expansion, use_bias, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, train=False, generator=None):
         xn = self.norms[0](x)
         x_s = self.shared(self.proj[0](xn))
-        x_a = self.adapter(self.proj[1](xn), x_s)
+        x_a = self.adapter(self.proj[1](xn), x_s, train, generator)
+        if train:
+            x_a, aux = x_a
         x = self.mixer(x_a, x_s) + x
-        return x + self.ffn(self.norms[1](x))
+        x = x + self.ffn(self.norms[1](x))
+        return (x, aux) if train else x
 
 
 def igmoce_key_map(key: str):
@@ -275,10 +307,14 @@ def igmoce_key_map(key: str):
 
 @register_model("igmoce_ir", key_map=igmoce_key_map)
 class IGMoCEIR(nn.Module):
-    """igmoce_ir.py:1008-1142. Takes and returns NCHW; the output is fp32.
-    H and W must be multiples of 2^(levels-1). ``depth_type``,
-    ``stage_depth``, ``with_complexity`` and ``complexity_scale`` set the
-    complexity statistic of training and change nothing in eval."""
+    """igmoce_ir.py:1008-1142. Takes and returns NCHW; the output is fp32,
+    and ``(out, {"aux_loss": ...})`` with ``train`` (MoCE-IR's
+    ``forward``). H and W must be multiples of 2^(levels-1).
+    ``with_complexity`` and ``complexity_scale`` set the complexity bias
+    of training's importance loss; ``depth_type`` and ``stage_depth``
+    change nothing."""
+
+    uses_moe_rng = True
 
     def __init__(self, in_channels: int = 3, out_channels: int = 3,
                  dim: int = 32, levels: int = 4,
@@ -296,6 +332,7 @@ class IGMoCEIR(nn.Module):
                  dtype=None):
         super().__init__()
         self.dtype = dtype
+        self.num_dec_total = sum(num_dec_blocks)
         d = dim
         dims = [d * 2 ** i for i in range(levels)]
         enc = dict(expansion=ffn_expansion_factor, use_bias=True,
@@ -328,13 +365,14 @@ class IGMoCEIR(nn.Module):
                         rdims[i + 1], rheads[i + 1], ffn_expansion_factor,
                         use_bias, ln_type, dtype, rank=rank,
                         num_experts=num_experts, top_k=topk,
-                        rank_type=rank_type)
+                        rank_type=rank_type, with_complexity=with_complexity,
+                        complexity_scale=complexity_scale)
                     for _ in range(rdec[i]))])
             for i in range(levels - 1))
         self.output = Conv(d, out_channels, 3, padding=1, bias=use_bias,
                            dtype=dtype)
 
-    def forward(self, img):
+    def forward(self, img, train=False, generator=None):
         x = img if self.dtype is None else img.to(self.dtype)
         _, illu_map = self.estimator(x)
         illu_fea = self.illu_patch_embed(illu_map)
@@ -349,10 +387,18 @@ class IGMoCEIR(nn.Module):
             illu_fea = illu_down(illu_fea)
         for blk in self.latent:
             feats = blk(feats, illu_fea)
+        total_aux = 0.0
         for up, reduce, blocks in self.dec:
             feats = reduce(torch.cat([up(feats), skips.pop()], dim=1))
             for blk in blocks:
-                feats = blk(feats)
+                if train:
+                    feats, aux = blk(feats, True, generator)
+                    total_aux = total_aux + aux
+                else:
+                    feats = blk(feats)
         out = self.output(feats)
-        return (out + img.to(out.dtype)).float()
+        out = (out + img.to(out.dtype)).float()
+        if train:
+            return out, {"aux_loss": total_aux / self.num_dec_total}
+        return out
 

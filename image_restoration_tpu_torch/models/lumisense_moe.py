@@ -9,7 +9,9 @@ every encoder block (``IGMSASimple``). The blocks keep the reference's
 normed shortcut (x = norm(x); x = x + mixer(x)). The illumination stream
 shares the feature maps' Downsample and Upsample modules. The input is
 zero-padded to 2^levels, and the residual goes to the padded image.
-Plain torch throughout (plain XLA in JAX); eval only, as MoCE-IR.
+Plain torch throughout (plain XLA in JAX). Training routes with noise and
+returns the aux loss as MoCE-IR does (``forward(img, train=True,
+generator=g)``).
 Attribute paths follow the JAX tree; :func:`lumisense_key_map` maps a
 reference state_dict onto them.
 """
@@ -90,10 +92,13 @@ lumisense_key_map = moce_key_map
 @register_model("lumisense_moe", key_map=lumisense_key_map)
 class LumiSenseMoEIR(nn.Module):
     """LimiSenseMoE.py:833-1003. Takes and returns NCHW; the output is
-    fp32. Refinement blocks run at heads[0] (the reference reverses
-    ``heads`` twice before them). ``depth_type``, ``stage_depth``,
-    ``with_complexity`` and ``complexity_scale`` set the complexity
-    statistic of training and change nothing in eval."""
+    fp32, and ``(out, {"aux_loss": ...})`` with ``train`` (JAX
+    lumisense_moe.py:216-233). Refinement blocks run at heads[0] (the
+    reference reverses ``heads`` twice before them). ``with_complexity``
+    and ``complexity_scale`` set the complexity bias of training's
+    importance loss; ``depth_type`` and ``stage_depth`` change nothing."""
+
+    uses_moe_rng = True
 
     def __init__(self, inp_channels: int = 3, out_channels: int = 3,
                  dim: int = 32, levels: int = 4,
@@ -111,6 +116,7 @@ class LumiSenseMoEIR(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.levels = levels
+        self.num_dec_total = sum(num_dec_blocks)
         d = dim
         dims = [d * 2 ** i for i in range(levels)]
 
@@ -139,14 +145,16 @@ class LumiSenseMoEIR(nn.Module):
                         rdims[i + 1], rheads[i + 1], ffn_expansion_factor,
                         use_bias, ln_type, dtype, rank=rank,
                         num_experts=num_experts, top_k=topk,
-                        rank_type=rank_type, freq_dim=rdims[0])
+                        rank_type=rank_type, freq_dim=rdims[0],
+                        with_complexity=with_complexity,
+                        complexity_scale=complexity_scale)
                     for _ in range(rdec[i]))])
             for i in range(levels - 1))
         self.refinement = stack(d, heads[0], num_refinement_blocks)
         self.output = Conv(d, out_channels, 3, padding=1, bias=use_bias,
                            dtype=dtype)
 
-    def forward(self, img):
+    def forward(self, img, train=False, generator=None):
         h, w = img.shape[-2:]
         img_p = _zero_pad_to(img, 2 ** self.levels)
         x = img_p if self.dtype is None else img_p.to(self.dtype)
@@ -162,12 +170,20 @@ class LumiSenseMoEIR(nn.Module):
         for blk in self.latent:
             feats = blk(feats, illu_fea)
         freq_emb = self.freq_embed(feats)
+        total_aux = 0.0
         for up, reduce, blocks in self.dec:
             feats, illu_fea = up(feats), up(illu_fea)
             feats = reduce(torch.cat([feats, skips.pop()], dim=1))
             for blk in blocks:
-                feats = blk(feats, freq_emb)
+                if train:
+                    feats, aux = blk(feats, freq_emb, True, generator)
+                    total_aux = total_aux + aux
+                else:
+                    feats = blk(feats, freq_emb)
         for blk in self.refinement:
             feats = blk(feats, illu_fea)
         out = self.output(feats)
-        return (out + img_p.to(out.dtype)).float()[..., :h, :w]
+        out = (out + img_p.to(out.dtype)).float()[..., :h, :w]
+        if train:
+            return out, {"aux_loss": total_aux / self.num_dec_total}
+        return out

@@ -14,12 +14,17 @@ A Restormer U-Net with:
 * ``FreqBlock`` after the latent and decoder levels 3 and 2: the input
   image's adaptive FFT bands cross-attended into the decoder features.
 
-Serving is eval only: ``TokenMoE`` has no noise path (the JAX one adds
-noise only in training), no balance loss is computed, and
-``stpg_g_mese2``/``stpg_g_mese3``, whose outputs feed only that loss, are
-built (so checkpoints load) but not run. Top-k picks keep the lower index
-on ties, as ``jax.lax.top_k`` does (``ops/moe.py`` ``topk_lower_index``,
-the MoCE routers' rule too). The reference
+``forward(img, train=True, generator=g)`` is the JAX model's
+``apply(..., train=True, mutable=["batch_stats"])``: ``TokenMoE`` adds
+noise of a learned per-token std (softplus(x ``w_n``) + 0.01, the draw
+from ``g`` through ``ops/moe.py`` ``routing_noise``) and returns its
+balance loss; ``stpg_g_mese2``/``stpg_g_mese3``, whose outputs feed only
+that loss, run for it; FD's BatchNorm normalises with the batch's
+statistics and updates its running ones; the model returns ``(out,
+{"aux_loss": the three mixtures' losses summed})``. In eval they are built
+(so checkpoints load) but not run, and no loss is computed. Top-k picks
+keep the lower index on ties, as ``jax.lax.top_k`` does (``ops/moe.py``
+``topk_lower_index``, the MoCE routers' rule too). The reference
 quirks the JAX module lists stay: FreqBlock's ``initial_conv`` and
 ``score_generator``, MEE's ``norm_2`` and FD's ``lamb_l``/``lamb_h`` exist
 and are unused, and FreqBlock's low band is empty whenever H < 2 x 128.
@@ -29,7 +34,7 @@ The stacks are Restormer TransformerBlocks through ``BlockStackMixin``
 MESE's calibration applies a stride-4 conv twice at decoder level 3 (1/8
 scale), so inputs need H and W of at least 128, as in the reference.
 Parameters stay fp32 and ``dtype`` is the compute dtype, as in JAX; FD's
-BatchNorm computes in fp32 from its running statistics.
+BatchNorm computes in fp32.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from image_restoration_tpu_torch.ops.common import (
     gelu_exact,
 )
 from image_restoration_tpu_torch.ops.layernorm import BatchNorm2d, LayerNorm2d
+from image_restoration_tpu_torch.ops import moe as moe_ops
 from image_restoration_tpu_torch.ops.moe import topk_lower_index
 from image_restoration_tpu_torch.ops.resample import (
     Downsample,
@@ -114,44 +120,73 @@ class _Mlp(nn.Module):
         return self.fc2(gelu_exact(self.fc1(x)))
 
 
+def _balance(x):
+    """CV^2 of ``x`` (E,) with the unbiased variance, 0 for one expert
+    (STPG_G_MESE.py:60-64; the JAX ``_balance``)."""
+    if x.shape[0] == 1:
+        return torch.zeros((), dtype=x.dtype, device=x.device)
+    xf = x.float()
+    return xf.var() / (xf.mean() ** 2 + 1e-10)
+
+
 class TokenMoE(nn.Module):
-    """Per-pixel top-k MLP experts on [x; prompt] gate logits, eval path
-    (STPG_G_MESE.py:44-121): every expert runs on every token and the
-    combine is log(sum_e g_e exp(out_e)) in fp32, a zero sum clamped to
-    float eps, accumulated expert by expert as JAX does. ``w_n`` (the
-    training noise's weights) is kept for checkpoints and unused."""
+    """Per-pixel noisy top-k MLP experts on [x; prompt] gate logits
+    (STPG_G_MESE.py:44-121; the JAX ``TokenMoE``): every expert runs on
+    every token and the combine is log(sum_e g_e exp(out_e)) in fp32, a
+    zero sum clamped to float eps, accumulated expert by expert as JAX
+    does. In training the logits take noise of std softplus([x; prompt]
+    ``w_n``) + 0.01, and it returns ``(y, loss)``: the balance of the gate
+    mass plus that of the smooth load, each token's chance of its expert
+    staying in the top k under fresh noise through the normal CDF."""
 
     def __init__(self, dim: int, mlp_ratio: float, num_experts: int = 6,
                  k: int = 2, dtype=None):
         super().__init__()
-        self.k = k
+        self.k, self.num_experts = k, num_experts
         self.w_g = nn.Parameter(torch.randn(2 * dim, num_experts))
         self.w_n = nn.Parameter(torch.zeros(2 * dim, num_experts))
         self.el = nn.ModuleList(
             _Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype)
             for _ in range(num_experts))
 
-    def forward(self, x, prompt):
+    def forward(self, x, prompt, train=False, generator=None):
         b, c, h, w = x.shape
+        k = self.k
         tokens = _nhwc(x).reshape(b * h * w, c)
         pr = prompt[:, None, :].expand(b, h * w, c).reshape(b * h * w, c)
         xp = torch.cat([tokens, pr], dim=-1)
         dt = torch.promote_types(xp.dtype, self.w_g.dtype)
         logits = xp.to(dt) @ self.w_g.to(dt)
-        top, idx = topk_lower_index(logits, self.k)
+        if train:
+            std = F.softplus(xp.to(dt) @ self.w_n.to(dt)) + 1e-2
+            noisy = logits + moe_ops.routing_noise(
+                logits.shape, generator, logits.device).to(dt) * std
+            top, idx = topk_lower_index(noisy, min(k + 1, self.num_experts))
+        else:
+            top, idx = topk_lower_index(logits, k)
         gates = torch.zeros_like(logits).scatter_(
-            -1, idx, torch.softmax(top, dim=-1)).float()
+            -1, idx[:, :k], torch.softmax(top[:, :k], dim=-1)).float()
+        if train:
+            if k < self.num_experts:
+                thr_in, thr_out = top[:, k:k + 1], top[:, k - 1:k]
+                p_in = torch.special.ndtr((logits - thr_in) / std)
+                p_out = torch.special.ndtr((logits - thr_out) / std)
+                load = torch.where(noisy > thr_in, p_in, p_out).sum(dim=0)
+            else:
+                load = (gates > 0).float().sum(dim=0)
+            loss = _balance(gates.sum(dim=0)) + _balance(load)
         ensemble = 0.0
         for i, expert in enumerate(self.el):
             ensemble = ensemble + gates[:, i:i + 1] * torch.exp(
                 expert(tokens).float())
         ensemble = torch.where(ensemble == 0, _EPS64, ensemble)
-        y = torch.log(ensemble).to(x.dtype)
-        return _nchw(y.reshape(b, h, w, c))
+        y = _nchw(torch.log(ensemble).to(x.dtype).reshape(b, h, w, c))
+        return (y, loss) if train else y
 
 
 class STPG_G_MESE(nn.Module):
-    """x + TokenMoE(x, fc(prompt)) (STPG_G_MESE.py:123-131)."""
+    """x + TokenMoE(x, fc(prompt)) (STPG_G_MESE.py:123-131); in training
+    ``(x + ..., loss)``."""
 
     def __init__(self, atom_dim: int, dim: int, mlp_ratio: float,
                  dtype=None):
@@ -159,8 +194,11 @@ class STPG_G_MESE(nn.Module):
         self.fc = Linear(atom_dim, dim, dtype=dtype)
         self.model = TokenMoE(dim, mlp_ratio, dtype=dtype)
 
-    def forward(self, x, prompt):
-        return self.model(x, self.fc(prompt)) + x
+    def forward(self, x, prompt, train=False, generator=None):
+        out = self.model(x, self.fc(prompt), train, generator)
+        if train:
+            return out[0] + x, out[1]
+        return out + x
 
 
 # ---------------------------------------------------------------- FD_MEE ----
@@ -170,7 +208,11 @@ class FD(nn.Module):
     """Learned per-group low-pass split (FD_MEE.py:11-39): GAP -> 1x1 ->
     BatchNorm -> softmax over the k x k taps gives a spatially constant
     kernel per (sample, group), applied to reflect-padded x as k^2 shifted
-    multiply-adds. Returns (low, x - low)."""
+    multiply-adds. Returns (low, x - low). The BatchNorm computes in fp32
+    as the JAX ``BatchNorm2d``: with ``train`` (the forward's argument, not
+    the module's mode) from the batch's statistics, updating the running
+    ones with the unbiased variance and momentum 0.1; else from the
+    running ones."""
 
     def __init__(self, channels: int, kernel_size: int = 3, group: int = 8,
                  dtype=None):
@@ -182,10 +224,17 @@ class FD(nn.Module):
                          dtype=dtype)
         self.bn = BatchNorm2d(group * kernel_size ** 2)
 
-    def forward(self, x):
+    def _batch_norm(self, f, train):
+        bn = self.bn
+        return F.batch_norm(f.float(), bn.running_mean, bn.running_var,
+                            bn.weight, bn.bias, train, bn.momentum,
+                            bn.eps).to(f.dtype)
+
+    def forward(self, x, train=False):
         k, g = self.k, self.group
         b, c, h, w = x.shape
-        filt = self.bn(self.conv(x.mean(dim=(2, 3), keepdim=True)))
+        filt = self._batch_norm(
+            self.conv(x.mean(dim=(2, 3), keepdim=True)), train)
         filt = torch.softmax(filt.reshape(b, g, k * k), dim=-1)
         wmap = filt.repeat_interleave(c // g, dim=1).to(x.dtype)
         p = k // 2
@@ -343,8 +392,8 @@ class FD_MEE(nn.Module):
         self.low_block = MEE(channels, num_experts, dtype=dtype)
         self.proj = Conv(2 * channels, channels, 1)
 
-    def forward(self, x):
-        low, high = self.spilit(x)
+    def forward(self, x, train=False):
+        low, high = self.spilit(x, train)
         high, low = self.high_block(high), self.low_block(low)
         c, dt = x.shape[1], x.dtype
         wp = self.proj.weight.reshape(c, 2 * c).t().to(dt).float()
@@ -468,10 +517,12 @@ class FreqBlock(nn.Module):
 
 @register_model("measnet")
 class MEASNet(BlockStackMixin, nn.Module):
-    """Takes and returns NCHW; the output is fp32. MEASNet's Downsample and
-    Upsample (MEASNet.py:13-24) are the Restormer ones of
-    ``ops/resample.py``: the same bias-free 3x3 conv and pixel
-    (un)shuffle."""
+    """Takes and returns NCHW; the output is fp32, and ``(out, {"aux_loss":
+    ...})`` with ``train``. MEASNet's Downsample and Upsample
+    (MEASNet.py:13-24) are the Restormer ones of ``ops/resample.py``: the
+    same bias-free 3x3 conv and pixel (un)shuffle."""
+
+    uses_moe_rng = True
 
     def __init__(self, inp_channels: int = 3, out_channels: int = 3,
                  dim: int = 48, num_blocks: Sequence[int] = (4, 4, 6, 8),
@@ -492,7 +543,7 @@ class MEASNet(BlockStackMixin, nn.Module):
         self.stpg_g_mese1 = STPG_G_MESE(atom_dim, d, r, dtype)
         self.encoder_level1 = self._stack(d, heads[0], nb[0])
         self.down1_2 = Downsample(d, dtype)
-        # feed only the training balance loss: built, not run
+        # feed only the training balance loss: run in training alone
         self.stpg_g_mese2 = STPG_G_MESE(atom_dim, d * 2, r, dtype)
         self.encoder_level2 = self._stack(d * 2, heads[1], nb[1])
         self.down2_3 = Downsample(d * 2, dtype)
@@ -523,23 +574,36 @@ class MEASNet(BlockStackMixin, nn.Module):
         self.output = Conv(d * 2, out_channels, 3, padding=1, bias=use_bias,
                            dtype=dtype)
 
-    def forward(self, inp_img):
+    def forward(self, inp_img, train=False, generator=None):
         x = inp_img if self.dtype is None else inp_img.to(self.dtype)
         x = x.contiguous(memory_format=torch.channels_last)
         prompt = self.task_prompt(x)
-        harm1 = self.stpg_g_mese1(self.patch_embed(x), prompt)
+        harm1 = self.stpg_g_mese1(self.patch_embed(x), prompt, train,
+                                  generator)
+        if train:
+            harm1, aux = harm1
         enc1 = self._level(harm1, self.encoder_level1)
-        enc2 = self._level(self.down1_2(enc1), self.encoder_level2)
-        enc3 = self._level(self.down2_3(enc2), self.encoder_level3)
+        x2 = self.down1_2(enc1)
+        if train:
+            aux = aux + self.stpg_g_mese2(x2, prompt, True, generator)[1]
+        enc2 = self._level(x2, self.encoder_level2)
+        x3 = self.down2_3(enc2)
+        if train:
+            aux = aux + self.stpg_g_mese3(x3, prompt, True, generator)[1]
+        enc3 = self._level(x3, self.encoder_level3)
         latent = self._level(self.down3_4(enc3), self.latent)
         latent = self.block1(x, latent)
 
         dec3 = torch.cat([self.up4_3(latent), enc3], dim=1)
-        dec3 = self.fe_mee1(self.reduce_chan_level3(dec3))
+        dec3 = self.fe_mee1(self.reduce_chan_level3(dec3), train)
         dec3 = self.block2(x, self._level(dec3, self.decoder_level3))
         dec2 = torch.cat([self.up3_2(dec3), enc2], dim=1)
-        dec2 = self.fe_mee2(self.reduce_chan_level2(dec2))
+        dec2 = self.fe_mee2(self.reduce_chan_level2(dec2), train)
         dec2 = self.block3(x, self._level(dec2, self.decoder_level2))
-        dec1 = self.fe_mee3(torch.cat([self.up2_1(dec2), enc1], dim=1))
+        dec1 = self.fe_mee3(torch.cat([self.up2_1(dec2), enc1], dim=1),
+                            train)
         dec1 = self._level(dec1, self.decoder_level1, self.refinement)
-        return (self.output(dec1) + x).float()
+        out = (self.output(dec1) + x).float()
+        if train:
+            return out, {"aux_loss": aux}
+        return out

@@ -14,12 +14,18 @@ moce_ir.py), NCHW.
   shared branch) routed by an image gate plus a frequency gate; a channel
   cross attention (7x7 kv) re-injects the shared branch; LN, GDFN.
 
-Serving is eval only: no routing noise, no aux loss (the MoCE family's
-training slice, ROADMAP Queue 1 item 4, brings both). Top-k picks keep the lower index on ties (``ops/moe.py``).
-At batch 1 with top-1 routing the adapter runs only the picked expert,
-scaled by its gate; it reads the pick on the host (one sync a decoder
-block). Every other case is the dense combine, so the windows of a tiled
-restore take the dense path, as in JAX. The expert depth loop of the
+``forward(img, train=True, generator=g)`` is the JAX ``train=True`` apply:
+every router adds Gaussian noise of std 1/E to its logits, drawn from the
+``torch.Generator`` ``g`` (``ops/moe.py`` ``routing_noise``; it raises
+without one), and returns 0.5 x importance + 0.5 x load loss, the
+importance weighted by the experts' relative parameter counts with
+``with_complexity``; the model returns ``(out, {"aux_loss": mean over the
+decoder blocks})``. Eval adds no noise and returns the image alone. Top-k
+picks keep the lower index on ties (``ops/moe.py``). In eval at batch 1
+with top-1 routing the adapter runs only the picked expert, scaled by its
+gate; it reads the pick on the host (one sync a decoder block). Every
+other case, training included, is the dense combine, so the windows of a
+tiled restore take the dense path, as in JAX. The expert depth loop of the
 reference never feeds back, so one application is the whole expert.
 
 The TPU workarounds of the JAX module are not ported: its matmul DFT
@@ -49,10 +55,7 @@ from image_restoration_tpu_torch.ops.attention import MDTA
 from image_restoration_tpu_torch.ops.common import Conv, Linear
 from image_restoration_tpu_torch.ops.ffn import GDFN
 from image_restoration_tpu_torch.ops.layernorm import LayerNorm
-from image_restoration_tpu_torch.ops.moe import (
-    dense_moe_combine,
-    noisy_topk_gates,
-)
+from image_restoration_tpu_torch.ops.moe import dense_moe_combine, route
 from image_restoration_tpu_torch.ops.resample import Downsample, Upsample
 
 
@@ -143,6 +146,17 @@ def expert_param_count(dim: int, rank: int, kernel_size: int = 7) -> int:
     return dim * rank * 2 + rank * dim + fft_attention_param_count(rank, 7)
 
 
+def expert_complexity(dim, rank, num_experts, rank_type, scale="max"):
+    """Each expert's parameter count over the largest (``scale`` "max") or
+    the smallest ("min"): the routers' complexity bias (JAX
+    moce_ir.py:254-257). With ``rank_type="constant"`` it is all ones."""
+    ranks = _expert_schedules(num_experts, 1, rank, dim, "constant",
+                              rank_type)[3]
+    counts = [expert_param_count(dim, r) for r in ranks]
+    denom = min(counts) if scale == "min" else max(counts)
+    return tuple(c / denom for c in counts)
+
+
 def _expert_schedules(num_experts, stage_depth, rank, dim, depth_type,
                       rank_type):
     """Per-expert (patch sizes, kernel sizes, depths, ranks)
@@ -183,18 +197,23 @@ def expert_banks(dim, rank, num_experts, rank_type, dtype=None):
 
 
 class RoutingFunction(nn.Module):
-    """Top-k gate over the experts, eval path (moce_ir.py:169-202): logits
-    of the image's GAP (rounded to the map's dtype, as ``jnp.mean`` rounds
-    it) through ``gate.2`` plus, unless ``use_freq_gate`` is False
-    (IGMoCE-IR), the frequency embedding through ``freq_gate``, both fp32;
-    their softmax, kept at the top-k. ``gate`` keeps the reference's
-    (pool, flatten, linear) Sequential for its checkpoint paths; the pool
-    runs as :func:`gap`."""
+    """Noisy top-k gate over the experts (moce_ir.py:169-202): logits of
+    the image's GAP (rounded to the map's dtype, as ``jnp.mean`` rounds it)
+    through ``gate.2`` plus, unless ``use_freq_gate`` is False (IGMoCE-IR),
+    the frequency embedding through ``freq_gate``, both fp32; their
+    softmax (noisy in training, ``ops/moe.py`` ``route``), kept at the
+    top-k. ``complexity`` (the experts' relative parameter counts,
+    :func:`expert_complexity`), when given, weighs training's importance
+    loss: the JAX ``complexity`` with ``use_complexity_bias``. ``gate``
+    keeps the reference's (pool, flatten, linear) Sequential for its
+    checkpoint paths; the pool runs as :func:`gap`."""
 
     def __init__(self, dim: int, freq_dim: int, num_experts: int, k: int,
-                 use_freq_gate: bool = True):
+                 complexity=None, use_freq_gate: bool = True):
         super().__init__()
         self.k = k
+        self.register_buffer("complexity", None if complexity is None
+                             else torch.tensor(complexity), persistent=False)
         self.gate = nn.Sequential(
             nn.AdaptiveAvgPool2d(1), nn.Flatten(),
             Linear(dim, num_experts, bias=False, dtype=torch.float32))
@@ -209,46 +228,53 @@ class RoutingFunction(nn.Module):
             out = out + self.freq_gate(freq_emb.float())
         return out
 
-    def forward(self, x, freq_emb=None):
-        """(gates (B, E), top_idx (B, k), top_vals (B, k)), fp32."""
-        if self.training:
-            raise NotImplementedError(
-                "MoE routing serves eval only: the routing noise and the "
-                "aux losses are the MoCE family's training slice (ROADMAP "
-                "Queue 1 item 4)")
-        return noisy_topk_gates(self.logits(x, freq_emb), self.k)
+    def forward(self, x, freq_emb=None, train=False, generator=None):
+        """(gates (B, E), top_idx (B, k), top_vals (B, k), aux), fp32;
+        ``aux`` is 0 unless ``train``."""
+        return route(self.logits(x, freq_emb), self.k, train, generator,
+                     self.complexity)
 
 
 class AdapterLayer(nn.Module):
     """The mixture of ModExperts (moce_ir_orignal.py AdapterLayer,
     moce_ir.py:229-290), then a 1x1 ``proj_out``.
 
-    With ``switched_eval``, at batch 1 and top-1 with more than one expert,
-    only the picked expert runs, scaled by its fp32 gate cast to the
-    expert output's dtype: the dense combine's value, since the other
-    gates are 0. The pick is read on the host. Otherwise every expert runs
-    and the outputs are combined densely by the gates."""
+    With ``switched_eval``, in eval at batch 1 and top-1 with more than
+    one expert, only the picked expert runs, scaled by its fp32 gate cast
+    to the expert output's dtype: the dense combine's value, since the
+    other gates are 0. The pick is read on the host. Otherwise, training
+    included, every expert runs and the outputs are combined densely by
+    the gates. In training it returns ``(out, aux)``: the router's
+    balance loss, its importance weighted by the experts' complexity with
+    ``with_complexity``."""
 
     def __init__(self, dim: int, rank: int, num_experts: int = 4,
                  top_k: int = 2, rank_type: str = "constant",
-                 freq_dim: int = 128, switched_eval: bool = True, dtype=None):
+                 freq_dim: int = 128, switched_eval: bool = True,
+                 with_complexity: bool = False, complexity_scale: str = "max",
+                 dtype=None):
         super().__init__()
         self.top_k = top_k
         self.switched_eval = switched_eval
-        self.routing = RoutingFunction(dim, freq_dim, num_experts, top_k)
+        self.routing = RoutingFunction(
+            dim, freq_dim, num_experts, top_k,
+            expert_complexity(dim, rank, num_experts, rank_type,
+                              complexity_scale) if with_complexity else None)
         self.experts = expert_banks(dim, rank, num_experts, rank_type, dtype)
         self.proj_out = Conv(dim, dim, 1, bias=False, dtype=dtype)
 
-    def forward(self, x, freq_emb, shared):
-        gates, top_idx, top_vals = self.routing(x, freq_emb)
-        if (self.switched_eval and x.shape[0] == 1 and self.top_k == 1
-                and len(self.experts) > 1):
+    def forward(self, x, freq_emb, shared, train=False, generator=None):
+        gates, top_idx, top_vals, aux = self.routing(
+            x, freq_emb, train=train, generator=generator)
+        if (self.switched_eval and not train and x.shape[0] == 1
+                and self.top_k == 1 and len(self.experts) > 1):
             o = self.experts[int(top_idx[0, 0])][0](x, shared)
             out = top_vals[0, 0].to(o.dtype) * o
         else:
             out = dense_moe_combine(gates, [e[0](x, shared)
                                             for e in self.experts])
-        return self.proj_out(out)
+        out = self.proj_out(out)
+        return (out, aux) if train else out
 
 
 class EncoderBlock(nn.Module):
@@ -297,7 +323,8 @@ class DecoderBlock(nn.Module):
     """LN, 1x1 splits into the shared MDTA branch (``proj.0``) and the
     adapter (``proj.1``), the cross-attention mixer of the adapter's output
     with the shared branch, plus the input; LN -> GDFN -> +res
-    (moce_ir.py:342-378)."""
+    (moce_ir.py:342-378). In training it returns ``(x, aux)``, the
+    adapter's balance loss."""
 
     def __init__(self, dim: int, num_heads: int, expansion: float = 2.0,
                  use_bias: bool = False, ln_type: str = "WithBias",
@@ -315,12 +342,15 @@ class DecoderBlock(nn.Module):
 
     make_adapter = AdapterLayer
 
-    def forward(self, x, freq_emb):
+    def forward(self, x, freq_emb, train=False, generator=None):
         xn = self.norms[0](x)
         x_s = self.shared(self.proj[0](xn))
-        x_a = self.adapter(self.proj[1](xn), freq_emb, x_s)
+        x_a = self.adapter(self.proj[1](xn), freq_emb, x_s, train, generator)
+        if train:
+            x_a, aux = x_a
         x = self.mixer(x_a, x_s) + x
-        return x + self.ffn(self.norms[1](x))
+        x = x + self.ffn(self.norms[1](x))
+        return (x, aux) if train else x
 
 
 class FrequencyEmbedding(nn.Module):
@@ -367,6 +397,7 @@ class MoCEUNet:
         ``i``; ``out_bias``: the reduce and output convs' bias; ``enc``:
         EncoderBlock's options."""
         self.dtype = dtype
+        self.num_dec_total = sum(num_dec_blocks)
         dims = [dim * 2 ** i for i in range(levels)]
 
         def stack(d, h, n):
@@ -401,7 +432,10 @@ class MoCEUNet:
             x = blk(x)
         return x
 
-    def forward(self, img):
+    def forward(self, img, train=False, generator=None):
+        """The restored image, fp32; with ``train`` ``(image, {"aux_loss":
+        the decoder blocks' mean balance loss})``, the routers' noise drawn
+        from ``generator``."""
         h, w = img.shape[-2:]
         x = _zero_pad_to(img, self.pad_multiple)
         x = x if self.dtype is None else x.to(self.dtype)
@@ -414,12 +448,20 @@ class MoCEUNet:
             feats = down(feats)
         feats = self._run(self.latent, feats)
         freq_emb = self.freq_embed(feats)
+        total_aux = 0.0
         for up, reduce, blocks in self.dec:
             feats = reduce(torch.cat([up(feats), skips.pop()], dim=1))
             for blk in blocks:
-                feats = blk(feats, freq_emb)
+                if train:
+                    feats, aux = blk(feats, freq_emb, True, generator)
+                    total_aux = total_aux + aux
+                else:
+                    feats = blk(feats, freq_emb)
         feats = self._run(self.refinement, feats)
-        return (self.output(feats) + x).float()[..., :h, :w]
+        out = (self.output(feats) + x).float()[..., :h, :w]
+        if train:
+            return out, {"aux_loss": total_aux / self.num_dec_total}
+        return out
 
 
 def moce_key_map(key: str):
@@ -437,9 +479,14 @@ def moce_key_map(key: str):
 class MoCEIR(MoCEUNet, nn.Module):
     """moce_ir_orignal.py:769-887, with the modified copy's pad of the input
     to 2^(levels-1). Takes and returns NCHW; the output is fp32, the
-    padded input's residual cropped back. ``depth_type``,
-    ``stage_depth``, ``with_complexity`` and ``complexity_scale`` set the
-    complexity statistic of training and change nothing in eval."""
+    padded input's residual cropped back. ``with_complexity`` and
+    ``complexity_scale`` set the complexity bias of training's importance
+    loss; ``depth_type`` and ``stage_depth`` change nothing (the experts'
+    depth never feeds back, and the bias counts ranks alone, as in JAX).
+    ``uses_moe_rng``: the trainer applies it with ``train=True`` and a
+    generator (``cli/train.py`` ``model_apply_kwargs``)."""
+
+    uses_moe_rng = True
 
     def __init__(self, inp_channels: int = 3, out_channels: int = 3,
                  dim: int = 32, levels: int = 3,
@@ -463,7 +510,8 @@ class MoCEIR(MoCEUNet, nn.Module):
                 d, h, ffn_expansion_factor, use_bias, ln_type, dtype,
                 rank=rank, num_experts=num_experts, top_k=topk,
                 rank_type=rank_type, freq_dim=freq_dim,
-                switched_eval=switched_eval)
+                switched_eval=switched_eval, with_complexity=with_complexity,
+                complexity_scale=complexity_scale)
 
         self._build(inp_channels, out_channels, dim, levels, heads,
                     num_blocks, num_dec_blocks, num_refinement_blocks,

@@ -5,7 +5,10 @@ JAX package's compute-dtype rule (ops/common.py ``Conv``): parameters stay
 fp32 and input, weight and bias are cast to the compute dtype at the call.
 ``GroupedConv`` is the same for rectangular kernels with per-side padding
 (the JAX ``GroupedConv``, without its custom gradient), and ``Linear`` the
-same rule for flax's ``Dense``.
+same rule for flax's ``Dense``. All three draw their initial weights as
+flax's default ``lecun_normal`` does and start their biases at zero
+(:func:`lecun_normal_`), so a seeded model starts where the JAX package's
+does, up to the draw.
 """
 
 from __future__ import annotations
@@ -15,6 +18,25 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+# flax's truncated_normal rescale: the std of a standard normal truncated
+# at +-2 (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight, bias=None, fan_in=None):
+    """Draws ``weight`` in place as flax's ``lecun_normal``: a normal
+    truncated at two standard deviations, rescaled to std 1/sqrt(fan_in),
+    from the global torch RNG; zeroes ``bias``. ``fan_in`` defaults to the
+    elements of one output row ((in / groups) x kh x kw for a conv, the
+    input features for a dense layer)."""
+    n = weight[0].numel() if fan_in is None else fan_in
+    std = n ** -0.5 / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std)
+        if bias is not None:
+            bias.zero_()
 
 
 def gelu_exact(x):
@@ -39,6 +61,9 @@ class Conv(nn.Conv2d):
                          padding=padding, dilation=dilation, groups=groups,
                          bias=bias)
         self.compute_dtype = dtype
+
+    def reset_parameters(self):
+        lecun_normal_(self.weight, self.bias)
 
     def forward(self, x):
         dt = self.compute_dtype or torch.promote_types(x.dtype,
@@ -69,6 +94,9 @@ class Linear(nn.Linear):
     def __init__(self, a: int, b: int, bias: bool = True, dtype=None):
         super().__init__(a, b, bias=bias)
         self.compute_dtype = dtype
+
+    def reset_parameters(self):
+        lecun_normal_(self.weight, self.bias)
 
     def forward(self, x):
         dt = self.compute_dtype or torch.promote_types(x.dtype,

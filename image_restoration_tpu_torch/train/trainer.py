@@ -277,7 +277,7 @@ def apply_updates(state: TrainState, params, updates, ema_decay) -> None:
 
 
 def make_train_step(model, tx: Optimizer, cfg: TrainerConfig) -> Callable:
-    """The train step ``(state, batch) -> (state, logs)``.
+    """The train step ``(state, batch[, generator]) -> (state, logs)``.
 
     The model's forward may return ``pred``, ``(pred, aux)`` with ``aux`` a
     dict (``aux_loss``, side heads), or a tuple of tensors (NeRD-Rain's
@@ -285,6 +285,11 @@ def make_train_step(model, tx: Optimizer, cfg: TrainerConfig) -> Callable:
     on the model's device. The model is put in ``train()`` mode. ``logs``
     are 0-d tensors, detached: a step reads nothing back to the host, so
     the host runs ahead of the card unless the caller logs.
+
+    ``step_fn(state, batch, generator)``: a ``torch.Generator`` on the
+    model's device is passed to the forward as ``generator`` (the MoE
+    families' routing noise under ``apply_kwargs`` ``{"train": True}``; the
+    JAX step's ``rngs={"moe": rng}``); None passes nothing.
     """
     from image_restoration_tpu_torch.train.recipes import make_recipe
 
@@ -296,10 +301,11 @@ def make_train_step(model, tx: Optimizer, cfg: TrainerConfig) -> Callable:
     apply_kwargs = dict(cfg.apply_kwargs)
     params = dict(model.named_parameters())
 
-    def step_fn(state: TrainState, batch):
+    def step_fn(state: TrainState, batch, generator=None):
         model.train()
-        logs, grads = loss_and_grads(model, recipe, batch, apply_kwargs,
-                                     params)
+        kwargs = (apply_kwargs if generator is None
+                  else {**apply_kwargs, "generator": generator})
+        logs, grads = loss_and_grads(model, recipe, batch, kwargs, params)
         updates, state.opt_state = tx.update(grads, state.opt_state, params)
         apply_updates(state, params, updates, cfg.ema_decay)
         state.step += 1

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from seeding import seed_biases
 
 from image_restoration_tpu.models import adair as ja
 from image_restoration_tpu.ops.resample import resize_bilinear as j_resize
@@ -253,6 +254,7 @@ def test_torch_checkpoint_drops_the_unused_fre_params(tmp_path):
     key map and are not in the model: load_params drops them. A key the map
     keeps and the model lacks still fails the strict load."""
     src = get_model("adair", **TINY)
+    seed_biases(src, 0, 1.0)  # the init's are 0: the load must move them
     sd = dict(src.state_dict())
     sd["fre1.conv.weight"] = torch.randn(64, 3, 3, 3)
     sd["fre1.score_gen.weight"] = torch.randn(2, 2, 7, 7)

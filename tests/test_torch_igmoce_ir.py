@@ -16,7 +16,9 @@ rounding is ~1e-7), so no pick can flip between the packages.
 * ``ops/illumination.py``: IlluminationEstimator with IGMoCE-IR's 4 groups
   and LumiSenseMoE's ``depth_groups``; AdaptiveIlluminationModulator.
 * Modules: HolisticLayerNorm (with and without bias), the LN dispatcher
-  over its four types, FreMLPExp (an even and an odd width), SpAM (with
+  over its four types, FreMLPExp (an even and an odd width; its
+  gradients against the reference's ``torch.abs``/``torch.angle``
+  formulation and JAX's, finite where a coefficient is 0), SpAM (with
   and without the extra depthwise conv), IG_MSA, IGEncoderBlock,
   IGAdapterLayer (image gate only, dense at batch 1), IGDecoderBlock.
 * The whole model at dim 16, one block a level, 16x24 (no internal pad),
@@ -113,6 +115,49 @@ def test_fre_mlp(hw):
     want, got = pair(jg.FreMLPExp(8, 2, True), tg.FreMLPExp(8, 2, True), rng,
                      _x(rng, 8, *hw))
     _close(got, want)
+
+
+def _reference_fre_mlp(mod, x):
+    """The reference's FreMLP (``torch.abs`` and ``torch.angle`` of the
+    rfft2 coefficients) with the port module's weights."""
+    z = torch.fft.rfft2(x, norm="backward")
+    m, pha = mod.process1(torch.abs(z)), torch.angle(z)
+    return torch.fft.irfft2(torch.complex(m * torch.cos(pha),
+                                          m * torch.sin(pha)),
+                            s=x.shape[-2:], norm="backward")
+
+
+@pytest.mark.parametrize("zeros", [False, True],
+                         ids=["random", "zero_coefficients"])
+def test_fre_mlp_gradient(zeros):
+    """The input and weight gradients equal the reference's FreMLP's and
+    JAX's; where an rfft2 coefficient is exactly 0 (constant channels of a
+    4x4 map) JAX's are NaN and the port's stay the reference's."""
+    rng = np.random.default_rng(6)
+    x = _x(rng, 8, 4, 4)
+    if zeros:
+        x[..., :4] = 0.5
+    cot = _x(rng, 8, 4, 4)
+    jmod = jg.FreMLPExp(8, 2, True)
+    params = randomized(init_shapes(jmod, x)["params"], rng)
+    tmod = load(tg.FreMLPExp(8, 2, True), params)
+    grads = []
+    for fn in (tmod, functools.partial(_reference_fre_mlp, tmod)):
+        xt = nchw(x).requires_grad_()
+        tmod.zero_grad()
+        (fn(xt) * nchw(cot)).sum().backward()
+        grads.append([xt.grad] + [p.grad.clone()
+                                  for p in tmod.parameters()])
+    for got, want in zip(*grads):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), RTOL,
+                                   ATOL * float(want.abs().max()))
+    jgrad = jax.grad(lambda a: jnp.sum(jmod.apply({"params": params}, a)
+                                       * cot))(x)
+    if zeros:
+        assert np.isnan(np.asarray(jgrad)).any()
+    else:
+        _close(grads[0][0], jgrad, atol=ATOL * float(np.abs(jgrad).max()))
 
 
 @pytest.mark.parametrize("extra", [False, True])

@@ -58,6 +58,7 @@ from family_parity import (
     routing_gaps,
 )
 from PIL import Image
+from seeding import seed_biases
 
 from image_restoration_tpu.cli import infer as jinfer
 from image_restoration_tpu.kernels import block_pallas as JK
@@ -105,7 +106,7 @@ def test_gates_match_jax_noisy_topk_eval():
     logits = _vec(rng, 6, 4)
     for k in (1, 2):
         jg, ji, jv, _ = jmoe.noisy_topk_gates(jnp.asarray(logits), k, 0.25)
-        tg, ti, tv = tmoe.noisy_topk_gates(torch.from_numpy(logits), k)
+        tg, ti, tv, _ = tmoe.noisy_topk_gates(torch.from_numpy(logits), k)
         assert kth_gap(logits, k) > GAP_MIN
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
         np.testing.assert_allclose(tg.numpy(), np.asarray(jg), RTOL, ATOL)
@@ -118,9 +119,9 @@ def test_gates_keep_the_lower_index_on_ties():
                        [1.0, 1.0, 1.0, 1.0]], np.float32)
     for k in (1, 2, 3):
         _, ji, _, _ = jmoe.noisy_topk_gates(jnp.asarray(logits), k, 0.25)
-        _, ti, _ = tmoe.noisy_topk_gates(torch.from_numpy(logits), k)
+        _, ti, _, _ = tmoe.noisy_topk_gates(torch.from_numpy(logits), k)
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
-    _, ti, _ = tmoe.noisy_topk_gates(torch.from_numpy(logits), 2)
+    _, ti, _, _ = tmoe.noisy_topk_gates(torch.from_numpy(logits), 2)
     assert ti.tolist() == [[1, 2], [0, 1], [0, 1]]
 
 
@@ -157,7 +158,7 @@ def test_routing_function():
     x, f = _x(rng, 16), _vec(rng, 2, 32)
     jmod = jm.RoutingFunction(16, 32, 4, 2, (1.0,) * 4)
     tmod = tm.RoutingFunction(16, 32, 4, 2)
-    (jg, ji, jv, _), (tg, ti, tv) = pair(jmod, tmod, rng, x, f,
+    (jg, ji, jv, _), (tg, ti, tv, _) = pair(jmod, tmod, rng, x, f,
                                          to_torch=_to_torch)
     assert kth_gap(tmod.logits(nchw(x), torch.from_numpy(f)), 2) > GAP_MIN
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
@@ -391,6 +392,7 @@ def _reference_layout(sd):
 
 def test_reference_pth_loads(tmp_path):
     src = get_model("moce_ir", **CASES["top2"][0])
+    seed_biases(src, 0, 1.0)  # the init's are 0: the load must move them
     ref = _reference_layout(src.state_dict())
     assert any(".layers." in k for k in ref)
     assert sum(k.endswith("routing.complexity") for k in ref) == 2

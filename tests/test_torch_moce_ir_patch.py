@@ -81,7 +81,7 @@ def test_patch_routing_function():
     rng = np.random.default_rng(1)
     x, f = _x(rng, 16), rng.standard_normal((2, 32)).astype(np.float32)
     tmod = tp.PatchRoutingFunction(16, 32, 4, 2, patch_size=16)
-    (jg, ji, jv, _), (tg, ti, tv) = pair(
+    (jg, ji, jv, _), (tg, ti, tv, _) = pair(
         jp.PatchRoutingFunction(16, 32, 4, 2, (1.0,) * 4, 16), tmod, rng, x,
         f, to_torch=_to_torch)
     assert tg.shape == (2 * 2 * 3, 4)

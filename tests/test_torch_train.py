@@ -19,7 +19,9 @@ the CPU in fp32 (JAX at "highest" matmul precision).
   final checkpoint scores through the port's ``cli/test.py --ckpt`` and,
   through the JAX package's ``utils/torch_import``, restores an image in
   the JAX model equal to the port model's.
-* What is not ported raises: no device without a GPU, ``--mesh``, MEASNet.
+* What is not ported raises: no device without a GPU, ``--mesh``, MEASNet
+  (which the JAX CLI cannot train either); MoCE-IR takes a step through
+  ``main`` and logs its balance loss.
 """
 
 import json
@@ -257,12 +259,26 @@ def test_what_is_not_ported_raises(data_root, tmp_path, monkeypatch):
     argv = _argv(data_root, str(tmp_path))
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         train_cli.main(argv + ["--mesh", "2"], max_steps_override=1)
-    with pytest.raises(NotImplementedError, match="MoCE family"):
+    with pytest.raises(NotImplementedError, match="keeps no batch_stats"):
         train_cli.main(argv + ["--model", "measnet"], max_steps_override=1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     no_device = [a for a in argv if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="--device cpu"):
         train_cli.main(no_device, max_steps_override=1)
+
+
+def test_moce_ir_trains_through_main(data_root, tmp_path):
+    """MoCE-IR (its serving defaults, narrowed) takes a CPU step through
+    ``main`` with its routing noise and logs the balance loss."""
+    argv = _argv(data_root, str(tmp_path), "--model", "moce_ir",
+                 "--set", "model_kwargs.num_dec_blocks=(1,1,1)")
+    state = train_cli.main(argv, max_steps_override=1)
+    assert state.step == 1
+    logged = [json.loads(line) for line in open(tmp_path / "t" /
+                                                "metrics.jsonl")]
+    aux = [e["train/aux"] for e in logged if "train/aux" in e]
+    assert len(aux) == 1 and np.isfinite(aux[0]) and aux[0] > 0
+    assert np.isfinite(logged[0]["train/total"])
 
 
 def test_config_yaml_flags_win_and_pyyaml_is_needed(tmp_path, monkeypatch):

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from seeding import seed_biases
 from test_torch_train import SMALL, _adam_mu, _assert_tree, _nchw
 
 from image_restoration_tpu.models import get_model as jax_get_model
@@ -107,6 +108,7 @@ def test_drsformer_fused_grads_equal_the_plain_models():
     for fused in (True, False):
         torch.manual_seed(0)
         model = get_model("drsformer", **small, fused_block=fused)
+        seed_biases(model, 1)  # the init's are 0
         out = model(x)
         if fused:
             assert {"_DRSBlockBackward", "_MEFCStepsBackward"} <= \

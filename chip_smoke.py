@@ -143,7 +143,14 @@ Phases, any failure ends the run with a nonzero exit code:
    forward, finite outputs and scores, and phase 3's rule against its
    plain fp32 model at 328x488 and 488x328. ms/img per benchmark follow:
    the host clock around the evaluate loop, and inside it the forward and
-   the metrics by CUDA events.
+   the metrics by CUDA events. Then SRConvNet, TransWeather and DarkIR
+   (phase 3j's models, seeded weights as a ``--ckpt``) score a
+   Set5-shaped x4 tree (``sr_set5_x4``: Y channel, 4 border pixels),
+   a RainDrop-shaped one (720x480 pairs, ``raindrop``) and a LOLv1-shaped
+   one (600x400, ``synllie``, with a seeded ``--lpips_ckpt``: the LPIPS
+   column finite): no kernel launch, finite scores, and each image's
+   on-card PSNR and SSIM within 1e-3 dB and 1e-4 of the float64 host
+   recomputation (the Y-channel protocol for SR).
 2f. K1 and K2 as phase 2 at MoCE-IR's block parameters (WithBias LN, a
    bias on every conv, GDFN hidden 2C) and its four block shapes serving a
    512x512 image: 512^2 x 48 (1 head, 8 blocks), 256^2 x 96 (2, 6),
@@ -161,6 +168,19 @@ Phases, any failure ends the run with a nonzero exit code:
    ``perturb_igmoce``), LumiSenseMoE and the patch-routed MoCE-IR from
    their serving defaults, served the same way without a kernel: every
    kernel's launch count must read 0; their picks are printed, not held.
+3j. SRConvNet (dim 64, 10 blocks, 8 heads, 4 kernels, x4), TransWeather
+   (the paper configuration) and DarkIR-m (width 32, encoder 1/2/3,
+   middle 2/2, decoder 3/1/1) from their serving defaults, plain torch
+   (no Pallas kernel behind them in JAX either), seeded weights with the
+   zero-initialised DarkIR ``beta``/``gamma`` and the 1e-6 SRConvNet
+   ``layer_scale`` perturbed (``perturb_family``), restore through
+   ``make_restore_fn`` in bf16 at batch 1: SRConvNet 128x128 to 512x512,
+   TransWeather 512x512, DarkIR 512x512 and 400x600 (LOLv1's shape).
+   Outputs finite and of the expected size, every kernel's launch count
+   0; the bf16 error against the card's fp32 model printed; the card's
+   fp32 forward at a small input within 1e-4 relative L2 of the CPU
+   port's; the forward's device ms, the restore's ms/img, MP/s of the
+   output pixels and the peak memory;
 2g. K1 and K2 as phase 2 at the five block shapes of a Restormer-base
    training step (batch 8 of 128x128 patches: 128^2 x 48, 64^2 x 96,
    32^2 x 192, 16^2 x 384, 128^2 x 96, all on the batch of 8), two runs
@@ -241,6 +261,16 @@ Phases, any failure ends the run with a nonzero exit code:
    generator seed, their picks printed) and a step's launches (28 + 28,
    none in the backward), host syncs, step ms, images/s and peak memory
    against the plain bf16 model.
+4f. DarkIR-m (``--recipe darkir``: the side head's EnhanceLoss) and
+   TransWeather (``--recipe transweather`` with a seeded torchvision-layout
+   VGG16 ``.pth`` as ``--vgg_ckpt``) train through ``cli/train.py``
+   ``main`` in bf16 on phase 4's tree, batch 8 of 128x128, 12 steps,
+   validation and saves every 6: no kernel launch, every logged loss term
+   finite (the enhance and perceptual terms too), the L1 loss on a fixed
+   batch lower with the final checkpoint's parameters than with the
+   initial model's, ``cli/test.py --ckpt`` scoring the final checkpoint
+   with a finite PSNR; the bf16 gradients' relative L2 error against the
+   fp32 model's (printed); step ms, images/s and peak memory.
 5. LSNet differentiates through SKA's backward kernels: LSNet-B in fp32
    (``cli/robust.py``'s default), seeded weights and BatchNorm statistics
    as a ``.pth`` ``--ckpt``; 16 seeded 224x224 images in an ImageFolder
@@ -260,7 +290,11 @@ and reads them just after; the kernels line's ``launches_by_path`` lists
 phase 3f's two ``main`` runs as ``eval`` (Restormer-base, 7 forwards) and
 ``eval_drsformer`` (3 forwards), phase 3g's as ``cg_ir``, ``measnet``
 and ``nerd_rain``, phase 3h's as ``moce_ir`` and phase 3i's (zeros) as
-``igmoce_ir``, ``lumisense_moe`` and ``moce_ir_patch``, phase 4's first
+``igmoce_ir``, ``lumisense_moe`` and ``moce_ir_patch``, phase 3j's
+(zeros) as ``srconvnet``, ``transweather`` and ``darkir``, phase 3f's
+runs for them (zeros) as ``eval_srconvnet``, ``eval_transweather`` and
+``eval_darkir``, phase 4f's (zeros) as ``train_darkir`` and
+``train_transweather``, phase 4's first
 ``main`` run as ``train``, its DRSformer run as ``train_drsformer`` and
 the three-kernel step as ``train_3k``, phase 4m's ``main`` runs as
 ``train_moce`` and (zeros) ``train_igmoce_ir``, ``train_lumisense_moe``
@@ -391,6 +425,31 @@ MOCE_TRAIN_STEPS, MOCE_TRAIN_EVERY = 12, 6
 MOCE_TRAIN_LEVELS = [(h * TRAIN_PATCH // 512, w * TRAIN_PATCH // 512, c,
                       heads, n) for h, w, c, heads, n in MOCE_LEVELS]
 FAMILY_TRAIN_STEPS = 3
+# Phase 3j: the serving defaults phase 3j holds SRConvNet, TransWeather
+# (its paper configuration: the model's own defaults) and DarkIR-m to, the
+# inputs (H, W) each restores (SRConvNet x4: 128x128 to 512x512; DarkIR
+# also LOLv1's 400x600) and the small input of the card-against-CPU check.
+FAMILY_WIDTHS = {
+    "srconvnet": dict(dim=64, n_blocks=10, num_heads=8, scale=4),
+    "transweather": {},
+    "darkir": dict(width=32, enc_blk_nums=(1, 2, 3), middle_blk_num_enc=2,
+                   middle_blk_num_dec=2, dec_blk_nums=(3, 1, 1),
+                   dilations=(1, 4, 9)),
+}
+FAMILY_SERVE = {"srconvnet": [(128, 128)], "transweather": [(512, 512)],
+                "darkir": [(512, 512), (400, 600)]}
+FAMILY_SMALL = {"srconvnet": (32, 24), "transweather": (96, 64),
+                "darkir": (64, 48)}
+# Phase 3f's runs for them: (model, benchmark, images, Y border), the
+# Set5-shaped HR sizes, RainDrop's 720x480 and LOLv1's 600x400 (H, W).
+FAMILY_EVAL = [("srconvnet", "sr_set5_x4", 2, 4),
+               ("transweather", "raindrop", 2, 0),
+               ("darkir", "synllie", 2, 0)]
+SR_EVAL_SIZES = [(256, 256), (176, 144)]
+RAINDROP_SIZE, LOL_SIZE = (480, 720), (400, 600)
+# Phase 4f: DarkIR's and TransWeather's runs (steps, validation and save
+# period).
+FAMILY_TRAIN_STEPS_4F, FAMILY_TRAIN_EVERY = 12, 6
 # Phase 5: images of the attacked ImageFolder tree (one batch, 224x224),
 # and LSNet-T's classification steps, their batch and learning rate. The
 # step keeps the BatchNorms in eval mode (as the JAX package's does), so
@@ -2107,13 +2166,13 @@ class _MetricProbe:
         self.m, self.keep = metrics, keep
         self.events, self.kept = [], []
 
-    def _timed(self, fn, out, gt):
+    def _timed(self, fn, out, gt, *rest):
         import torch
 
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        val = fn(out, gt)
+        val = fn(out, gt, *rest)
         end.record()
         self.events.append((start, end))
         if self.keep:
@@ -2129,6 +2188,12 @@ class _MetricProbe:
 
     def ssim(self, out, gt):
         return self._timed(self.m.ssim, out, gt)
+
+    def psnr_yc(self, out, gt, crop_border=0):
+        return self._timed(self.m.psnr_yc, out, gt, crop_border)
+
+    def ssim_yc(self, out, gt, crop_border=0):
+        return self._timed(self.m.ssim_yc, out, gt, crop_border)
 
     def ms(self):
         return sum(s.elapsed_time(e) for s, e in self.events)
@@ -2146,26 +2211,62 @@ def metric_probe(keep=False):
         B.M = saved
 
 
-def host_psnr_ssim(out, gt):
+def host_psnr_ssim(out, gt, data_range=1.0, sample_covariance=True):
     """float64 PSNR and SSIM of (C, H, W) arrays by the skimage formula:
     gaussian weights sigma 1.5 truncated at 3.5 (radius 5), sample
-    covariance, the map cropped by the radius and averaged (scipy)."""
+    covariance (BasicSR's SSIM without it), the map cropped by the radius
+    and averaged (scipy)."""
     from scipy.ndimage import gaussian_filter
 
-    psnr = 10.0 * np.log10(1.0 / np.mean((out - gt) ** 2))
+    psnr = 10.0 * np.log10(data_range ** 2 / np.mean((out - gt) ** 2))
 
     def filt(a):
         return gaussian_filter(a, sigma=(0, 1.5, 1.5), truncate=3.5)
 
-    cov = 121.0 / 120.0
+    cov = 121.0 / 120.0 if sample_covariance else 1.0
     ux, uy = filt(out), filt(gt)
     vx = cov * (filt(out * out) - ux * ux)
     vy = cov * (filt(gt * gt) - uy * uy)
     vxy = cov * (filt(out * gt) - ux * uy)
-    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
     s = ((2 * ux * uy + c1) * (2 * vxy + c2)
          / ((ux ** 2 + uy ** 2 + c1) * (vx + vy + c2)))
     return psnr, float(s[:, 5:-5, 5:-5].mean())
+
+
+def host_psnr_ssim_y(out, gt, border):
+    """float64 Y-channel PSNR and SSIM of (3, H, W) RGB arrays, the SR
+    protocol of ``eval/metrics.py`` ``psnr_yc``/``ssim_yc``: BT.601 Y
+    ('MATLAB' ycbcr), ``border`` pixels cropped, SSIM on the 0-255 scale
+    without the sample covariance (BasicSR)."""
+    w = np.array([65.481, 128.553, 24.966]) / 255.0
+
+    def y(a):
+        return (np.tensordot(w, a, 1) + 16.0 / 255.0)[
+            None, border:-border, border:-border]
+
+    yo, yg = y(out), y(gt)
+    return (host_psnr_ssim(yo, yg)[0],
+            host_psnr_ssim(yo * 255.0, yg * 255.0, 255.0, False)[1])
+
+
+def _metrics_to_host(tag, kept, border=0):
+    """Each image's on-card PSNR and SSIM (``kept`` pairs) within 1e-3 dB
+    and 1e-4 of the float64 host recomputation (Y channel, ``border``
+    cropped, when the benchmark scores so)."""
+    worst = [0.0, 0.0]
+    for (fn, out, gt, p), (_, _, _, s) in zip(kept[::2], kept[1::2]):
+        host = (host_psnr_ssim_y(out, gt, border) if fn == "psnr_yc"
+                else host_psnr_ssim(out, gt))
+        dp, ds = abs(p.item() - host[0]), abs(s.item() - host[1])
+        worst = [max(worst[0], dp), max(worst[1], ds)]
+        check(dp <= 1e-3 and ds <= 1e-4,
+              f"eval {tag} metrics at {out.shape}: card PSNR {p.item():.6f} "
+              f"SSIM {s.item():.7f}, host float64 {host[0]:.6f} "
+              f"{host[1]:.7f}")
+    print(f"eval {tag}: {len(kept) // 2} images, on-card metrics vs float64 "
+          f"host: max |dPSNR| {worst[0]:.3e} dB (limit 1e-3), max |dSSIM| "
+          f"{worst[1]:.3e} (limit 1e-4)", flush=True)
 
 
 def _eval_main(tag, argv, counters, expected, n_forwards):
@@ -2399,6 +2500,425 @@ def phase_eval(gpu):
                        plain_variant(dcfg, model, True), inputs)
     print(f"eval: phase 3f took {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, drs_launches
+
+
+def perturb_family(model, seed):
+    """Seeded, non-trivial residual scales of SRConvNet, TransWeather and
+    DarkIR: DarkIR's ``beta``/``gamma`` start at zero (nothing an EBlock's
+    or DBlock's branches compute reaches the image) and SRConvNet's
+    ``layer_scale`` at 1e-6 (FConvMod's softmax over H*W is then nearly
+    uniform)."""
+    import torch
+
+    randn = _randn_from(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("beta", "gamma", "layer_scale")):
+                p.copy_(0.5 + 0.2 * randn(p))
+
+
+def _family_cfg(name, tag):
+    """``name``'s options from its serving defaults on the card, held to
+    phase 3j's configuration: bf16, no kernel flag, and the widths
+    ``FAMILY_WIDTHS`` names."""
+    from image_restoration_tpu_torch.utils.options import parse_options
+
+    cfg = parse_options(["--model", name, "--device", "cuda", "--seed",
+                         "0"])
+    mk = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in cfg["model_kwargs"].items()}
+    check(cfg["bf16"] and not set(mk) & set(KERNEL_FLAGS)
+          and all(mk.get(k) == v for k, v in FAMILY_WIDTHS[name].items()),
+          f"{tag}: not {name}'s bf16 kernel-free defaults ({mk})")
+    return cfg
+
+
+def phase_serve_family(gpu, profile_dir=None):
+    """Phase 3j: SRConvNet, TransWeather and DarkIR from their serving
+    defaults (``FAMILY_WIDTHS``), seeded weights with ``perturb_family``,
+    restore ``FAMILY_SERVE``'s inputs in bf16 at batch 1 through
+    ``make_restore_fn``: finite outputs of the input's size (4x it for
+    SRConvNet), every kernel's launch count 0. Then each model's bf16
+    error against the card's fp32 model at those inputs (printed), the
+    card's fp32 forward against the CPU port's at ``FAMILY_SMALL`` (within
+    1e-4 relative L2, TF32 off on both), and the forward's device ms (CUDA
+    events), the restore's ms/img (host clock), MP/s of the output pixels
+    and the peak memory; with ``profile_dir``, a profile of two restores
+    of the first input. Returns the launch counts by model."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.infer import make_restore_fn
+    from image_restoration_tpu_torch.cli.test import load_params
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.utils.precision import full_fp32
+
+    every = _every_kernel()
+    rng = np.random.default_rng(1500)
+    out = {}
+    for name, sizes in FAMILY_SERVE.items():
+        cfg = _family_cfg(name, f"{name} serving")
+        scale = cfg["model_kwargs"].get("scale", 1) if name == "srconvnet" \
+            else 1
+        model = load_params(cfg, build_model(cfg))
+        perturb_family(model, 1510)
+        restore = make_restore_fn(cfg, model)
+        images = [rng.random((h, w, 3), dtype=np.float32) for h, w in sizes]
+        for img in images:
+            restore(img)  # warm-up: cuDNN algorithm choice, allocator
+        torch.cuda.synchronize()
+        for fn in every.values():
+            fn.launches = 0
+        outs = [restore(img) for img in images]
+        torch.cuda.synchronize()
+        out[name] = {k: f.launches for k, f in every.items()}
+        check(not any(out[name].values()),
+              f"{name} serving launched a kernel: {out[name]}")
+        for img, res in zip(images, outs):
+            want = (img.shape[0] * scale, img.shape[1] * scale, 3)
+            check(res.shape == want and np.isfinite(res).all(),
+                  f"{name}: output {res.shape} for {img.shape}, or not "
+                  f"finite")
+        plain32 = plain_variant(cfg, model, False)
+        for img in images:
+            h, w = img.shape[:2]
+            x = torch.from_numpy(img).permute(2, 0, 1)[None].cuda()
+            with torch.inference_mode(), full_fp32():
+                ref = plain32(x)
+                got = model(x).float()
+            err = (got - ref).abs().max().item()
+            rel = ((got - ref).norm() / ref.norm()).item()
+            check(np.isfinite(err), f"{name}: non-finite bf16 error")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                restore(img)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            ms = statistics.median(times)
+            with torch.inference_mode(), full_fp32():
+                fwd = time_cuda(lambda: model(x), reps=5, warmup=1,
+                                head_start_ms=50.0)
+            mp = h * w * scale * scale / 1e6
+            print(f"{name} serving {h}x{w} -> {h * scale}x{w * scale} bf16 "
+                  f"batch 1 on {gpu}: forward {fwd:.3f} ms (device, CUDA "
+                  f"events), restore {ms:.3f} ms/img (host clock, median of "
+                  f"5), {mp / (ms / 1e3):.4f} MP/s of output, peak memory "
+                  f"{peak:.3f} GiB; bf16 against the card's fp32 model: max "
+                  f"|err| {err:.4e}, relative L2 {rel:.4e}", flush=True)
+        if profile_dir:
+            _profile(restore, [images[0]] * 2, profile_dir, name, gpu,
+                     f"restores at {images[0].shape[0]}x"
+                     f"{images[0].shape[1]}")
+        # the card's fp32 model against the CPU port's, at a small input
+        small = torch.rand((1, 3, *FAMILY_SMALL[name]),
+                           generator=torch.Generator().manual_seed(1520))
+        with torch.inference_mode(), full_fp32():
+            card = plain32(small.cuda()).cpu().double()
+            cpu = plain32.cpu()(small).double()
+        rel = ((card - cpu).norm() / cpu.norm()).item()
+        print(f"{name}: fp32 forward at {tuple(small.shape[2:])}, card "
+              f"against CPU: relative L2 {rel:.3e} (limit 1e-4)", flush=True)
+        check(rel <= 1e-4, f"{name}: card fp32 forward {rel:.3e} from the "
+              f"CPU's")
+        del model, plain32, restore
+    return out
+
+
+def _write_pairs(root, rel_lq, rel_gt, sizes, rng, degrade):
+    import os
+
+    from PIL import Image
+
+    for i, (h, w) in enumerate(sizes):
+        gt = _smooth_image(rng, h, w)
+        for rel, arr in ((rel_gt, gt), (rel_lq, degrade(gt))):
+            path = os.path.join(root, rel, f"{i:03d}.png")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(path)
+
+
+def write_family_eval_tree(root, seed=0):
+    """Phase 3f's trees for the three models: Set5-shaped (``sr/Set5/HR``
+    and ``LR_bicubic/X4``, the LR a PIL bicubic x1/4 of the HR),
+    RainDrop-shaped (``weather/RainDrop/{input,gt}``, 720x480 with
+    bright spots and noise) and LOLv1-shaped (``llie/LOLv1/Test/{input,target}``,
+    600x400, the input dark and noisy)."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for i, (h, w) in enumerate(SR_EVAL_SIZES):
+        hr = _smooth_image(rng, h, w)
+        for rel, img in (("HR", Image.fromarray(hr)),
+                         ("LR_bicubic/X4", Image.fromarray(hr).resize(
+                             (w // 4, h // 4), Image.BICUBIC))):
+            name = f"{i:03d}.png" if rel == "HR" else f"{i:03d}x4.png"
+            path = os.path.join(root, "sr", "Set5", rel, name)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            img.save(path)
+
+    def drops(gt):
+        spots = (rng.random(gt.shape[:2]) > 0.99)[..., None]
+        return gt * 0.8 + spots * 100.0 + rng.standard_normal(gt.shape) * 6
+
+    def dark(gt):
+        return gt * 0.15 + rng.standard_normal(gt.shape) * 4.0
+
+    _write_pairs(root, "weather/RainDrop/input", "weather/RainDrop/gt",
+                 [RAINDROP_SIZE] * 2, rng, drops)
+    _write_pairs(root, "llie/LOLv1/Test/input", "llie/LOLv1/Test/target",
+                 [LOL_SIZE] * 2, rng, dark)
+
+
+def _seeded_vgg16(path, seed, prefix=""):
+    """A torchvision-layout VGG16 state_dict (``features.N``; to relu5_3),
+    seeded at the fan-in scale, saved to ``path`` with ``prefix`` on every
+    key; with ``prefix="net."`` and LPIPS's five heads
+    (``lin{i}.model.1.weight``, non-negative) it is an LPIPS checkpoint."""
+    import torch
+
+    from image_restoration_tpu_torch.eval.perceptual import VGG16_CFG
+
+    g = torch.Generator().manual_seed(seed)
+    sd, cin, idx = {}, 3, 0
+    for v in VGG16_CFG[:-1]:
+        if v == "M":
+            idx += 1
+            continue
+        sd[f"{prefix}features.{idx}.weight"] = torch.randn(
+            v, cin, 3, 3, generator=g) / (9 * cin) ** 0.5
+        sd[f"{prefix}features.{idx}.bias"] = 0.05 * torch.randn(v,
+                                                                 generator=g)
+        cin, idx = v, idx + 2
+    if prefix:
+        for i, c in enumerate((64, 128, 256, 512, 512)):
+            sd[f"lin{i}.model.1.weight"] = torch.rand(1, c, 1, 1,
+                                                      generator=g) / c
+    torch.save(sd, path)
+
+
+def phase_eval_family(gpu):
+    """Phase 3f for SRConvNet, TransWeather and DarkIR: ``cli/test.py``
+    ``main`` scores each, from its serving defaults with seeded weights
+    (``perturb_family``) as a ``.pth`` ``--ckpt``, on its synthetic
+    benchmark (``write_family_eval_tree``): SRConvNet ``sr_set5_x4`` (Y
+    channel, 4 border pixels cropped), TransWeather ``raindrop`` (bucket
+    64: 768x512 forwards), DarkIR ``synllie`` with a seeded ``--lpips_ckpt``
+    (the LPIPS column finite). Every kernel's launch count 0, finite
+    scores, and each image's on-card PSNR and SSIM within 1e-3 dB and 1e-4
+    of the float64 host recomputation. Returns the launch counts by
+    path."""
+    import os
+    import tempfile
+
+    import torch
+
+    from image_restoration_tpu_torch.cli.test import load_params
+    from image_restoration_tpu_torch.cli.train import build_model
+
+    t0 = time.perf_counter()
+    every = _every_kernel()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ir_eval_family_") as tmp:
+        data = os.path.join(tmp, "data")
+        write_family_eval_tree(data)
+        lpips = os.path.join(tmp, "lpips.pth")
+        _seeded_vgg16(lpips, 1530, prefix="net.")
+        for name, bench, n, border in FAMILY_EVAL:
+            cfg = _family_cfg(name, f"eval {name}")
+            model = load_params(cfg, build_model(cfg))
+            perturb_family(model, 1540)
+            ckpt = os.path.join(tmp, f"{name}.pth")
+            torch.save(model.state_dict(), ckpt)
+            del model
+            extra = ["--lpips_ckpt", lpips] if name == "darkir" else []
+            launches, kept = _eval_main(
+                name, ["--model", name, "--ckpt", ckpt, "--benchmarks",
+                       bench, "--data_file_dir", data, "--output_dir",
+                       os.path.join(tmp, name), *extra],
+                every, dict.fromkeys(every, 0), n)
+            with open(os.path.join(tmp, name, "results.json")) as f:
+                res = json.load(f)[bench]
+            if extra:
+                print(f"eval {name} {bench}: LPIPS {res['lpips']:.6f} "
+                      f"(seeded LPIPS weights)", flush=True)
+                check(np.isfinite(res["lpips"]), f"eval {name}: LPIPS "
+                      f"{res.get('lpips')}")
+            _metrics_to_host(name, kept, border)
+            out[f"eval_{name}"] = launches
+    print(f"eval: phase 3f (family) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
+def phase_train_family(gpu):
+    """Phase 4f: DarkIR-m (``--recipe darkir``: the side head's
+    EnhanceLoss) and TransWeather (``--recipe transweather`` with a seeded
+    torchvision-layout VGG16 ``.pth`` as ``--vgg_ckpt``) train through
+    ``cli/train.py`` ``main`` on phase 4's tree in bf16, batch 8 of
+    128x128, ``FAMILY_TRAIN_STEPS_4F`` steps with validation and saves
+    every ``FAMILY_TRAIN_EVERY``: every kernel's launch count 0, every
+    logged loss finite with the recipe's terms, the L1 loss on a fixed
+    batch lower with the final checkpoint's parameters than with the
+    initial model's, ``cli/test.py --ckpt`` scoring the final checkpoint
+    with a finite PSNR. Then the relative L2 error of the bf16 model's
+    gradients (the recipe's loss, batch 2 at 128x128) against the fp32
+    model's, and step ms (CUDA events, median of 5 after 2 warm-up steps),
+    images/s and peak memory. Returns the launch counts by path."""
+    import os
+    import tempfile
+
+    import torch
+
+    from image_restoration_tpu_torch.cli import test as T
+    from image_restoration_tpu_torch.cli import train as TR
+    from image_restoration_tpu_torch.train.recipes import make_recipe
+    from image_restoration_tpu_torch.train.trainer import (
+        TrainerConfig, TrainState, loss_and_grads, make_optimizer,
+        make_train_step,
+    )
+    from image_restoration_tpu_torch.utils.options import (
+        build_train_parser, parse_options,
+    )
+
+    t0 = time.perf_counter()
+    every = _every_kernel()
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(1550)
+    shape = (TRAIN_BATCH, 3, TRAIN_PATCH, TRAIN_PATCH)
+    gt = torch.rand(shape, generator=gen, device="cuda")
+    batch = {"gt": gt, "lq": (gt * 0.5 + 0.1 * torch.randn(
+        shape, generator=gen, device="cuda")).clamp(0, 1)}
+    with tempfile.TemporaryDirectory(prefix="ir_family_") as tmp:
+        data = os.path.join(tmp, "data")
+        _train_tree(data)
+        bench = os.path.join(tmp, "bench")
+        write_family_eval_tree(bench)
+        vgg = os.path.join(tmp, "vgg16.pth")
+        _seeded_vgg16(vgg, 1560)
+        for name, terms, extra in (
+                ("darkir", ("l1", "enhance"), []),
+                ("transweather", ("smooth_l1", "perceptual"),
+                 ["--vgg_ckpt", vgg])):
+            argv = ["--model", name, "--recipe", name, "--device", "cuda",
+                    "--data_file_dir", data, "--batch_size",
+                    str(TRAIN_BATCH), "--patch_size", str(TRAIN_PATCH),
+                    "--warmup_epochs", "0", "--lr", str(TRAIN_LR),
+                    "--save_every", str(FAMILY_TRAIN_EVERY), "--val_every",
+                    str(FAMILY_TRAIN_EVERY), "--val_lq_dir",
+                    f"{data}/val/lq", "--val_gt_dir", f"{data}/val/gt",
+                    "--log_every", "1", "--ckpt_dir",
+                    os.path.join(tmp, "exp"), "--name", name, *extra]
+            cfg = parse_options(argv, build_train_parser())
+            check(cfg["bf16"] and not set(cfg["model_kwargs"])
+                  & set(KERNEL_FLAGS), f"phase 4f {name}: not bf16 and "
+                  f"kernel-free ({cfg['model_kwargs']})")
+            for fn in every.values():
+                fn.launches = 0
+            t1 = time.perf_counter()
+            TR.main(argv, max_steps_override=FAMILY_TRAIN_STEPS_4F)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            out[f"train_{name}"] = {k: f.launches for k, f in every.items()}
+            exp = os.path.join(tmp, "exp", name)
+            with open(os.path.join(exp, "metrics.jsonl")) as f:
+                logged = [json.loads(line) for line in f]
+            rows = [e for e in logged if "train/total" in e]
+            vals = [e["val/psnr"] for e in logged if "val/psnr" in e]
+            print(f"train {name}: {FAMILY_TRAIN_STEPS_4F} steps in "
+                  f"{wall:.1f} s (host clock, with validation and saves); "
+                  + "; ".join(f"{k} {[round(e[f'train/{k}'], 5) for e in rows]}"
+                              for k in ("total", *terms))
+                  + f"; validation PSNR {vals}", flush=True)
+            check(not any(out[f"train_{name}"].values()),
+                  f"train {name} launched a kernel: {out[f'train_{name}']}")
+            check(len(rows) == FAMILY_TRAIN_STEPS_4F and all(
+                np.isfinite(e[f"train/{k}"]) for e in rows
+                for k in ("total", *terms)) and np.isfinite(vals).all()
+                and len(vals) == FAMILY_TRAIN_STEPS_4F // FAMILY_TRAIN_EVERY,
+                f"train {name}: a loss term or PSNR missing or not finite")
+            final = os.path.join(exp, "ckpt", f"{FAMILY_TRAIN_STEPS_4F}.pth")
+            model = TR.build_model(cfg)
+            fixed = []
+            for params in (None, torch.load(final,
+                                            map_location="cuda")["params"]):
+                if params is not None:
+                    model.load_state_dict(params)
+                with torch.inference_mode():
+                    res = model(batch["lq"][:2])
+                    res = res[0] if isinstance(res, tuple) else res
+                    fixed.append((res - batch["gt"][:2]).abs().mean().item())
+            print(f"train {name}: L1 on a fixed batch of 2 at "
+                  f"{TRAIN_PATCH}^2: initial model {fixed[0]:.5f}, after "
+                  f"{FAMILY_TRAIN_STEPS_4F} steps {fixed[1]:.5f}", flush=True)
+            check(np.isfinite(fixed).all() and fixed[1] < fixed[0],
+                  f"train {name}: the loss did not fall")
+            bench_name = dict((m, b) for m, b, _, _ in FAMILY_EVAL)[name]
+            res = T.main(["--model", name, "--device", "cuda", "--ckpt",
+                          final, "--benchmarks", bench_name,
+                          "--data_file_dir", bench, "--output_dir",
+                          os.path.join(tmp, f"r_{name}")])
+            print(f"train {name}: cli/test.py --ckpt "
+                  f"{os.path.basename(final)}: {res}", flush=True)
+            check(np.isfinite(res[bench_name]["psnr"]),
+                  f"train {name}: scoring the checkpoint gave {res}")
+
+            # the bf16 gradients against the fp32 model's
+            recipe_kw = TR.build_recipe_kwargs(cfg)
+            recipe = make_recipe(name, **recipe_kw)
+            apply_kw = TR.RECIPE_APPLY_KWARGS.get(name, {})
+            small = {k: v[:2] for k, v in batch.items()}
+            grads = {}
+            for bf16 in (True, False):
+                m = plain_variant(cfg, model, bf16).train()
+                grads[bf16] = torch.cat([
+                    g.float().flatten() for g in loss_and_grads(
+                        m, recipe, small, apply_kw)[1].values()])
+                del m
+            rel = ((grads[True] - grads[False]).norm()
+                   / grads[False].norm()).item()
+            print(f"train {name}: bf16 gradient against fp32, relative L2 "
+                  f"{rel:.4e} (all parameters, batch 2 at {TRAIN_PATCH}^2)",
+                  flush=True)
+            check(np.isfinite(rel), f"train {name}: non-finite gradients")
+
+            # a step alone: ms, images/s, peak memory
+            model.train()
+            tcfg = TrainerConfig(learning_rate=TRAIN_LR, recipe=name,
+                                 recipe_kwargs=recipe_kw,
+                                 apply_kwargs=apply_kw)
+            tx = make_optimizer(tcfg)
+            state = TrainState.create(model, tx)
+            step = make_train_step(model, tx, tcfg)
+            for _ in range(2):
+                step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(state, batch)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            ms = statistics.median(times)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"train step {name} bf16 batch {TRAIN_BATCH} x "
+                  f"{TRAIN_PATCH}^2 on {gpu}: {ms:.3f} ms (CUDA events, "
+                  f"median of 5 after 2 warm-up steps; min {min(times):.3f}, "
+                  f"max {max(times):.3f}), {TRAIN_BATCH / (ms / 1e3):.2f} "
+                  f"images/s, peak memory {peak:.3f} GiB", flush=True)
+            del model, state, step, tx, recipe_kw, recipe
+    print(f"train: phase 4f took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
 
 
 def phase_block_backward():
@@ -3811,12 +4331,15 @@ def main(argv=None):
             if name == "igmoce_ir" else None)
     print(f"phase 3 (serving, 3-3i but 3f): "
           f"{time.perf_counter() - t_serve:.1f} s", flush=True)
+    by_path.update(timed("3j", phase_serve_family, gpu, args.profile))
     by_path["eval"], by_path["eval_drsformer"] = timed("3f", phase_eval, gpu)
+    by_path.update(timed("3f family", phase_eval_family, gpu))
     by_path.update(timed("4", phase_train, gpu, args.profile))
     merge_path(report, timed("2g moce_ir", phase_kernels, MOCE_TRAIN_LEVELS,
                              2200, f"moce_ir train batch {TRAIN_BATCH} ",
                              batch=TRAIN_BATCH, **MOCE_BLOCK), "train_moce")
     by_path.update(timed("4m", phase_train_moce, gpu))
+    by_path.update(timed("4f", phase_train_family, gpu))
     by_path.update(timed("5", phase_lsnet_grad, gpu))
     for name in ("ska_bwd_x", "ska_bwd_w"):
         check(sum(n.get(name, 0) for n in by_path.values()) > 0,

@@ -49,7 +49,8 @@ NeRD-Rain's first output, the full-scale restoration, is the image.
 MoCE-IR runs its encoder, latent and refinement blocks through the pair
 and its complexity-expert decoder in plain torch; IGMoCE-IR, LumiSenseMoE
 and the patch-routed MoCE-IR run in plain torch, as the JAX package runs
-them without a kernel.
+them without a kernel, as do SRConvNet (``--model srconvnet``, x4 by
+default: the output is 4x the input's size), TransWeather and DarkIR.
 """
 
 from __future__ import annotations
@@ -96,11 +97,15 @@ def make_restore_fn(cfg, model):
     image, clipped to [0, 1]: window-tiled (``cfg["tile"]``, the NeRD-Rain
     window_partitionx protocol: every window of the image through the model
     as one batch) or pad-to-multiple (``cfg["pad_multiple"]``, default 8).
-    A tuple output is unwrapped to its first element. Runs on the model's
-    device, with TF32 off (:func:`full_fp32`) whatever the model's dtype."""
+    A tuple output is unwrapped to its first element. SRConvNet's output
+    is ``model_kwargs.scale`` x larger, and the crop keeps that size. Runs
+    on the model's device, with TF32 off (:func:`full_fp32`) whatever the
+    model's dtype."""
     from image_restoration_tpu_torch.eval.tiled import pad_test, windowed_apply
 
     device = next(model.parameters()).device
+    scale = int(cfg.get("model_kwargs", {}).get("scale", 1)
+                if cfg.get("model") == "srconvnet" else 1)
 
     def fwd(x):
         out = model(x)
@@ -115,7 +120,8 @@ def make_restore_fn(cfg, model):
             if cfg.get("tile"):
                 out = windowed_apply(fwd, x, cfg["tile"])
             else:
-                out = pad_test(fwd, x, cfg.get("pad_multiple", 8))
+                out = pad_test(fwd, x, cfg.get("pad_multiple", 8),
+                               scale=scale)
         return out[0].permute(1, 2, 0).float().cpu().numpy()
 
     return restore

@@ -18,7 +18,9 @@ Prints one line per benchmark and writes ``results.json`` under
 every block through K1/K2 and DRSformer through K1/K7/K8 (``cli/infer.py``),
 as do CG-IR, MEASNet and NeRD-Rain (K1/K2; NeRD-Rain pads to multiples of
 16 unless ``--pad_multiple`` is given) and MoCE-IR's encoder (K1/K2);
-IGMoCE-IR, LumiSenseMoE and the patch-routed MoCE-IR run in plain torch.
+IGMoCE-IR, LumiSenseMoE, the patch-routed MoCE-IR, SRConvNet (the
+``sr_*`` benchmarks), TransWeather and DarkIR run in plain torch.
+``--lpips_ckpt`` adds an LPIPS column (``eval/perceptual.py``).
 """
 
 from __future__ import annotations
@@ -121,6 +123,31 @@ def make_eval_fn(model):
     return fn
 
 
+def make_lpips_fn(path, device):
+    """The LPIPS column (MoCE-IR-main/src/test.py:88,105,123): ``(out, gt)
+    -> (B,)`` distances of the port's ``LPIPS`` with the weights of the
+    torch checkpoint ``path`` (the VGG16 trunk under ``net.`` and the
+    heads, through ``lpips_key_map``; strict), in fp32 with TF32 off."""
+    from image_restoration_tpu_torch.eval.perceptual import (
+        LPIPS, lpips_key_map,
+    )
+    from image_restoration_tpu_torch.utils.precision import full_fp32
+    from image_restoration_tpu_torch.utils.torch_import import (
+        load_torch_checkpoint,
+    )
+
+    lp = LPIPS()
+    sd = {lpips_key_map(k): v for k, v in load_torch_checkpoint(path).items()}
+    lp.load_state_dict(sd, strict=True)
+    lp = lp.to(device).eval()
+
+    def fn(out, gt):
+        with torch.inference_mode(), full_fp32():
+            return lp(out.float(), gt.float())
+
+    return fn
+
+
 def main(argv=None):
     from image_restoration_tpu_torch.cli.train import build_model
     from image_restoration_tpu_torch.eval.benchmarks import (
@@ -133,10 +160,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--unpaired scores NIQE, which comes with eval/niqe.py in "
             "ROADMAP Queue 1 item 6")
-    if cfg.get("lpips_ckpt"):
-        raise NotImplementedError(
-            "--lpips_ckpt scores LPIPS, which comes with eval/perceptual.py "
-            "in ROADMAP Queue 1 item 6")
     model = load_params(cfg, build_model(cfg))
     device = next(model.parameters()).device
     fn = make_eval_fn(model)
@@ -152,12 +175,17 @@ def main(argv=None):
         extra_kw["tile"] = cfg["tile"]
     if cfg.get("save_images"):
         extra_kw["save_dir"] = cfg["save_images"]
+    if cfg.get("lpips_ckpt"):
+        extra_kw["lpips_fn"] = make_lpips_fn(cfg["lpips_ckpt"], device)
 
     results = {}
     for b in benches:
         r = run_benchmark(b, fn, cfg["data_file_dir"], **extra_kw)
         results[b] = {"psnr": r.psnr, "ssim": r.ssim, "n": r.n, **r.extra}
-        print(f"{b}: PSNR {r.psnr:.4f} dB | SSIM {r.ssim:.4f} | {r.n} images")
+        cols = f"{b}: PSNR {r.psnr:.4f} dB | SSIM {r.ssim:.4f}"
+        if "lpips" in r.extra:
+            cols += f" | LPIPS {r.extra['lpips']:.4f}"
+        print(cols + f" | {r.n} images")
 
     out_dir = cfg.get("output_dir", "results")
     os.makedirs(out_dir, exist_ok=True)

@@ -25,10 +25,13 @@ balance loss weighted into the default recipe by ``--aux_loss_weight``,
 the noise drawn each step from ``step_generator(seed, step, device, 1)``
 (the JAX loop's ``fold_in(fold_in(rng, step), 1)``). What does not train
 raises: MEASNet, which the JAX CLI cannot train either (it keeps no
-``batch_stats``); ``--mesh`` (multi-GPU), ``--style_ckpt`` and
-``--vgg_ckpt`` and the recipes of models the port does not have (ROADMAP
-Queue 1 items 5-6). LSNet's classification step is
-``train/classification.py``, with no CLI, as in JAX.
+``batch_stats``); ``--mesh`` (multi-GPU), ``--style_ckpt`` and the
+recipes of models the port does not have (ROADMAP Queue 1 items 5-6).
+``--recipe darkir`` supervises DarkIR's side head (``side_loss=True``);
+``--recipe transweather`` adds the VGG16 perceptual term, from
+``--vgg_ckpt`` or a random init. TransWeather trains with ``train=False``
+(no stochastic depth), as through the JAX CLI. LSNet's classification
+step is ``train/classification.py``, with no CLI, as in JAX.
 """
 
 from __future__ import annotations
@@ -163,8 +166,8 @@ def make_lr_schedule(cfg, steps_per_epoch: int):
     return S.SCHEDULES[name](cfg["lr"]), total
 
 
-# forward kwargs implied by a recipe (heads that must exist at init time
-# too, e.g. DarkIR's side projection); DarkIR is not ported yet
+# forward kwargs implied by a recipe (DarkIR's side projection, which the
+# EnhanceLoss supervises)
 RECIPE_APPLY_KWARGS = {"darkir": {"side_loss": True}}
 
 def model_apply_kwargs(model) -> dict:
@@ -177,14 +180,47 @@ def model_apply_kwargs(model) -> dict:
     return {}
 
 
+def build_recipe_kwargs(cfg, device=None):
+    """Recipe arguments that need host-loaded data: the transweather
+    recipe's VGG16 (relu1_2/2_2/3_3), on ``device``, from ``--vgg_ckpt``'s
+    torchvision vgg16 state_dict through ``vgg16_key_map`` (the keys the
+    trunk holds; the deeper layers and the classifier are not used), or
+    drawn from seed 1 with a warning without it (JAX
+    ``cli/train.py:104-131``)."""
+    if cfg.get("recipe") != "transweather":
+        return {}
+    from image_restoration_tpu_torch.eval.perceptual import (
+        VGG16Features, vgg16_key_map,
+    )
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        vgg = VGG16Features(taps=(3, 8, 15))
+    if cfg.get("vgg_ckpt"):
+        from image_restoration_tpu_torch.utils.torch_import import (
+            load_torch_checkpoint,
+        )
+
+        own = vgg.state_dict()
+        sd = {}
+        for k, v in load_torch_checkpoint(cfg["vgg_ckpt"]).items():
+            mapped = vgg16_key_map(k)
+            if mapped in own:
+                sd[mapped] = v
+        vgg.load_state_dict(sd, strict=True)
+    else:
+        print("WARNING: --recipe transweather without --vgg_ckpt: the "
+              "perceptual term uses a random-init VGG (still a valid "
+              "feature metric, but not the paper's)")
+    return {"vgg": vgg.to(device or default_device(cfg))}
+
+
 def _refuse_unported(cfg):
     pending = {
         "mesh": "--mesh: multi-GPU training (torch.distributed/DDP) is "
                 "ROADMAP Queue 1 item 6",
         "style_ckpt": "--style_ckpt grafts MWFormer's StyleFilter, which "
                       "the port does not have yet (ROADMAP Queue 1 item 5)",
-        "vgg_ckpt": "--vgg_ckpt feeds the transweather recipe, whose model "
-                    "the port does not have yet (ROADMAP Queue 1 item 5)",
     }
     for key, msg in pending.items():
         if cfg.get(key):
@@ -277,7 +313,8 @@ def main(argv=None, max_steps_override: int | None = None):
         learning_rate=lr_sched, weight_decay=cfg.get("weight_decay", 0.0),
         grad_clip=cfg.get("grad_clip"), ema_decay=cfg.get("ema_decay"),
         loss=cfg["loss"], aux_loss_weight=cfg.get("aux_loss_weight", 0.0),
-        recipe=recipe, apply_kwargs=apply_kwargs,
+        recipe=recipe, recipe_kwargs=build_recipe_kwargs(cfg, device),
+        apply_kwargs=apply_kwargs,
         plateau=bool(cfg.get("plateau")),
         accumulate_grad_batches=cfg.get("accumulate_grad_batches", 1),
         freeze_prefixes=tuple(cfg.get("freeze") or ()),

@@ -1,5 +1,6 @@
 from image_restoration_tpu_torch.models.registry import (  # noqa: F401
     KEY_MAPS, MODELS, get_model, register_model)
 from image_restoration_tpu_torch.models import (  # noqa: F401
-    adair, cg_ir, drsformer, igmoce_ir, lsnet, lumisense_moe, measnet,
-    moce_ir, moce_ir_patch, nerd_rain, restormer)
+    adair, cg_ir, darkir, drsformer, igmoce_ir, lsnet, lumisense_moe,
+    measnet, moce_ir, moce_ir_patch, nerd_rain, restormer, srconvnet,
+    transweather)

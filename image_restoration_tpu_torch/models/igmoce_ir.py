@@ -39,6 +39,7 @@ from image_restoration_tpu_torch.models.moce_ir import (
 from image_restoration_tpu_torch.models.registry import register_model
 from image_restoration_tpu_torch.ops.attention import mdta_attention
 from image_restoration_tpu_torch.ops.common import Conv
+from image_restoration_tpu_torch.ops.fft import FreMLP
 from image_restoration_tpu_torch.ops.ffn import GDFN
 from image_restoration_tpu_torch.ops.illumination import (
     AdaptiveIlluminationModulator,
@@ -98,43 +99,13 @@ class LN(nn.Module):
         return self.body(x)
 
 
-def _polar(re, im):
-    """(sqrt(re^2 + im^2), atan2(im, re)), the JAX package's values, with
-    the reference's gradient where re^2 + im^2 is 0: there its
-    ``torch.abs`` and ``torch.angle`` of the complex coefficient
-    differentiate to 0, while sqrt and atan2 differentiate to NaN (JAX
-    igmoce_ir.py:101 does; a bf16 map whose rfft2 has an exactly zero
-    coefficient then turns every parameter NaN in one update)."""
-    sq = re * re + im * im
-    nz = sq > 0
-    one, zero = torch.ones_like(sq), torch.zeros_like(sq)
-    mag = torch.where(nz, torch.sqrt(torch.where(nz, sq, one)), zero)
-    pha = torch.where(nz, torch.atan2(torch.where(nz, im, zero),
-                                      torch.where(nz, re, one)),
-                      torch.atan2(im, re).detach())
-    return mag, pha
-
-
-class FreMLPExp(nn.Module):
-    """An fp32 MLP on the rfft2 magnitude (``norm="backward"``), the phase
-    kept (igmoce_ir.py:130-150): 1x1 to ``expansion`` x dim, leaky ReLU
-    0.1, 1x1 back; irfft2 of m e^(i phase), cast to x's dtype."""
+class FreMLPExp(FreMLP):
+    """``ops/fft.py`` ``FreMLP`` with IGMoCE-IR's names and default: an
+    fp32 MLP on the rfft2 magnitude, the phase kept (igmoce_ir.py:130-150),
+    biases off unless ``use_bias``."""
 
     def __init__(self, dim: int, expansion: int = 2, use_bias: bool = False):
-        super().__init__()
-        f32 = torch.float32
-        self.process1 = nn.Sequential(
-            Conv(dim, dim * expansion, 1, bias=use_bias, dtype=f32),
-            nn.LeakyReLU(0.1),
-            Conv(dim * expansion, dim, 1, bias=use_bias, dtype=f32))
-
-    def forward(self, x):
-        h, w = x.shape[-2:]
-        z = torch.fft.rfft2(x.float(), norm="backward")
-        mag, pha = _polar(z.real, z.imag)
-        m = self.process1(mag)
-        z = torch.complex(m * torch.cos(pha), m * torch.sin(pha))
-        return torch.fft.irfft2(z, s=(h, w), norm="backward").to(x.dtype)
+        super().__init__(dim, expansion, use_bias)
 
 
 class SpAM(nn.Module):

@@ -14,9 +14,20 @@ models), ``aux`` is the model's auxiliary dict ({} when absent), and
                    levels 1/2 (NeRD-Rain-main/train.py:155-163; output order
                    out[0..2]=max/mid/small, out[3]=INR-mid, out[5]=INR-small).
 
-``darkir``, ``hogformer``, ``transweather`` and ``mwformer_style`` are the
-JAX package's recipes for models the port does not have yet (ROADMAP Queue
-1 item 5): they raise ``NotImplementedError`` naming that model.
+* ``darkir``     — pixel losses on the primary output + EnhanceLoss on the
+                   bottleneck side head: criterion(nearest_up(side, 8), gt)
+                   (DarkIR-main/losses/loss.py:502-529; the VGG19
+                   perceptual term is omitted, as in JAX, and its hook is
+                   ``vgg_term``).
+* ``transweather`` — smooth_l1 + 0.04 * VGG16 perceptual
+                   (TransWeather-main/train.py:161-164): relu1_2/2_2/3_3
+                   feature MSE of ``vgg``, an ``eval/perceptual.py``
+                   ``VGG16Features`` (a torchvision vgg16's weights, or a
+                   random init), frozen.
+
+``hogformer`` and ``mwformer_style`` are the JAX package's recipes for
+models the port does not have yet (ROADMAP Queue 1 item 5): they raise
+``NotImplementedError`` naming that model.
 """
 
 from __future__ import annotations
@@ -64,6 +75,61 @@ def nerd_rain_recipe(char_w: float = 1.0, fft_w: float = 0.01,
     return fn
 
 
+def _nearest_up(x, scale: int):
+    """torch F.interpolate(mode='nearest', scale_factor=s) of NCHW."""
+    return x.repeat_interleave(scale, dim=2).repeat_interleave(scale, dim=3)
+
+
+def darkir_recipe(loss_terms: Mapping[str, float] | None = None,
+                  enhance_weight: float = 1.0, side_scale: int = 8,
+                  criterion: str = "l1", vgg_term: LossFn | None = None) -> LossFn:
+    """DarkIR mid-supervision: the side head (the 1/8-size bottleneck
+    projection, DarkIR.py:70-72,90-91) nearest-upsampled x8 against the GT
+    (losses/loss.py:527-529). ``vgg_term(up_side, gt)`` adds a perceptual
+    part."""
+    pixel = L.weighted_loss(dict(loss_terms or {"l1": 1.0}))
+    crit = L.l1_loss if criterion == "l1" else L.mse_loss
+
+    def fn(out, aux, batch):
+        total, logs = pixel(_primary(out), batch["gt"])
+        if aux.get("side") is not None:
+            up = _nearest_up(aux["side"], side_scale)
+            enh = crit(up, batch["gt"])
+            if vgg_term is not None:
+                enh = enh + vgg_term(up, batch["gt"])
+            total = total + enhance_weight * enh
+            logs["enhance"] = enh
+        return total, logs
+
+    return fn
+
+
+def transweather_recipe(vgg=None, perceptual_w: float = 0.04,
+                        beta: float = 1.0) -> LossFn:
+    """smooth_l1 + 0.04 * perceptual (TransWeather-main/train.py:161-164).
+
+    ``vgg``: an ``eval/perceptual.py`` ``VGG16Features`` at the
+    relu1_2/2_2/3_3 taps, put in eval mode and frozen here. Without it the
+    recipe is smooth_l1 alone, as in JAX."""
+    from image_restoration_tpu_torch.eval.perceptual import perceptual_loss
+
+    if vgg is not None:
+        vgg.eval().requires_grad_(False)
+
+    def fn(out, aux, batch):
+        pred, gt = _primary(out), batch["gt"]
+        sl1 = L.smooth_l1_loss(pred, gt, beta=beta)
+        logs = {"smooth_l1": sl1}
+        total = sl1
+        if vgg is not None:
+            perc = perceptual_loss(vgg, pred, gt, criterion="mse")
+            total = total + perceptual_w * perc
+            logs["perceptual"] = perc
+        return total, logs
+
+    return fn
+
+
 def _waits_for(recipe: str, model: str):
     def make(**kwargs):
         raise NotImplementedError(
@@ -76,9 +142,9 @@ def _waits_for(recipe: str, model: str):
 RECIPES: dict[str, Callable[..., LossFn]] = {
     "default": default_recipe,
     "nerd_rain": nerd_rain_recipe,
-    "darkir": _waits_for("darkir", "DarkIR"),
+    "darkir": darkir_recipe,
     "hogformer": _waits_for("hogformer", "HOGformer"),
-    "transweather": _waits_for("transweather", "TransWeather"),
+    "transweather": transweather_recipe,
     "mwformer_style": _waits_for("mwformer_style", "MWFormer's StyleFilter"),
 }
 

@@ -64,6 +64,14 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "igmoce_ir": dict(dim=48, num_blocks=[4, 6, 6, 8], heads=[1, 2, 4, 8]),
     "lumisense_moe": dict(),
     "moce_ir_patch": dict(),
+    # TransWeather's paper configuration (its field defaults), SRConvNet x4
+    # and DarkIR-m (JAX utils/options.py:41-46): plain torch, as plain XLA
+    # in JAX
+    "transweather": dict(),
+    "srconvnet": dict(dim=64, n_blocks=10, num_heads=8, scale=4),
+    "darkir": dict(width=32, enc_blk_nums=[1, 2, 3], middle_blk_num_enc=2,
+                   middle_blk_num_dec=2, dec_blk_nums=[3, 1, 1],
+                   dilations=[1, 4, 9]),
 }
 
 # Per-model defaults of top-level options. NeRD-Rain's quarter-scale
@@ -144,7 +152,7 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="terms name=weight, e.g. l1=1.0 fft=0.1")
     p.add_argument("--aux_loss_weight", type=float, default=0.01)
     p.add_argument("--recipe", type=str, default="default",
-                   help="loss recipe: default|nerd_rain")
+                   help="loss recipe: default|nerd_rain|darkir|transweather")
     # mixup (BasicSR mixing_augs, image_restoration_model.py:145-170)
     p.add_argument("--mixup", action="store_true")
     p.add_argument("--mixup_beta", type=float, default=1.2)
@@ -164,8 +172,8 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="stage-1 StyleFilter checkpoint (MWFormer; refused "
                         "until the port has the model)")
     p.add_argument("--vgg_ckpt", type=str, default=None,
-                   help="torchvision vgg16 .pth for the transweather recipe "
-                        "(refused until the port has the model)")
+                   help="torchvision vgg16 .pth for the transweather recipe's "
+                        "perceptual term (a random-init VGG without it)")
     # plateau LR (BasicSR ReduceLROnPlateau branch, train.py:285-293)
     p.add_argument("--plateau", action="store_true")
     p.add_argument("--plateau_factor", type=float, default=0.5)

@@ -87,7 +87,8 @@ def tree(tmp_path_factory):
         _save(str(d / f"cdd11/test/{folder}/0.png"), _degrade(rng, gt))
 
     net = JRestormer(dim=16, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
-    params = net.init(jax.random.PRNGKey(1), jnp.zeros((1, 64, 64, 3)))
+    params = jax.jit(net.init)(jax.random.PRNGKey(1),
+                               jnp.zeros((1, 64, 64, 3)))
     ckpt = str(root / "w.npz")
     save_params_npz(ckpt, params["params"])
     return {"root": root, "data": str(d), "ckpt": ckpt}
@@ -204,10 +205,14 @@ def test_registry_matches_jax():
 
 
 def test_cli_test_refuses_niqe_and_lpips(tree):
-    for flag in (["--unpaired"], ["--lpips_ckpt", "x.pth"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            port_test.main(TINY + ["--device", "cpu", "--ckpt", tree["ckpt"]]
-                           + flag)
+    """NIQE (``--unpaired``) is not ported and raises; ``--lpips_ckpt``
+    scores LPIPS (tests/test_torch_perceptual.py), and a checkpoint that is
+    not there is an error, not a missing column."""
+    args = TINY + ["--device", "cpu", "--ckpt", tree["ckpt"]]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        port_test.main(args + ["--unpaired"])
+    with pytest.raises(FileNotFoundError):
+        port_test.main(args + ["--lpips_ckpt", str(tree["root"] / "no.pth")])
 
 
 @pytest.mark.parametrize("tile", [None, 16], ids=["padded", "tiled"])

@@ -28,6 +28,13 @@ oracle's max magnitude is below max(3 x the plain bf16 version's, 4e-3).
   bit-equal; then the whole block (``fused_block``) on a batch of two whose
   images differ at 64^2 x 384 and 128^2 x 192, against
   ``reference_block``.
+- SRConvNet, TransWeather and DarkIR (kernel-free: plain torch), each at
+  its ``MODEL_DEFAULTS`` widths with seeded weights (the zero-initialised
+  DarkIR ``beta``/``gamma`` and the 1e-6 SRConvNet ``layer_scale``
+  perturbed) at a small input: the card's fp32 forward against the CPU's
+  fp32 forward within 1e-4 relative L2 (TF32 off), and the card's bf16
+  forward within 3x the CPU bf16 forward's relative L2 error against it
+  (oneDNN off on the CPU: its bf16 convolution is wrong at some shapes).
 """
 
 import numpy as np
@@ -35,6 +42,8 @@ import pytest
 import torch
 
 from image_restoration_tpu_torch.kernels import block as K
+from image_restoration_tpu_torch.models import get_model
+from image_restoration_tpu_torch.utils.options import MODEL_DEFAULTS
 
 # (H, W, C, heads) of MEASNet's K1/K2 calls at a 512x512 input
 MEASNET_SHAPES = [(512, 512, 32, 1), (256, 256, 64, 2), (128, 128, 128, 4),
@@ -203,3 +212,44 @@ def test_moce_ir_block_batch2(cuda, h, w, c, heads):
     for i in range(2):  # each image as its own batch of one
         one = K.fused_block(x[i:i + 1].contiguous(), p, heads)
         assert _holds(one[0], plain[i], oracle[i])
+
+
+# (model, NCHW input) of the kernel-free models' card-against-CPU check
+FAMILY_INPUTS = [("srconvnet", (1, 3, 32, 24)),
+                 ("transweather", (1, 3, 96, 64)),
+                 ("darkir", (1, 3, 60, 44))]
+
+
+def _rel_l2(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def _family_model(name, dtype):
+    kwargs = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in MODEL_DEFAULTS[name].items()}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        model = get_model(name, **kwargs, dtype=dtype).eval()
+        with torch.no_grad():
+            for key, p in model.named_parameters():
+                if key.endswith(("beta", "gamma", "layer_scale")):
+                    p.copy_(0.5 + 0.2 * torch.randn(p.shape))
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", FAMILY_INPUTS)
+def test_family_forward_card_against_cpu(cuda, name, shape):
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(6))
+    with torch.inference_mode(), torch.backends.mkldnn.flags(enabled=False):
+        want = _family_model(name, None)(x)
+        cpu16 = _family_model(name, torch.bfloat16)(x)
+    with torch.inference_mode():
+        got32 = _family_model(name, None).to(cuda)(x.to(cuda))
+        got16 = _family_model(name, torch.bfloat16).to(cuda)(x.to(cuda))
+    assert torch.isfinite(got32).all() and torch.isfinite(got16).all()
+    e32, e16, ecpu = (_rel_l2(got32, want), _rel_l2(got16, want),
+                      _rel_l2(cpu16, want))
+    assert e32 <= 1e-4, e32
+    assert e16 <= 3 * ecpu, (e16, ecpu)

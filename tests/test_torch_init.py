@@ -11,8 +11,9 @@ traced nor compiled. Initializers that draw nothing
 held exactly. The random ones are held to their distribution: flax's
 ``variance_scaling`` (``lecun_normal`` for every conv and dense kernel)
 gives a normal truncated at 2 stddev, stddev = sqrt(scale / fan) /
-0.8796..., with the fan JAX computes for that shape; ``normal(s)`` a
-normal of std s. Everything goes through the weight bridge
+0.8796..., with the fan JAX computes for that shape, and its uniform
+distribution (SRConvNet's kernel bank, TransWeather's transposed convs) a
+uniform within +-sqrt(3 scale / fan); ``normal(s)`` a normal of std s. Everything goes through the weight bridge
 (``utils/jax_bridge.py`` ``state_dict_from_jax``, the model's registered
 key map), so each port tensor meets the JAX leaf it is loaded from.
 
@@ -21,7 +22,8 @@ distribution of std sigma; both are exact properties of the draw, not
 of rounding): every tensor of a truncated draw lies within its
 truncation bound; a tensor of at least 256 values has its mean within
 6 sigma / sqrt(n) of 0 and its std within 5 / sqrt(n) of sigma,
-relatively (about 7 standard errors of a sample std). torch's default
+relatively (about 7 standard errors of a sample std of a normal; a
+uniform's is smaller). torch's default
 conv and linear init (std sigma / sqrt(3), uniform biases) fails both.
 """
 
@@ -66,6 +68,14 @@ MODELS = {
                    embed_dim=(16, 32, 48, 64), key_dim=(8, 8, 8, 8),
                    depth=(1, 2, 2, 2), num_heads=(2, 2, 2, 2)),
               (1, 64, 64, 3)),
+    "srconvnet": (dict(dim=16, n_blocks=1, num_heads=2, num_kernels=4,
+                       scale=2), (1, 16, 16, 3)),
+    "transweather": (dict(embed_dims=(16, 32, 40, 64), num_heads=(1, 2, 2, 2),
+                          depths=(1, 1, 1, 1), dec_depth=1, dec_heads=2),
+                     (1, 64, 64, 3)),
+    "darkir": (dict(width=8, enc_blk_nums=(1, 1, 1), middle_blk_num_enc=1,
+                    middle_blk_num_dec=1, dec_blk_nums=(1, 1, 1)),
+               (1, 32, 32, 3)),
 }
 
 
@@ -83,12 +93,14 @@ def _draws(init_fn, shape, dtype=jnp.float32):
     name = getattr(init_fn, "__qualname__", "")
     if name.startswith("variance_scaling."):
         c = _closure(init_fn)
-        assert c["distribution"] == "truncated_normal", c
+        assert c["distribution"] in ("truncated_normal", "uniform"), c
         fan_in, fan_out = _compute_fans(shape, c["in_axis"], c["out_axis"],
                                         c["batch_axis"])
         fan = {"fan_in": fan_in, "fan_out": fan_out,
                "fan_avg": (fan_in + fan_out) / 2}[c["mode"]]
         std = float(np.sqrt(c["scale"] / fan))
+        if c["distribution"] == "uniform":  # in +-sqrt(3) std
+            return None, std, float(np.sqrt(3.0)) * std
         return None, std, 2 * std / TRUNC
     if name.startswith("normal."):
         return None, float(_closure(init_fn)["stddev"]), np.inf

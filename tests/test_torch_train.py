@@ -20,7 +20,8 @@ the CPU in fp32 (JAX at "highest" matmul precision).
   through the JAX package's ``utils/torch_import``, restores an image in
   the JAX model equal to the port model's.
 * What is not ported raises: no device without a GPU, ``--mesh``, MEASNet
-  (which the JAX CLI cannot train either); MoCE-IR takes a step through
+  (which the JAX CLI cannot train either), ``--style_ckpt``; ``--vgg_ckpt``
+  does not; MoCE-IR takes a step through
   ``main`` and logs its balance loss.
 """
 
@@ -32,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from moe_parity import FAST
 from PIL import Image
 
 from image_restoration_tpu.models import get_model as jax_get_model
@@ -62,7 +64,7 @@ def _pair(fused):
     same, through the bridge."""
     jm = jax_get_model("restormer", fused_block=fused, **SMALL)
     x = jnp.zeros((1, 16, 16, 3), jnp.float32)
-    shapes = jm.init(jax.random.PRNGKey(0), x)["params"]
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), x)["params"]
     rng = np.random.default_rng(3)
     params = jax.tree.map(
         lambda a: jnp.asarray(
@@ -118,6 +120,8 @@ def test_train_step_matches_jax(fused):
             lq = lq.astype(np.float32)
             jb = {"lq": jnp.asarray(lq), "gt": jnp.asarray(gt)}
             tb = {"lq": _nchw(lq), "gt": _nchw(gt)}
+            if i == 0:  # one compile for the three steps (same shapes)
+                jstep = jstep.lower(jstate, jb, None).compile(FAST)
             jstate, jlogs = jstep(jstate, jb, None)
             tstate, tlogs = tstep(tstate, tb)
             np.testing.assert_allclose(float(tlogs["total"]),
@@ -239,8 +243,8 @@ def test_checkpoint_scores_in_both_packages(data_root, tmp_path):
 
     # the JAX model imports the same .pth (its EMA parameters)
     jm = jax_get_model("restormer", fused_block=True, **SMALL)
-    template = jm.init(jax.random.PRNGKey(0),
-                       jnp.zeros((1, 16, 16, 3)))["params"]
+    template = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                              jnp.zeros((1, 16, 16, 3)))["params"]
     sd = JI.load_torch_checkpoint(ckpt, prefer_ema=True)
     jparams = JI.import_state_dict(template, sd)
     img = np.random.default_rng(1).random((1, 32, 24, 3)).astype(np.float32)
@@ -261,6 +265,14 @@ def test_what_is_not_ported_raises(data_root, tmp_path, monkeypatch):
         train_cli.main(argv + ["--mesh", "2"], max_steps_override=1)
     with pytest.raises(NotImplementedError, match="keeps no batch_stats"):
         train_cli.main(argv + ["--model", "measnet"], max_steps_override=1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        train_cli.main(argv + ["--style_ckpt", "style.pth"],
+                       max_steps_override=1)
+    # --vgg_ckpt feeds the transweather recipe (test_torch_family_recipes.py)
+    from image_restoration_tpu_torch.utils import options as O
+
+    train_cli._refuse_unported(O.parse_options(
+        argv + ["--vgg_ckpt", "vgg16.pth"], O.build_train_parser()))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     no_device = [a for a in argv if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="--device cpu"):

@@ -25,13 +25,21 @@ balance loss weighted into the default recipe by ``--aux_loss_weight``,
 the noise drawn each step from ``step_generator(seed, step, device, 1)``
 (the JAX loop's ``fold_in(fold_in(rng, step), 1)``). What does not train
 raises: MEASNet, which the JAX CLI cannot train either (it keeps no
-``batch_stats``); ``--mesh`` (multi-GPU), ``--style_ckpt`` and the
-recipes of models the port does not have (ROADMAP Queue 1 items 5-6).
+``batch_stats``), and ``--mesh`` (multi-GPU, ROADMAP Queue 1 item 6).
 ``--recipe darkir`` supervises DarkIR's side head (``side_loss=True``);
 ``--recipe transweather`` adds the VGG16 perceptual term, from
-``--vgg_ckpt`` or a random init. TransWeather trains with ``train=False``
-(no stochastic depth), as through the JAX CLI. LSNet's classification
-step is ``train/classification.py``, with no CLI, as in JAX.
+``--vgg_ckpt`` or a random init; ``--recipe hogformer`` is HOGformer's
+L1 + Pearson + HOG loss. MWFormer trains in two stages: ``--model
+mwformer_style --recipe mwformer_style`` trains the style filter
+contrastively on the batches' degradation labels (``de_id``), then
+``--model mwformer --style_ckpt <its checkpoint>`` loads that filter into
+``style_filter`` (:func:`load_style_filter`) and freezes it. TransWeather
+and MWFormer train with ``train=False`` (no stochastic depth), as through the
+JAX CLI. SFHformer trains with ``train=True`` (its BatchNorms on the
+batch's statistics, the running ones updated), as the reference trains
+it; the JAX CLI cannot train it (its step applies the parameters alone,
+and the BatchNorms read ``batch_stats``). LSNet's classification step is
+``train/classification.py``, with no CLI, as in JAX.
 """
 
 from __future__ import annotations
@@ -171,11 +179,15 @@ def make_lr_schedule(cfg, steps_per_epoch: int):
 RECIPE_APPLY_KWARGS = {"darkir": {"side_loss": True}}
 
 def model_apply_kwargs(model) -> dict:
-    """Train-time forward kwargs from the model's class flag
-    ``uses_moe_rng`` (JAX ``cli/train.py`` ``model_apply_kwargs``): the
-    MoE families train with ``train=True``, and the step then passes its
-    routing noise's generator."""
-    if getattr(type(model), "uses_moe_rng", False):
+    """Train-time forward kwargs from the model's class flags (JAX
+    ``cli/train.py`` ``model_apply_kwargs``): the MoE families
+    (``uses_moe_rng``: the step then passes its routing noise's
+    generator) and SFHformer (``trains_batch_stats``: its BatchNorms
+    normalise with the batch's statistics and update the running ones, as
+    the reference trains them) train with ``train=True``."""
+    cls = type(model)
+    if (getattr(cls, "uses_moe_rng", False)
+            or getattr(cls, "trains_batch_stats", False)):
         return {"train": True}
     return {}
 
@@ -215,16 +227,50 @@ def build_recipe_kwargs(cfg, device=None):
     return {"vgg": vgg.to(device or default_device(cfg))}
 
 
+def load_style_filter(cfg, model):
+    """``--style_ckpt``: load a stage-1 StyleFilter into
+    ``model.style_filter`` (the MWFormer two-stage driver,
+    MWFormer/main_train_style.py:1-75, then the filter's frozen use in the
+    restoration stage; JAX ``cli/train.py:134-175``). The checkpoint is a
+    ``mwformer_style`` run's ``.pth`` (or its ``ckpt`` directory, whose
+    newest step is taken), a reference ``.pth`` (through
+    ``style_filter_key_map``) or a JAX ``.npz``, loaded strictly by
+    ``cli/test.py`` ``load_params``. Returns the model."""
+    path = cfg.get("style_ckpt")
+    if not path:
+        return model
+    if not hasattr(model, "style_filter"):
+        raise ValueError("--style_ckpt given but the model has no "
+                         "'style_filter' subtree (use --model mwformer)")
+    from image_restoration_tpu_torch.cli.test import load_params
+    from image_restoration_tpu_torch.train.checkpoint import CheckpointManager
+
+    if os.path.isdir(path):
+        ckpts = CheckpointManager(path)
+        step = ckpts.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+        path = ckpts.path(step)
+        print(f"style filter: loaded step {step} from {path}")
+    load_params({"ckpt": path, "model": "mwformer_style"}, model.style_filter)
+    return model
+
+
+def freeze_prefixes(cfg) -> tuple:
+    """``--freeze``'s subtrees, and ``style_filter`` with ``--style_ckpt``
+    (the JAX CLI freezes it only when ``--freeze style_filter`` is also
+    given)."""
+    frozen = tuple(cfg.get("freeze") or ())
+    if cfg.get("style_ckpt") and "style_filter" not in frozen:
+        frozen += ("style_filter",)
+    return frozen
+
+
 def _refuse_unported(cfg):
-    pending = {
-        "mesh": "--mesh: multi-GPU training (torch.distributed/DDP) is "
-                "ROADMAP Queue 1 item 6",
-        "style_ckpt": "--style_ckpt grafts MWFormer's StyleFilter, which "
-                      "the port does not have yet (ROADMAP Queue 1 item 5)",
-    }
-    for key, msg in pending.items():
-        if cfg.get(key):
-            raise NotImplementedError(msg)
+    if cfg.get("mesh"):
+        raise NotImplementedError("--mesh: multi-GPU training "
+                                  "(torch.distributed/DDP) is ROADMAP Queue "
+                                  "1 item 6")
     if cfg["model"].lower() == "measnet":
         raise NotImplementedError(
             "measnet: the JAX cli/train.py cannot train MEASNet (it keeps "
@@ -296,7 +342,7 @@ def main(argv=None, max_steps_override: int | None = None):
 
     device = default_device(cfg)
     seed = cfg.get("seed", 0)
-    model = build_model(cfg, device).train()
+    model = load_style_filter(cfg, build_model(cfg, device)).train()
     dataset = build_dataset(cfg)
     loader = Loader(dataset, cfg["batch_size"], seed=seed,
                     num_threads=cfg.get("num_workers", 8))
@@ -306,7 +352,7 @@ def main(argv=None, max_steps_override: int | None = None):
         total_steps = max_steps_override
 
     recipe = cfg.get("recipe", "default")
-    moe_rng = bool(model_apply_kwargs(model))
+    moe_rng = getattr(type(model), "uses_moe_rng", False)
     apply_kwargs = {**model_apply_kwargs(model),
                     **RECIPE_APPLY_KWARGS.get(recipe, {})}
     tcfg = TrainerConfig(
@@ -317,7 +363,7 @@ def main(argv=None, max_steps_override: int | None = None):
         apply_kwargs=apply_kwargs,
         plateau=bool(cfg.get("plateau")),
         accumulate_grad_batches=cfg.get("accumulate_grad_batches", 1),
-        freeze_prefixes=tuple(cfg.get("freeze") or ()),
+        freeze_prefixes=freeze_prefixes(cfg),
     )
     tx = make_optimizer(tcfg)
     print(f"model={cfg['model']} params={count_params(model)/1e6:.2f}M "
@@ -376,7 +422,10 @@ def main(argv=None, max_steps_override: int | None = None):
                                       step_generator(seed, step, device, 2))
             noise = (step_generator(seed, step, device, 1) if moe_rng
                      else None)
-            state, logs = step_fn(state, {"lq": lq, "gt": gt}, noise)
+            step_batch = {"lq": lq, "gt": gt}
+            if recipe == "mwformer_style":
+                step_batch["de_id"] = batch["de_id"]  # the SupCon labels
+            state, logs = step_fn(state, step_batch, noise)
             if step % log_every == 0 or step == total_steps - 1:
                 logger.log(step, logs)
             if plateau is not None:

@@ -63,7 +63,9 @@ from image_restoration_tpu_torch.ops.common import (
     Linear,
     gelu_exact,
 )
-from image_restoration_tpu_torch.ops.layernorm import BatchNorm2d, LayerNorm2d
+from image_restoration_tpu_torch.ops.layernorm import (
+    BatchNorm2d, LayerNorm2d, batch_norm,
+)
 from image_restoration_tpu_torch.ops import moe as moe_ops
 from image_restoration_tpu_torch.ops.moe import topk_lower_index
 from image_restoration_tpu_torch.ops.resample import (
@@ -224,17 +226,11 @@ class FD(nn.Module):
                          dtype=dtype)
         self.bn = BatchNorm2d(group * kernel_size ** 2)
 
-    def _batch_norm(self, f, train):
-        bn = self.bn
-        return F.batch_norm(f.float(), bn.running_mean, bn.running_var,
-                            bn.weight, bn.bias, train, bn.momentum,
-                            bn.eps).to(f.dtype)
-
     def forward(self, x, train=False):
         k, g = self.k, self.group
         b, c, h, w = x.shape
-        filt = self._batch_norm(
-            self.conv(x.mean(dim=(2, 3), keepdim=True)), train)
+        filt = batch_norm(
+            self.bn, self.conv(x.mean(dim=(2, 3), keepdim=True)), train)
         filt = torch.softmax(filt.reshape(b, g, k * k), dim=-1)
         wmap = filt.repeat_interleave(c // g, dim=1).to(x.dtype)
         p = k // 2

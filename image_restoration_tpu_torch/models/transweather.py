@@ -199,7 +199,8 @@ class Tenc(nn.Module):
                  mlp_ratios: Sequence[int] = (2, 2, 2, 2),
                  depths: Sequence[int] = (2, 2, 2, 2),
                  sr_ratios: Sequence[int] = (4, 2, 2, 1),
-                 drop_path_rate: float = 0.1, dtype=None):
+                 drop_path_rate: float = 0.1, dtype=None,
+                 in_chans: int = 3):
         super().__init__()
         d, hd, mr, sr = embed_dims, num_heads, mlp_ratios, sr_ratios
         dpr = np.linspace(0, drop_path_rate, sum(depths))
@@ -208,16 +209,15 @@ class Tenc(nn.Module):
 
         def stage(i):
             return nn.ModuleList(
-                Block(d[i], hd[i], mr[i], sr[i],
-                      drop_path_rate=float(dpr[cur[i] + j]), **kw)
+                self._block(d[i], hd[i], mr[i], sr[i],
+                            float(dpr[cur[i] + j]), i, dtype)
                 for j in range(depths[i]))
 
         def patch_block(dim, heads, ratio, sr_ratio, i):
-            return nn.ModuleList([Block(dim, heads, ratio, sr_ratio,
-                                        drop_path_rate=float(dpr[cur[i]]),
-                                        **kw)])
+            return nn.ModuleList([self._block(dim, heads, ratio, sr_ratio,
+                                              float(dpr[cur[i]]), i, dtype)])
 
-        self.patch_embed1 = PatchEmbed(3, d[0], 7, 4, **kw)
+        self.patch_embed1 = PatchEmbed(in_chans, d[0], 7, 4, **kw)
         self.patch_embed2 = PatchEmbed(d[0], d[1], 3, 2, **kw)
         self.patch_embed3 = PatchEmbed(d[1], d[2], 3, 2, **kw)
         self.patch_embed4 = PatchEmbed(d[2], d[3], 3, 2, **kw)
@@ -234,9 +234,20 @@ class Tenc(nn.Module):
         for i in range(3):
             setattr(self, f"pnorm{i + 1}", WithBiasLayerNorm(d[i + 1], 1e-6))
 
-    def forward(self, x, train: bool = False, generator=None):
-        kw = dict(train=train, generator=generator)
+    @staticmethod
+    def _block(dim, heads, ratio, sr_ratio, rate, stage, dtype):
+        """Block ``stage`` (0-3) of the encoder, or of its intra-patch
+        branch."""
+        return Block(dim, heads, ratio, sr_ratio, drop_path_rate=rate,
+                     dtype=dtype)
 
+    def forward(self, x, train: bool = False, generator=None):
+        return self._encode(x, dict(train=train, generator=generator))
+
+    def _encode(self, x, kw, film=None):
+        """The four stages' images; ``kw`` goes to every block, and
+        ``film(i, img)``, when given, maps stage i's image before stage i
+        + 1 embeds it."""
         def run(blocks, t, h, w):
             for blk in blocks:
                 t = blk(t, h, w, **kw)
@@ -247,7 +258,8 @@ class Tenc(nn.Module):
         outs = []
         for i in range(4):
             if i:  # the previous stage's image, plus its intra-patch branch
-                t, h, w = getattr(self, f"patch_embed{i + 1}")(outs[-1])
+                prev = outs[-1] if film is None else film(i, outs[-1])
+                t, h, w = getattr(self, f"patch_embed{i + 1}")(prev)
                 img = _image(t, h, w) + mini_img
                 if i < 3:
                     mini, mh, mw = getattr(

@@ -122,6 +122,17 @@ class BatchNorm2d(_Fp32BatchNorm, nn.BatchNorm2d):
     """The fp32 BatchNorm over the channels of NCHW."""
 
 
+def batch_norm(bn, x, train: bool):
+    """``bn`` (a ``BatchNorm2d``) on ``x`` in fp32, cast back to x's dtype,
+    in the mode of ``train`` rather than of the module, as the JAX
+    ``BatchNorm2d`` takes it: with ``train`` from the batch's statistics
+    (biased variance), updating the running ones (unbiased variance,
+    ``bn.momentum``); else from the running ones."""
+    return torch.nn.functional.batch_norm(
+        x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+        train, bn.momentum, bn.eps).to(x.dtype)
+
+
 class BatchNorm1d(_Fp32BatchNorm, nn.BatchNorm1d):
     """The fp32 BatchNorm over (B, C), LSNet's head (lsnet.py
     ``BatchNorm1d``)."""

@@ -24,10 +24,15 @@ models), ``aux`` is the model's auxiliary dict ({} when absent), and
                    feature MSE of ``vgg``, an ``eval/perceptual.py``
                    ``VGG16Features`` (a torchvision vgg16's weights, or a
                    random init), frozen.
-
-``hogformer`` and ``mwformer_style`` are the JAX package's recipes for
-models the port does not have yet (ROADMAP Queue 1 item 5): they raise
-``NotImplementedError`` naming that model.
+* ``hogformer``  — L1 + (1-pearson)/2 + HOG-MSE
+                   (image_restoration_model.py:303-311: l_pix + l_pear +
+                   l_hog; (1-rho)/2 == 0.5 * pearson_loss exactly).
+* ``mwformer_style`` — stage-1 SupCon over StyleFilter embeddings
+                   (MWFormer/main_train_style.py:1-75: the 64-d style
+                   vector trained contrastively against the degradation
+                   labels, then frozen for restoration training). The
+                   model's output is the (B, 64) embedding; the labels ride
+                   ``batch['de_id']``.
 """
 
 from __future__ import annotations
@@ -130,22 +135,41 @@ def transweather_recipe(vgg=None, perceptual_w: float = 0.04,
     return fn
 
 
-def _waits_for(recipe: str, model: str):
-    def make(**kwargs):
-        raise NotImplementedError(
-            f"recipe {recipe!r} trains {model}, which the port does not have "
-            f"yet (ROADMAP Queue 1 item 5)")
+def hogformer_recipe(pix_w: float = 1.0, pearson_w: float = 0.5,
+                     hog_w: float = 1.0) -> LossFn:
+    def fn(out, aux, batch):
+        pred, gt = _primary(out), batch["gt"]
+        l_pix = L.l1_loss(pred, gt)
+        l_pear = pearson_w * L.pearson_loss(pred, gt)   # == (1-rho)/2 at 0.5
+        l_hog = L.hog_loss(pred, gt)
+        total = pix_w * l_pix + l_pear + hog_w * l_hog
+        return total, {"l_pix": l_pix, "l_pear": l_pear, "l_hog": l_hog}
 
-    return make
+    return fn
+
+
+def mwformer_style_recipe(temperature: float = 0.1) -> LossFn:
+    """Stage-1 style training: SupCon over the StyleFilter's 64-d
+    embeddings (in fp32) with the degradation id as the label
+    (MWFormer/main_train_style.py:1-75). Use with ``--model
+    mwformer_style``; stage 2 then loads and freezes the trained filter
+    inside the full MWFormer (``cli/train.py --style_ckpt``)."""
+
+    def fn(out, aux, batch):
+        emb = _primary(out).float()
+        loss = L.supcon_loss(emb, batch["de_id"], temperature=temperature)
+        return loss, {"supcon": loss}
+
+    return fn
 
 
 RECIPES: dict[str, Callable[..., LossFn]] = {
     "default": default_recipe,
     "nerd_rain": nerd_rain_recipe,
     "darkir": darkir_recipe,
-    "hogformer": _waits_for("hogformer", "HOGformer"),
+    "hogformer": hogformer_recipe,
     "transweather": transweather_recipe,
-    "mwformer_style": _waits_for("mwformer_style", "MWFormer's StyleFilter"),
+    "mwformer_style": mwformer_style_recipe,
 }
 
 

@@ -72,6 +72,12 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "darkir": dict(width=32, enc_blk_nums=[1, 2, 3], middle_blk_num_enc=2,
                    middle_blk_num_dec=2, dec_blk_nums=[3, 1, 1],
                    dilations=[1, 4, 9]),
+    # HOGformer (JAX utils/options.py:51), SFHformer and MWFormer (their
+    # field defaults, as in JAX; mwformer_backbone and mwformer_style
+    # too): plain torch, as plain XLA in JAX
+    "hogformer": dict(dim=36, num_blocks=[4, 4, 6, 8], heads=[1, 2, 4, 8]),
+    "sfhformer": dict(),
+    "mwformer": dict(),
 }
 
 # Per-model defaults of top-level options. NeRD-Rain's quarter-scale
@@ -152,7 +158,8 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="terms name=weight, e.g. l1=1.0 fft=0.1")
     p.add_argument("--aux_loss_weight", type=float, default=0.01)
     p.add_argument("--recipe", type=str, default="default",
-                   help="loss recipe: default|nerd_rain|darkir|transweather")
+                   help="loss recipe: default|nerd_rain|darkir|transweather|"
+                        "hogformer|mwformer_style")
     # mixup (BasicSR mixing_augs, image_restoration_model.py:145-170)
     p.add_argument("--mixup", action="store_true")
     p.add_argument("--mixup_beta", type=float, default=1.2)
@@ -169,8 +176,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--freeze", nargs="+", default=None,
                    help="top-level param subtree prefixes to freeze")
     p.add_argument("--style_ckpt", type=str, default=None,
-                   help="stage-1 StyleFilter checkpoint (MWFormer; refused "
-                        "until the port has the model)")
+                   help="stage-1 StyleFilter checkpoint (a mwformer_style "
+                        "run's .pth or ckpt dir, a reference .pth or a JAX "
+                        ".npz), loaded into --model mwformer and frozen")
     p.add_argument("--vgg_ckpt", type=str, default=None,
                    help="torchvision vgg16 .pth for the transweather recipe's "
                         "perceptual term (a random-init VGG without it)")

@@ -1,18 +1,29 @@
-"""Shared helpers of the port's parity tests for CG-IR, NeRD-Rain, MEASNet
-and the MoCE family (tests/test_torch_cg_ir.py, test_torch_nerd_rain.py,
-test_torch_measnet.py, test_torch_moce_ir.py, test_torch_igmoce_ir.py,
-test_torch_lumisense_moe.py, test_torch_moce_ir_patch.py): seeded
-parameter trees, the JAX -> port weight load, a module pair run on the
-same numpy inputs in fp32 (JAX at "highest" matmul precision, torch with
-TF32 off), and the MoE routers' pick margins."""
+"""Shared helpers of the port's parity tests of the model families
+(tests/test_torch_cg_ir.py, test_torch_nerd_rain.py, test_torch_measnet.py,
+the MoCE family's, test_torch_family_recipes.py, test_torch_hogformer.py,
+test_torch_mwformer.py): seeded parameter trees, the JAX -> port weight
+load, a module pair run on the same numpy inputs in fp32 (JAX at
+"highest" matmul precision, torch with TF32 off), one train step of both
+packages, and the MoE routers' pick margins."""
 
 import functools
+import os
 
 import jax
 import numpy as np
 import torch
 
 from image_restoration_tpu_torch.utils.jax_bridge import state_dict_from_jax
+
+# The tier-1 command runs the suite in pytest-xdist workers, one process a
+# worker, and torch takes one intra-op thread a core in each: 6 workers on
+# 8 cores ran ~48 torch threads. Every worker imports this module while it
+# collects, so under xdist each worker's torch takes its share of the cores
+# (the six slowest family files in 6 workers on an 8-core CPU: 272 s at
+# torch's default, 166 s at one thread a worker).
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 0)
+if _WORKERS:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 RTOL, ATOL = 1e-4, 1e-5
 # Least gap between the k-th and (k+1)-th softmax score of a MoE router for
@@ -105,3 +116,57 @@ def routing_gaps(model):
         if hasattr(m, "logits") and hasattr(m, "k"):
             m.register_forward_hook(hook)
     return gaps
+
+
+def train_step_pair(jnet, tnet, params, batch, recipe, apply_kwargs=None,
+                    recipe_kwargs=None, port_recipe_kwargs=None,
+                    key_map=None, freeze=()):
+    """One SGD step (lr 0.1, momentum 0.9: the trace after one step is the
+    gradient) of the JAX ``make_train_step`` and the port's on ``batch``
+    (numpy, JAX layout; 4-d arrays go to the port as NCHW) from
+    ``params``, which ``tnet`` holds already. Checks the logged terms at
+    rtol 1e-4, atol 1e-5, every gradient at atol 1e-5 x the model's
+    largest and the updated parameters at rtol 1e-4, atol 1e-5; returns
+    the port's logs."""
+    import jax.numpy as jnp
+
+    from image_restoration_tpu.train import trainer as JT
+    from image_restoration_tpu_torch.train import trainer as TT
+    from moe_parity import FAST
+
+    kw = dict(learning_rate=0.1, optimizer="sgd", recipe=recipe,
+              apply_kwargs=apply_kwargs or {}, freeze_prefixes=tuple(freeze))
+    jcfg = JT.TrainerConfig(**kw, recipe_kwargs=recipe_kwargs or {})
+    tcfg = TT.TrainerConfig(**kw, recipe_kwargs=port_recipe_kwargs or {})
+    jtx, ttx = JT.make_optimizer(jcfg), TT.make_optimizer(tcfg)
+    jstate = JT.TrainState.create(params, jtx)
+    tstate = TT.TrainState.create(tnet, ttx)
+    jstep = JT.make_train_step(jnet, jtx, jcfg, donate=False)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    key = jax.random.PRNGKey(0)
+    jstate, jlogs = jstep.lower(jstate, jb, key).compile(FAST)(jstate, jb,
+                                                                key)
+    tstate, tlogs = TT.make_train_step(tnet, ttx, tcfg)(tstate, {
+        k: nchw(v) if v.ndim == 4 else torch.from_numpy(v)
+        for k, v in batch.items()})
+    assert set(tlogs) == set(jlogs)
+    for k in jlogs:
+        np.testing.assert_allclose(float(tlogs[k]), float(jlogs[k]), RTOL,
+                                   ATOL, err_msg=k)
+    like = tnet.state_dict()
+    todo = [jstate.opt_state]  # the momentum trace: g after one step
+    while not hasattr(todo[-1], "trace"):
+        node = todo.pop()
+        todo.extend(node if isinstance(node, tuple) else ())
+    want_g = state_dict_from_jax(jax.tree.map(np.array, todo[-1].trace),
+                                 like, key_map)
+    scale = max(float(w.abs().max()) for w in want_g.values())
+    for k, g in tstate.opt_state["trace"].items():
+        np.testing.assert_allclose(g.numpy(), want_g[k].numpy(), rtol=RTOL,
+                                   atol=ATOL * scale, err_msg=k)
+    want_p = state_dict_from_jax(jax.tree.map(np.array, jstate.params),
+                                 like, key_map)
+    for k, p in tnet.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), want_p[k].numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=k)
+    return tlogs

@@ -35,6 +35,15 @@ oracle's max magnitude is below max(3 x the plain bf16 version's, 4e-3).
   fp32 forward within 1e-4 relative L2 (TF32 off), and the card's bf16
   forward within 3x the CPU bf16 forward's relative L2 error against it
   (oneDNN off on the CPU: its bf16 convolution is wrong at some shapes).
+- HOGformer, SFHformer and MWFormer (kernel-free) the same way at their
+  ``MODEL_DEFAULTS`` widths (HOGformer's ``sigma`` and SFHformer's
+  ``beta``/``gamma`` perturbed, MWFormer's style vector scaled to O(1) as
+  a trained filter's is): the card's fp32 forward within 1e-5 relative L2
+  of the CPU's, HOGformer's under the CPU's sort and bin decisions (keys
+  within fp32 rounding of a tie decide differently on the two), and the
+  card's bf16 forward against the card's fp32 forward within 3x the CPU
+  bf16 forward's error against the CPU fp32 one. The ``hogformer`` and
+  ``mwformer_style`` recipes give finite losses and gradients in bf16.
 """
 
 import numpy as np
@@ -43,6 +52,8 @@ import torch
 
 from image_restoration_tpu_torch.kernels import block as K
 from image_restoration_tpu_torch.models import get_model
+from image_restoration_tpu_torch.models import hogformer as H
+from image_restoration_tpu_torch.train.recipes import make_recipe
 from image_restoration_tpu_torch.utils.options import MODEL_DEFAULTS
 
 # (H, W, C, heads) of MEASNet's K1/K2 calls at a 512x512 input
@@ -233,7 +244,8 @@ def _family_model(name, dtype):
         model = get_model(name, **kwargs, dtype=dtype).eval()
         with torch.no_grad():
             for key, p in model.named_parameters():
-                if key.endswith(("beta", "gamma", "layer_scale")):
+                if key.endswith(("beta", "gamma", "layer_scale",
+                                 "sigma.scale")):
                     p.copy_(0.5 + 0.2 * torch.randn(p.shape))
     return model
 
@@ -253,3 +265,60 @@ def test_family_forward_card_against_cpu(cuda, name, shape):
                       _rel_l2(cpu16, want))
     assert e32 <= 1e-4, e32
     assert e16 <= 3 * ecpu, (e16, ecpu)
+
+
+# (model, NCHW input) of HOGformer's, SFHformer's and MWFormer's checks
+NEW_FAMILY_INPUTS = [("hogformer", (1, 3, 48, 32)),
+                     ("sfhformer", (1, 3, 48, 32)),
+                     ("mwformer", (1, 3, 96, 64))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", NEW_FAMILY_INPUTS)
+def test_new_family_forward_card_against_cpu(cuda, name, shape):
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(6))
+    models = {dt: _family_model(name, dt) for dt in (None, torch.bfloat16)}
+    if name == "mwformer":
+        with torch.no_grad():
+            scale = models[None].style_filter(x).abs().max()
+            for m in models.values():
+                m.style_filter.out1_fc.weight.div_(scale)
+                m.style_filter.out1_fc.bias.div_(scale)
+    with torch.inference_mode(), torch.backends.mkldnn.flags(enabled=False):
+        with H.decision_tape([]) as tape:
+            want = models[None](x)
+        cpu16 = models[torch.bfloat16](x)
+    card32, card16 = (models[dt].to(cuda) for dt in (None, torch.bfloat16))
+    with torch.inference_mode():
+        with H.decision_tape(tape, replay=True):
+            got32 = card32(x.to(cuda))
+        free32 = card32(x.to(cuda))
+        got16 = card16(x.to(cuda))
+    assert not tape
+    assert all(torch.isfinite(t).all() for t in (got32, free32, got16))
+    e32, e16, ecpu = (_rel_l2(got32, want), _rel_l2(got16, free32),
+                      _rel_l2(cpu16, want))
+    assert e32 <= 1e-5, e32
+    assert e16 <= 3 * ecpu, (e16, ecpu)
+
+
+@pytest.mark.cuda
+def test_new_recipes_finite_on_the_card(cuda):
+    g = torch.Generator().manual_seed(7)
+    gt = torch.rand(2, 3, 64, 64, generator=g)
+    lq = (gt + 0.1 * torch.randn(gt.shape, generator=g)).clamp(0, 1)
+    hog = _family_model("hogformer", torch.bfloat16).to(cuda).train()
+    total, logs = make_recipe("hogformer")(hog(lq.to(cuda)), {},
+                                           {"gt": gt.to(cuda)})
+    total.backward()
+    assert set(logs) == {"l_pix", "l_pear", "l_hog"}
+    style = get_model("mwformer_style", dtype=torch.bfloat16).to(cuda)
+    emb = style.train()(torch.rand(4, 3, 64, 64, generator=g).to(cuda))
+    loss, slogs = make_recipe("mwformer_style")(
+        emb, {}, {"de_id": torch.tensor([0, 1, 0, 1], device=cuda)})
+    loss.backward()
+    for v in (*logs.values(), *slogs.values()):
+        assert torch.isfinite(v)
+    for m in (hog, style):
+        assert all(torch.isfinite(p.grad).all() for p in m.parameters()
+                   if p.grad is not None)

@@ -28,21 +28,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from family_parity import ATOL, RTOL, init_shapes, load, nchw, nhwc, randomized
-from moe_parity import FAST, compiled, fp32_matmuls, traced_shapes  # noqa: F401
+from family_parity import (ATOL, RTOL, init_shapes, load, nchw, nhwc, randomized,
+                           train_step_pair)
+from moe_parity import compiled, fp32_matmuls, traced_shapes  # noqa: F401
 from PIL import Image
 
 from image_restoration_tpu.eval import perceptual as JP
 from image_restoration_tpu.models import darkir as jd
 from image_restoration_tpu.models import transweather as jt
 from image_restoration_tpu.train import recipes as JR
-from image_restoration_tpu.train import trainer as JT
 from image_restoration_tpu_torch.cli import train as train_cli
 from image_restoration_tpu_torch.eval import perceptual as TP
 from image_restoration_tpu_torch.models import get_model
 from image_restoration_tpu_torch.train import recipes as TR
-from image_restoration_tpu_torch.train import trainer as TT
-from image_restoration_tpu_torch.utils.jax_bridge import state_dict_from_jax
 
 VGG_TAPS = (3, 8, 15)
 
@@ -132,41 +130,9 @@ def _step_pair(name, jnet, recipe, apply_kwargs, recipe_kwargs,
                                     **apply_kwargs)["params"], rng)
     cfg = {"darkir": DARKIR, "transweather": TRANSWEATHER}[name]
     tnet = load(get_model(name, **cfg), params, key_map)
-    kw = dict(learning_rate=0.1, optimizer="sgd", recipe=recipe,
-              apply_kwargs=apply_kwargs)
-    jcfg = JT.TrainerConfig(**kw, recipe_kwargs=recipe_kwargs)
-    tcfg = TT.TrainerConfig(**kw, recipe_kwargs=port_recipe_kwargs)
-    jtx, ttx = JT.make_optimizer(jcfg), TT.make_optimizer(tcfg)
-    jstate = JT.TrainState.create(params, jtx)
-    tstate = TT.TrainState.create(tnet, ttx)
-    jstep = JT.make_train_step(jnet, jtx, jcfg, donate=False)
-    jb = {"lq": jnp.asarray(lq), "gt": jnp.asarray(gt)}
-    key = jax.random.PRNGKey(0)
-    jstate, jlogs = jstep.lower(jstate, jb, key).compile(FAST)(jstate, jb,
-                                                                key)
-    tstate, tlogs = TT.make_train_step(tnet, ttx, tcfg)(
-        tstate, {"lq": nchw(lq), "gt": nchw(gt)})
-    assert set(tlogs) == set(jlogs)
-    for k in jlogs:
-        np.testing.assert_allclose(float(tlogs[k]), float(jlogs[k]), RTOL,
-                                   ATOL, err_msg=k)
-    like = tnet.state_dict()
-    todo = [jstate.opt_state]  # the momentum trace: g after one step
-    while not hasattr(todo[-1], "trace"):
-        node = todo.pop()
-        todo.extend(node if isinstance(node, tuple) else ())
-    want_g = state_dict_from_jax(jax.tree.map(np.array, todo[-1].trace),
-                                 like, key_map)
-    scale = max(float(w.abs().max()) for w in want_g.values())
-    for k, g in tstate.opt_state["trace"].items():
-        np.testing.assert_allclose(g.numpy(), want_g[k].numpy(), rtol=RTOL,
-                                   atol=ATOL * scale, err_msg=k)
-    want_p = state_dict_from_jax(jax.tree.map(np.array, jstate.params),
-                                 like, key_map)
-    for k, p in tnet.state_dict().items():
-        np.testing.assert_allclose(p.numpy(), want_p[k].numpy(), rtol=RTOL,
-                                   atol=ATOL, err_msg=k)
-    return tlogs
+    return train_step_pair(jnet, tnet, params, {"lq": lq, "gt": gt}, recipe,
+                           apply_kwargs, recipe_kwargs, port_recipe_kwargs,
+                           key_map)
 
 
 def test_darkir_train_step_matches_jax():

@@ -20,8 +20,10 @@ the CPU in fp32 (JAX at "highest" matmul precision).
   through the JAX package's ``utils/torch_import``, restores an image in
   the JAX model equal to the port model's.
 * What is not ported raises: no device without a GPU, ``--mesh``, MEASNet
-  (which the JAX CLI cannot train either), ``--style_ckpt``; ``--vgg_ckpt``
-  does not; MoCE-IR takes a step through
+  (which the JAX CLI cannot train either); ``--style_ckpt`` on a model
+  without a style filter raises as in JAX (MWFormer's two stages:
+  tests/test_torch_mwformer.py); ``--vgg_ckpt`` does not; MoCE-IR takes a
+  step through
   ``main`` and logs its balance loss.
 """
 
@@ -265,7 +267,7 @@ def test_what_is_not_ported_raises(data_root, tmp_path, monkeypatch):
         train_cli.main(argv + ["--mesh", "2"], max_steps_override=1)
     with pytest.raises(NotImplementedError, match="keeps no batch_stats"):
         train_cli.main(argv + ["--model", "measnet"], max_steps_override=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="no 'style_filter' subtree"):
         train_cli.main(argv + ["--style_ckpt", "style.pth"],
                        max_steps_override=1)
     # --vgg_ckpt feeds the transweather recipe (test_torch_family_recipes.py)

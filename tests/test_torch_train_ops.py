@@ -219,9 +219,25 @@ def test_recipes_match_jax():
         np.testing.assert_allclose(float(tl[k]), float(jl[k]), rtol=RTOL,
                                    atol=ATOL)
     np.testing.assert_allclose(float(tw), float(jw), rtol=RTOL, atol=ATOL)
-    for name in ("hogformer", "mwformer_style"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            TR.make_recipe(name)
+    # HOGformer's and MWFormer's style recipe (their train steps:
+    # tests/test_torch_hogformer.py, test_torch_mwformer.py)
+    emb = rng.standard_normal((6, 64)).astype(np.float32)
+    de_id = np.array([0, 1, 0, 2, 1, 0], np.int32)
+    for name, out, batch in (
+            ("hogformer", outs[0], {"gt": gt}),
+            ("mwformer_style", emb, {"de_id": de_id})):
+        with jax.default_matmul_precision("highest"):
+            jw, jl = JR.make_recipe(name)(jnp.asarray(out), {}, {
+                k: jnp.asarray(v) for k, v in batch.items()})
+        to = _nchw if out.ndim == 4 else torch.from_numpy
+        tw, tl = TR.make_recipe(name)(to(out), {}, {
+            k: (_nchw(v) if v.ndim == 4 else torch.from_numpy(v))
+            for k, v in batch.items()})
+        assert set(jl) == set(tl)
+        for k in jl:
+            np.testing.assert_allclose(float(tl[k]), float(jl[k]), rtol=RTOL,
+                                       atol=ATOL)
+        np.testing.assert_allclose(float(tw), float(jw), rtol=RTOL, atol=ATOL)
     for name in ("darkir", "transweather"):  # tests/test_torch_family_recipes.py
         assert callable(TR.make_recipe(name))
 

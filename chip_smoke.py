@@ -303,6 +303,29 @@ Phases, any failure ends the run with a nonzero exit code:
    LSNet-T in bf16 (AdamW) on one seeded batch of 32: finite losses, the
    last below the first, its 2 LSConvs' SKA a step through K9 and each
    backward kernel (10 launches of each in the five steps).
+3m. ViG-T and HierViG-T (the JAX field defaults) from ``cli/robust.py``'s
+   ``build_model`` in bf16 classify three seeded batches of 64 at 224x224
+   through ``batch_hits``: finite bf16 logits; relative L2, max |error|
+   and top-1 agreement against the card's fp32 model; the card's fp32
+   logits within 1e-5 relative L2 of the CPU's on two images; ms a batch,
+   images/s, the forward's device ms, peak memory, and the batch-1
+   forward in MP/s.
+3n. RetinaNet and Semantic-FPN over LSNet-T (80 and 150 classes, SKA
+   plain as in JAX) in bf16, BatchNorm statistics from one train-mode
+   forward of other images, on a batch of 2 at 512x512: the forward;
+   ``decode_detections`` of each image and ``retinanet_loss`` on seeded
+   boxes with two padded slots an image; ``segmentation_ce_loss`` and
+   ``mean_iou``; all finite; bf16 against the card's fp32 model; the
+   card's fp32 within 1e-5 of the CPU's at 256x256; forward ms, peak.
+5v. Five ``make_cls_train_step`` steps (AdamW, bf16) of ViG-T and
+   HierViG-T on one seeded batch of 32 at 224x224, and three
+   ``train/trainer.py`` ``Optimizer`` steps of each dense model on phase
+   3n's batch (focal + smooth L1; CE), the BatchNorms in eval mode as
+   JAX's ``train=False`` step: finite losses, the last below the first;
+   step ms, peak memory, the bf16 gradients' relative L2 against fp32.
+   Phases 3m, 3n and 5v launch no kernel (JAX's GLA is ``lax.scan`` and
+   einsums, and its dense engines run SKA through XLA): every count is
+   set to 0 before each run and checked at 0 after.
 Each phase's seconds are printed.
 Each serving phase sets the launch counts to 0 just before its forwards
 and reads them just after; the kernels line's ``launches_by_path`` lists
@@ -323,7 +346,9 @@ the three-kernel step as ``train_3k``, phase 4m's ``main`` runs as
 ``train_moce`` and (zeros) ``train_igmoce_ir``, ``train_lumisense_moe``
 and ``train_moce_ir_patch``, and phase 5's ``cli/robust.py``
 runs as ``robust_clean``, ``robust_fgsm`` and ``robust_pgd`` and its
-classification steps as ``cls_train``. Each kernel's row keeps the
+classification steps as ``cls_train``, and phases 3m, 3n and 5v's (zeros)
+as ``vig``, ``vig_h``, ``retinanet_lsnet``, ``semanticfpn_lsnet`` and
+``train_`` each of them. Each kernel's row keeps the
 serving path's per-forward sums; its ``by_path`` holds those of the other
 paths that phase 2 checks it at (K1/K2: MEASNet's, NeRD-Rain's,
 MoCE-IR's, a training step's and MoCE-IR's training step's
@@ -501,6 +526,18 @@ CARD_CPU_LIMIT = {"hogformer": 1e-5, "sfhformer": 1e-5, "mwformer": 1e-5}
 # ln(1000) to ~90 in five steps; at 3e-5 it falls at every step.
 ADV_IMAGES = 16
 CLS_STEPS, CLS_BATCH, CLS_LR = 5, 32, 3e-5
+# Phases 3m and 5v: ViG-T and HierViG-T classify GLA_BATCHES batches of
+# GLA_BATCH at 224x224 and take GLA_TRAIN_STEPS classification steps
+# (AdamW at GLA_LR) on one batch of GLA_TRAIN_BATCH; phase 3n: RetinaNet
+# and Semantic-FPN over LSNet-T on a batch of DENSE_BATCH at DENSE_SIZE^2
+# (DENSE_SLOTS box slots an image, two of them padded), and in phase 5v
+# DENSE_TRAIN_STEPS Optimizer steps (AdamW at DENSE_LR) on it. The card's
+# fp32 forward of each is held to the CPU's within CARD_CPU_GLA relative L2.
+GLA_BATCH, GLA_BATCHES = 64, 3
+GLA_TRAIN_BATCH, GLA_TRAIN_STEPS, GLA_LR = 32, 5, 1e-4
+DENSE_BATCH, DENSE_SIZE, DENSE_SLOTS = 2, 512, 8
+DENSE_TRAIN_STEPS, DENSE_LR = 3, 1e-4
+CARD_CPU_GLA = 1e-5
 # CG-IR's 44 CGTBs have Restormer-base's block shapes (LEVELS); the gated
 # pair runs at batch 2 at two of them in phase 2e.
 GATED_SHAPES = [(128, 128, 192, 4), (64, 64, 384, 8)]
@@ -3576,6 +3613,430 @@ def phase_train_moce(gpu):
     return out
 
 
+def _zero(counters):
+    for f in counters.values():
+        f.launches = 0
+
+
+def _read(counters):
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: f.launches for k, f in counters.items()}
+
+
+def _rel_l2(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def _card_against_cpu(tag, model32, x, pick=lambda out: out):
+    """The card's fp32 ``model32`` against a CPU copy of it on ``x`` (NCHW,
+    on the CPU), TF32 off on both: relative L2, printed and held to
+    ``CARD_CPU_GLA``. ``pick`` takes the compared tensor from the output."""
+    import copy
+
+    import torch
+
+    from image_restoration_tpu_torch.utils.precision import full_fp32
+
+    with torch.inference_mode(), full_fp32():
+        card = pick(model32(x.cuda()))
+        cpu = pick(copy.deepcopy(model32).cpu()(x))
+    rel = _rel_l2(card, cpu)
+    print(f"{tag}: fp32 forward at {tuple(x.shape)}, card against CPU: "
+          f"relative L2 {rel:.3e} (limit {CARD_CPU_GLA:g})", flush=True)
+    check(rel <= CARD_CPU_GLA, f"{tag}: card fp32 forward {rel:.3e} from "
+          f"the CPU's")
+
+
+def phase_serve_gla(gpu, profile_dir=None):
+    """Phase 3m: ViG-T and HierViG-T (``MODEL_DEFAULTS``: the JAX field
+    defaults) classify from ``cli/robust.py``'s ``build_model`` in bf16:
+    ``GLA_BATCHES`` seeded batches of ``GLA_BATCH`` at 224x224 through
+    ``batch_hits``, every kernel's count 0; finite bf16 logits; their
+    relative L2, max |error| and top-1 agreement against the card's fp32
+    model; the card's fp32 logits against the CPU's on a batch of 2
+    (``CARD_CPU_GLA``); host ms a batch and images/s (median of 5), the
+    forward's device ms (CUDA events) and peak memory; ViG-T's batch-1
+    forward at 224x224 in MP/s, the geometry of the JAX bench row
+    ``vig224_mps``; with ``profile_dir``, a profile of two batches.
+    Returns the launch counts by model."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.robust import build_argparser
+    from image_restoration_tpu_torch.cli.test import load_params
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.eval.robustness import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        batch_hits,
+    )
+    from image_restoration_tpu_torch.utils.options import parse_options
+
+    every = _every_kernel()
+    mean = torch.from_numpy(IMAGENET_MEAN).cuda()
+    std = torch.from_numpy(IMAGENET_STD).cuda()
+    out = {}
+    for name in ("vig", "vig_h"):
+        cfg = parse_options(["--model", name, "--device", "cuda", "--seed",
+                             "0", "--bf16"], build_argparser())
+        check(cfg["bf16"] and not cfg["model_kwargs"],
+              f"{name} serving: not bf16 at the JAX field defaults")
+        model = load_params(cfg, build_model(cfg))
+        n_params = sum(p.numel() for p in model.parameters())
+        gen = torch.Generator(device="cuda").manual_seed(3000)
+        batches = [((torch.rand((GLA_BATCH, 224, 224, 3), generator=gen,
+                                device="cuda") - mean) / std,
+                    torch.randint(0, 1000, (GLA_BATCH,), generator=gen,
+                                  device="cuda"))
+                   for _ in range(GLA_BATCHES)]
+        batch_hits(model, *batches[0])  # warm-up: cuDNN, the allocator
+        torch.cuda.synchronize()
+        _zero(every)
+        hits = [batch_hits(model, im, lb) for im, lb in batches]
+        out[name] = got = _read(every)
+        print(f"{name} serving: {n_params} parameters, {len(batches)} "
+              f"batches of {GLA_BATCH} at 224x224 bf16, launches {got}, "
+              f"top-1 hits {[int(t1.sum()) for t1, _ in hits]}", flush=True)
+        check(not any(got.values()), f"{name} serving launched a kernel")
+
+        ref = plain_variant(cfg, model, False)
+        num = den = err = 0.0
+        agree = 0
+        with torch.inference_mode():
+            for im, _ in batches:
+                x = im.permute(0, 3, 1, 2)
+                l16, l32 = model(x), ref(x)
+                check(l16.dtype == torch.bfloat16 and l16.shape ==
+                      (GLA_BATCH, 1000) and torch.isfinite(l16).all().item(),
+                      f"{name}: logits {l16.dtype} {tuple(l16.shape)} not "
+                      f"finite bf16")
+                d = l16.float() - l32
+                num += float(d.double().square().sum())
+                den += float(l32.double().square().sum())
+                err = max(err, d.abs().max().item())
+                agree += int((l16.argmax(-1) == l32.argmax(-1)).sum())
+        n = GLA_BATCH * len(batches)
+        print(f"{name} serving: bf16 against the card's fp32 model: "
+              f"relative L2 {np.sqrt(num / den):.4e}, max |err| {err:.4e} "
+              f"(fp32 logits up to {l32.abs().max().item():.3f}), top-1 "
+              f"agreement {agree}/{n}", flush=True)
+        small = batches[0][0][:2].permute(0, 3, 1, 2).cpu()
+        _card_against_cpu(name, ref, small)
+        del ref
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch_hits(model, *batches[0])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        x0 = batches[0][0].permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            fwd = time_cuda(lambda: model(x0), reps=5, warmup=1,
+                            head_start_ms=50.0)
+            one = x0[:1].contiguous()
+            fwd1 = time_cuda(lambda: model(one), reps=10, warmup=2,
+                             head_start_ms=20.0)
+        print(f"{name} serving 224x224 bf16 batch {GLA_BATCH} on {gpu}: "
+              f"{ms:.3f} ms/batch (batch_hits, host clock, median of 5), "
+              f"{GLA_BATCH / (ms / 1e3):.1f} images/s; forward {fwd:.3f} ms "
+              f"(device, CUDA events); peak memory {peak:.3f} GiB; batch 1: "
+              f"forward {fwd1:.3f} ms, {224 * 224 / 1e6 / (fwd1 / 1e3):.3f} "
+              f"MP/s", flush=True)
+        if profile_dir:
+            _profile(lambda a: batch_hits(model, *a), batches[:2],
+                     profile_dir, name, gpu,
+                     f"batches of {GLA_BATCH} at 224x224")
+        del model
+    return out
+
+
+def _dense_cfg(name):
+    from image_restoration_tpu_torch.utils.options import parse_options
+
+    cfg = parse_options(["--model", name, "--device", "cuda", "--seed",
+                         "0"])
+    check(cfg["bf16"] and not cfg["model_kwargs"].get("use_pallas_ska"),
+          f"{name}: not bf16 with SKA plain")
+    return cfg
+
+
+def _dense_targets(gen):
+    """Seeded ground truth for a batch of ``DENSE_BATCH`` at
+    ``DENSE_SIZE``: per image ``DENSE_SLOTS`` box slots, the last two
+    padded (zero boxes, invalid), with COCO labels; ADE20K-style label maps
+    with an ignored band."""
+    import torch
+
+    s = DENSE_SIZE
+    xy = torch.rand((DENSE_BATCH, DENSE_SLOTS, 2), generator=gen,
+                    device="cuda") * s * 0.7
+    wh = torch.rand((DENSE_BATCH, DENSE_SLOTS, 2), generator=gen,
+                    device="cuda") * s * 0.25 + 16
+    boxes = torch.cat([xy, (xy + wh).clamp(max=s)], -1)
+    valid = torch.ones((DENSE_BATCH, DENSE_SLOTS), dtype=torch.bool,
+                       device="cuda")
+    valid[:, -2:] = False
+    boxes[~valid] = 0
+    labels = torch.randint(0, 80, (DENSE_BATCH, DENSE_SLOTS), generator=gen,
+                           device="cuda")
+    seg = torch.randint(0, 150, (DENSE_BATCH, s, s), generator=gen,
+                        device="cuda")
+    seg[:, :16] = 255
+    return boxes, labels, valid, seg
+
+
+def _dense_losses(name, model, x, targets):
+    """``retinanet_loss`` summed over the images (focal + smooth L1, each
+    averaged over the batch) or ``segmentation_ce_loss``, with the
+    forward's output."""
+    from image_restoration_tpu_torch.models import lsnet_dense as D
+
+    boxes, labels, valid, seg = targets
+    out = model(x)
+    if name == "semanticfpn_lsnet":
+        return D.segmentation_ce_loss(out, seg), out
+    cls, box, sizes = out
+    anchors = model.anchors(sizes, x.device)
+    total = 0.0
+    for i in range(x.shape[0]):
+        c, b = D.retinanet_loss(cls[i], box[i], anchors, boxes[i],
+                                labels[i], valid[i], model.num_classes)
+        total = total + (c + b) / x.shape[0]
+    return total, out
+
+
+def phase_dense(gpu):
+    """Phase 3n: RetinaNet and Semantic-FPN over LSNet-T
+    (``MODEL_DEFAULTS``: 80 and 150 classes, FPN 256, SKA plain as JAX
+    builds them) from ``build_model`` in bf16, seeded weights and BatchNorm
+    statistics from one train-mode forward of other images, on a batch of
+    ``DENSE_BATCH`` at ``DENSE_SIZE``^2: one forward with every kernel's
+    count 0; RetinaNet: ``decode_detections`` of each image and
+    ``retinanet_loss`` on seeded boxes with two padded slots an image;
+    Semantic-FPN: ``segmentation_ce_loss`` with an ignored band and
+    ``mean_iou``: all finite. Then bf16 against the card's fp32 model
+    (relative L2 and max |error| of the class logits), the card's fp32
+    against the CPU's at batch 1 of 256x256, the forward's device ms and
+    peak memory. Returns the launch counts by model."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.models import lsnet_dense as D
+
+    every = _every_kernel()
+    gen = torch.Generator(device="cuda").manual_seed(3100)
+    shape = (DENSE_BATCH, 3, DENSE_SIZE, DENSE_SIZE)
+    calib = torch.rand(shape, generator=gen, device="cuda")
+    x = torch.rand(shape, generator=gen, device="cuda")
+    targets = _dense_targets(gen)
+    out = {}
+    for name in ("retinanet_lsnet", "semanticfpn_lsnet"):
+        cfg = _dense_cfg(name)
+        model = build_model(cfg)
+        calibrate_batchnorm(model, calib)
+        ref = plain_variant(cfg, model, False)
+        with torch.inference_mode():
+            model(x)  # warm-up
+            _zero(every)
+            loss, res = _dense_losses(name, model, x, targets)
+            out[name] = got = _read(every)
+            check(not any(got.values()), f"{name} launched a kernel: {got}")
+            logits = res if name == "semanticfpn_lsnet" else res[0]
+            finite = [loss, logits]
+            if name == "retinanet_lsnet":
+                anchors = model.anchors(res[2], x.device)
+                dets = [D.decode_detections(res[0][i], res[1][i], anchors)
+                        for i in range(DENSE_BATCH)]
+                finite += [t for d in dets for t in d[:2]]
+                note = (f"{anchors.shape[0]} anchors, kept "
+                        f"{[int((d[1] > 0).sum()) for d in dets]} "
+                        f"detections")
+            else:
+                miou, _ = D.mean_iou(logits.argmax(1), targets[3], 150)
+                finite.append(miou)
+                note = f"mIoU {miou.item():.4f}"
+            check(all(torch.isfinite(t).all().item() for t in finite),
+                  f"{name}: a non-finite output, loss or detection")
+            print(f"{name}: batch {DENSE_BATCH} at {DENSE_SIZE}^2 bf16, "
+                  f"launches {got}, loss {float(loss):.5f}, {note}",
+                  flush=True)
+            want = ref(x)
+            want = want if name == "semanticfpn_lsnet" else want[0]
+            err = (logits.float() - want).abs().max().item()
+            print(f"{name}: bf16 against the card's fp32 model: relative "
+                  f"L2 {_rel_l2(logits.float(), want):.4e}, max |err| "
+                  f"{err:.4e} (fp32 logits up to "
+                  f"{want.abs().max().item():.3f})", flush=True)
+        small = x[:1, :, :256, :256].cpu()
+        _card_against_cpu(name, ref, small,
+                          (lambda o: o) if name == "semanticfpn_lsnet"
+                          else (lambda o: o[0]))
+        del ref
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            fwd = time_cuda(lambda: model(x), reps=5, warmup=1,
+                            head_start_ms=50.0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"{name} forward batch {DENSE_BATCH} at {DENSE_SIZE}^2 bf16 "
+              f"on {gpu}: {fwd:.3f} ms (device, CUDA events), peak memory "
+              f"{peak:.3f} GiB", flush=True)
+        del model
+    return out
+
+
+def _grad_rel_l2(model16, model32, loss_fn):
+    """Relative L2 of the bf16 model's gradients (all parameters, one
+    vector) against the fp32 model's with the same weights."""
+    import torch
+
+    grads = []
+    for m in (model16, model32):
+        params = [p for p in m.parameters()]
+        g = torch.autograd.grad(loss_fn(m), params, allow_unused=True)
+        grads.append(torch.cat([(torch.zeros_like(p) if t is None else t)
+                                .double().flatten()
+                                for p, t in zip(params, g)]))
+    return float((grads[0] - grads[1]).norm() / grads[1].norm())
+
+
+def _timed_steps(step, n):
+    """``n`` calls of ``step()`` (returning the loss); (losses, median
+    device ms of the calls after the first, CUDA events)."""
+    import torch
+
+    losses, times = [], []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step()
+        end.record()
+        end.synchronize()
+        losses.append(float(loss))
+        if i:
+            times.append(start.elapsed_time(end))
+    return losses, statistics.median(times)
+
+
+def phase_train_gla(gpu):
+    """Phase 5v: ``GLA_TRAIN_STEPS`` ``make_cls_train_step`` steps
+    (AdamW, lr ``GLA_LR``, label smoothing 0.1) of ViG-T and HierViG-T in
+    bf16 on one seeded batch of ``GLA_TRAIN_BATCH`` at 224x224: finite
+    losses, the last below the first, every kernel's count 0; step ms
+    (CUDA events, median after the first), images/s, peak memory, and the
+    bf16 gradients' relative L2 against the fp32 model's (batch 8). Then
+    ``DENSE_TRAIN_STEPS`` ``train/trainer.py`` ``Optimizer`` steps (AdamW,
+    lr ``DENSE_LR``) of RetinaNet (focal + smooth L1 on phase 3n's boxes)
+    and Semantic-FPN (CE) in bf16 on one batch of ``DENSE_BATCH`` at
+    ``DENSE_SIZE``^2, in eval mode (the BatchNorms on their running
+    statistics, as JAX's ``train=False`` step): the loss falls, every
+    kernel's count 0, step ms and peak memory. Returns the launch counts
+    by path."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.train import classification as TC
+    from image_restoration_tpu_torch.train import trainer as TT
+    from image_restoration_tpu_torch.utils.options import parse_options
+
+    every = _every_kernel()
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(3200)
+    images = torch.randn((GLA_TRAIN_BATCH, 3, 224, 224), generator=gen,
+                         device="cuda")
+    labels = torch.randint(0, 1000, (GLA_TRAIN_BATCH,), generator=gen,
+                           device="cuda")
+    for name in ("vig", "vig_h"):
+        cfg = parse_options(["--model", name, "--device", "cuda", "--seed",
+                             "0"])
+        net = build_model(cfg)
+        check(next(net.parameters()).dtype == torch.float32 and
+              net.dtype == torch.bfloat16, f"{name}: not a bf16 model")
+        ref = plain_variant(cfg, net, False)
+        rel = _grad_rel_l2(net, ref, lambda m: TC.cross_entropy(
+            m(images[:8]), labels[:8], 0.1))
+        del ref
+        tx = TT.Optimizer(TT.TrainerConfig(learning_rate=GLA_LR,
+                                           weight_decay=0.05))
+        state = TT.TrainState.create(net, tx)
+        step = TC.make_cls_train_step(net, tx, smoothing=0.1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(every)
+
+        def one():
+            nonlocal state
+            state, logs = step(state, {"image": images, "label": labels})
+            return logs["loss"]
+
+        losses, ms = _timed_steps(one, GLA_TRAIN_STEPS)
+        out[f"train_{name}"] = got = _read(every)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"{name} make_cls_train_step on {gpu}: {GLA_TRAIN_STEPS} "
+              f"steps at batch {GLA_TRAIN_BATCH} 224x224 bf16, losses "
+              f"{[round(v, 5) for v in losses]}, launches {got}; step "
+              f"{ms:.3f} ms (device, CUDA events, median of "
+              f"{GLA_TRAIN_STEPS - 1}), {GLA_TRAIN_BATCH / (ms / 1e3):.1f} "
+              f"images/s, peak memory {peak:.3f} GiB; bf16 gradients "
+              f"against fp32: relative L2 {rel:.4e}", flush=True)
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"{name}: losses {losses} not finite or not falling")
+        check(not any(got.values()), f"{name} training launched a kernel")
+        del net, state, step
+
+    gen = torch.Generator(device="cuda").manual_seed(3100)
+    shape = (DENSE_BATCH, 3, DENSE_SIZE, DENSE_SIZE)
+    calib = torch.rand(shape, generator=gen, device="cuda")
+    x = torch.rand(shape, generator=gen, device="cuda")
+    targets = _dense_targets(gen)
+    for name in ("retinanet_lsnet", "semanticfpn_lsnet"):
+        cfg = _dense_cfg(name)
+        net = build_model(cfg)
+        calibrate_batchnorm(net, calib)
+        net.eval()
+        params = dict(net.named_parameters())
+        tx = TT.Optimizer(TT.TrainerConfig(learning_rate=DENSE_LR))
+        state = TT.TrainState.create(net, tx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(every)
+
+        def one():
+            loss, _ = _dense_losses(name, net, x, targets)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()), allow_unused=True)))
+            grads = {k: torch.zeros_like(params[k]) if g is None else g
+                     for k, g in grads.items()}
+            updates, state.opt_state = tx.update(grads, state.opt_state,
+                                                 params)
+            TT.apply_updates(state, params, updates, None)
+            return loss.detach()
+
+        losses, ms = _timed_steps(one, DENSE_TRAIN_STEPS)
+        out[f"train_{name}"] = got = _read(every)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"{name} Optimizer steps on {gpu}: {DENSE_TRAIN_STEPS} at "
+              f"batch {DENSE_BATCH} {DENSE_SIZE}^2 bf16, losses "
+              f"{[round(v, 5) for v in losses]}, launches {got}; step "
+              f"{ms:.3f} ms (device, CUDA events, median of "
+              f"{DENSE_TRAIN_STEPS - 1}), peak memory {peak:.3f} GiB",
+              flush=True)
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"{name}: losses {losses} not finite or not falling")
+        check(not any(got.values()), f"{name} training launched a kernel")
+        del net, state
+    return out
+
+
 def _every_kernel():
     """Every kernel's wrapper, by the name the kernels line gives it."""
     from image_restoration_tpu_torch.kernels import attn_core as KA
@@ -4493,6 +4954,8 @@ def main(argv=None):
     by_path.update(timed("3j", phase_serve_family, gpu, args.profile))
     by_path.update(timed("3l", phase_serve_family, gpu, args.profile,
                          SERVE_3L))
+    by_path.update(timed("3m", phase_serve_gla, gpu, args.profile))
+    by_path.update(timed("3n", phase_dense, gpu))
     by_path["eval"], by_path["eval_drsformer"] = timed("3f", phase_eval, gpu)
     by_path.update(timed("3f family", phase_eval_family, gpu))
     by_path.update(timed("3f 3l", phase_eval_family, gpu, EVAL_3L,
@@ -4505,6 +4968,7 @@ def main(argv=None):
     by_path.update(timed("4f", phase_train_family, gpu))
     by_path.update(timed("4n", phase_train_family, gpu, TRAIN_4N, "4n"))
     by_path.update(timed("5", phase_lsnet_grad, gpu))
+    by_path.update(timed("5v", phase_train_gla, gpu))
     for name in ("ska_bwd_x", "ska_bwd_w"):
         check(sum(n.get(name, 0) for n in by_path.values()) > 0,
               f"{name} never launched on a path")

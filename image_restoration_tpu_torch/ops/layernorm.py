@@ -1,5 +1,5 @@
-"""Channel LayerNorms of the Restormer family, LayerNorm2d, GroupNorm and
-BatchNorm.
+"""Channel LayerNorms of the Restormer family, LayerNorm2d, flax's
+LayerNorm (:class:`PromotingLayerNorm`), GroupNorm and BatchNorm.
 
 The bodies normalize the last axis, as the reference's bodies do after its
 ``to_3d`` reshape (Restormer.py:19-70). ``LayerNorm`` takes NCHW and views it
@@ -52,6 +52,27 @@ class WithBiasLayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm_f32(x, self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class PromotingLayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` with ``dtype=None`` over the last axis: fp32
+    statistics with the fast variance E[x^2] - E[x]^2 (clipped at 0),
+    ``(x - mu) * (rsqrt(var + eps) * w) + b`` in fp32, and the result in
+    the promotion of the input's dtype and the fp32 parameters' (fp32 for a
+    bf16 input, as flax returns it)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class LayerNorm(nn.Module):

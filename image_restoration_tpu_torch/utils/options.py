@@ -78,6 +78,14 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "hogformer": dict(dim=36, num_blocks=[4, 4, 6, 8], heads=[1, 2, 4, 8]),
     "sfhformer": dict(),
     "mwformer": dict(),
+    # ViG-T and HierViG-T (their field defaults, JAX utils/options.py:
+    # 69-70) and the dense engines over LSNet-T (JAX utils/options.py:
+    # 59-60: COCO's 80 classes, ADE20K's 150): plain torch, as plain XLA in
+    # JAX (the dense engines run SKA plain, as the JAX ones do)
+    "vig": dict(),
+    "vig_h": dict(),
+    "retinanet_lsnet": dict(num_classes=80),
+    "semanticfpn_lsnet": dict(num_classes=150),
 }
 
 # Per-model defaults of top-level options. NeRD-Rain's quarter-scale

@@ -1,11 +1,13 @@
 """Shared helpers of the port's parity tests of the model families
 (tests/test_torch_cg_ir.py, test_torch_nerd_rain.py, test_torch_measnet.py,
 the MoCE family's, test_torch_family_recipes.py, test_torch_hogformer.py,
-test_torch_mwformer.py): seeded parameter trees, the JAX -> port weight
-load, a module pair run on the same numpy inputs in fp32 (JAX at
-"highest" matmul precision, torch with TF32 off), one train step of both
-packages, and the MoE routers' pick margins."""
+test_torch_mwformer.py, the GLA, ViG, HierViG and dense LSNet files):
+seeded parameter trees, the JAX -> port weight load, a module pair run on
+the same numpy inputs in fp32 (JAX at "highest" matmul precision, torch
+with TF32 off), one train step of both packages, the MoE routers' pick
+margins, and a context in which JAX's RetinaNet head traces."""
 
+import contextlib
 import functools
 import os
 
@@ -24,6 +26,13 @@ from image_restoration_tpu_torch.utils.jax_bridge import state_dict_from_jax
 _WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 0)
 if _WORKERS:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
+
+# The first multithreaded ``torch.exp`` of a process on the CPU (torch
+# 2.13) can return values off by up to ~1e-4 relative in some threads'
+# slices; every later call is exact to fp32 rounding. A parity test whose
+# first exp is a compared one (a GLA chunk's decays) then fails at random,
+# so every worker takes its first exp here.
+torch.exp(torch.zeros(1 << 18))
 
 RTOL, ATOL = 1e-4, 1e-5
 # Least gap between the k-th and (k+1)-th softmax score of a MoE router for
@@ -94,6 +103,39 @@ def pair(jmod, tmod, rng, *inputs, to_torch=nchw, batch_stats=None):
     with torch.no_grad():
         got = tmod(*(to_torch(x) for x in inputs))
     return want, got
+
+
+class _NumpyLogOfFloats:
+    """``jax.numpy`` whose ``log`` of a Python float is numpy's float32
+    log (a concrete value); every other name is ``jax.numpy``'s."""
+
+    def __getattr__(self, name):
+        return getattr(jax.numpy, name)
+
+    @staticmethod
+    def log(x):
+        if isinstance(x, float):
+            return np.log(np.float32(x))
+        return jax.numpy.log(x)
+
+
+@contextlib.contextmanager
+def traceable_retinanet():
+    """JAX's ``RetinaNetHead`` takes ``float(-jnp.log((1 - 0.01) / 0.01))``
+    in its ``__call__``; under a trace (``jit``, ``eval_shape``) that log
+    is a tracer and ``float`` raises. Inside this context the JAX
+    ``lsnet_dense`` module takes the log of a Python float from numpy;
+    nothing else changes (``jax.ensure_compile_time_eval`` also lets it
+    trace, but evaluates far more at trace time: ~50 s for a small model
+    on the CPU)."""
+    from image_restoration_tpu.models import lsnet_dense
+
+    saved = lsnet_dense.jnp
+    lsnet_dense.jnp = _NumpyLogOfFloats()
+    try:
+        yield
+    finally:
+        lsnet_dense.jnp = saved
 
 
 def kth_gap(logits, k):

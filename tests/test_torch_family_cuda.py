@@ -44,6 +44,22 @@ oracle's max magnitude is below max(3 x the plain bf16 version's, 4e-3).
   card's bf16 forward against the card's fp32 forward within 3x the CPU
   bf16 forward's error against the CPU fp32 one. The ``hogformer`` and
   ``mwformer_style`` recipes give finite losses and gradients in bf16.
+- ViG-T and HierViG-T (``MODEL_DEFAULTS``: the JAX field defaults) at
+  224x224, batch 2, seeded weights: the card's fp32 logits within 1e-5
+  relative L2 of the CPU's (TF32 off), the card's bf16 logits against the
+  card's fp32 within 3x the CPU bf16 logits' error against the CPU fp32.
+  The GLA at gate logits of -40 on the card (JAX's ``chunk_gla`` gives NaN
+  there): finite, with finite gradients, equal to the CPU recurrence
+  (atol 1e-5 x max).
+- RetinaNet and Semantic-FPN over LSNet-T (``MODEL_DEFAULTS``: 80 and 150
+  classes, FPN 256), their BatchNorm statistics set from one train-mode
+  forward of two 512x512 images (at 128x128 the last stages' 2x2 and 1x1
+  maps give BatchNorm statistics of 8 and 2 values, and the calibrated
+  model amplifies rounding past 1e-5): the card's fp32 outputs on a
+  256x256 image within 1e-5 relative L2 of the CPU's; in bf16 on the
+  card, at 128x128, ``retinanet_loss`` on seeded boxes with padded slots,
+  ``segmentation_ce_loss`` with ignored pixels and ``mean_iou`` are
+  finite, and so are the losses' gradients.
 """
 
 import numpy as np
@@ -53,6 +69,8 @@ import torch
 from image_restoration_tpu_torch.kernels import block as K
 from image_restoration_tpu_torch.models import get_model
 from image_restoration_tpu_torch.models import hogformer as H
+from image_restoration_tpu_torch.models import lsnet_dense as D
+from image_restoration_tpu_torch.ops import gla
 from image_restoration_tpu_torch.train.recipes import make_recipe
 from image_restoration_tpu_torch.utils.options import MODEL_DEFAULTS
 
@@ -320,5 +338,105 @@ def test_new_recipes_finite_on_the_card(cuda):
     for v in (*logs.values(), *slogs.values()):
         assert torch.isfinite(v)
     for m in (hog, style):
+        assert all(torch.isfinite(p.grad).all() for p in m.parameters()
+                   if p.grad is not None)
+
+
+def _classifier(name, dtype, seed=8):
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return get_model(name, **MODEL_DEFAULTS[name], dtype=dtype).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vig", "vig_h"])
+def test_gla_classifiers_card_against_cpu(cuda, name):
+    x = torch.rand((2, 3, 224, 224),
+                   generator=torch.Generator().manual_seed(9))
+    with torch.inference_mode():
+        want = _classifier(name, None)(x)
+        cpu16 = _classifier(name, torch.bfloat16)(x)
+        got32 = _classifier(name, None).to(cuda)(x.to(cuda))
+        got16 = _classifier(name, torch.bfloat16).to(cuda)(x.to(cuda))
+    assert got16.dtype == torch.bfloat16
+    assert torch.isfinite(got32).all() and torch.isfinite(got16).all()
+    e32, e16, ecpu = (_rel_l2(got32, want), _rel_l2(got16, got32),
+                      _rel_l2(cpu16, want))
+    assert e32 <= 1e-5, e32
+    assert e16 <= 3 * ecpu, (e16, ecpu)
+
+
+@pytest.mark.cuda
+def test_gla_gate_minus_40_on_the_card(cuda):
+    g = torch.Generator().manual_seed(10)
+    q, k = (torch.randn(2, 2, 130, 16, generator=g) for _ in range(2))
+    v = torch.randn(2, 2, 130, 24, generator=g)
+    gk = torch.full((2, 2, 130, 16), -40.0).sigmoid().log() / 16
+    ts = [t.to(cuda).requires_grad_() for t in (q, k, v, gk)]
+    out = gla.chunk_gla(*ts)
+    out.square().sum().backward()
+    want = gla.recurrent_gla(q, k, v, gk)
+    assert torch.isfinite(out).all()
+    assert all(torch.isfinite(t.grad).all() for t in ts)
+    err = (out.detach().cpu() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+def _dense(name, dtype, x, seed=11):
+    """``name`` at its ``MODEL_DEFAULTS``, seeded, with every BatchNorm's
+    statistics those of one train-mode forward of ``x`` (the init's give
+    activations that grow through the stages)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = get_model(name, **MODEL_DEFAULTS[name], dtype=dtype)
+    for m in model.modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            m.momentum = None
+    with torch.no_grad():
+        model.train()(x)
+    return model.eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["retinanet_lsnet", "semanticfpn_lsnet"])
+def test_dense_card_against_cpu(cuda, name):
+    g = torch.Generator().manual_seed(12)
+    model = _dense(name, None, torch.rand((2, 3, 512, 512), generator=g))
+    x = torch.rand((1, 3, 256, 256), generator=g)
+    with torch.inference_mode():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda))
+    for w, o in zip(*((want, got) if isinstance(want, tuple)
+                      else ((want,), (got,)))):
+        if isinstance(w, torch.Tensor):
+            assert torch.isfinite(o).all()
+            assert _rel_l2(o, w) <= 1e-5, _rel_l2(o, w)
+
+
+@pytest.mark.cuda
+def test_dense_losses_finite_on_the_card(cuda):
+    g = torch.Generator().manual_seed(13)
+    x = torch.rand((2, 3, 128, 128), generator=g)
+    det = _dense("retinanet_lsnet", torch.bfloat16, x).to(cuda)
+    cls, box, sizes = det(x.to(cuda))
+    anchors = det.anchors(sizes, cuda)
+    gt = torch.tensor([[10.0, 12.0, 60.0, 70.0], [64.0, 8.0, 120.0, 50.0],
+                       [0.0, 0.0, 0.0, 0.0]], device=cuda)
+    labels = torch.tensor([3, 17, 0], device=cuda)
+    valid = torch.tensor([True, True, False], device=cuda)
+    c, b = D.retinanet_loss(cls[0], box[0], anchors, gt, labels, valid, 80)
+    (c + b).backward()
+    boxes, scores, lab = D.decode_detections(cls[1].detach(),
+                                             box[1].detach(), anchors)
+    seg = _dense("semanticfpn_lsnet", torch.bfloat16, x).to(cuda)
+    logits = seg(x.to(cuda))
+    target = torch.randint(0, 150, (2, 128, 128), generator=g).to(cuda)
+    target[:, :8] = 255
+    ce = D.segmentation_ce_loss(logits, target)
+    ce.backward()
+    miou, _ = D.mean_iou(logits.argmax(1), target, 150)
+    for t in (c, b, ce, miou, boxes, scores):
+        assert torch.isfinite(t).all()
+    for m in (det, seg):
         assert all(torch.isfinite(p.grad).all() for p in m.parameters()
                    if p.grad is not None)

@@ -7,7 +7,8 @@ What JAX draws is read from the JAX model itself: ``flax.linen.Module``'s
 initializer and shape (and each ``batch_stats`` variable's init function),
 handing the traced forward zeros of that shape: the init is neither run,
 traced nor compiled. Initializers that draw nothing
-(zeros, ones, constants, MoCE's Laplacian high-pass) are evaluated and
+(zeros, ones, constants such as ViG's layer scales and RetinaNet's
+focal-prior class bias, MoCE's Laplacian high-pass) are evaluated and
 held exactly. The random ones are held to their distribution: flax's
 ``variance_scaling`` (``lecun_normal`` for every conv and dense kernel)
 gives a normal truncated at 2 stddev, stddev = sqrt(scale / fan) /
@@ -35,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from family_parity import traceable_retinanet
 from jax._src.nn.initializers import _compute_fans
 
 from image_restoration_tpu.models import get_model as jax_get_model
@@ -76,6 +78,17 @@ MODELS = {
     "darkir": (dict(width=8, enc_blk_nums=(1, 1, 1), middle_blk_num_enc=1,
                     middle_blk_num_dec=1, dec_blk_nums=(1, 1, 1)),
                (1, 32, 32, 3)),
+    "vig": (dict(img_size=32, patch_size=4, depth=1, embed_dim=32,
+                 num_classes=10, use_swiglu=True, init_values=0.1),
+            (1, 32, 32, 3)),
+    "vig_h": (dict(depths=(1, 1), dims=(16, 32), num_heads=(2, 4),
+                   num_classes=10), (1, 32, 32, 3)),
+    "retinanet_lsnet": (dict(embed_dim=(16, 32, 48, 64), depth=(1, 2, 2, 2),
+                             img_size=64, fpn_dim=32, num_classes=5),
+                        (1, 64, 64, 3)),
+    "semanticfpn_lsnet": (dict(embed_dim=(16, 32, 48, 64),
+                               depth=(1, 2, 2, 2), img_size=64, fpn_dim=32,
+                               seg_dim=32, num_classes=5), (1, 64, 64, 3)),
 }
 
 
@@ -155,7 +168,8 @@ def _jax_inits(name):
 
     nn.Module.param, nn.Module.variable = rec_param, rec_variable
     try:
-        jax.eval_shape(jnet.init, jax.random.PRNGKey(0), jnp.zeros(shape))
+        with traceable_retinanet():
+            jax.eval_shape(jnet.init, jax.random.PRNGKey(0), jnp.zeros(shape))
     finally:
         nn.Module.param, nn.Module.variable = param, variable
     for col, path, init_fn, args in seen:

@@ -13,6 +13,7 @@ Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
     python3 chip_smoke.py --ska [TH ...] [--ring 1|2] [--split 1|2|4|8]
     python3 chip_smoke.py --learn DIM
     python3 chip_smoke.py --learn-moce
+    python3 chip_smoke.py --phases NAME [NAME ...]
 
 The second form checks and times only the two kernels that share the GDFN
 tail (K2, K3), at the wrappers' tile height and warps or at those given: the
@@ -55,6 +56,10 @@ weights, zero biases). The ninth does the same for
 ``tools/learn_run2.py``'s ``moce_ir`` argv (MoCE-IR at dim 24, 4 experts,
 top-2, aux weight 0.01, lr 1e-3, 2500 steps: the run behind
 ``LEARN_moce_ir_r05.json``), its balance loss's curve beside the others.
+The tenth runs the build, the kernel checks (phases 2-2h) and then only
+the named phases of the ones that follow them (``PHASES``: 3, 3j, 3l,
+3m, 3n, 3o, 3f, "3f family", "3f 3l", "3f 3o", 4, 4m, 4f, 4n, 5, 5v,
+5a), so that a family's phases run on the card without the whole run.
 None of them prints a result line.
 
 Phases, any failure ends the run with a nonzero exit code:
@@ -326,6 +331,30 @@ Phases, any failure ends the run with a nonzero exit code:
    Phases 3m, 3n and 5v launch no kernel (JAX's GLA is ``lax.scan`` and
    einsums, and its dense engines run SKA through XLA): every count is
    set to 0 before each run and checked at 0 after.
+3o. IPT (n_feats 64, task 5, x1) and EDT (embed 180, ``denoise_30``),
+   plain torch (no Pallas kernel behind them in JAX either), seeded
+   weights with every AdaptIR adapter's zero-initialised ``tail`` drawn,
+   IPT's first head conv scaled by 1/255 and the adapters' BatchNorm
+   statistics from one ``train=True`` forward (``perturb_adaptir``),
+   restore a 512x512 image through ``make_restore_fn`` in bf16: IPT with
+   ``--tile 48`` (121 windows, one batch), EDT with ``--pad_multiple 96``
+   (576x576). Every kernel's count 0; finite outputs of the input's size;
+   forward ms (CUDA events), restore ms/img, MP/s, peak memory; bf16
+   against the card's fp32 (relative L2, max |error|); the card's fp32
+   forward within 1e-5 relative L2 of the CPU's (48x48, 96x96). IPT's
+   ``overlap_average_apply`` restore (patch 48, stride 12) timed once.
+   At model level: EDT ``sr_2`` on 240x240 (480x480 out) and IPT's task 0
+   (x2) on a 48x48 window, finite, their card fp32 within 1e-5 of the
+   CPU's at 48x48.
+"3f 3o". ``cli/test.py`` scores IPT on ``denoise_50`` (``--tile 48``)
+   and EDT on ``denoise_25`` (``--pad_multiple 96``) on a BSD68-shaped
+   tree (two 481x321 images), phase 3f's checks.
+5a. Five ``Optimizer`` steps (AdamW) of the whole IPT (batch 8 of 48x48)
+   and EDT (``denoise_30``, batch 8 of 96x96) in bf16 with ``model(lq,
+   train=True)`` and an L1 loss: finite losses and gradients, the last
+   loss below the first, no kernel launch; step ms, images/s, peak
+   memory, the bf16 gradients' relative L2 against fp32. ``cli/train.py``
+   refuses both, as the JAX CLI cannot train them.
 Each phase's seconds are printed.
 Each serving phase sets the launch counts to 0 just before its forwards
 and reads them just after; the kernels line's ``launches_by_path`` lists
@@ -346,9 +375,11 @@ the three-kernel step as ``train_3k``, phase 4m's ``main`` runs as
 ``train_moce`` and (zeros) ``train_igmoce_ir``, ``train_lumisense_moe``
 and ``train_moce_ir_patch``, and phase 5's ``cli/robust.py``
 runs as ``robust_clean``, ``robust_fgsm`` and ``robust_pgd`` and its
-classification steps as ``cls_train``, and phases 3m, 3n and 5v's (zeros)
+classification steps as ``cls_train``, phases 3m, 3n and 5v's (zeros)
 as ``vig``, ``vig_h``, ``retinanet_lsnet``, ``semanticfpn_lsnet`` and
-``train_`` each of them. Each kernel's row keeps the
+``train_`` each of them, and phases 3o, "3f 3o" and 5a's (zeros) as
+``ipt``, ``edt``, ``ipt_edt_model_level``, ``eval_ipt``, ``eval_edt``,
+``train_ipt`` and ``train_edt``. Each kernel's row keeps the
 serving path's per-forward sums; its ``by_path`` holds those of the other
 paths that phase 2 checks it at (K1/K2: MEASNet's, NeRD-Rain's,
 MoCE-IR's, a training step's and MoCE-IR's training step's
@@ -538,6 +569,26 @@ GLA_TRAIN_BATCH, GLA_TRAIN_STEPS, GLA_LR = 32, 5, 1e-4
 DENSE_BATCH, DENSE_SIZE, DENSE_SLOTS = 2, 512, 8
 DENSE_TRAIN_STEPS, DENSE_LR = 3, 1e-4
 CARD_CPU_GLA = 1e-5
+# The phases after the kernel checks, in their order: ``--phases`` runs the
+# named ones.
+PHASES = ("3", "3j", "3l", "3m", "3n", "3o", "3f", "3f family", "3f 3l",
+          "3f 3o", "4", "4m", "4f", "4n", "5", "5v", "5a")
+# Phases 3o, "3f 3o" and 5a: IPT (its field defaults: n_feats 64, task 5,
+# x1) served in 48x48 windows (--tile 48: 121 at 512x512, one batch) and
+# EDT (embed 180, denoise_30) padded to multiples of 96 (576x576), the
+# options and model_kwargs of each; the small input of the card-against-CPU
+# check (and of the BatchNorm calibration), held to CARD_CPU_ADAPTIR; IPT's
+# overlap-average restore in batches of ADAPTIR_OVERLAP_BATCH; EDT sr_2's
+# model-level input side; the BSD68-shaped set's images; the training
+# steps, batch and AdamW learning rate.
+ADAPTIR_SERVE = {"ipt": (["--tile", "48"], {}),
+                 "edt": (["--pad_multiple", "96"], {"de_type": "denoise_30"})}
+ADAPTIR_SMALL = {"ipt": (48, 48), "edt": (96, 96)}
+CARD_CPU_ADAPTIR = 1e-5
+ADAPTIR_OVERLAP_BATCH = 256
+ADAPTIR_SR_IN = 240
+ADAPTIR_EVAL_IMAGES = 2
+ADAPTIR_TRAIN_STEPS, ADAPTIR_TRAIN_BATCH, ADAPTIR_LR = 5, 8, 1e-4
 # CG-IR's 44 CGTBs have Restormer-base's block shapes (LEVELS); the gated
 # pair runs at batch 2 at two of them in phase 2e.
 GATED_SHAPES = [(128, 128, 192, 4), (64, 64, 384, 8)]
@@ -3630,10 +3681,11 @@ def _rel_l2(got, want):
     return float((got - want).norm() / want.norm())
 
 
-def _card_against_cpu(tag, model32, x, pick=lambda out: out):
+def _card_against_cpu(tag, model32, x, pick=lambda out: out,
+                      limit=CARD_CPU_GLA):
     """The card's fp32 ``model32`` against a CPU copy of it on ``x`` (NCHW,
     on the CPU), TF32 off on both: relative L2, printed and held to
-    ``CARD_CPU_GLA``. ``pick`` takes the compared tensor from the output."""
+    ``limit``. ``pick`` takes the compared tensor from the output."""
     import copy
 
     import torch
@@ -3645,9 +3697,9 @@ def _card_against_cpu(tag, model32, x, pick=lambda out: out):
         cpu = pick(copy.deepcopy(model32).cpu()(x))
     rel = _rel_l2(card, cpu)
     print(f"{tag}: fp32 forward at {tuple(x.shape)}, card against CPU: "
-          f"relative L2 {rel:.3e} (limit {CARD_CPU_GLA:g})", flush=True)
-    check(rel <= CARD_CPU_GLA, f"{tag}: card fp32 forward {rel:.3e} from "
-          f"the CPU's")
+          f"relative L2 {rel:.3e} (limit {limit:g})", flush=True)
+    check(rel <= limit, f"{tag}: card fp32 forward {rel:.3e} from the "
+          f"CPU's")
 
 
 def phase_serve_gla(gpu, profile_dir=None):
@@ -4030,6 +4082,349 @@ def phase_train_gla(gpu):
               f"{ms:.3f} ms (device, CUDA events, median of "
               f"{DENSE_TRAIN_STEPS - 1}), peak memory {peak:.3f} GiB",
               flush=True)
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"{name}: losses {losses} not finite or not falling")
+        check(not any(got.values()), f"{name} training launched a kernel")
+        del net, state
+    return out
+
+
+def _adaptir_cfg(name, extra=(), **model_kwargs):
+    """``name``'s options from its serving defaults on the card (bf16, no
+    kernel flag) with the command-line flags ``extra`` and the
+    ``model_kwargs`` given."""
+    from image_restoration_tpu_torch.utils.options import parse_options
+
+    sets = [a for k, v in model_kwargs.items()
+            for a in ("--set", f"model_kwargs.{k}={v}")]
+    cfg = parse_options(["--model", name, "--device", "cuda", "--seed",
+                         "0", *extra, *sets])
+    check(cfg["bf16"] and not set(cfg["model_kwargs"]) & set(KERNEL_FLAGS),
+          f"{name}: not bf16 without a kernel flag ({cfg['model_kwargs']})")
+    return cfg
+
+
+def calibrate_adaptir(model, x):
+    """Every AdaptIR adapter's BatchNorm statistics set to the batch
+    statistics of one ``train=True`` forward of ``x`` (the adapters'
+    BatchNorms follow the forward's ``train``, not the module's mode), each
+    normalizing what the ones before it normalized."""
+    import torch
+
+    from image_restoration_tpu_torch.models.adaptir_ipt import AdaptIRAdapter
+
+    bns = [m.BN for m in model.modules() if isinstance(m, AdaptIRAdapter)]
+    momenta = [bn.momentum for bn in bns]
+    for bn in bns:
+        bn.reset_running_stats()
+        bn.momentum = 1.0  # the running statistics become the batch's
+    with torch.no_grad():
+        model(x, train=True)
+    for bn, momentum in zip(bns, momenta):
+        bn.momentum = momentum
+
+
+def perturb_adaptir(model, seed, x):
+    """IPT's or EDT's seeded weights made to exercise every adapter: the
+    zero-initialised adapter ``tail``s (nothing an adapter computes would
+    reach the image) drawn at lecun's scale, 1 / sqrt(hidden); IPT's first
+    head conv at 1 / 255 of its init, as its input is x255 (at the init's
+    scale the encoder's output, which the decoder's cross-attention reads
+    unnormalised, is ~700, its softmaxes saturate, and fp32 runs agree to
+    ~5e-5 only: tests/test_torch_adaptir_ipt.py); the BatchNorm statistics
+    from one ``train=True`` forward of ``x`` (``calibrate_adaptir``). The
+    phase weights stay at their init, 1: the phase of a real negative rfft2
+    coefficient is +-pi by the sign of rounding noise, which only an
+    integer weight maps to one angle."""
+    import torch
+
+    from image_restoration_tpu_torch.models.adaptir_ipt import (
+        IPT, AdaptIRAdapter,
+    )
+
+    randn = _randn_from(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, AdaptIRAdapter):
+                m.tail.weight.copy_(randn(m.tail.weight) * m.hidden ** -0.5)
+        if isinstance(model, IPT):
+            model.head[str(model.task_idx)][0].weight.div_(model.rgb_range)
+    calibrate_adaptir(model, x)
+
+
+def _adaptir_model(cfg, seed, calib_hw, batch=2):
+    """``build_model(cfg)`` (its seeded init) through ``perturb_adaptir``
+    with a seeded calibration batch of ``batch`` images of ``calib_hw``."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.train import build_model
+
+    model = build_model(cfg)
+    x = torch.rand((batch, 3, *calib_hw), generator=torch.Generator()
+                   .manual_seed(seed + 1)).cuda()
+    perturb_adaptir(model, seed, x)
+    return model
+
+
+def _serve_batch(cfg, x):
+    """The batch ``make_restore_fn`` gives the model for the NCHW image
+    ``x``: its ``--tile`` windows, or the image padded to
+    ``--pad_multiple``."""
+    from image_restoration_tpu_torch.eval.tiled import window_partition
+    from image_restoration_tpu_torch.ops.common import pad_to_multiple
+
+    if cfg.get("tile"):
+        return window_partition(x, cfg["tile"])[0]
+    return pad_to_multiple(x, cfg["pad_multiple"])[0]
+
+
+def phase_serve_adaptir(gpu, profile_dir=None):
+    """Phase 3o: IPT (its field defaults: n_feats 64, task 5, x1) and EDT
+    (embed 180, ``denoise_30``) from their serving defaults, seeded weights
+    through ``perturb_adaptir``, restore a seeded 512x512 image in bf16 at
+    batch 1 through ``make_restore_fn`` (``ADAPTIR_SERVE``: IPT in 121
+    48x48 windows as one batch, EDT padded to 576x576): every kernel's
+    count 0, a finite output of the input's size; the forward's device ms
+    on the batch the restore feeds it (CUDA events), the restore's ms/img
+    (host clock, median of 5), MP/s, peak memory; bf16 against the card's
+    fp32 model on that batch (relative L2, max |error|); the card's fp32
+    forward against the CPU's at ``ADAPTIR_SMALL`` (``CARD_CPU_ADAPTIR``).
+    IPT then restores the image once by ``eval/tiled.py``
+    ``overlap_average_apply`` (patch 48, stride 12: 1681 windows in
+    batches of ``ADAPTIR_OVERLAP_BATCH``), timed once. Model level (JAX's
+    ``make_restore_fn`` crops these x1): EDT's field default ``sr_2`` on
+    ``ADAPTIR_SR_IN``^2 (x2 out) and IPT's task 0 (x2) on one 48x48 window,
+    finite and of twice the size, the card's fp32 against the CPU's at
+    48x48. With ``profile_dir``, a profile of two restores of each model.
+    Returns the launch counts by path."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.infer import make_restore_fn
+    from image_restoration_tpu_torch.eval.tiled import overlap_average_apply
+    from image_restoration_tpu_torch.utils.precision import full_fp32
+
+    every = _every_kernel()
+    out = {}
+    img = np.random.default_rng(3300).random((512, 512, 3), dtype=np.float32)
+    x = torch.from_numpy(img).permute(2, 0, 1)[None].cuda()
+    for name, (flags, mk) in ADAPTIR_SERVE.items():
+        cfg = _adaptir_cfg(name, flags, **mk)
+        model = _adaptir_model(cfg, 3310, ADAPTIR_SMALL[name])
+        restore = make_restore_fn(cfg, model)
+        restore(img)  # warm-up: cuDNN algorithm choice, allocator
+        _zero(every)
+        res = restore(img)
+        out[name] = got = _read(every)
+        check(not any(got.values()), f"{name} serving launched a kernel: "
+              f"{got}")
+        check(res.shape == img.shape and np.isfinite(res).all(),
+              f"{name}: output {res.shape} for {img.shape}, or not finite")
+        xb = _serve_batch(cfg, x)
+        plain32 = plain_variant(cfg, model, False)
+        with torch.inference_mode(), full_fp32():
+            ref = plain32(xb)
+            got16 = model(xb).float()
+        err = (got16 - ref).abs().max().item()
+        rel = _rel_l2(got16, ref)
+        check(np.isfinite(err), f"{name}: non-finite bf16 error")
+        del ref, got16
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore(img)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = statistics.median(times)
+        with torch.inference_mode(), full_fp32():
+            fwd = time_cuda(lambda: model(xb), reps=5, warmup=1,
+                            head_start_ms=50.0)
+        print(f"{name} serving 512x512 bf16 batch 1 on {gpu} "
+              f"({' '.join(flags)}: a forward of {tuple(xb.shape)}): forward "
+              f"{fwd:.3f} ms (device, CUDA events), restore {ms:.3f} ms/img "
+              f"(host clock, median of 5), {0.262144 / (ms / 1e3):.4f} MP/s, "
+              f"peak memory {peak:.3f} GiB, launches {got}; bf16 against "
+              f"the card's fp32 model: relative L2 {rel:.4e}, max |err| "
+              f"{err:.4e}", flush=True)
+        if profile_dir:
+            _profile(restore, [img] * 2, profile_dir, name, gpu,
+                     "restores at 512x512")
+        small = torch.rand((1, 3, *ADAPTIR_SMALL[name]),
+                           generator=torch.Generator().manual_seed(3320))
+        _card_against_cpu(name, plain32, small, limit=CARD_CPU_ADAPTIR)
+        if name == "ipt":
+            windows = []
+
+            def fn(w):
+                windows.append(w.shape[0])
+                return torch.clamp(model(w), 0.0, 1.0)
+
+            with torch.inference_mode(), full_fp32():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dense = overlap_average_apply(
+                    fn, x, patch=48, max_batch=ADAPTIR_OVERLAP_BATCH)
+                torch.cuda.synchronize()
+            dense_ms = (time.perf_counter() - t0) * 1e3
+            check(dense.shape == x.shape and torch.isfinite(dense).all(),
+                  f"ipt overlap average: {tuple(dense.shape)} or not finite")
+            print(f"ipt overlap_average_apply(patch=48, stride 12, "
+                  f"max_batch {ADAPTIR_OVERLAP_BATCH}) on 512x512 bf16 on "
+                  f"{gpu}: {sum(windows)} windows in {len(windows)} "
+                  f"forwards, {dense_ms:.3f} ms (host clock, once), "
+                  f"{0.262144 / (dense_ms / 1e3):.4f} MP/s", flush=True)
+        del model, plain32, restore
+    _zero(every)
+    for name, cfg, hw, xin in (
+            ("ipt task 0", _adaptir_cfg("ipt", task_idx=0), (48, 48),
+             (48, 48)),
+            ("edt sr_2", _adaptir_cfg("edt"), (48, 48),
+             (ADAPTIR_SR_IN, ADAPTIR_SR_IN))):
+        model = _adaptir_model(cfg, 3330, hw)
+        xs = torch.rand((1, 3, *xin), generator=torch.Generator()
+                        .manual_seed(3340)).cuda()
+        with torch.inference_mode(), full_fp32():
+            y = model(xs)
+            fwd = time_cuda(lambda: model(xs), reps=5, warmup=1,
+                            head_start_ms=50.0)
+        check(y.shape == (1, 3, 2 * xin[0], 2 * xin[1])
+              and torch.isfinite(y).all(),
+              f"{name}: output {tuple(y.shape)} for {xin}, or not finite")
+        print(f"{name} at model level, {xin[0]}x{xin[1]} -> "
+              f"{2 * xin[0]}x{2 * xin[1]} bf16 on {gpu}: forward {fwd:.3f} "
+              f"ms (device, CUDA events)", flush=True)
+        plain32 = plain_variant(cfg, model, False)
+        _card_against_cpu(name, plain32, torch.rand(
+            (1, 3, *hw), generator=torch.Generator().manual_seed(3350)),
+            limit=CARD_CPU_ADAPTIR)
+        del model, plain32
+    out["ipt_edt_model_level"] = got = _read(every)
+    check(not any(got.values()), f"IPT/EDT at model level launched a "
+          f"kernel: {got}")
+    return out
+
+
+def write_bsd68_tree(root, seed=0):
+    """Phase "3f 3o"'s BSD68-shaped tree: ``ADAPTIR_EVAL_IMAGES`` clean
+    481x321 images under ``denoising/bsd68`` (the benchmark adds the
+    noise)."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for i in range(ADAPTIR_EVAL_IMAGES):
+        path = os.path.join(root, "denoising", "bsd68", f"{i:03d}.png")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(_smooth_image(rng, *RAIN100L_SIZE)).save(path)
+
+
+def phase_eval_adaptir(gpu):
+    """Phase "3f 3o": ``cli/test.py`` ``main`` scores IPT (task 5's set,
+    ``denoise_50``, ``--tile 48``: 77 windows of 48x48 an image, one
+    batch) and EDT (``denoise_30`` weights on ``denoise_25``,
+    ``--pad_multiple 96``: 384x576 forwards), each from phase 3o's options
+    with seeded weights (``perturb_adaptir``) as a ``.pth`` ``--ckpt``, on
+    a seeded BSD68-shaped tree (``write_bsd68_tree``): every kernel's count
+    0, finite scores, and each image's on-card PSNR and SSIM within 1e-3 dB
+    and 1e-4 of the float64 host recomputation. Returns the launch counts
+    by path."""
+    import os
+    import tempfile
+
+    import torch
+
+    every = _every_kernel()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ir_eval_adaptir_") as tmp:
+        data = os.path.join(tmp, "data")
+        write_bsd68_tree(data, seed=3360)
+        for name, bench in (("ipt", "denoise_50"), ("edt", "denoise_25")):
+            flags, mk = ADAPTIR_SERVE[name]
+            cfg = _adaptir_cfg(name, flags, **mk)
+            model = _adaptir_model(cfg, 3370, ADAPTIR_SMALL[name])
+            ckpt = os.path.join(tmp, f"{name}.pth")
+            torch.save(model.state_dict(), ckpt)
+            del model
+            sets = [a for k, v in mk.items()
+                    for a in ("--set", f"model_kwargs.{k}={v}")]
+            launches, kept = _eval_main(
+                name, ["--model", name, "--ckpt", ckpt, "--benchmarks", bench,
+                       "--data_file_dir", data, "--output_dir",
+                       os.path.join(tmp, name), *flags, *sets],
+                every, dict.fromkeys(every, 0), ADAPTIR_EVAL_IMAGES)
+            _metrics_to_host(name, kept)
+            out[f"eval_{name}"] = launches
+    return out
+
+
+def phase_train_adaptir(gpu):
+    """Phase 5a: ``ADAPTIR_TRAIN_STEPS`` ``train/trainer.py`` ``Optimizer``
+    steps (AdamW, lr ``ADAPTIR_LR``) of the whole IPT (task 5, batch
+    ``ADAPTIR_TRAIN_BATCH`` of 48x48) and EDT (``denoise_30``, the batch at
+    96x96) in bf16, ``model(lq, train=True)`` (the adapters' BatchNorms on
+    the batch's statistics) with an L1 loss against a seeded target, on
+    one seeded batch: finite losses and gradients at every step, the last
+    loss below the first, every kernel's count 0; step ms (CUDA events,
+    median after the first), images/s, peak memory, and the bf16
+    gradients' relative L2 against the fp32 model's on the first two
+    images. The training CLI refuses both models, as JAX's cannot train
+    them. Returns the launch counts by path."""
+    import torch
+
+    from image_restoration_tpu_torch.train import trainer as TT
+
+    every = _every_kernel()
+    out = {}
+    for name, size, mk in (("ipt", 48, {}),
+                           ("edt", 96, {"de_type": "denoise_30"})):
+        cfg = _adaptir_cfg(name, **mk)
+        gen = torch.Generator(device="cuda").manual_seed(3400)
+        shape = (ADAPTIR_TRAIN_BATCH, 3, size, size)
+        gt = torch.rand(shape, generator=gen, device="cuda")
+        lq = (gt + 0.1 * torch.randn(shape, generator=gen, device="cuda")
+              ).clamp(0, 1)
+        net = _adaptir_model(cfg, 3410, (size, size))
+        ref = plain_variant(cfg, net, False)
+        rel = _grad_rel_l2(net, ref, lambda m: (
+            m(lq[:2], train=True) - gt[:2]).abs().mean())
+        del ref
+        params = dict(net.named_parameters())
+        tx = TT.Optimizer(TT.TrainerConfig(learning_rate=ADAPTIR_LR))
+        state = TT.TrainState.create(net, tx)
+        finite = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(every)
+
+        def one():
+            loss = (net(lq, train=True) - gt).abs().mean()
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()), allow_unused=True)))
+            grads = {k: torch.zeros_like(params[k]) if g is None else g
+                     for k, g in grads.items()}
+            finite.append(torch.stack([torch.isfinite(g).all()
+                                       for g in grads.values()]).all())
+            updates, state.opt_state = tx.update(grads, state.opt_state,
+                                                 params)
+            TT.apply_updates(state, params, updates, None)
+            return loss.detach()
+
+        losses, ms = _timed_steps(one, ADAPTIR_TRAIN_STEPS)
+        out[f"train_{name}"] = got = _read(every)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"{name} Optimizer steps on {gpu}: {ADAPTIR_TRAIN_STEPS} at "
+              f"batch {ADAPTIR_TRAIN_BATCH} {size}x{size} bf16, train=True, "
+              f"losses {[round(v, 6) for v in losses]}, launches {got}; step "
+              f"{ms:.3f} ms (device, CUDA events, median of "
+              f"{ADAPTIR_TRAIN_STEPS - 1}), "
+              f"{ADAPTIR_TRAIN_BATCH / (ms / 1e3):.1f} images/s, peak memory "
+              f"{peak:.3f} GiB; bf16 gradients against fp32: relative L2 "
+              f"{rel:.4e}", flush=True)
+        check(all(bool(f) for f in finite), f"{name}: a non-finite gradient")
         check(np.isfinite(losses).all() and losses[-1] < losses[0],
               f"{name}: losses {losses} not finite or not falling")
         check(not any(got.values()), f"{name} training launched a kernel")
@@ -4682,6 +5077,88 @@ def phase_learn_moce(gpu):
     _learn(gpu, "moce_ir " + " ".join(args[2:]), args, LEARN_MOCE_STEPS)
 
 
+def phase_serve_slices(gpu, profile_dir=None):
+    """Phases 3-3i but 3f: the kernel models' serving slices (Restormer-base
+    with the pair and with the three-kernel block, DRSformer, LSNet-B,
+    AdaIR, CG-IR, MEASNet, NeRD-Rain, MoCE-IR) and the MoCE family's
+    kernel-free models (``phase_slice``, ``phase_lsnet``). Returns the
+    launch counts by path."""
+    from image_restoration_tpu_torch.kernels import attn_core as KA
+    from image_restoration_tpu_torch.kernels import block as KB
+    from image_restoration_tpu_torch.kernels import drs_block as KD
+    from image_restoration_tpu_torch.kernels import gdfn as KG
+    from image_restoration_tpu_torch.kernels import mdta as KQ
+    from image_restoration_tpu_torch.kernels import mefc as KM
+
+    by_path = {
+        "restormer": phase_slice(
+            gpu, profile_dir, "restormer",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": BLOCKS_PER_FORWARD}),
+        "drsformer": phase_slice(
+            gpu, profile_dir, "drsformer",
+            {"block_front": KB.block_front,
+             "drs_apply_msfn": KD.drs_apply_msfn,
+             "mefc_step": KM.mefc_step},
+            {"block_front": DRS_BLOCKS_PER_FORWARD,
+             "drs_apply_msfn": DRS_BLOCKS_PER_FORWARD,
+             "mefc_step": MEFC_STEPS_PER_FORWARD}),
+        "lsnet": phase_lsnet(gpu, profile_dir),
+        "restormer_3k": phase_slice(
+            gpu, profile_dir, "restormer",
+            {"ln_qkv_dwconv": KQ.ln_qkv_dwconv, "attn_acc": KA.attn_acc,
+             "attn_apply": KA.attn_apply, "ln_gdfn": KG.fused_ln_gdfn},
+            dict.fromkeys(("ln_qkv_dwconv", "attn_acc", "attn_apply",
+                           "ln_gdfn"), BLOCKS_PER_FORWARD),
+            overrides=THREE_KERNEL, tag="restormer_3k"),
+        "adair": phase_slice(
+            gpu, profile_dir, "adair",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": BLOCKS_PER_FORWARD},
+            perturb=lambda m: perturb_adair(m, seed=800)),
+        "cg_ir": phase_slice(
+            gpu, profile_dir, "cg_ir",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": BLOCKS_PER_FORWARD}),
+        "measnet": phase_slice(
+            gpu, profile_dir, "measnet",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": MEASNET_BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": MEASNET_BLOCKS_PER_FORWARD},
+            perturb=lambda m: perturb_measnet(m, seed=1200)),
+        "nerd_rain": phase_slice(
+            gpu, profile_dir, "nerd_rain",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": NERD_BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": NERD_BLOCKS_PER_FORWARD}),
+        "moce_ir": phase_slice(
+            gpu, profile_dir, "moce_ir",
+            {"block_front": KB.block_front,
+             "block_apply_gdfn": KB.block_apply_gdfn},
+            {"block_front": MOCE_BLOCKS_PER_FORWARD,
+             "block_apply_gdfn": MOCE_BLOCKS_PER_FORWARD},
+            inspect=inspect_routes(strict=True),
+            perturb=lambda m: perturb_biases(m, seed=1310)),
+    }
+    every_kernel = _every_kernel()
+    for name in KERNEL_FREE:
+        by_path[name] = phase_slice(
+            gpu, profile_dir, name, every_kernel,
+            dict.fromkeys(every_kernel, 0), kernel_free=True,
+            inspect=inspect_routes(strict=False),
+            perturb=(lambda m: perturb_igmoce(m, seed=1400))
+            if name == "igmoce_ir" else None)
+    return by_path
+
+
 def timed(name, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, with the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -4765,6 +5242,12 @@ def main(argv=None):
                          "repeats")
     ap.add_argument("--walk", type=int, default=None,
                     help="with --attn: the fewest tiles a K5 block walks")
+    ap.add_argument("--phases", nargs="+", choices=PHASES, default=None,
+                    metavar="NAME",
+                    help="after the build and the kernel checks (phases "
+                         "2-2h), only the named phases (3, 3j, 3l, 3m, 3n, "
+                         "3o, 3f, '3f family', '3f 3l', '3f 3o', 4, 4m, 4f, "
+                         "4n, 5, 5v, 5a); prints no result line")
     args = ap.parse_args(argv)
     sweeps = {"tail": args.tail, "front": args.front, "msfn": args.msfn}
     warps_of = {"tail": (8, 16), "front": (8, 16), "msfn": (8, 16),
@@ -4792,6 +5275,9 @@ def main(argv=None):
     if learn and (learn > 1 or args.mefc is not None or any(
             getattr(args, k) is not None for k in ("attn", "ska", *sweeps))):
         ap.error("--learn and --learn-moce run alone")
+    if args.phases is not None and (learn or args.mefc is not None or any(
+            getattr(args, k) is not None for k in ("attn", "ska", *sweeps))):
+        ap.error("--phases goes with no sweep and no --learn")
 
     import torch
 
@@ -4804,13 +5290,6 @@ def main(argv=None):
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
-    from image_restoration_tpu_torch.kernels import attn_core as KA
-    from image_restoration_tpu_torch.kernels import block as KB
-    from image_restoration_tpu_torch.kernels import drs_block as KD
-    from image_restoration_tpu_torch.kernels import gdfn as KG
-    from image_restoration_tpu_torch.kernels import mdta as KQ
-    from image_restoration_tpu_torch.kernels import mefc as KM
-    from image_restoration_tpu_torch.kernels import ska as KS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4881,94 +5360,40 @@ def main(argv=None):
                              TRAIN_BATCH, f"train_3k batch {TRAIN_BATCH} "),
                "train_3k")
     timed("2h", phase_vjps)
-    t_serve = time.perf_counter()
-    by_path = {
-        "restormer": phase_slice(
-            gpu, args.profile, "restormer",
-            {"block_front": KB.block_front,
-             "block_apply_gdfn": KB.block_apply_gdfn},
-            {"block_front": BLOCKS_PER_FORWARD,
-             "block_apply_gdfn": BLOCKS_PER_FORWARD}),
-        "drsformer": phase_slice(
-            gpu, args.profile, "drsformer",
-            {"block_front": KB.block_front,
-             "drs_apply_msfn": KD.drs_apply_msfn,
-             "mefc_step": KM.mefc_step},
-            {"block_front": DRS_BLOCKS_PER_FORWARD,
-             "drs_apply_msfn": DRS_BLOCKS_PER_FORWARD,
-             "mefc_step": MEFC_STEPS_PER_FORWARD}),
-        "lsnet": phase_lsnet(gpu, args.profile),
-        "restormer_3k": phase_slice(
-            gpu, args.profile, "restormer",
-            {"ln_qkv_dwconv": KQ.ln_qkv_dwconv, "attn_acc": KA.attn_acc,
-             "attn_apply": KA.attn_apply, "ln_gdfn": KG.fused_ln_gdfn},
-            dict.fromkeys(("ln_qkv_dwconv", "attn_acc", "attn_apply",
-                           "ln_gdfn"), BLOCKS_PER_FORWARD),
-            overrides=THREE_KERNEL, tag="restormer_3k"),
-        "adair": phase_slice(
-            gpu, args.profile, "adair",
-            {"block_front": KB.block_front,
-             "block_apply_gdfn": KB.block_apply_gdfn},
-            {"block_front": BLOCKS_PER_FORWARD,
-             "block_apply_gdfn": BLOCKS_PER_FORWARD},
-            perturb=lambda m: perturb_adair(m, seed=800)),
-        "cg_ir": phase_slice(
-            gpu, args.profile, "cg_ir",
-            {"block_front": KB.block_front,
-             "block_apply_gdfn": KB.block_apply_gdfn},
-            {"block_front": BLOCKS_PER_FORWARD,
-             "block_apply_gdfn": BLOCKS_PER_FORWARD}),
-        "measnet": phase_slice(
-            gpu, args.profile, "measnet",
-            {"block_front": KB.block_front,
-             "block_apply_gdfn": KB.block_apply_gdfn},
-            {"block_front": MEASNET_BLOCKS_PER_FORWARD,
-             "block_apply_gdfn": MEASNET_BLOCKS_PER_FORWARD},
-            perturb=lambda m: perturb_measnet(m, seed=1200)),
-        "nerd_rain": phase_slice(
-            gpu, args.profile, "nerd_rain",
-            {"block_front": KB.block_front,
-             "block_apply_gdfn": KB.block_apply_gdfn},
-            {"block_front": NERD_BLOCKS_PER_FORWARD,
-             "block_apply_gdfn": NERD_BLOCKS_PER_FORWARD}),
-        "moce_ir": phase_slice(
-            gpu, args.profile, "moce_ir",
-            {"block_front": KB.block_front,
-             "block_apply_gdfn": KB.block_apply_gdfn},
-            {"block_front": MOCE_BLOCKS_PER_FORWARD,
-             "block_apply_gdfn": MOCE_BLOCKS_PER_FORWARD},
-            inspect=inspect_routes(strict=True),
-            perturb=lambda m: perturb_biases(m, seed=1310)),
-    }
-    every_kernel = _every_kernel()
-    check(set(every_kernel) == set(KERNELS), "a kernel without its counter")
-    for name in KERNEL_FREE:
-        by_path[name] = phase_slice(
-            gpu, args.profile, name, every_kernel,
-            dict.fromkeys(every_kernel, 0), kernel_free=True,
-            inspect=inspect_routes(strict=False),
-            perturb=(lambda m: perturb_igmoce(m, seed=1400))
-            if name == "igmoce_ir" else None)
-    print(f"phase 3 (serving, 3-3i but 3f): "
-          f"{time.perf_counter() - t_serve:.1f} s", flush=True)
-    by_path.update(timed("3j", phase_serve_family, gpu, args.profile))
-    by_path.update(timed("3l", phase_serve_family, gpu, args.profile,
-                         SERVE_3L))
-    by_path.update(timed("3m", phase_serve_gla, gpu, args.profile))
-    by_path.update(timed("3n", phase_dense, gpu))
-    by_path["eval"], by_path["eval_drsformer"] = timed("3f", phase_eval, gpu)
-    by_path.update(timed("3f family", phase_eval_family, gpu))
-    by_path.update(timed("3f 3l", phase_eval_family, gpu, EVAL_3L,
-                         "3f (3l)"))
-    by_path.update(timed("4", phase_train, gpu, args.profile))
     merge_path(report, timed("2g moce_ir", phase_kernels, MOCE_TRAIN_LEVELS,
                              2200, f"moce_ir train batch {TRAIN_BATCH} ",
                              batch=TRAIN_BATCH, **MOCE_BLOCK), "train_moce")
-    by_path.update(timed("4m", phase_train_moce, gpu))
-    by_path.update(timed("4f", phase_train_family, gpu))
-    by_path.update(timed("4n", phase_train_family, gpu, TRAIN_4N, "4n"))
-    by_path.update(timed("5", phase_lsnet_grad, gpu))
-    by_path.update(timed("5v", phase_train_gla, gpu))
+    later = {
+        "3": lambda: phase_serve_slices(gpu, args.profile),
+        "3j": lambda: phase_serve_family(gpu, args.profile),
+        "3l": lambda: phase_serve_family(gpu, args.profile, SERVE_3L),
+        "3m": lambda: phase_serve_gla(gpu, args.profile),
+        "3n": lambda: phase_dense(gpu),
+        "3o": lambda: phase_serve_adaptir(gpu, args.profile),
+        "3f": lambda: dict(zip(("eval", "eval_drsformer"), phase_eval(gpu))),
+        "3f family": lambda: phase_eval_family(gpu),
+        "3f 3l": lambda: phase_eval_family(gpu, EVAL_3L, "3f (3l)"),
+        "3f 3o": lambda: phase_eval_adaptir(gpu),
+        "4": lambda: phase_train(gpu, args.profile),
+        "4m": lambda: phase_train_moce(gpu),
+        "4f": lambda: phase_train_family(gpu),
+        "4n": lambda: phase_train_family(gpu, TRAIN_4N, "4n"),
+        "5": lambda: phase_lsnet_grad(gpu),
+        "5v": lambda: phase_train_gla(gpu),
+        "5a": lambda: phase_train_adaptir(gpu),
+    }
+    check(tuple(later) == PHASES, "the phases and their names differ")
+    check(set(_every_kernel()) == set(KERNELS), "a kernel without its counter")
+    by_path = {}
+    for name, run in later.items():
+        if args.phases is None or name in args.phases:
+            by_path.update(timed(name, run))
+    if args.phases is not None:
+        print(f"chip_smoke: phases {args.phases} "
+              f"{time.perf_counter() - t_run:.1f} s after the build",
+              flush=True)
+        print(gpu)
+        return 0
     for name in ("ska_bwd_x", "ska_bwd_w"):
         check(sum(n.get(name, 0) for n in by_path.values()) > 0,
               f"{name} never launched on a path")

@@ -72,8 +72,9 @@ def load_params(cfg, model):
     reference defines but never uses, such as AdaIR's ``fre*.conv`` and
     ``fre*.score_gen``, and MoCE-IR's ``routing.complexity`` statistic), and
     those it renames to a key of the model take that key (MoCE-IR's
-    ``.layers.`` level). Without ``--ckpt`` the model keeps its random
-    init.
+    ``.layers.`` level). A model with a ``checkpoint_key_map`` method
+    (IPT, whose map depends on its task) maps through that instead of the
+    registered map. Without ``--ckpt`` the model keeps its random init.
     Returns the model.
     """
     path = cfg.get("ckpt")
@@ -82,7 +83,8 @@ def load_params(cfg, model):
         return model
     from image_restoration_tpu_torch.models import KEY_MAPS
 
-    key_map = KEY_MAPS.get(str(cfg.get("model", "")).lower())
+    key_map = getattr(model, "checkpoint_key_map", None) or KEY_MAPS.get(
+        str(cfg.get("model", "")).lower())
     if path.endswith(".npz"):
         from image_restoration_tpu_torch.utils.jax_bridge import (
             state_dict_from_jax,

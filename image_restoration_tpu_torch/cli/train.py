@@ -277,6 +277,13 @@ def _refuse_unported(cfg):
             "no batch_stats, which FD's BatchNorm updates in training), so "
             "neither does this CLI; the model trains at model level: "
             "model(img, train=True, generator=g)")
+    if cfg["model"].lower() in ("ipt", "ipt_adaptir", "edt", "edt_adaptir"):
+        raise NotImplementedError(
+            f"{cfg['model']}: the JAX cli/train.py cannot train IPT or EDT "
+            f"(it keeps no batch_stats, which the AdaptIR adapters' "
+            f"BatchNorms read and update, and IPT takes 48x48 inputs "
+            f"only), so neither does this CLI; the models train at model "
+            f"level: model(x, train=True)")
 
 
 def build_validator(cfg, model, pad_multiple: int = 8):

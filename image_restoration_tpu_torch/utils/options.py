@@ -86,6 +86,12 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "vig_h": dict(),
     "retinanet_lsnet": dict(num_classes=80),
     "semanticfpn_lsnet": dict(num_classes=150),
+    # IPT and EDT with AdaptIR's adapters (their field defaults, JAX
+    # utils/options.py:67-68: IPT's task 5, EDT's sr_2): plain torch, as
+    # plain XLA in JAX. IPT takes 48x48 inputs (serve with --tile 48); EDT
+    # takes sides that are multiples of 24 (sr) or 96 (denoise, derain)
+    "ipt": dict(),
+    "edt": dict(),
 }
 
 # Per-model defaults of top-level options. NeRD-Rain's quarter-scale
@@ -118,6 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", type=int, default=None,
                    help="AdaIR-style switch: 0 denoise, 1 derain, 2 dehaze, "
                         "3 aio3, 4 deblur, 5 synllie, 6 aio5")
+    p.add_argument("--sigmas", nargs="+", type=float, default=[15, 25, 50],
+                   help="noise levels (JAX utils/options.py:163; read by "
+                        "no entry point, as in JAX)")
     p.add_argument("--tile", type=int, default=None,
                    help="window size for tiled inference")
     p.add_argument("--lpips_ckpt", type=str, default=None,

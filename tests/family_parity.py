@@ -1,7 +1,8 @@
 """Shared helpers of the port's parity tests of the model families
 (tests/test_torch_cg_ir.py, test_torch_nerd_rain.py, test_torch_measnet.py,
 the MoCE family's, test_torch_family_recipes.py, test_torch_hogformer.py,
-test_torch_mwformer.py, the GLA, ViG, HierViG and dense LSNet files):
+test_torch_mwformer.py, the GLA, ViG, HierViG and dense LSNet files,
+the AdaptIR IPT and EDT files):
 seeded parameter trees, the JAX -> port weight load, a module pair run on
 the same numpy inputs in fp32 (JAX at "highest" matmul precision, torch
 with TF32 off), one train step of both packages, the MoE routers' pick
@@ -64,6 +65,65 @@ def randomized(shapes, rng, scale=0.5):
             out[k] = z.astype(np.float32)
         return out
     return walk(shapes)
+
+
+def seeded_stats(tree, rng):
+    """Seeded BatchNorm running statistics for a ``batch_stats`` tree (or
+    its shapes): means near 0, variances near 1."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = seeded_stats(v, rng)
+        elif k == "running_var":
+            out[k] = (1.0 + 0.3 * np.abs(rng.standard_normal(v.shape))
+                      ).astype(np.float32)
+        else:
+            out[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+    return out
+
+
+def seeded_adaptir(shapes, rng):
+    """Seeded variables of an AdaptIR model or module from ``shapes``
+    ({"params", "batch_stats"}): ``randomized``'s with ``seeded_stats``,
+    every packed attention ``in_proj_weight`` at the fan-in scale
+    (``randomized`` draws leaves it does not name at 0.5, which saturates
+    the softmaxes) and every ``pha_fuse_weight`` a nonzero integer in
+    [-2, 2]. The phase of an rfft2 coefficient that is real and negative
+    (the DC and Nyquist ones) is +-pi by the sign of the rounding noise in
+    its imaginary part (JAX's rfft2 leaves ~1e-9 there where torch's gives
+    0), and only an integer weight maps both to one angle mod 2 pi."""
+    def walk(tree):
+        out = {}
+        for k, t in tree.items():
+            if isinstance(t, dict):
+                out[k] = walk(t)
+            elif k == "in_proj_weight":
+                out[k] = (t / np.sqrt(2 * t.shape[1])).astype(np.float32)
+            elif k == "pha_fuse_weight":
+                out[k] = rng.choice([-2.0, -1.0, 1.0, 2.0],
+                                    t.shape).astype(np.float32)
+            else:
+                out[k] = t
+        return out
+
+    v = {"params": walk(randomized(shapes["params"], rng))}
+    if "batch_stats" in shapes:
+        v["batch_stats"] = seeded_stats(shapes["batch_stats"], rng)
+    return v
+
+
+def grads_close(tmod, jgrads, key_map=None, skip=()):
+    """Every parameter gradient of ``tmod`` (after a ``backward``) but
+    those whose names end in one of ``skip`` against the JAX gradient tree
+    ``jgrads``, within rtol 1e-4 and 1e-5 x the largest JAX gradient."""
+    want = state_dict_from_jax(jax.tree.map(np.array, jgrads),
+                               tmod.state_dict(), key_map)
+    scale = max(float(w.abs().max()) for w in want.values())
+    for k, p in tmod.named_parameters():
+        if not (skip and k.endswith(tuple(skip))):
+            np.testing.assert_allclose(p.grad.numpy(), want[k].numpy(),
+                                       rtol=RTOL, atol=ATOL * scale,
+                                       err_msg=k)
 
 
 def nchw(x):

@@ -10,6 +10,8 @@ arrays, in call order, from its own copy of one seeded numpy stream.
 Neither package is edited.
 """
 
+import functools
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -32,11 +34,11 @@ def compiled(fn, *args):
     return jax.jit(fn).lower(*args).compile(FAST)(*args)
 
 
-def traced_shapes(jmod, *inputs):
+def traced_shapes(jmod, *inputs, **static):
     """{"params": shapes, "batch_stats": shapes} of ``jmod``'s variables,
     from a trace of its forward that hands each ``param`` zeros of its
     shape instead of drawing it (the draws cost more to trace than the
-    forward)."""
+    forward); ``static`` keywords of the forward stay Python values."""
     seen = {"params": {}}
     param = nn.Module.param
 
@@ -49,7 +51,8 @@ def traced_shapes(jmod, *inputs):
 
     nn.Module.param = record
     try:
-        out = jax.eval_shape(jmod.init, KEY, *inputs)
+        out = jax.eval_shape(functools.partial(jmod.init, **static), KEY,
+                             *inputs)
     finally:
         nn.Module.param = param
     if "batch_stats" in out:

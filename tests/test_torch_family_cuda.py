@@ -60,6 +60,15 @@ oracle's max magnitude is below max(3 x the plain bf16 version's, 4e-3).
   card, at 128x128, ``retinanet_loss`` on seeded boxes with padded slots,
   ``segmentation_ce_loss`` with ignored pixels and ``mean_iou`` are
   finite, and so are the losses' gradients.
+- IPT (n_feats 24: embed 216, 12 + 12 layers) at tasks 5 and 0 on two
+  48x48 windows, and EDT (embed 60, 36 blocks) at ``denoise_30`` on 96x96
+  and ``sr_2`` on 48x48, kernel-free, with seeded adapter tails and
+  calibrated BatchNorm statistics (``tests/seeding.py`` ``seed_adaptir``):
+  the card's fp32 forward within 1e-5 relative L2 of the CPU's (TF32
+  off), the card's bf16 forward against the card's fp32 within 3x the
+  CPU bf16 forward's error against the CPU fp32 one. In bf16 on the card,
+  ``model(x, train=True)`` under an L1 loss gives finite gradients, and
+  every adapter's ``tail`` and phase scale gets a nonzero one.
 """
 
 import numpy as np
@@ -73,6 +82,7 @@ from image_restoration_tpu_torch.models import lsnet_dense as D
 from image_restoration_tpu_torch.ops import gla
 from image_restoration_tpu_torch.train.recipes import make_recipe
 from image_restoration_tpu_torch.utils.options import MODEL_DEFAULTS
+from seeding import seed_adaptir
 
 # (H, W, C, heads) of MEASNet's K1/K2 calls at a 512x512 input
 MEASNET_SHAPES = [(512, 512, 32, 1), (256, 256, 64, 2), (128, 128, 128, 4),
@@ -440,3 +450,58 @@ def test_dense_losses_finite_on_the_card(cuda):
     for m in (det, seg):
         assert all(torch.isfinite(p.grad).all() for p in m.parameters()
                    if p.grad is not None)
+
+
+# (registry name, model kwargs, NCHW input) of IPT's and EDT's checks
+ADAPTIR_INPUTS = [("ipt", dict(n_feats=24), (2, 3, 48, 48)),
+                  ("ipt", dict(n_feats=24, task_idx=0), (2, 3, 48, 48)),
+                  ("edt", dict(embed_dim=60, de_type="denoise_30"),
+                   (1, 3, 96, 96)),
+                  ("edt", dict(embed_dim=60), (1, 3, 48, 48))]
+
+
+def _adaptir_pair(name, kw, shape):
+    """(fp32 model, bf16 model with its weights, input) on the CPU: the
+    seeded init through ``seed_adaptir``."""
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(12))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(10)
+        m32 = get_model(name, **kw).eval()
+    seed_adaptir(m32, 11, x)
+    m16 = get_model(name, **kw, dtype=torch.bfloat16).eval()
+    m16.load_state_dict(m32.state_dict())
+    return m32, m16, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,shape", ADAPTIR_INPUTS,
+                         ids=["ipt", "ipt_task0", "edt_denoise", "edt_sr"])
+def test_adaptir_card_against_cpu(cuda, name, kw, shape):
+    m32, m16, x = _adaptir_pair(name, kw, shape)
+    with torch.inference_mode(), torch.backends.mkldnn.flags(enabled=False):
+        want, cpu16 = m32(x), m16(x)
+    with torch.inference_mode():
+        got32 = m32.to(cuda)(x.to(cuda))
+        got16 = m16.to(cuda)(x.to(cuda))
+    assert got32.shape == want.shape and got16.dtype == torch.float32
+    assert torch.isfinite(got32).all() and torch.isfinite(got16).all()
+    e32, e16, ecpu = (_rel_l2(got32, want), _rel_l2(got16, got32),
+                      _rel_l2(cpu16, want))
+    assert e32 <= 1e-5, e32
+    assert e16 <= 3 * ecpu, (e16, ecpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,shape", ADAPTIR_INPUTS[::2],
+                         ids=["ipt", "edt_denoise"])
+def test_adaptir_gradients_finite_on_the_card(cuda, name, kw, shape):
+    _, m16, x = _adaptir_pair(name, kw, shape)
+    m16 = m16.to(cuda)
+    x = x.to(cuda)
+    loss = (m16(x, train=True) - x).abs().mean()
+    loss.backward()
+    assert torch.isfinite(loss)
+    for key, p in m16.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), key
+        if key.endswith(("adaptir.tail.weight", "adaptir.pha_fuse.weight")):
+            assert p.grad.abs().max() > 0, key

@@ -52,6 +52,18 @@ def test_restore_odd_size_matches_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("argv", [["--sigmas", "15", "25"], []],
+                         ids=["given", "default"])
+def test_sigmas_option_matches_jax(argv):
+    """The port's parser takes the JAX CLIs' ``--sigmas`` (nargs "+",
+    float, default 15 25 50), so a JAX argv that carries it parses."""
+    from image_restoration_tpu.utils.options import parse_options as jparse
+
+    got = parse_options(argv)["sigmas"]
+    assert got == jparse(argv)["sigmas"] == ([15.0, 25.0] if argv
+                                             else [15, 25, 50])
+
+
 def test_infer_folder_cli(tmp_path):
     from PIL import Image
 
@@ -118,7 +130,7 @@ def test_port_never_imports_jax():
         "import image_restoration_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 78, names\n"
+        "assert len(names) >= 80, names\n"
         "for n in ('data.datasets', 'data.imresize', 'data.file_client',\n"
         "          'eval.metrics', 'eval.tiled', 'eval.benchmarks',\n"
         "          'models.cg_ir', 'models.measnet', 'models.nerd_rain',\n"
@@ -129,7 +141,8 @@ def test_port_never_imports_jax():
         "          'train.trainer', 'train.checkpoint', 'train.progressive',\n"
         "          'data.sampler', 'data.pipeline', 'utils.logging',\n"
         "          'ops.gla', 'models.vig', 'models.vig_h',\n"
-        "          'models.lsnet_dense'):\n"
+        "          'models.lsnet_dense', 'models.adaptir_ipt',\n"
+        "          'models.adaptir_edt'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
         "print(len(names))\n")
@@ -142,8 +155,10 @@ def test_port_never_imports_jax():
                                   ["--front", "8", "4", "--warps", "16"],
                                   ["--msfn", "8", "4", "--warps", "8"],
                                   ["--mefc", "4", "2"],
-                                  ["--ska", "2", "4", "--ring", "2"]],
-                         ids=["full", "tail", "front", "msfn", "mefc", "ska"])
+                                  ["--ska", "2", "4", "--ring", "2"],
+                                  ["--phases", "3o", "3f 3o", "5a"]],
+                         ids=["full", "tail", "front", "msfn", "mefc", "ska",
+                              "phases"])
 def test_chip_smoke_refuses_without_cuda(tmp_path, args):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     res = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),

@@ -8,13 +8,17 @@ initializer and shape (and each ``batch_stats`` variable's init function),
 handing the traced forward zeros of that shape: the init is neither run,
 traced nor compiled. Initializers that draw nothing
 (zeros, ones, constants such as ViG's layer scales and RetinaNet's
-focal-prior class bias, MoCE's Laplacian high-pass) are evaluated and
-held exactly. The random ones are held to their distribution: flax's
+focal-prior class bias, MoCE's Laplacian high-pass, the AdaptIR
+adapters' zero ``tail``) are evaluated and held exactly. The random ones
+are held to their distribution: flax's
 ``variance_scaling`` (``lecun_normal`` for every conv and dense kernel)
 gives a normal truncated at 2 stddev, stddev = sqrt(scale / fan) /
 0.8796..., with the fan JAX computes for that shape, and its uniform
 distribution (SRConvNet's kernel bank, TransWeather's transposed convs) a
-uniform within +-sqrt(3 scale / fan); ``normal(s)`` a normal of std s. Everything goes through the weight bridge
+uniform within +-sqrt(3 scale / fan); ``normal(s)`` a normal of std s
+(IPT's ``query_embed`` and ``position_encoding``); the AdaptIR adapters'
+local ``kaiming`` (a=sqrt(5)) a uniform within +-1 / sqrt(shape[1]).
+Everything goes through the weight bridge
 (``utils/jax_bridge.py`` ``state_dict_from_jax``, the model's registered
 key map), so each port tensor meets the JAX leaf it is loaded from.
 
@@ -89,6 +93,10 @@ MODELS = {
     "semanticfpn_lsnet": (dict(embed_dim=(16, 32, 48, 64),
                                depth=(1, 2, 2, 2), img_size=64, fpn_dim=32,
                                seg_dim=32, num_classes=5), (1, 64, 64, 3)),
+    "ipt": (dict(n_feats=24), (1, 48, 48, 3)),
+    "edt": (dict(embed_dim=60), (1, 48, 48, 3)),
+    "edt_adaptir": (dict(de_type="denoise_30", embed_dim=60),
+                    (1, 96, 96, 3)),
 }
 
 
@@ -117,6 +125,11 @@ def _draws(init_fn, shape, dtype=jnp.float32):
         return None, std, 2 * std / TRUNC
     if name.startswith("normal."):
         return None, float(_closure(init_fn)["stddev"]), np.inf
+    if name.endswith("AdaptIRAdapter.__call__.<locals>.kaiming"):
+        # the adapters' low-rank factors: kaiming_uniform(a=sqrt(5)),
+        # uniform in +-sqrt(6 / ((1 + 5) shape[1]))
+        bound = float(np.sqrt(6.0 / (6.0 * shape[1])))
+        return None, bound / float(np.sqrt(3.0)), bound
     if init_fn in (nn.initializers.zeros, nn.initializers.ones):
         value = float(init_fn is nn.initializers.ones)
         return np.full(shape, value, np.float32), np.nan, np.nan

@@ -571,8 +571,9 @@ DENSE_TRAIN_STEPS, DENSE_LR = 3, 1e-4
 CARD_CPU_GLA = 1e-5
 # The phases after the kernel checks, in their order: ``--phases`` runs the
 # named ones.
-PHASES = ("3", "3j", "3l", "3m", "3n", "3o", "3f", "3f family", "3f 3l",
-          "3f 3o", "4", "4m", "4f", "4n", "5", "5v", "5a")
+PHASES = ("3", "3j", "3l", "3m", "3n", "3o", "3p", "3f", "3f family",
+          "3f 3l", "3f 3o", "3f 3p", "4", "4m", "4f", "4n", "4p", "5", "5v",
+          "5a")
 # Phases 3o, "3f 3o" and 5a: IPT (its field defaults: n_feats 64, task 5,
 # x1) served in 48x48 windows (--tile 48: 121 at 512x512, one batch) and
 # EDT (embed 180, denoise_30) padded to multiples of 96 (576x576), the
@@ -589,6 +590,16 @@ ADAPTIR_OVERLAP_BATCH = 256
 ADAPTIR_SR_IN = 240
 ADAPTIR_EVAL_IMAGES = 2
 ADAPTIR_TRAIN_STEPS, ADAPTIR_TRAIN_BATCH, ADAPTIR_LR = 5, 8, 1e-4
+# Phases 3p, "3f 3p" and 4p: RectiFormer, FPN-Restormer and MyModel at
+# their serving defaults (the JAX field defaults: 32.10 M, 13.37 M and
+# 6.26 M parameters); the small input of the card-against-CPU check (and
+# of the BatchNorm calibration), held to CARD_CPU_BRANCH; the model-level
+# training steps and AdamW learning rate (batch TRAIN_BATCH of
+# TRAIN_PATCH^2). RectiFormer's DGSB mask is NaN below 64x64 inputs.
+BRANCH_MODELS = ("rectiformer", "fpn_restormer", "mymodel")
+BRANCH_SMALL = (64, 64)
+CARD_CPU_BRANCH = 1e-5
+BRANCH_TRAIN_STEPS, BRANCH_LR = 5, 1e-4
 # CG-IR's 44 CGTBs have Restormer-base's block shapes (LEVELS); the gated
 # pair runs at batch 2 at two of them in phase 2e.
 GATED_SHAPES = [(128, 128, 192, 4), (64, 64, 384, 8)]
@@ -4104,22 +4115,25 @@ def _adaptir_cfg(name, extra=(), **model_kwargs):
     return cfg
 
 
-def calibrate_adaptir(model, x):
-    """Every AdaptIR adapter's BatchNorm statistics set to the batch
-    statistics of one ``train=True`` forward of ``x`` (the adapters'
-    BatchNorms follow the forward's ``train``, not the module's mode), each
+def calibrate_forward_bns(model, x, **kw):
+    """Every BatchNorm2d's statistics set to the batch statistics of one
+    ``model(x, train=True, **kw)`` (the BatchNorms of the AdaptIR
+    adapters, FPN-Restormer and MyModel follow the forward's ``train``, not
+    the module's mode; ``kw``: MyModel's routing generator), each
     normalizing what the ones before it normalized."""
     import torch
 
-    from image_restoration_tpu_torch.models.adaptir_ipt import AdaptIRAdapter
+    from image_restoration_tpu_torch.ops.layernorm import BatchNorm2d
 
-    bns = [m.BN for m in model.modules() if isinstance(m, AdaptIRAdapter)]
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    if not bns:
+        return
     momenta = [bn.momentum for bn in bns]
     for bn in bns:
         bn.reset_running_stats()
         bn.momentum = 1.0  # the running statistics become the batch's
     with torch.no_grad():
-        model(x, train=True)
+        model(x, train=True, **kw)
     for bn, momentum in zip(bns, momenta):
         bn.momentum = momentum
 
@@ -4132,7 +4146,7 @@ def perturb_adaptir(model, seed, x):
     scale the encoder's output, which the decoder's cross-attention reads
     unnormalised, is ~700, its softmaxes saturate, and fp32 runs agree to
     ~5e-5 only: tests/test_torch_adaptir_ipt.py); the BatchNorm statistics
-    from one ``train=True`` forward of ``x`` (``calibrate_adaptir``). The
+    from one ``train=True`` forward of ``x`` (``calibrate_forward_bns``). The
     phase weights stay at their init, 1: the phase of a real negative rfft2
     coefficient is +-pi by the sign of rounding noise, which only an
     integer weight maps to one angle."""
@@ -4149,7 +4163,7 @@ def perturb_adaptir(model, seed, x):
                 m.tail.weight.copy_(randn(m.tail.weight) * m.hidden ** -0.5)
         if isinstance(model, IPT):
             model.head[str(model.task_idx)][0].weight.div_(model.rgb_range)
-    calibrate_adaptir(model, x)
+    calibrate_forward_bns(model, x)
 
 
 def _adaptir_model(cfg, seed, calib_hw, batch=2):
@@ -4431,6 +4445,363 @@ def phase_train_adaptir(gpu):
         del net, state
     return out
 
+
+def perturb_branches(model, seed, x, device="cuda"):
+    """RectiFormer's, FPN-Restormer's or MyModel's seeded weights made to
+    exercise every branch: MyModel's zero-initialised ``beta``/``gamma``
+    layer scales (nothing a Mix, an adapter or a decoder mixer computes
+    would reach the image) drawn as 0.5 + 0.2 x a standard normal and its
+    AdaptIR adapters' zero ``tail``\\ s at lecun's scale, 1 / sqrt(hidden);
+    every BatchNorm's statistics from one ``train=True`` forward of ``x``
+    (``calibrate_forward_bns``; MyModel's routing noise from a seeded
+    ``device`` generator). RectiFormer has neither. The phase weights stay
+    at their init, 1 (``perturb_adaptir``)."""
+    import torch
+
+    from image_restoration_tpu_torch.models.adaptir_ipt import AdaptIRAdapter
+
+    randn = _randn_from(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("beta", "gamma")):
+                p.copy_(0.5 + 0.2 * randn(p))
+        for m in model.modules():
+            if isinstance(m, AdaptIRAdapter):
+                m.tail.weight.copy_(randn(m.tail.weight) * m.hidden ** -0.5)
+    kw = {}
+    if getattr(type(model), "uses_moe_rng", False):
+        kw["generator"] = torch.Generator(device=device).manual_seed(seed)
+    calibrate_forward_bns(model, x, **kw)
+
+
+def _branch_model(name, seed, calib_hw=BRANCH_SMALL):
+    """``build_model`` of ``name``'s serving defaults on the card (bf16;
+    its seeded init), through ``perturb_branches`` with a seeded
+    calibration batch of two ``calib_hw`` images: the size the model then
+    runs at, as FPN-Restormer's frequency-aware blocks feed the fft2's
+    magnitude, which grows with the pixel count, to their BatchNorms (with
+    statistics of 64x64 images a 512x512 one gives outputs of ~1e9 in
+    bf16, and inf); (cfg, model)."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.train import build_model
+
+    cfg = _adaptir_cfg(name)
+    model = build_model(cfg)
+    x = torch.rand((2, 3, *calib_hw), generator=torch.Generator()
+                   .manual_seed(seed + 1)).cuda()
+    perturb_branches(model, seed, x)
+    return cfg, model
+
+
+def _idle_share(fn, arg):
+    """One call of ``fn(arg)`` under ``torch.profiler``: (device busy ms,
+    host-clock ms of the call under the profiler); busy is None when the
+    profiler shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(arg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+    return (busy or None), wall
+
+
+def phase_serve_branch(gpu, profile_dir=None):
+    """Phase 3p: RectiFormer, FPN-Restormer and MyModel from their serving
+    defaults (the JAX field defaults; bf16, ``--pad_multiple`` 8), seeded
+    weights through ``perturb_branches`` (calibrated on two 512x512
+    images), restore a seeded 512x512 image in
+    bf16 at batch 1 through ``make_restore_fn``: every kernel's count 0, a
+    finite output of the input's size; the forward's device ms (CUDA
+    events), the restore's ms/img (host clock, median of 5), MP/s, peak
+    memory and the device's idle share in one profiled restore; bf16
+    against the card's fp32 model at 512x512 (relative L2, max |error|);
+    the card's fp32 forward against the CPU's at ``BRANCH_SMALL``
+    (``CARD_CPU_BRANCH``). With ``profile_dir``, a profile of two restores
+    of each model. Returns the launch counts by model."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.infer import make_restore_fn
+    from image_restoration_tpu_torch.utils.precision import full_fp32
+
+    every = _every_kernel()
+    out = {}
+    img = np.random.default_rng(3500).random((512, 512, 3), dtype=np.float32)
+    x = torch.from_numpy(img).permute(2, 0, 1)[None].cuda()
+    for name in BRANCH_MODELS:
+        cfg, model = _branch_model(name, 3510, img.shape[:2])
+        restore = make_restore_fn(cfg, model)
+        restore(img)  # warm-up: cuDNN algorithm choice, allocator
+        _zero(every)
+        res = restore(img)
+        out[name] = got = _read(every)
+        check(not any(got.values()), f"{name} serving launched a kernel: "
+              f"{got}")
+        check(res.shape == img.shape and np.isfinite(res).all(),
+              f"{name}: output {res.shape} for {img.shape}, or not finite")
+        plain32 = plain_variant(cfg, model, False)
+        with torch.inference_mode(), full_fp32():
+            ref = plain32(x)
+            got16 = model(x).float()
+        err = (got16 - ref).abs().max().item()
+        rel = _rel_l2(got16, ref)
+        check(np.isfinite(err) and bool(torch.isfinite(ref).all()),
+              f"{name}: non-finite fp32 output or bf16 error")
+        del ref, got16
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore(img)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = statistics.median(times)
+        with torch.inference_mode(), full_fp32():
+            fwd = time_cuda(lambda: model(x), reps=5, warmup=1,
+                            head_start_ms=50.0)
+        busy, wall = _idle_share(restore, img)
+        idle = ("not measured (no device time in the profile)"
+                if busy is None else
+                f"device busy {busy:.3f} ms of {wall:.3f} ms, "
+                f"{100 * (1 - busy / wall):.2f}% idle")
+        print(f"{name} serving 512x512 bf16 batch 1 on {gpu}: forward "
+              f"{fwd:.3f} ms (device, CUDA events), restore {ms:.3f} ms/img "
+              f"(host clock, median of 5), {0.262144 / (ms / 1e3):.4f} MP/s, "
+              f"peak memory {peak:.3f} GiB, launches {got}; one profiled "
+              f"restore: {idle}; bf16 against the card's fp32 model: "
+              f"relative L2 {rel:.4e}, max |err| {err:.4e}", flush=True)
+        if profile_dir:
+            _profile(restore, [img] * 2, profile_dir, name, gpu,
+                     "restores at 512x512")
+        small = torch.rand((1, 3, *BRANCH_SMALL),
+                           generator=torch.Generator().manual_seed(3520))
+        _card_against_cpu(name, plain32, small, limit=CARD_CPU_BRANCH)
+        del model, plain32, restore
+    return out
+
+
+def phase_eval_branch(gpu):
+    """Phase "3f 3p": ``cli/test.py`` ``main`` scores RectiFormer,
+    FPN-Restormer and MyModel (``denoise_25`` on phase "3f 3o"'s
+    BSD68-shaped tree, ``write_bsd68_tree``: 488x328 forwards at
+    ``--pad_multiple`` 8), each from its serving defaults with seeded
+    weights (``perturb_branches``, calibrated at 488x328) as a ``.pth``
+    ``--ckpt``: every
+    kernel's count 0, finite scores, and each image's on-card PSNR and SSIM
+    within 1e-3 dB and 1e-4 of the float64 host recomputation. Returns the
+    launch counts by path."""
+    import os
+    import tempfile
+
+    import torch
+
+    every = _every_kernel()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ir_eval_branch_") as tmp:
+        data = os.path.join(tmp, "data")
+        write_bsd68_tree(data, seed=3530)
+        for name in BRANCH_MODELS:
+            _, model = _branch_model(name, 3540, (328, 488))
+            ckpt = os.path.join(tmp, f"{name}.pth")
+            torch.save(model.state_dict(), ckpt)
+            del model
+            launches, kept = _eval_main(
+                name, ["--model", name, "--ckpt", ckpt, "--benchmarks",
+                       "denoise_25", "--data_file_dir", data,
+                       "--output_dir", os.path.join(tmp, name)],
+                every, dict.fromkeys(every, 0), ADAPTIR_EVAL_IMAGES)
+            _metrics_to_host(name, kept)
+            out[f"eval_{name}"] = launches
+    return out
+
+
+def _train_rectiformer(gpu, every, lq, gt):
+    """Phase 4p's RectiFormer: ``cli/train.py`` ``main``, then a step
+    alone; the launch counts of the run."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+
+    from image_restoration_tpu_torch.cli import train as TR
+    from image_restoration_tpu_torch.train import trainer as TT
+
+    with tempfile.TemporaryDirectory(prefix="ir_branch_") as tmp:
+        data = os.path.join(tmp, "data")
+        _train_tree(data, seed=3610)
+        argv = ["--model", "rectiformer", "--device", "cuda",
+                "--data_file_dir", data, "--batch_size", str(TRAIN_BATCH),
+                "--patch_size", str(TRAIN_PATCH), "--warmup_epochs", "0",
+                "--lr", str(TRAIN_LR), "--save_every",
+                str(BRANCH_TRAIN_STEPS), "--log_every", "1", "--ckpt_dir",
+                os.path.join(tmp, "exp"), "--name", "rectiformer"]
+        _zero(every)
+        t1 = time.perf_counter()
+        TR.main(argv, max_steps_override=BRANCH_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = _read(every)
+        exp = os.path.join(tmp, "exp", "rectiformer")
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            rows = [e["train/total"] for e in map(json.loads, f)
+                    if "train/total" in e]
+        check(not any(got.values()), f"rectiformer training launched a "
+              f"kernel: {got}")
+        check(len(rows) == BRANCH_TRAIN_STEPS and np.isfinite(rows).all(),
+              f"rectiformer: logged losses {rows}")
+        fixed = {k: torch.stack([_read_image(os.path.join(
+            data, "val", k, f"{i:03d}.png"))[:, :TRAIN_PATCH, :TRAIN_PATCH]
+            for i in range(2)]) for k in ("lq", "gt")}
+        trained = torch.load(os.path.join(exp, "ckpt",
+                                          f"{BRANCH_TRAIN_STEPS}.pth"),
+                             map_location="cuda")["params"]
+    cfg = _adaptir_cfg("rectiformer")
+    model = TR.build_model(cfg)
+    l1 = []
+    for params in (None, trained):
+        if params is not None:
+            model.load_state_dict(params)
+        with torch.inference_mode():
+            l1.append((model(fixed["lq"]) - fixed["gt"]).abs().mean().item())
+    check(np.isfinite(l1).all() and l1[1] < l1[0],
+          f"rectiformer: the fixed batch's L1 {l1} did not fall")
+    ref = plain_variant(cfg, model, False)
+    rel = _grad_rel_l2(model, ref, lambda m: (m(lq[:2]) - gt[:2]).abs()
+                       .mean())
+    del ref
+    model.train()
+    tcfg = TT.TrainerConfig(learning_rate=TRAIN_LR)
+    tx = TT.make_optimizer(tcfg)
+    state = TT.TrainState.create(model, tx)
+    step = TT.make_train_step(model, tx, tcfg)
+    batch = {"lq": lq, "gt": gt}
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"rectiformer cli/train.py on {gpu}: {BRANCH_TRAIN_STEPS} steps at "
+          f"batch {TRAIN_BATCH} {TRAIN_PATCH}x{TRAIN_PATCH} bf16 in "
+          f"{wall:.1f} s (host clock, with a save), losses "
+          f"{[round(v, 6) for v in rows]}, launches {got}; L1 on a fixed "
+          f"batch of 2 (validation crops): initial {l1[0]:.5f}, after "
+          f"{BRANCH_TRAIN_STEPS} steps {l1[1]:.5f}; a step alone {ms:.3f} ms "
+          f"(CUDA events, median of 5 after 2 warm-up steps), "
+          f"{TRAIN_BATCH / (ms / 1e3):.2f} images/s, peak memory "
+          f"{peak:.3f} GiB; bf16 gradients against fp32: relative L2 "
+          f"{rel:.4e}", flush=True)
+    return got
+
+
+def phase_train_branch(gpu):
+    """Phase 4p: RectiFormer takes ``BRANCH_TRAIN_STEPS`` steps of
+    ``cli/train.py`` ``main`` (phase 4's tree, bf16, batch ``TRAIN_BATCH``
+    of ``TRAIN_PATCH``^2, AdamW at ``TRAIN_LR``): finite logged losses,
+    the L1 loss on a fixed batch (the validation pairs' crops) lower with
+    the final checkpoint than with the initial model; then its step ms
+    alone (``make_train_step``, CUDA events, median of 5 after 2 warm-up
+    steps). FPN-Restormer and MyModel, which the CLI refuses as JAX's
+    does, take ``BRANCH_TRAIN_STEPS`` ``train/trainer.py`` ``Optimizer``
+    steps (AdamW, lr ``BRANCH_LR``) at model level on one seeded batch,
+    ``model(lq, train=True)`` (the BatchNorms on the batch's statistics;
+    MyModel's routing noise from a device generator and its balance loss
+    at ``--aux_loss_weight``'s default 0.01): finite losses and gradients,
+    the last loss below the first; step ms (CUDA events, median after the
+    first). For each: every kernel's count 0, images/s, peak memory, and
+    the bf16 gradients' relative L2 against the fp32 model's on two
+    images. Returns the launch counts by path."""
+    import torch
+
+    from image_restoration_tpu_torch.train import trainer as TT
+
+    t0 = time.perf_counter()
+    every = _every_kernel()
+    gen = torch.Generator(device="cuda").manual_seed(3600)
+    shape = (TRAIN_BATCH, 3, TRAIN_PATCH, TRAIN_PATCH)
+    gt = torch.rand(shape, generator=gen, device="cuda")
+    lq = (gt + 0.1 * torch.randn(shape, generator=gen, device="cuda")
+          ).clamp(0, 1)
+    out = {"train_rectiformer": _train_rectiformer(gpu, every, lq, gt)}
+    for name in BRANCH_MODELS[1:]:
+        cfg, net = _branch_model(name, 3620, (TRAIN_PATCH, TRAIN_PATCH))
+        moe = getattr(type(net), "uses_moe_rng", False)
+        noise = torch.Generator(device="cuda").manual_seed(3630)
+
+        def loss_of(m, a, b, g=noise):
+            res = m(a, train=True, **({"generator": g} if moe else {}))
+            if moe:
+                res, aux = res
+                return (res - b).abs().mean() + 0.01 * aux["aux_loss"]
+            return (res - b).abs().mean()
+
+        ref = plain_variant(cfg, net, False)
+        rel = _grad_rel_l2(net, ref, lambda m: loss_of(
+            m, lq[:2], gt[:2], torch.Generator(device="cuda")
+            .manual_seed(3640)))
+        del ref
+        params = dict(net.named_parameters())
+        tx = TT.Optimizer(TT.TrainerConfig(learning_rate=BRANCH_LR))
+        state = TT.TrainState.create(net, tx)
+        finite = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(every)
+
+        def one():
+            loss = loss_of(net, lq, gt)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()), allow_unused=True)))
+            grads = {k: torch.zeros_like(params[k]) if g is None else g
+                     for k, g in grads.items()}
+            finite.append(torch.stack([torch.isfinite(g).all()
+                                       for g in grads.values()]).all())
+            updates, state.opt_state = tx.update(grads, state.opt_state,
+                                                 params)
+            TT.apply_updates(state, params, updates, None)
+            return loss.detach()
+
+        losses, ms = _timed_steps(one, BRANCH_TRAIN_STEPS)
+        out[f"train_{name}"] = got = _read(every)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"{name} Optimizer steps on {gpu}: {BRANCH_TRAIN_STEPS} at "
+              f"batch {TRAIN_BATCH} {TRAIN_PATCH}x{TRAIN_PATCH} bf16, "
+              f"train=True{', L1 + 0.01 aux_loss' if moe else ''}, losses "
+              f"{[round(v, 6) for v in losses]}, launches {got}; step "
+              f"{ms:.3f} ms (device, CUDA events, median of "
+              f"{BRANCH_TRAIN_STEPS - 1}), {TRAIN_BATCH / (ms / 1e3):.1f} "
+              f"images/s, peak memory {peak:.3f} GiB; bf16 gradients "
+              f"against fp32: relative L2 {rel:.4e}", flush=True)
+        check(all(bool(f) for f in finite), f"{name}: a non-finite gradient")
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"{name}: losses {losses} not finite or not falling")
+        check(not any(got.values()), f"{name} training launched a kernel")
+        del net, state
+    print(f"train: phase 4p took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
 
 def _every_kernel():
     """Every kernel's wrapper, by the name the kernels line gives it."""
@@ -5246,8 +5617,9 @@ def main(argv=None):
                     metavar="NAME",
                     help="after the build and the kernel checks (phases "
                          "2-2h), only the named phases (3, 3j, 3l, 3m, 3n, "
-                         "3o, 3f, '3f family', '3f 3l', '3f 3o', 4, 4m, 4f, "
-                         "4n, 5, 5v, 5a); prints no result line")
+                         "3o, 3p, 3f, '3f family', '3f 3l', '3f 3o', "
+                         "'3f 3p', 4, 4m, 4f, 4n, 4p, 5, 5v, 5a); prints no "
+                         "result line")
     args = ap.parse_args(argv)
     sweeps = {"tail": args.tail, "front": args.front, "msfn": args.msfn}
     warps_of = {"tail": (8, 16), "front": (8, 16), "msfn": (8, 16),
@@ -5370,14 +5742,17 @@ def main(argv=None):
         "3m": lambda: phase_serve_gla(gpu, args.profile),
         "3n": lambda: phase_dense(gpu),
         "3o": lambda: phase_serve_adaptir(gpu, args.profile),
+        "3p": lambda: phase_serve_branch(gpu, args.profile),
         "3f": lambda: dict(zip(("eval", "eval_drsformer"), phase_eval(gpu))),
         "3f family": lambda: phase_eval_family(gpu),
         "3f 3l": lambda: phase_eval_family(gpu, EVAL_3L, "3f (3l)"),
         "3f 3o": lambda: phase_eval_adaptir(gpu),
+        "3f 3p": lambda: phase_eval_branch(gpu),
         "4": lambda: phase_train(gpu, args.profile),
         "4m": lambda: phase_train_moce(gpu),
         "4f": lambda: phase_train_family(gpu),
         "4n": lambda: phase_train_family(gpu, TRAIN_4N, "4n"),
+        "4p": lambda: phase_train_branch(gpu),
         "5": lambda: phase_lsnet_grad(gpu),
         "5v": lambda: phase_train_gla(gpu),
         "5a": lambda: phase_train_adaptir(gpu),

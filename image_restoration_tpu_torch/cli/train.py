@@ -24,8 +24,10 @@ says so. The MoCE family (``moce_ir``, ``igmoce_ir``, ``lumisense_moe``,
 balance loss weighted into the default recipe by ``--aux_loss_weight``,
 the noise drawn each step from ``step_generator(seed, step, device, 1)``
 (the JAX loop's ``fold_in(fold_in(rng, step), 1)``). What does not train
-raises: MEASNet, which the JAX CLI cannot train either (it keeps no
-``batch_stats``), and ``--mesh`` (multi-GPU, ROADMAP Queue 1 item 6).
+raises: MEASNet, IPT, EDT, FPN-Restormer and MyModel, which the JAX CLI
+cannot train either (it keeps no ``batch_stats``; they train at model
+level, ``model(x, train=True)``), and ``--mesh`` (multi-GPU, ROADMAP Queue
+1 item 6). RectiFormer, which has no BatchNorm, trains here as in JAX.
 ``--recipe darkir`` supervises DarkIR's side head (``side_loss=True``);
 ``--recipe transweather`` adds the VGG16 perceptual term, from
 ``--vgg_ckpt`` or a random init; ``--recipe hogformer`` is HOGformer's
@@ -284,6 +286,18 @@ def _refuse_unported(cfg):
             f"BatchNorms read and update, and IPT takes 48x48 inputs "
             f"only), so neither does this CLI; the models train at model "
             f"level: model(x, train=True)")
+    if cfg["model"].lower() == "fpn_restormer":
+        raise NotImplementedError(
+            "fpn_restormer: the JAX cli/train.py cannot train FPN-Restormer "
+            "(it keeps no batch_stats, which its encoder blocks' BatchNorms "
+            "read and update), so neither does this CLI; the model trains "
+            "at model level: model(x, train=True)")
+    if cfg["model"].lower() == "mymodel":
+        raise NotImplementedError(
+            "mymodel: the JAX cli/train.py cannot train MyModel (it keeps "
+            "no batch_stats, which its AdaptIR adapters' BatchNorms read "
+            "and update), so neither does this CLI; the model trains at "
+            "model level: model(img, train=True, generator=g)")
 
 
 def build_validator(cfg, model, pad_multiple: int = 8):

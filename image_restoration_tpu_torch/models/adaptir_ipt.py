@@ -73,23 +73,28 @@ class ResBlock(nn.Module):
 class _ChannelAffine(nn.Module):
     """The reference's per-channel 1x1 conv (``groups`` = channels) that
     scales the amplitude or the phase: ``x * weight + bias`` in fp32, with
-    the (C, 1, 1, 1) weight at 1 and the bias at 0."""
+    the (C, 1, 1, 1) weight at 1 and the bias (when ``bias``) at 0."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(c, 1, 1, 1))
-        self.bias = nn.Parameter(torch.zeros(c))
+        self.bias = nn.Parameter(torch.zeros(c)) if bias else None
 
     def forward(self, x):
-        return x * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        x = x * self.weight.view(1, -1, 1, 1)
+        return x if self.bias is None else x + self.bias.view(1, -1, 1, 1)
 
 
 class AdaptIRAdapter(nn.Module):
     """AdaptIR (ipt.py:508-593) over an NCHW map of ``d_model`` channels:
-    hidden = d_model // ``hidden_div`` (24 in IPT, 14 in EDT), rank
-    hidden // 2, the channel gate reducing by ``gate_div`` (8 in IPT, 4 in
-    EDT). Returns the ``d_model``-channel map the ``tail`` gives (zero at
-    init).
+    hidden = d_model // ``hidden_div`` (24 in IPT, 14 in EDT, MyModel's
+    ``ffn_factor``), rank hidden // 2, the channel gate reducing by
+    ``gate_div`` (8 in IPT, 4 in EDT and MyModel). Returns the
+    ``d_model``-channel map the ``tail`` gives (zero at init). ``bias``
+    sets the biases of every conv and dense layer but the low-rank
+    kernel's and of the amplitude and phase scales, ``tail_bias`` the
+    tail's: IPT's and EDT's adapters have the former and not the latter,
+    MyModel's (``models/mymodel.py``) both or neither.
 
     The frequency branch runs in fp32 whatever the dtype: the ortho rfft2
     of the BatchNorm's output, its magnitude and phase through
@@ -100,15 +105,15 @@ class AdaptIRAdapter(nn.Module):
     torch's subgradient 0 at 0, where JAX's gives 1."""
 
     def __init__(self, d_model: int, hidden_div: int = 24, gate_div: int = 8,
-                 dtype=None):
+                 dtype=None, bias: bool = True, tail_bias: bool = False):
         super().__init__()
         hidden = d_model // hidden_div
         rank = hidden // 2
         self.hidden = hidden
-        self.head = Conv(d_model, hidden, 1, dtype=dtype)
+        self.head = Conv(d_model, hidden, 1, bias=bias, dtype=dtype)
         self.BN = BatchNorm2d(hidden)
-        self.amp_fuse = _ChannelAffine(hidden)
-        self.pha_fuse = _ChannelAffine(hidden)
+        self.amp_fuse = _ChannelAffine(hidden, bias)
+        self.pha_fuse = _ChannelAffine(hidden, bias)
         # kaiming_uniform(a=sqrt(5)) of the (hidden, rank) and (rank, 9)
         # factors: uniform in +-1 / sqrt(shape[1]) (ipt.py:519-524)
         self.conv_weight_A = nn.Parameter(torch.empty(hidden, rank))
@@ -118,16 +123,17 @@ class AdaptIRAdapter(nn.Module):
             for w in (self.conv_weight_A, self.conv_weight_B):
                 bound = 1.0 / math.sqrt(w.shape[1])
                 w.uniform_(-bound, bound)
-        self.compress = Conv(hidden, 1, 1, dtype=dtype)
-        self.proj = nn.Sequential(Linear(hidden, hidden // 2, dtype=dtype),
-                                  nn.GELU(),
-                                  Linear(hidden // 2, hidden, dtype=dtype))
+        self.compress = Conv(hidden, 1, 1, bias=bias, dtype=dtype)
+        self.proj = nn.Sequential(
+            Linear(hidden, hidden // 2, bias=bias, dtype=dtype), nn.GELU(),
+            Linear(hidden // 2, hidden, bias=bias, dtype=dtype))
         self.channel_interaction = nn.Sequential(
             nn.AdaptiveAvgPool2d(1),
-            Conv(hidden, hidden // gate_div, 1, dtype=dtype), nn.GELU(),
-            Conv(hidden // gate_div, hidden, 1, dtype=dtype))
-        self.spatial_interaction = Conv(hidden, 1, 1, dtype=dtype)
-        self.tail = Conv(hidden, d_model, 1, bias=False, dtype=dtype)
+            Conv(hidden, hidden // gate_div, 1, bias=bias, dtype=dtype),
+            nn.GELU(),
+            Conv(hidden // gate_div, hidden, 1, bias=bias, dtype=dtype))
+        self.spatial_interaction = Conv(hidden, 1, 1, bias=bias, dtype=dtype)
+        self.tail = Conv(hidden, d_model, 1, bias=tail_bias, dtype=dtype)
         with torch.no_grad():
             self.tail.weight.zero_()
 

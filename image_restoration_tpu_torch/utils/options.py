@@ -92,6 +92,13 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     # takes sides that are multiples of 24 (sr) or 96 (denoise, derain)
     "ipt": dict(),
     "edt": dict(),
+    # RectiFormer, FPN-Restormer and MyModel (their field defaults, JAX
+    # utils/options.py:64-66): plain torch, as plain XLA in JAX. All three
+    # take sides that are multiples of 8 (the default --pad_multiple);
+    # RectiFormer gives NaN below 64x64 (its DGSB mask's width is 0 there)
+    "rectiformer": dict(),
+    "fpn_restormer": dict(),
+    "mymodel": dict(),
 }
 
 # Per-model defaults of top-level options. NeRD-Rain's quarter-scale

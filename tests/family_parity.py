@@ -41,6 +41,34 @@ RTOL, ATOL = 1e-4, 1e-5
 GAP_MIN = 1e-5
 
 
+def hold(got, want, tol=1e-5, scale=None):
+    """``got`` (numpy, the JAX layout) against the JAX ``want``: relative
+    L2 at most ``tol`` and max |error| at most ``tol`` x ``scale``, by
+    default max |want|."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = np.abs(want).max() if scale is None else scale
+    err = np.abs(got - want)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel <= tol, f"relative L2 {rel:.3e} > {tol:g}"
+    assert err.max() <= tol * scale, (
+        f"max |error| {err.max():.3e} > {tol:g} x {scale:.3e}")
+
+
+def bf16_within_three_times(got16, jax16, jax32):
+    """The port's bf16 output against JAX's fp32 within 3x the JAX bf16
+    output's error against it, in max and mean (tests/test_tpu_kernels.py's
+    rule)."""
+    jax32 = np.asarray(jax32, np.float64)
+    err_port = np.abs(np.asarray(got16, np.float64) - jax32)
+    err_jax = np.abs(np.asarray(jax16, np.float64) - jax32)
+    assert err_port.max() <= 3 * err_jax.max(), (err_port.max(),
+                                                 err_jax.max())
+    assert err_port.mean() <= 3 * err_jax.mean(), (err_port.mean(),
+                                                   err_jax.mean())
+
+
 def randomized(shapes, rng, scale=0.5):
     """Every leaf of a param tree (or its shapes) replaced by seeded values:
     kernels at the fan-in scale, LN and norm weights and temperatures near

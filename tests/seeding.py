@@ -39,10 +39,48 @@ def seed_adaptir(model, seed, x):
             w.copy_(torch.randn(w.shape, generator=gen) * m.hidden ** -0.5)
         if isinstance(model, IPT):
             model.head[str(model.task_idx)][0].weight.div_(model.rgb_range)
-        momenta = [m.BN.momentum for m in adapters]
-        for m in adapters:
-            m.BN.reset_running_stats()
-            m.BN.momentum = 1.0  # the running statistics become the batch's
-        model(x, train=True)
-        for m, momentum in zip(adapters, momenta):
-            m.BN.momentum = momentum
+    calibrate_batchnorms(model, x)
+
+
+def calibrate_batchnorms(model, x, **kw):
+    """Every BatchNorm2d's statistics set to the batch statistics of one
+    ``model(x, train=True, **kw)`` (the models whose BatchNorms follow the
+    forward's ``train``), each normalizing what the ones before it
+    normalized; nothing without one."""
+    from image_restoration_tpu_torch.ops.layernorm import BatchNorm2d
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    if not bns:
+        return
+    momenta = [bn.momentum for bn in bns]
+    for bn in bns:
+        bn.reset_running_stats()
+        bn.momentum = 1.0  # the running statistics become the batch's
+    with torch.no_grad():
+        model(x, train=True, **kw)
+    for bn, momentum in zip(bns, momenta):
+        bn.momentum = momentum
+
+
+def seed_branches(model, seed, x):
+    """RectiFormer's, FPN-Restormer's or MyModel's weights made to exercise
+    every branch: MyModel's zero-initialised ``beta``/``gamma`` layer
+    scales drawn as 0.5 + 0.2 x a standard normal and its AdaptIR
+    adapters' zero ``tail``\\ s at lecun's scale, 1 / sqrt(hidden), from a
+    generator seeded ``seed`` (at zero no Mix, adapter or decoder mixer
+    reaches the output); every BatchNorm's statistics from one
+    ``train=True`` forward of ``x`` (the routers' noise from the same
+    generator). RectiFormer has neither and is left as it is."""
+    from image_restoration_tpu_torch.models.adaptir_ipt import AdaptIRAdapter
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("beta", "gamma")):
+                p.copy_(0.5 + 0.2 * torch.randn(p.shape, generator=gen))
+        for m in model.modules():
+            if isinstance(m, AdaptIRAdapter):
+                w = m.tail.weight
+                w.copy_(torch.randn(w.shape, generator=gen) * m.hidden ** -0.5)
+    moe = getattr(type(model), "uses_moe_rng", False)
+    calibrate_batchnorms(model, x, **({"generator": gen} if moe else {}))

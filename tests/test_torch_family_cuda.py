@@ -69,6 +69,16 @@ oracle's max magnitude is below max(3 x the plain bf16 version's, 4e-3).
   CPU bf16 forward's error against the CPU fp32 one. In bf16 on the card,
   ``model(x, train=True)`` under an L1 loss gives finite gradients, and
   every adapter's ``tail`` and phase scale gets a nonzero one.
+- RectiFormer, FPN-Restormer and MyModel (kernel-free: plain torch) at
+  their ``MODEL_DEFAULTS`` (the JAX field defaults) on a 64x64 image,
+  MyModel's layer scales and adapter tails seeded and the BatchNorm
+  statistics calibrated (``tests/seeding.py`` ``seed_branches``): the
+  card's fp32 forward within 1e-5 relative L2 of the CPU's (TF32 off), the
+  card's bf16 forward against the card's fp32 within 3x the CPU bf16
+  forward's error against the CPU fp32 one. In bf16 on the card an L1
+  loss of ``model(x)`` (FPN-Restormer and MyModel with ``train=True``,
+  MyModel's routing noise from a device generator) gives finite
+  gradients, every parameter one.
 """
 
 import numpy as np
@@ -82,7 +92,7 @@ from image_restoration_tpu_torch.models import lsnet_dense as D
 from image_restoration_tpu_torch.ops import gla
 from image_restoration_tpu_torch.train.recipes import make_recipe
 from image_restoration_tpu_torch.utils.options import MODEL_DEFAULTS
-from seeding import seed_adaptir
+from seeding import seed_adaptir, seed_branches
 
 # (H, W, C, heads) of MEASNet's K1/K2 calls at a 512x512 input
 MEASNET_SHAPES = [(512, 512, 32, 1), (256, 256, 64, 2), (128, 128, 128, 4),
@@ -505,3 +515,58 @@ def test_adaptir_gradients_finite_on_the_card(cuda, name, kw, shape):
         assert p.grad is not None and torch.isfinite(p.grad).all(), key
         if key.endswith(("adaptir.tail.weight", "adaptir.pha_fuse.weight")):
             assert p.grad.abs().max() > 0, key
+
+
+BRANCH_MODELS = ["rectiformer", "fpn_restormer", "mymodel"]
+
+
+def _branch_pair(name):
+    """(fp32 model, bf16 model with its weights, 64x64 input) on the CPU:
+    the seeded init at ``MODEL_DEFAULTS`` through ``seed_branches``."""
+    x = torch.rand((1, 3, 64, 64), generator=torch.Generator().manual_seed(
+        14))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(13)
+        m32 = get_model(name, **MODEL_DEFAULTS[name]).eval()
+    seed_branches(m32, 15, torch.cat([x, x.flip(-1)]))
+    m16 = get_model(name, **MODEL_DEFAULTS[name],
+                    dtype=torch.bfloat16).eval()
+    m16.load_state_dict(m32.state_dict())
+    return m32, m16, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BRANCH_MODELS)
+def test_branch_models_card_against_cpu(cuda, name):
+    m32, m16, x = _branch_pair(name)
+    with torch.inference_mode(), torch.backends.mkldnn.flags(enabled=False):
+        want, cpu16 = m32(x), m16(x)
+    with torch.inference_mode():
+        got32 = m32.to(cuda)(x.to(cuda))
+        got16 = m16.to(cuda)(x.to(cuda))
+    assert got32.shape == want.shape and got16.dtype == torch.float32
+    assert torch.isfinite(got32).all() and torch.isfinite(got16).all()
+    e32, e16, ecpu = (_rel_l2(got32, want), _rel_l2(got16, got32),
+                      _rel_l2(cpu16, want))
+    assert e32 <= 1e-5, e32
+    assert e16 <= 3 * ecpu, (e16, ecpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BRANCH_MODELS)
+def test_branch_models_gradients_finite_on_the_card(cuda, name):
+    _, m16, x = _branch_pair(name)
+    m16 = m16.to(cuda)
+    x = torch.cat([x, x.flip(-2)]).to(cuda)
+    kw = {}
+    if name != "rectiformer":
+        kw["train"] = True
+    if name == "mymodel":
+        kw["generator"] = torch.Generator(device=cuda).manual_seed(16)
+    out = m16(x, **kw)
+    out = out[0] if isinstance(out, tuple) else out
+    loss = (out - x).abs().mean()
+    loss.backward()
+    assert torch.isfinite(loss)
+    for key, p in m16.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), key

@@ -142,7 +142,8 @@ def test_port_never_imports_jax():
         "          'data.sampler', 'data.pipeline', 'utils.logging',\n"
         "          'ops.gla', 'models.vig', 'models.vig_h',\n"
         "          'models.lsnet_dense', 'models.adaptir_ipt',\n"
-        "          'models.adaptir_edt'):\n"
+        "          'models.adaptir_edt', 'models.rectiformer',\n"
+        "          'models.fpn_restormer', 'models.mymodel'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
         "print(len(names))\n")
@@ -156,7 +157,8 @@ def test_port_never_imports_jax():
                                   ["--msfn", "8", "4", "--warps", "8"],
                                   ["--mefc", "4", "2"],
                                   ["--ska", "2", "4", "--ring", "2"],
-                                  ["--phases", "3o", "3f 3o", "5a"]],
+                                  ["--phases", "3o", "3f 3o", "5a", "3p",
+                                   "3f 3p", "4p"]],
                          ids=["full", "tail", "front", "msfn", "mefc", "ska",
                               "phases"])
 def test_chip_smoke_refuses_without_cuda(tmp_path, args):

@@ -9,7 +9,8 @@ handing the traced forward zeros of that shape: the init is neither run,
 traced nor compiled. Initializers that draw nothing
 (zeros, ones, constants such as ViG's layer scales and RetinaNet's
 focal-prior class bias, MoCE's Laplacian high-pass, the AdaptIR
-adapters' zero ``tail``) are evaluated and held exactly. The random ones
+adapters' zero ``tail``, MyModel's zero ``beta``/``gamma``) are evaluated
+and held exactly. The random ones
 are held to their distribution: flax's
 ``variance_scaling`` (``lecun_normal`` for every conv and dense kernel)
 gives a normal truncated at 2 stddev, stddev = sqrt(scale / fan) /
@@ -17,7 +18,8 @@ gives a normal truncated at 2 stddev, stddev = sqrt(scale / fan) /
 distribution (SRConvNet's kernel bank, TransWeather's transposed convs) a
 uniform within +-sqrt(3 scale / fan); ``normal(s)`` a normal of std s
 (IPT's ``query_embed`` and ``position_encoding``); the AdaptIR adapters'
-local ``kaiming`` (a=sqrt(5)) a uniform within +-1 / sqrt(shape[1]).
+local ``kaiming`` (a=sqrt(5)), MyModel's too, a uniform within +-1 /
+sqrt(shape[1]).
 Everything goes through the weight bridge
 (``utils/jax_bridge.py`` ``state_dict_from_jax``, the model's registered
 key map), so each port tensor meets the JAX leaf it is loaded from.
@@ -97,6 +99,15 @@ MODELS = {
     "edt": (dict(embed_dim=60), (1, 48, 48, 3)),
     "edt_adaptir": (dict(de_type="denoise_30", embed_dim=60),
                     (1, 96, 96, 3)),
+    "rectiformer": (dict(dim=8, num_encoder_blocks=(1, 1, 1, 1),
+                         num_decoder_blocks=(1, 1, 1, 1),
+                         num_refinement_blocks=1, context_dim=16),
+                    (1, 64, 64, 3)),
+    "fpn_restormer": (dict(dim=8, num_blocks=(1, 1, 1, 1),
+                           num_refinement_blocks=1), (1, 32, 32, 3)),
+    "mymodel": (dict(dim=16, levels=2, heads=(1, 2), num_blocks=(1, 1),
+                     num_dec_blocks=(1,), stage_depth=(1,)),
+                (1, 32, 32, 3)),
 }
 
 
@@ -125,7 +136,8 @@ def _draws(init_fn, shape, dtype=jnp.float32):
         return None, std, 2 * std / TRUNC
     if name.startswith("normal."):
         return None, float(_closure(init_fn)["stddev"]), np.inf
-    if name.endswith("AdaptIRAdapter.__call__.<locals>.kaiming"):
+    if name.endswith(("AdaptIRAdapter.__call__.<locals>.kaiming",
+                      "MyAdaptIR.__call__.<locals>.kaiming")):
         # the adapters' low-rank factors: kaiming_uniform(a=sqrt(5)),
         # uniform in +-sqrt(6 / ((1 + 5) shape[1]))
         bound = float(np.sqrt(6.0 / (6.0 * shape[1])))

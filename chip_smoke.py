@@ -571,9 +571,9 @@ DENSE_TRAIN_STEPS, DENSE_LR = 3, 1e-4
 CARD_CPU_GLA = 1e-5
 # The phases after the kernel checks, in their order: ``--phases`` runs the
 # named ones.
-PHASES = ("3", "3j", "3l", "3m", "3n", "3o", "3p", "3f", "3f family",
-          "3f 3l", "3f 3o", "3f 3p", "4", "4m", "4f", "4n", "4p", "5", "5v",
-          "5a")
+PHASES = ("3", "3j", "3l", "3m", "3n", "3o", "3p", "3q", "3f",
+          "3f family", "3f 3l", "3f 3o", "3f 3p", "3f 3q", "4", "4m", "4f",
+          "4n", "4p", "4q", "5", "5v", "5a")
 # Phases 3o, "3f 3o" and 5a: IPT (its field defaults: n_feats 64, task 5,
 # x1) served in 48x48 windows (--tile 48: 121 at 512x512, one batch) and
 # EDT (embed 180, denoise_30) padded to multiples of 96 (576x576), the
@@ -600,6 +600,23 @@ BRANCH_MODELS = ("rectiformer", "fpn_restormer", "mymodel")
 BRANCH_SMALL = (64, 64)
 CARD_CPU_BRANCH = 1e-5
 BRANCH_TRAIN_STEPS, BRANCH_LR = 5, 1e-4
+# Phases 3q, "3f 3q" and 4q: SFSNiD (num_res 3, base 32) and PINN at their
+# serving defaults (the JAX field defaults), the small input of their
+# card-against-CPU checks, held to CARD_CPU_DEMO (SFSNiD's output after
+# its stage SFSNID_HELD, where the card's run and the CPU's lie on the same
+# side of the angle's branch cut at every rfft2 coefficient:
+# phase_serve_demo); HiLo at model level
+# (dim 96, a LITv2 stage-1 map: batch 64 of 56x56); the frequency MoE
+# layer and FCM (dim 48) at batch 8 of 128x128; the unpaired folder's
+# images; FID's two sets. Training takes BRANCH_TRAIN_STEPS steps.
+DEMO_MODELS = ("sfsnid", "pinn")
+DEMO_SMALL = (64, 64)
+CARD_CPU_DEMO = 1e-5
+SFSNID_HELD = "Encoder.1"
+HILO_BATCH, HILO_SIDE, HILO_DIM = 64, 56, 96
+LAYER_BATCH, LAYER_SIDE, LAYER_DIM = 8, 128, 48
+UNPAIRED_IMAGES, UNPAIRED_SIZE = 3, 512
+FID_IMAGES = 96
 # CG-IR's 44 CGTBs have Restormer-base's block shapes (LEVELS); the gated
 # pair runs at batch 2 at two of them in phase 2e.
 GATED_SHAPES = [(128, 128, 192, 4), (64, 64, 384, 8)]
@@ -3708,9 +3725,9 @@ def _card_against_cpu(tag, model32, x, pick=lambda out: out,
         cpu = pick(copy.deepcopy(model32).cpu()(x))
     rel = _rel_l2(card, cpu)
     print(f"{tag}: fp32 forward at {tuple(x.shape)}, card against CPU: "
-          f"relative L2 {rel:.3e} (limit {limit:g})", flush=True)
-    check(rel <= limit, f"{tag}: card fp32 forward {rel:.3e} from the "
-          f"CPU's")
+          f"relative L2 {rel:.3e} (limit {limit})", flush=True)
+    check(rel <= limit, f"{tag}: card fp32 forward "
+          f"{rel:.3e} from the CPU's")
 
 
 def phase_serve_gla(gpu, profile_dir=None):
@@ -4515,80 +4532,95 @@ def _idle_share(fn, arg):
     return (busy or None), wall
 
 
-def phase_serve_branch(gpu, profile_dir=None):
-    """Phase 3p: RectiFormer, FPN-Restormer and MyModel from their serving
-    defaults (the JAX field defaults; bf16, ``--pad_multiple`` 8), seeded
-    weights through ``perturb_branches`` (calibrated on two 512x512
-    images), restore a seeded 512x512 image in
+def _serve_one(gpu, name, cfg, model, img, profile_dir, small, limit,
+               held=None):
+    """One restoration model from ``cfg`` restores the seeded ``img`` in
     bf16 at batch 1 through ``make_restore_fn``: every kernel's count 0, a
     finite output of the input's size; the forward's device ms (CUDA
     events), the restore's ms/img (host clock, median of 5), MP/s, peak
     memory and the device's idle share in one profiled restore; bf16
-    against the card's fp32 model at 512x512 (relative L2, max |error|);
-    the card's fp32 forward against the CPU's at ``BRANCH_SMALL``
-    (``CARD_CPU_BRANCH``). With ``profile_dir``, a profile of two restores
-    of each model. Returns the launch counts by model."""
+    against the card's fp32 model (relative L2, max |error|); the card's
+    fp32 forward against the CPU's at ``small`` (``limit``): its output,
+    or the output of its submodule ``held`` when one is named. With
+    ``profile_dir``, a profile of two restores. Returns the launch
+    counts."""
     import torch
 
     from image_restoration_tpu_torch.cli.infer import make_restore_fn
     from image_restoration_tpu_torch.utils.precision import full_fp32
 
     every = _every_kernel()
-    out = {}
-    img = np.random.default_rng(3500).random((512, 512, 3), dtype=np.float32)
     x = torch.from_numpy(img).permute(2, 0, 1)[None].cuda()
+    h, w = img.shape[:2]
+    restore = make_restore_fn(cfg, model)
+    restore(img)  # warm-up: cuDNN algorithm choice, allocator
+    _zero(every)
+    res = restore(img)
+    got = _read(every)
+    check(not any(got.values()), f"{name} serving launched a kernel: {got}")
+    check(res.shape == img.shape and np.isfinite(res).all(),
+          f"{name}: output {res.shape} for {img.shape}, or not finite")
+    plain32 = plain_variant(cfg, model, False)
+    with torch.inference_mode(), full_fp32():
+        ref = plain32(x)
+        got16 = model(x).float()
+    err = (got16 - ref).abs().max().item()
+    rel = _rel_l2(got16, ref)
+    check(np.isfinite(err) and bool(torch.isfinite(ref).all()),
+          f"{name}: non-finite fp32 output or bf16 error")
+    del ref, got16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore(img)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+    with torch.inference_mode(), full_fp32():
+        fwd = time_cuda(lambda: model(x), reps=5, warmup=1,
+                        head_start_ms=50.0)
+    busy, wall = _idle_share(restore, img)
+    idle = ("not measured (no device time in the profile)"
+            if busy is None else
+            f"device busy {busy:.3f} ms of {wall:.3f} ms, "
+            f"{100 * (1 - busy / wall):.2f}% idle")
+    print(f"{name} serving {h}x{w} bf16 batch 1 on {gpu}: forward "
+          f"{fwd:.3f} ms (device, CUDA events), restore {ms:.3f} ms/img "
+          f"(host clock, median of 5), {h * w / 1e6 / (ms / 1e3):.4f} MP/s, "
+          f"peak memory {peak:.3f} GiB, launches {got}; one profiled "
+          f"restore: {idle}; bf16 against the card's fp32 model: "
+          f"relative L2 {rel:.4e}, max |err| {err:.4e}", flush=True)
+    if profile_dir:
+        _profile(restore, [img] * 2, profile_dir, name, gpu,
+                 f"restores at {h}x{w}")
+    x_small = torch.rand((1, 3, *small),
+                         generator=torch.Generator().manual_seed(3520))
+    if held is None:
+        _card_against_cpu(name, plain32, x_small, limit=limit)
+    else:
+        _card_against_cpu(f"{name} after {held}", _forward_of(
+            plain32, _stage_output(held)), x_small, limit=limit)
+    return got
+
+
+def phase_serve_branch(gpu, profile_dir=None):
+    """Phase 3p: RectiFormer, FPN-Restormer and MyModel from their serving
+    defaults (the JAX field defaults; bf16, ``--pad_multiple`` 8), seeded
+    weights through ``perturb_branches`` (calibrated on two 512x512
+    images), restore a seeded 512x512 image through ``_serve_one``, the
+    card's fp32 forward held to the CPU's at ``BRANCH_SMALL``
+    (``CARD_CPU_BRANCH``). Returns the launch counts by model."""
+    img = np.random.default_rng(3500).random((512, 512, 3), dtype=np.float32)
+    out = {}
     for name in BRANCH_MODELS:
         cfg, model = _branch_model(name, 3510, img.shape[:2])
-        restore = make_restore_fn(cfg, model)
-        restore(img)  # warm-up: cuDNN algorithm choice, allocator
-        _zero(every)
-        res = restore(img)
-        out[name] = got = _read(every)
-        check(not any(got.values()), f"{name} serving launched a kernel: "
-              f"{got}")
-        check(res.shape == img.shape and np.isfinite(res).all(),
-              f"{name}: output {res.shape} for {img.shape}, or not finite")
-        plain32 = plain_variant(cfg, model, False)
-        with torch.inference_mode(), full_fp32():
-            ref = plain32(x)
-            got16 = model(x).float()
-        err = (got16 - ref).abs().max().item()
-        rel = _rel_l2(got16, ref)
-        check(np.isfinite(err) and bool(torch.isfinite(ref).all()),
-              f"{name}: non-finite fp32 output or bf16 error")
-        del ref, got16
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            restore(img)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        ms = statistics.median(times)
-        with torch.inference_mode(), full_fp32():
-            fwd = time_cuda(lambda: model(x), reps=5, warmup=1,
-                            head_start_ms=50.0)
-        busy, wall = _idle_share(restore, img)
-        idle = ("not measured (no device time in the profile)"
-                if busy is None else
-                f"device busy {busy:.3f} ms of {wall:.3f} ms, "
-                f"{100 * (1 - busy / wall):.2f}% idle")
-        print(f"{name} serving 512x512 bf16 batch 1 on {gpu}: forward "
-              f"{fwd:.3f} ms (device, CUDA events), restore {ms:.3f} ms/img "
-              f"(host clock, median of 5), {0.262144 / (ms / 1e3):.4f} MP/s, "
-              f"peak memory {peak:.3f} GiB, launches {got}; one profiled "
-              f"restore: {idle}; bf16 against the card's fp32 model: "
-              f"relative L2 {rel:.4e}, max |err| {err:.4e}", flush=True)
-        if profile_dir:
-            _profile(restore, [img] * 2, profile_dir, name, gpu,
-                     "restores at 512x512")
-        small = torch.rand((1, 3, *BRANCH_SMALL),
-                           generator=torch.Generator().manual_seed(3520))
-        _card_against_cpu(name, plain32, small, limit=CARD_CPU_BRANCH)
-        del model, plain32, restore
+        out[name] = _serve_one(gpu, name, cfg, model, img, profile_dir,
+                               BRANCH_SMALL, CARD_CPU_BRANCH)
+        del model
     return out
 
 
@@ -4627,9 +4659,12 @@ def phase_eval_branch(gpu):
     return out
 
 
-def _train_rectiformer(gpu, every, lq, gt):
-    """Phase 4p's RectiFormer: ``cli/train.py`` ``main``, then a step
-    alone; the launch counts of the run."""
+def _train_through_cli(gpu, every, lq, gt, name="rectiformer", extra=(),
+                       seed=3610):
+    """``BRANCH_TRAIN_STEPS`` steps of ``cli/train.py`` ``main`` on
+    ``name`` (phase 4p's RectiFormer, phase 4q's SFSNiD and PINN; ``extra``
+    the CLI's further flags) on a seeded tree, then a step alone with the
+    loss terms the flags give; the launch counts of the run."""
     import json
     import os
     import tempfile
@@ -4638,37 +4673,41 @@ def _train_rectiformer(gpu, every, lq, gt):
 
     from image_restoration_tpu_torch.cli import train as TR
     from image_restoration_tpu_torch.train import trainer as TT
+    from image_restoration_tpu_torch.utils.options import (
+        build_train_parser, parse_options,
+    )
 
     with tempfile.TemporaryDirectory(prefix="ir_branch_") as tmp:
         data = os.path.join(tmp, "data")
-        _train_tree(data, seed=3610)
-        argv = ["--model", "rectiformer", "--device", "cuda",
+        _train_tree(data, seed=seed)
+        argv = ["--model", name, "--device", "cuda",
                 "--data_file_dir", data, "--batch_size", str(TRAIN_BATCH),
                 "--patch_size", str(TRAIN_PATCH), "--warmup_epochs", "0",
                 "--lr", str(TRAIN_LR), "--save_every",
                 str(BRANCH_TRAIN_STEPS), "--log_every", "1", "--ckpt_dir",
-                os.path.join(tmp, "exp"), "--name", "rectiformer"]
+                os.path.join(tmp, "exp"), "--name", name, *extra]
+        terms = parse_options(argv, build_train_parser())["loss"]
         _zero(every)
         t1 = time.perf_counter()
         TR.main(argv, max_steps_override=BRANCH_TRAIN_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         got = _read(every)
-        exp = os.path.join(tmp, "exp", "rectiformer")
+        exp = os.path.join(tmp, "exp", name)
         with open(os.path.join(exp, "metrics.jsonl")) as f:
             rows = [e["train/total"] for e in map(json.loads, f)
                     if "train/total" in e]
-        check(not any(got.values()), f"rectiformer training launched a "
+        check(not any(got.values()), f"{name} training launched a "
               f"kernel: {got}")
         check(len(rows) == BRANCH_TRAIN_STEPS and np.isfinite(rows).all(),
-              f"rectiformer: logged losses {rows}")
+              f"{name}: logged losses {rows}")
         fixed = {k: torch.stack([_read_image(os.path.join(
             data, "val", k, f"{i:03d}.png"))[:, :TRAIN_PATCH, :TRAIN_PATCH]
             for i in range(2)]) for k in ("lq", "gt")}
         trained = torch.load(os.path.join(exp, "ckpt",
                                           f"{BRANCH_TRAIN_STEPS}.pth"),
                              map_location="cuda")["params"]
-    cfg = _adaptir_cfg("rectiformer")
+    cfg = _adaptir_cfg(name)
     model = TR.build_model(cfg)
     l1 = []
     for params in (None, trained):
@@ -4677,13 +4716,14 @@ def _train_rectiformer(gpu, every, lq, gt):
         with torch.inference_mode():
             l1.append((model(fixed["lq"]) - fixed["gt"]).abs().mean().item())
     check(np.isfinite(l1).all() and l1[1] < l1[0],
-          f"rectiformer: the fixed batch's L1 {l1} did not fall")
+          f"{name}: the fixed batch's L1 {l1} did not fall")
     ref = plain_variant(cfg, model, False)
     rel = _grad_rel_l2(model, ref, lambda m: (m(lq[:2]) - gt[:2]).abs()
                        .mean())
     del ref
     model.train()
-    tcfg = TT.TrainerConfig(learning_rate=TRAIN_LR)
+    tcfg = TT.TrainerConfig(learning_rate=TRAIN_LR,
+                            loss=terms)
     tx = TT.make_optimizer(tcfg)
     state = TT.TrainState.create(model, tx)
     step = TT.make_train_step(model, tx, tcfg)
@@ -4703,7 +4743,8 @@ def _train_rectiformer(gpu, every, lq, gt):
         times.append(start.elapsed_time(end))
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"rectiformer cli/train.py on {gpu}: {BRANCH_TRAIN_STEPS} steps at "
+    print(f"{name} cli/train.py {' '.join(extra)} on {gpu}: "
+          f"{BRANCH_TRAIN_STEPS} steps at "
           f"batch {TRAIN_BATCH} {TRAIN_PATCH}x{TRAIN_PATCH} bf16 in "
           f"{wall:.1f} s (host clock, with a save), losses "
           f"{[round(v, 6) for v in rows]}, launches {got}; L1 on a fixed "
@@ -4744,7 +4785,7 @@ def phase_train_branch(gpu):
     gt = torch.rand(shape, generator=gen, device="cuda")
     lq = (gt + 0.1 * torch.randn(shape, generator=gen, device="cuda")
           ).clamp(0, 1)
-    out = {"train_rectiformer": _train_rectiformer(gpu, every, lq, gt)}
+    out = {"train_rectiformer": _train_through_cli(gpu, every, lq, gt)}
     for name in BRANCH_MODELS[1:]:
         cfg, net = _branch_model(name, 3620, (TRAIN_PATCH, TRAIN_PATCH))
         moe = getattr(type(net), "uses_moe_rng", False)
@@ -4802,6 +4843,295 @@ def phase_train_branch(gpu):
     print(f"train: phase 4p took {time.perf_counter() - t0:.1f} s",
           flush=True)
     return out
+
+def phase_serve_demo(gpu, profile_dir=None):
+    """Phase 3q: SFSNiD (num_res 3, base 32) and PINN from their serving
+    defaults (the JAX field defaults; bf16, ``--pad_multiple`` 8), seeded
+    init, restore a seeded 512x512 image through ``_serve_one``, the
+    card's fp32 forward held to the CPU's at ``DEMO_SMALL``
+    (``CARD_CPU_DEMO``): PINN's whole output, SFSNiD's after its first two
+    encoder stages (``SFSNID_HELD``). Past them the card's run and the
+    CPU's part at the angle's branch cut: SFSNiD's spectrum blocks add a
+    1x1-conv branch to ``angle(rfft2)``, which jumps by 2 pi where a
+    coefficient crosses the negative real axis, and a coefficient whose
+    imaginary part is within rounding of 0 there lands on either side in
+    two fp32 runs (``tools/sfsnid_branch_cut.py``; JAX's fp32 forward lies
+    as far from its float64 one, ``tests/sfsnid_conditioning.py``). One
+    block (64 channels, a 17x13 map of positive mean) is held to the
+    CPU's as well. Then the model-level paths: HiLo (dim
+    ``HILO_DIM``, 8 heads, window 2, alpha 0.5) on a batch of
+    ``HILO_BATCH`` ``HILO_SIDE``^2 maps of ``HILO_DIM`` channels, fp32 and
+    bf16 forwards; ``FreqAdapterLayer`` (dim ``LAYER_DIM``, four experts,
+    top-2, ``freq_dim`` 128, MoCE-IR's spread ranks) and ``FCM`` (dim
+    ``LAYER_DIM``) in bf16, a ``train=True`` forward and its backward on a
+    batch of ``LAYER_BATCH`` ``LAYER_SIDE``^2 maps (the adapter's routing
+    noise from a device generator): device ms (CUDA events), finite
+    outputs and gradients, and each one's fp32 forward, card against CPU
+    (``CARD_CPU_DEMO``; the adapter in eval, FCM in eval and in
+    training). Every kernel's count 0. Returns the launch counts by
+    path."""
+    import torch
+
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.models import get_model
+    from image_restoration_tpu_torch.models.demo_models import (
+        SFSTransformerBlock,
+    )
+    from image_restoration_tpu_torch.ops.freq_moe import FreqAdapterLayer
+    from image_restoration_tpu_torch.ops.fusion_blocks import FCM
+    from image_restoration_tpu_torch.utils.precision import full_fp32
+
+    def seeded(seed, make):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            return make()
+
+    every = _every_kernel()
+    out = {}
+    img = np.random.default_rng(3700).random((512, 512, 3), dtype=np.float32)
+    for name in DEMO_MODELS:
+        cfg = _adaptir_cfg(name)
+        out[name] = _serve_one(gpu, name, cfg, build_model(cfg), img,
+                               profile_dir, DEMO_SMALL, CARD_CPU_DEMO,
+                               SFSNID_HELD if name == "sfsnid" else None)
+    block = seeded(3716, lambda: SFSTransformerBlock(64)).cuda().eval()
+    _card_against_cpu("sfsnid block (64 channels)", block, 1.0 + torch.randn(
+        (2, 64, 17, 13), generator=torch.Generator().manual_seed(3717)),
+        limit=CARD_CPU_DEMO)
+
+    gen = torch.Generator(device="cuda").manual_seed(3710)
+    xh = torch.randn((HILO_BATCH, HILO_DIM, HILO_SIDE, HILO_SIDE),
+                     generator=gen, device="cuda")
+    h32 = seeded(3711, lambda: get_model("hilo", dim=HILO_DIM)).cuda().eval()
+    h16 = get_model("hilo", dim=HILO_DIM, dtype=torch.bfloat16).cuda().eval()
+    h16.load_state_dict(h32.state_dict())
+    _zero(every)
+    with torch.inference_mode(), full_fp32():
+        o32, o16 = h32(xh), h16(xh).float()
+        check(o32.shape == xh.shape and bool(torch.isfinite(o16).all()),
+              f"hilo: output {tuple(o32.shape)} or not finite")
+        rel = _rel_l2(o16, o32)
+        ms = {tag: time_cuda(lambda m=m: m(xh), reps=10, warmup=2)
+              for tag, m in (("fp32", h32), ("bf16", h16))}
+    out["hilo"] = got = _read(every)
+    check(not any(got.values()), f"hilo launched a kernel: {got}")
+    print(f"hilo (dim {HILO_DIM}, model level) batch {HILO_BATCH} "
+          f"{HILO_SIDE}x{HILO_SIDE} on {gpu}: forward fp32 "
+          f"{ms['fp32']:.3f} ms, bf16 {ms['bf16']:.3f} ms (device, CUDA "
+          f"events, median of 10), "
+          f"{HILO_BATCH / (ms['bf16'] / 1e3):.1f} maps/s in bf16; bf16 "
+          f"against fp32: relative L2 {rel:.4e}", flush=True)
+    del o32, o16, xh
+    _card_against_cpu("hilo", h32, torch.randn(
+        (2, HILO_DIM, 16, 16), generator=torch.Generator().manual_seed(3712)),
+        limit=CARD_CPU_DEMO)
+
+    shape = (LAYER_BATCH, LAYER_DIM, LAYER_SIDE, LAYER_SIDE)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    shared = torch.randn(shape, generator=gen, device="cuda")
+    small = torch.randn((2, LAYER_DIM, 24, 20),
+                        generator=torch.Generator().manual_seed(3713))
+    layers = {
+        "freq_adapter": lambda dt: FreqAdapterLayer(
+            LAYER_DIM, 2, rank_type="spread", dtype=dt),
+        "fcm": lambda dt: FCM(LAYER_DIM, dtype=dt)}
+    for tag, make in layers.items():
+        m32 = seeded(3714, lambda: make(None)).cuda()
+        m16 = make(torch.bfloat16).cuda()
+        m16.load_state_dict(m32.state_dict())
+        noise = torch.Generator(device="cuda").manual_seed(3715)
+
+        def step(m=m16, adapter=tag == "freq_adapter"):
+            m.zero_grad(set_to_none=True)
+            res = (m(x, None, shared, train=True, generator=noise)
+                   if adapter else (m(x, train=True), 0.0))
+            loss = res[0].float().square().mean() + res[1]
+            loss.backward()
+            return loss.detach()
+
+        _zero(every)
+        losses, step_ms = _timed_steps(step, 6)
+        out[tag] = got = _read(every)
+        check(not any(got.values()), f"{tag} launched a kernel: {got}")
+        finite = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                     for p in m16.parameters())
+        check(np.isfinite(losses).all() and finite,
+              f"{tag}: losses {losses} or a gradient not finite")
+        print(f"{tag} (dim {LAYER_DIM}) train=True forward + backward, "
+              f"bf16, batch {LAYER_BATCH} {LAYER_SIDE}x{LAYER_SIDE} on {gpu}: "
+              f"{step_ms:.3f} ms (device, CUDA events, median of 5), "
+              f"launches {got}, every gradient finite", flush=True)
+        if tag == "freq_adapter":
+            _card_against_cpu(tag, _forward_of(m32.eval(), lambda m, a: m(
+                a, None, a)[0]), small, limit=CARD_CPU_DEMO)
+        else:
+            _card_against_cpu(tag, m32.eval(), small, limit=CARD_CPU_DEMO)
+            _card_against_cpu(f"{tag} train=True", _forward_of(
+                m32, lambda m, a: m(a, train=True)), small,
+                limit=CARD_CPU_DEMO)
+        del m32, m16
+    return out
+
+
+def _forward_of(module, fn):
+    """``fn(module, x)`` as the forward of an ``nn.Module`` that holds
+    ``module``, which ``_card_against_cpu`` can copy to the CPU."""
+    import torch
+
+    class Forward(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.module = module
+
+        def forward(self, x):
+            return fn(self.module, x)
+
+    return Forward()
+
+
+def _stage_output(name):
+    """``fn(model, x)``: the output of ``model``'s submodule ``name`` in a
+    forward of ``x``."""
+    def fn(model, x):
+        got = []
+        hook = model.get_submodule(name).register_forward_hook(
+            lambda m, i, o: got.append(o))
+        try:
+            model(x)
+        finally:
+            hook.remove()
+        return got[0]
+
+    return fn
+
+
+def phase_eval_demo(gpu):
+    """Phase "3f 3q": ``cli/test.py`` ``main`` with ``--unpaired`` scores
+    SFSNiD (its serving defaults, seeded init, as a ``.pth`` ``--ckpt``)
+    on a seeded folder of ``UNPAIRED_IMAGES`` ``UNPAIRED_SIZE``^2 PNGs
+    with synthetic ``--niqe_params``: every kernel's count 0, the keys of
+    JAX's ``results.json``, the inputs' mean NIQE equal to the host's
+    recomputation exactly, the outputs' finite; the run's host seconds.
+    Then ``fid_from_features`` between two seeded sets of
+    ``FID_IMAGES`` 64x64 images, the features the port's VGG16 trunk's
+    relu1_2 (seed-1 random weights) pooled over the pixels, on the card
+    and on the CPU: both finite and within 1e-3 relative. Returns the
+    launch counts by path."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+
+    from image_restoration_tpu_torch.cli import test as T
+    from image_restoration_tpu_torch.cli.infer import load_image
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.eval.fid import (
+        extract_features, fid_from_features,
+    )
+    from image_restoration_tpu_torch.eval.niqe import calculate_niqe
+    from image_restoration_tpu_torch.eval.perceptual import VGG16Features
+    from image_restoration_tpu_torch.utils.precision import full_fp32
+    from PIL import Image
+
+    every = _every_kernel()
+    out = {}
+    rng = np.random.default_rng(3800)
+    with tempfile.TemporaryDirectory(prefix="ir_unpaired_") as tmp:
+        src = os.path.join(tmp, "lq")
+        os.makedirs(src)
+        for i in range(UNPAIRED_IMAGES):
+            Image.fromarray(_smooth_image(rng, UNPAIRED_SIZE,
+                                          UNPAIRED_SIZE)).save(
+                os.path.join(src, f"{i:03d}.png"))
+        pris = _load_tool("seeding", "tests").write_niqe_params(
+            os.path.join(tmp, "pris.npz"), seed=3801)
+        ckpt = os.path.join(tmp, "sfsnid.pth")
+        torch.save(build_model(_adaptir_cfg("sfsnid")).state_dict(), ckpt)
+        od = os.path.join(tmp, "res")
+        _zero(every)
+        t0 = time.perf_counter()
+        res = T.main(["--model", "sfsnid", "--ckpt", ckpt, "--unpaired",
+                      "--lq_dir", src, "--niqe_params", pris,
+                      "--output_dir", od])
+        wall = time.perf_counter() - t0
+        out["eval_unpaired_sfsnid"] = got = _read(every)
+        with open(os.path.join(od, "results.json")) as f:
+            saved = json.load(f)
+        host = float(np.mean([calculate_niqe(load_image(os.path.join(
+            src, n)), params_path=pris) for n in sorted(os.listdir(src))]))
+    r = res["unpaired"]
+    check(saved == res and set(r) == {"n", "niqe", "niqe_input"}
+          and r["n"] == UNPAIRED_IMAGES, f"unpaired results {saved}")
+    check(not any(got.values()), f"unpaired scoring launched a kernel: "
+          f"{got}")
+    check(r["niqe_input"] == host, f"inputs' NIQE {r['niqe_input']} is not "
+          f"the host's {host}")
+    check(np.isfinite(r["niqe"]), f"outputs' NIQE {r['niqe']}")
+    print(f"3f (3q) sfsnid cli/test.py --unpaired on {gpu}: "
+          f"{UNPAIRED_IMAGES} images of {UNPAIRED_SIZE}x{UNPAIRED_SIZE} in "
+          f"{wall:.2f} s (host clock, NIQE on the host included): NIQE "
+          f"{r['niqe']:.6f}, inputs {r['niqe_input']:.6f} (equal to the "
+          f"host's recomputation), launches {got}", flush=True)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        vgg = VGG16Features(taps=(3,)).eval()
+    gen = torch.Generator().manual_seed(3802)
+    sets = [[torch.rand((FID_IMAGES // 3, 3, 64, 64), generator=gen) * s + o
+             for _ in range(3)] for s, o in ((1.0, 0.0), (0.6, 0.2))]
+    fids, times = {}, {}
+    for where, dev in (("card", "cuda"), ("host", "cpu")):
+        net = vgg.to(dev)
+
+        def feature_fn(batch, net=net, dev=dev):
+            with torch.inference_mode(), full_fp32():
+                return net(batch.to(dev))[-1].float().mean((2, 3))
+
+        t0 = time.perf_counter()
+        feats = [extract_features(iter(s), feature_fn) for s in sets]
+        fids[where] = fid_from_features(*feats)
+        times[where] = time.perf_counter() - t0
+    rel = abs(fids["card"] - fids["host"]) / abs(fids["host"])
+    print(f"3f (3q) FID of two sets of {FID_IMAGES} 64x64 images, VGG16 "
+          f"relu1_2 features (64, pooled), on {gpu}: card {fids['card']:.6f} "
+          f"({times['card']:.2f} s host clock, features and distance), CPU "
+          f"{fids['host']:.6f} ({times['host']:.2f} s); relative difference "
+          f"{rel:.3e}", flush=True)
+    check(np.isfinite(list(fids.values())).all() and rel <= 1e-3,
+          f"FID card {fids['card']} against CPU {fids['host']}")
+    return out
+
+
+def phase_train_demo(gpu):
+    """Phase 4q: ``BRANCH_TRAIN_STEPS`` steps of ``cli/train.py`` ``main``
+    (phase 4's tree, bf16, batch ``TRAIN_BATCH`` of ``TRAIN_PATCH``^2,
+    AdamW at ``TRAIN_LR``) on SFSNiD with the default recipe (L1 of the
+    full-size output, ``train=False`` as the JAX CLI applies it) and on
+    PINN with ``--loss mse=1.0 grad_smooth=1.0`` (the reference's MSE plus
+    its gradient-smoothness prior, each weighted 1), through
+    ``_train_through_cli``: finite logged losses, the fixed batch's L1
+    lower after the steps, a step alone timed, every kernel's count 0,
+    the bf16 gradients' relative L2 against the fp32 model's. Returns the
+    launch counts by path."""
+    import torch
+
+    t0 = time.perf_counter()
+    every = _every_kernel()
+    gen = torch.Generator(device="cuda").manual_seed(3900)
+    shape = (TRAIN_BATCH, 3, TRAIN_PATCH, TRAIN_PATCH)
+    gt = torch.rand(shape, generator=gen, device="cuda")
+    lq = (gt + 0.1 * torch.randn(shape, generator=gen, device="cuda")
+          ).clamp(0, 1)
+    out = {"train_sfsnid": _train_through_cli(gpu, every, lq, gt, "sfsnid",
+                                              seed=3910)}
+    out["train_pinn"] = _train_through_cli(
+        gpu, every, lq, gt, "pinn", ["--loss", "mse=1.0", "grad_smooth=1.0"],
+        seed=3920)
+    print(f"train: phase 4q took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
 
 def _every_kernel():
     """Every kernel's wrapper, by the name the kernels line gives it."""
@@ -5337,17 +5667,17 @@ LEARN_STEPS = 2000  # tools/learn_run.py's default
 LEARN_MOCE_STEPS = 2500  # the run behind LEARN_moce_ir_r05.json
 
 
-def _load_tool(name):
-    """``tools/<name>.py`` as a module (the learning tools import jax only
-    in their ``main``)."""
+def _load_tool(name, folder="tools"):
+    """``<folder>/<name>.py`` as a module (the learning tools import jax
+    only in their ``main``; ``tests/seeding.py`` imports torch only)."""
     import importlib.util
     import os
 
     here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(here, "tools"))
+    sys.path.insert(0, os.path.join(here, folder))
     try:
         spec = importlib.util.spec_from_file_location(
-            name, os.path.join(here, "tools", f"{name}.py"))
+            name, os.path.join(here, folder, f"{name}.py"))
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
     finally:
@@ -5617,9 +5947,9 @@ def main(argv=None):
                     metavar="NAME",
                     help="after the build and the kernel checks (phases "
                          "2-2h), only the named phases (3, 3j, 3l, 3m, 3n, "
-                         "3o, 3p, 3f, '3f family', '3f 3l', '3f 3o', "
-                         "'3f 3p', 4, 4m, 4f, 4n, 4p, 5, 5v, 5a); prints no "
-                         "result line")
+                         "3o, 3p, 3q, 3f, '3f family', '3f 3l', '3f 3o', "
+                         "'3f 3p', '3f 3q', 4, 4m, 4f, 4n, 4p, 4q, 5, 5v, "
+                         "5a); prints no result line")
     args = ap.parse_args(argv)
     sweeps = {"tail": args.tail, "front": args.front, "msfn": args.msfn}
     warps_of = {"tail": (8, 16), "front": (8, 16), "msfn": (8, 16),
@@ -5743,16 +6073,19 @@ def main(argv=None):
         "3n": lambda: phase_dense(gpu),
         "3o": lambda: phase_serve_adaptir(gpu, args.profile),
         "3p": lambda: phase_serve_branch(gpu, args.profile),
+        "3q": lambda: phase_serve_demo(gpu, args.profile),
         "3f": lambda: dict(zip(("eval", "eval_drsformer"), phase_eval(gpu))),
         "3f family": lambda: phase_eval_family(gpu),
         "3f 3l": lambda: phase_eval_family(gpu, EVAL_3L, "3f (3l)"),
         "3f 3o": lambda: phase_eval_adaptir(gpu),
         "3f 3p": lambda: phase_eval_branch(gpu),
+        "3f 3q": lambda: phase_eval_demo(gpu),
         "4": lambda: phase_train(gpu, args.profile),
         "4m": lambda: phase_train_moce(gpu),
         "4f": lambda: phase_train_family(gpu),
         "4n": lambda: phase_train_family(gpu, TRAIN_4N, "4n"),
         "4p": lambda: phase_train_branch(gpu),
+        "4q": lambda: phase_train_demo(gpu),
         "5": lambda: phase_lsnet_grad(gpu),
         "5v": lambda: phase_train_gla(gpu),
         "5a": lambda: phase_train_adaptir(gpu),

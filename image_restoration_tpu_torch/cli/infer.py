@@ -50,7 +50,9 @@ MoCE-IR runs its encoder, latent and refinement blocks through the pair
 and its complexity-expert decoder in plain torch; IGMoCE-IR, LumiSenseMoE
 and the patch-routed MoCE-IR run in plain torch, as the JAX package runs
 them without a kernel, as do SRConvNet (``--model srconvnet``, x4 by
-default: the output is 4x the input's size), TransWeather and DarkIR.
+default: the output is 4x the input's size), TransWeather and DarkIR,
+and the later families (``--model hogformer``, ..., ``--model sfsnid``,
+``--model pinn``); HiLo is an attention layer and is refused.
 """
 
 from __future__ import annotations
@@ -133,10 +135,13 @@ def _ffmpeg():
 
 def main(argv=None):
     from image_restoration_tpu_torch.cli.test import load_params
-    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.cli.train import (
+        build_model, refuse_layers,
+    )
     from image_restoration_tpu_torch.utils.options import parse_options
 
     cfg = parse_options(argv)
+    refuse_layers(cfg)
     src = cfg.get("input") or cfg.get("lq_dir")
     if not src:
         raise SystemExit("--input (image, folder, frame dir, or video) "

@@ -21,6 +21,8 @@ as do CG-IR, MEASNet and NeRD-Rain (K1/K2; NeRD-Rain pads to multiples of
 IGMoCE-IR, LumiSenseMoE, the patch-routed MoCE-IR, SRConvNet (the
 ``sr_*`` benchmarks), TransWeather and DarkIR run in plain torch.
 ``--lpips_ckpt`` adds an LPIPS column (``eval/perceptual.py``).
+``--unpaired --lq_dir DIR --niqe_params P`` scores a folder without
+ground truth by NIQE (:func:`run_unpaired`).
 """
 
 from __future__ import annotations
@@ -150,19 +152,61 @@ def make_lpips_fn(path, device):
     return fn
 
 
+def run_unpaired(cfg, model):
+    """No-ground-truth evaluation (JAX ``cli/test.py`` ``run_unpaired``;
+    DarkIR-main/testing_unpaired.py's protocol with the repo's NIQE):
+    restore every image under ``--lq_dir`` (or ``--input``) through
+    ``cli/infer.py`` ``make_restore_fn`` on the model's device, score the
+    NIQE of each output and of each input on the host with the pristine
+    parameters of ``--niqe_params`` (``eval/niqe.py``), print their means
+    and write ``results.json`` with ``unpaired.n``, ``niqe`` and
+    ``niqe_input``; ``--save_images DIR`` writes the outputs."""
+    from image_restoration_tpu_torch.cli.infer import (
+        list_images, load_image, make_restore_fn, save_image,
+    )
+    from image_restoration_tpu_torch.eval.niqe import calculate_niqe
+
+    src = cfg.get("lq_dir") or cfg.get("input")
+    if not src:
+        raise SystemExit("--unpaired needs --lq_dir (folder of inputs)")
+    restore = make_restore_fn(cfg, model)
+    out_dir = cfg.get("output_dir", "results")
+    os.makedirs(out_dir, exist_ok=True)
+    niqe_in, niqe_out = [], []
+    for p in list_images(src):
+        img = load_image(p)
+        res = restore(img)
+        niqe_in.append(calculate_niqe(img, params_path=cfg.get("niqe_params")))
+        niqe_out.append(calculate_niqe(res,
+                                       params_path=cfg.get("niqe_params")))
+        if cfg.get("save_images"):
+            save_image(os.path.join(cfg["save_images"], os.path.basename(p)),
+                       res)
+    results = {"unpaired": {"n": len(niqe_out),
+                            "niqe": float(np.mean(niqe_out)),
+                            "niqe_input": float(np.mean(niqe_in))}}
+    print(f"unpaired: NIQE {results['unpaired']['niqe']:.4f} "
+          f"(input {results['unpaired']['niqe_input']:.4f}) | "
+          f"{len(niqe_out)} images")
+    with open(os.path.join(out_dir, "results.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    return results
+
+
 def main(argv=None):
-    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.cli.train import (
+        build_model, refuse_layers,
+    )
     from image_restoration_tpu_torch.eval.benchmarks import (
         MODE_TO_BENCHMARKS, run_benchmark,
     )
     from image_restoration_tpu_torch.utils.options import parse_options
 
     cfg = parse_options(argv)
-    if cfg.get("unpaired"):
-        raise NotImplementedError(
-            "--unpaired scores NIQE, which comes with eval/niqe.py in "
-            "ROADMAP Queue 1 item 6")
+    refuse_layers(cfg)
     model = load_params(cfg, build_model(cfg))
+    if cfg.get("unpaired"):
+        return run_unpaired(cfg, model)
     device = next(model.parameters()).device
     fn = make_eval_fn(model)
 

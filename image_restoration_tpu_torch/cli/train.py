@@ -26,8 +26,12 @@ the noise drawn each step from ``step_generator(seed, step, device, 1)``
 (the JAX loop's ``fold_in(fold_in(rng, step), 1)``). What does not train
 raises: MEASNet, IPT, EDT, FPN-Restormer and MyModel, which the JAX CLI
 cannot train either (it keeps no ``batch_stats``; they train at model
-level, ``model(x, train=True)``), and ``--mesh`` (multi-GPU, ROADMAP Queue
-1 item 6). RectiFormer, which has no BatchNorm, trains here as in JAX.
+level, ``model(x, train=True)``), HiLo, an attention layer that no CLI
+serves or trains (:data:`LAYER_MODELS`), and ``--mesh`` (multi-GPU,
+ROADMAP Queue 1 item 6). RectiFormer, which has no BatchNorm, trains here
+as in JAX, and so do SFSNiD (``train=False``: the default recipe's L1 on
+its full-size output, as the JAX CLI applies it) and PINN (the
+reference's loss is ``--loss mse=1.0 grad_smooth=1.0``).
 ``--recipe darkir`` supervises DarkIR's side head (``side_loss=True``);
 ``--recipe transweather`` adds the VGG16 perceptual term, from
 ``--vgg_ckpt`` or a random init; ``--recipe hogformer`` is HOGformer's
@@ -268,7 +272,27 @@ def freeze_prefixes(cfg) -> tuple:
     return frozen
 
 
+# Registry names that are layers, not image models: no CLI serves, scores
+# or trains them (the JAX CLIs cannot either); they run at model level.
+LAYER_MODELS = {
+    "hilo": "HiLo maps its input to dim channels: it is an attention layer, "
+            "not an image model, and the JAX CLIs cannot serve or train it "
+            "either; call it at model level, get_model('hilo', dim=96, "
+            "in_dim=C)(x) on a (B, C, H, W) map whose sides are multiples "
+            "of window_size",
+}
+
+
+def refuse_layers(cfg):
+    """Raise for a registry name of :data:`LAYER_MODELS`, naming the
+    model-level call."""
+    name = str(cfg.get("model", "")).lower()
+    if name in LAYER_MODELS:
+        raise NotImplementedError(f"{name}: {LAYER_MODELS[name]}")
+
+
 def _refuse_unported(cfg):
+    refuse_layers(cfg)
     if cfg.get("mesh"):
         raise NotImplementedError("--mesh: multi-GPU training "
                                   "(torch.distributed/DDP) is ROADMAP Queue "

@@ -30,13 +30,16 @@ def lecun_normal_(weight, bias=None, fan_in=None):
     truncated at two standard deviations, rescaled to std 1/sqrt(fan_in),
     from the global torch RNG; zeroes ``bias``. ``fan_in`` defaults to the
     elements of one output row ((in / groups) x kh x kw for a conv, the
-    input features for a dense layer)."""
-    n = weight[0].numel() if fan_in is None else fan_in
-    std = n ** -0.5 / _TRUNC_STD
+    input features for a dense layer). An empty weight (a layer of no
+    units, SFSNiD's SE layers below 16 channels) draws nothing."""
     with torch.no_grad():
-        nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std)
         if bias is not None:
             bias.zero_()
+        if weight.numel() == 0:
+            return
+        n = weight[0].numel() if fan_in is None else fan_in
+        std = n ** -0.5 / _TRUNC_STD
+        nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std)
 
 
 def gelu_exact(x):
@@ -114,19 +117,37 @@ def layer_scale_init(value: float):
     return init
 
 
-def _reflect_pad_after(x, pad: int, dim: int):
-    """Reflect-pad ``pad`` entries after the end of ``dim`` (-1 or -2) of an
-    NCHW tensor, any ``pad``: ``F.pad`` takes less than the side at a time,
-    so the pad grows in steps, each reflecting what is there, which gives
-    the periodic reflection ``numpy.pad`` and ``jnp.pad`` give. A side of 1
-    has nothing to reflect and repeats its one entry, as they do."""
+def _reflect_side(x, pad: int, dim: int, before: bool, n: int):
+    """Reflect-pad ``pad`` entries before or after ``dim`` (-1 or -2) of an
+    NCHW tensor whose unpadded side was ``n``. ``F.pad`` takes less than
+    the current side at a time, so the pad grows in steps, each reflecting
+    what is there about the current edge. The reflection of a side of n is
+    periodic, with an axis of symmetry every n - 1 entries, and a step
+    keeps the next edge on such an axis: every step but the last is a
+    multiple of n - 1. A side of 1 has nothing to reflect and repeats its
+    one entry, as numpy and JAX do."""
     while pad > 0:
-        n = x.shape[dim]
-        step = pad if n == 1 else min(pad, n - 1)
-        widths = (0, step, 0, 0) if dim == -1 else (0, 0, 0, step)
+        cur = x.shape[dim]
+        step = pad if n == 1 else min(pad, (cur - 1) // (n - 1) * (n - 1))
+        pair = (step, 0) if before else (0, step)
+        widths = pair + (0, 0) if dim == -1 else (0, 0) + pair
         x = F.pad(x, widths, mode="replicate" if n == 1 else "reflect")
         pad -= step
     return x
+
+
+def reflect_pad(x, pads: Sequence[int]):
+    """``jnp.pad(mode="reflect")`` of the H and W of an NCHW tensor, with
+    ``pads`` (left, right, top, bottom) in ``F.pad``'s order: the edge entry
+    is not repeated, and a pad as wide as the side or wider reflects
+    periodically, as numpy and JAX pad, where ``F.pad`` raises (SFSNiD's
+    window and depthwise pads reach past a 2x2 map)."""
+    left, right, top, bottom = pads
+    h, w = x.shape[-2:]
+    x = _reflect_side(x, top, -2, True, h)
+    x = _reflect_side(x, bottom, -2, False, h)
+    x = _reflect_side(x, left, -1, True, w)
+    return _reflect_side(x, right, -1, False, w)
 
 
 def pad_to_multiple(x, multiple: int, mode: str = "reflect"):
@@ -134,12 +155,12 @@ def pad_to_multiple(x, multiple: int, mode: str = "reflect"):
 
     Returns (padded, (H, W)). Reflect padding matches numpy/JAX ``reflect``
     (the edge pixel is not repeated) for every pad width, also one that is
-    not smaller than the side.
+    not smaller than the side (:func:`reflect_pad`).
     """
     h, w = x.shape[-2:]
     ph, pw = (-h) % multiple, (-w) % multiple
     if mode == "reflect":
-        x = _reflect_pad_after(_reflect_pad_after(x, ph, -2), pw, -1)
+        x = reflect_pad(x, (0, pw, 0, ph))
     elif ph or pw:
         x = F.pad(x, (0, pw, 0, ph), mode=mode)
     return x, (h, w)

@@ -99,6 +99,13 @@ MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "rectiformer": dict(),
     "fpn_restormer": dict(),
     "mymodel": dict(),
+    # SFSNiD, HiLo and PINN (JAX utils/options.py:72-74): plain torch, as
+    # plain XLA in JAX. SFSNiD takes sides that are multiples of 4 (the
+    # default --pad_multiple 8 gives them); HiLo maps its input to dim
+    # channels, an attention layer the CLIs refuse (model level only)
+    "sfsnid": dict(),
+    "hilo": dict(dim=96),
+    "pinn": dict(),
 }
 
 # Per-model defaults of top-level options. NeRD-Rain's quarter-scale
@@ -150,7 +157,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fps", type=int, default=24,
                    help="output frame rate when re-encoding video")
     p.add_argument("--unpaired", action="store_true",
-                   help="no-GT eval: restore --lq_dir and report NIQE")
+                   help="no-GT eval: restore --lq_dir and report NIQE "
+                        "(DarkIR testing_unpaired.py analog)")
+    p.add_argument("--niqe_params", type=str, default=None,
+                   help="niqe_pris_params.npz path (BasicSR's official "
+                        "file, which the repo does not ship; --unpaired "
+                        "needs it)")
     return p
 
 

@@ -250,9 +250,11 @@ def routing_gaps(model):
 
 def train_step_pair(jnet, tnet, params, batch, recipe, apply_kwargs=None,
                     recipe_kwargs=None, port_recipe_kwargs=None,
-                    key_map=None, freeze=()):
+                    key_map=None, freeze=(), loss=None):
     """One SGD step (lr 0.1, momentum 0.9: the trace after one step is the
     gradient) of the JAX ``make_train_step`` and the port's on ``batch``
+    (with the loss terms ``loss``, e.g. ``{"mse": 1.0}``, when given; the
+    trainers' default L1 otherwise)
     (numpy, JAX layout; 4-d arrays go to the port as NCHW) from
     ``params``, which ``tnet`` holds already. Checks the logged terms at
     rtol 1e-4, atol 1e-5, every gradient at atol 1e-5 x the model's
@@ -266,6 +268,8 @@ def train_step_pair(jnet, tnet, params, batch, recipe, apply_kwargs=None,
 
     kw = dict(learning_rate=0.1, optimizer="sgd", recipe=recipe,
               apply_kwargs=apply_kwargs or {}, freeze_prefixes=tuple(freeze))
+    if loss is not None:
+        kw["loss"] = dict(loss)
     jcfg = JT.TrainerConfig(**kw, recipe_kwargs=recipe_kwargs or {})
     tcfg = TT.TrainerConfig(**kw, recipe_kwargs=port_recipe_kwargs or {})
     jtx, ttx = JT.make_optimizer(jcfg), TT.make_optimizer(tcfg)

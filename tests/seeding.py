@@ -84,3 +84,21 @@ def seed_branches(model, seed, x):
                 w.copy_(torch.randn(w.shape, generator=gen) * m.hidden ** -0.5)
     moe = getattr(type(model), "uses_moe_rng", False)
     calibrate_batchnorms(model, x, **({"generator": gen} if moe else {}))
+
+
+def write_niqe_params(path, seed=0):
+    """Synthetic NIQE pristine parameters at ``path`` (an ``.npz`` of the
+    official file's keys; the repo ships none): ``mu_pris_param`` a seeded
+    36-vector, ``cov_pris_param`` a seeded 36x36 symmetric positive
+    definite matrix, ``gaussian_window`` the 7x7 MATLAB window. Returns
+    ``path``."""
+    import numpy as np
+
+    from image_restoration_tpu_torch.eval.niqe import matlab_gaussian_window
+
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((36, 36))
+    np.savez(path, mu_pris_param=rng.standard_normal(36),
+             cov_pris_param=a @ a.T / 36 + np.eye(36),
+             gaussian_window=matlab_gaussian_window())
+    return path

@@ -205,14 +205,57 @@ def test_registry_matches_jax():
 
 
 def test_cli_test_refuses_niqe_and_lpips(tree):
-    """NIQE (``--unpaired``) is not ported and raises; ``--lpips_ckpt``
-    scores LPIPS (tests/test_torch_perceptual.py), and a checkpoint that is
-    not there is an error, not a missing column."""
+    """``--unpaired`` scores NIQE (``test_cli_unpaired_matches_jax``) and
+    refuses to run without the pristine parameters, naming
+    ``--niqe_params`` (the repo ships none); ``--lpips_ckpt`` scores LPIPS
+    (tests/test_torch_perceptual.py), and a checkpoint that is not there
+    is an error, not a missing column."""
     args = TINY + ["--device", "cpu", "--ckpt", tree["ckpt"]]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        port_test.main(args + ["--unpaired"])
+    src = os.path.join(tree["data"], "deraining/Rain100L/input")
+    with pytest.raises(FileNotFoundError, match="niqe_params"):
+        port_test.main(args + ["--unpaired", "--lq_dir", src, "--output_dir",
+                               str(tree["root"] / "unpaired_none")])
     with pytest.raises(FileNotFoundError):
         port_test.main(args + ["--lpips_ckpt", str(tree["root"] / "no.pth")])
+
+
+def test_cli_unpaired_matches_jax(tree):
+    """Both CLIs' ``--unpaired`` on one PIL-written folder of two 192x192
+    images with synthetic pristine parameters (``tests/seeding.py``
+    ``write_niqe_params``, through ``--niqe_params``): the same
+    ``results.json`` keys, the inputs' NIQE equal exactly (the same numpy
+    images through the same host metric), the outputs' within 1e-3
+    relative: the two restorations differ by ~1e-6, and NIQE's AGGD fit
+    picks from a table with a step of 0.001 (tests/test_torch_niqe_fid.py
+    ``test_niqe_table_step``)."""
+    from seeding import write_niqe_params
+
+    rng = np.random.default_rng(13)
+    src = tree["root"] / "unpaired_in"
+    yy, xx = np.mgrid[0:192, 0:192] / 192.0
+    for i in range(2):
+        img = 0.5 + 0.3 * np.sin(5 * xx + 3 * yy + i)[..., None] + \
+            0.08 * rng.standard_normal((192, 192, 3))
+        _save(str(src / f"{i}.png"), np.clip(img * 255, 0, 255))
+    pris = write_niqe_params(str(tree["root"] / "pris.npz"), seed=4)
+    res = {}
+    for name, main, dev in (("jax", jax_test.main, []),
+                            ("port", port_test.main, ["--device", "cpu"])):
+        od = str(tree["root"] / f"unpaired_{name}")
+        got = main(TINY + dev + ["--ckpt", tree["ckpt"], "--unpaired",
+                                 "--lq_dir", str(src), "--niqe_params", pris,
+                                 "--output_dir", od])
+        with open(os.path.join(od, "results.json")) as f:
+            res[name] = json.load(f)
+        assert res[name] == got
+    assert set(res["port"]["unpaired"]) == set(res["jax"]["unpaired"]) == {
+        "n", "niqe", "niqe_input"}
+    assert res["port"]["unpaired"]["n"] == res["jax"]["unpaired"]["n"] == 2
+    assert res["port"]["unpaired"]["niqe_input"] == \
+        res["jax"]["unpaired"]["niqe_input"]
+    np.testing.assert_allclose(res["port"]["unpaired"]["niqe"],
+                               res["jax"]["unpaired"]["niqe"], rtol=1e-3)
+    assert parse_options(["--niqe_params", pris])["niqe_params"] == pris
 
 
 @pytest.mark.parametrize("tile", [None, 16], ids=["padded", "tiled"])

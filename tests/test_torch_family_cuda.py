@@ -79,6 +79,15 @@ oracle's max magnitude is below max(3 x the plain bf16 version's, 4e-3).
   loss of ``model(x)`` (FPN-Restormer and MyModel with ``train=True``,
   MyModel's routing noise from a device generator) gives finite
   gradients, every parameter one.
+- PINN (kernel-free) at its ``MODEL_DEFAULTS`` on a 64x64 image: the
+  same two rules. SFSNiD's fp32 runs part at the angle's branch cut (its
+  spectrum blocks add a conv branch to ``angle(rfft2)``, which jumps by
+  2 pi across the negative real axis, where rounding puts a coefficient
+  on either side: ``tools/sfsnid_branch_cut.py``), so its card forward is
+  held to the CPU's after its first two encoder stages, where no
+  coefficient has crossed, and one of its blocks on a 17x13 map. Both, in
+  bf16 on the card, give finite outputs and finite gradients, every
+  parameter one (SFSNiD's three deep-supervision outputs).
 """
 
 import numpy as np
@@ -566,6 +575,114 @@ def test_branch_models_gradients_finite_on_the_card(cuda, name):
     out = m16(x, **kw)
     out = out[0] if isinstance(out, tuple) else out
     loss = (out - x).abs().mean()
+    loss.backward()
+    assert torch.isfinite(loss)
+    for key, p in m16.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), key
+
+
+DEMO_MODELS = ["sfsnid", "pinn"]
+
+
+def _demo_pair(name):
+    """(fp32 model, bf16 model with its weights, 64x64 input) on the CPU:
+    the seeded init at ``MODEL_DEFAULTS``."""
+    x = torch.rand((1, 3, 64, 64), generator=torch.Generator().manual_seed(
+        17))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(18)
+        m32 = get_model(name, **MODEL_DEFAULTS[name]).eval()
+    m16 = get_model(name, **MODEL_DEFAULTS[name],
+                    dtype=torch.bfloat16).eval()
+    m16.load_state_dict(m32.state_dict())
+    return m32, m16, x
+
+
+@pytest.mark.cuda
+def test_pinn_card_against_cpu(cuda):
+    """PINN's card fp32 forward within 1e-5 relative L2 of the CPU's, its
+    bf16 forward against its fp32 one within 3x the CPU bf16 forward's
+    error."""
+    m32, m16, x = _demo_pair("pinn")
+    with torch.inference_mode(), torch.backends.mkldnn.flags(enabled=False):
+        want, cpu16 = m32(x), m16(x)
+    with torch.inference_mode():
+        got32 = m32.to(cuda)(x.to(cuda))
+        got16 = m16.to(cuda)(x.to(cuda))
+    assert got32.shape == want.shape and got16.dtype == torch.float32
+    e32, e16, ecpu = (_rel_l2(got32, want), _rel_l2(got16, got32),
+                      _rel_l2(cpu16, want))
+    assert e32 <= 1e-5, e32
+    assert e16 <= 3 * ecpu, (e16, ecpu)
+
+
+@pytest.mark.cuda
+def test_sfsnid_encoder_card_against_cpu(cuda):
+    """SFSNiD at ``MODEL_DEFAULTS`` (chip_smoke.py phase 3q's seed-0 init
+    and 64x64 input): the output of its second encoder stage (the SCM and
+    the first two stages' six blocks before it) on the card within 1e-5
+    relative L2 of the CPU's, fp32, TF32 off. Later stages part at the
+    angle's branch cut (``tools/sfsnid_branch_cut.py``)."""
+    import copy
+
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.utils.options import parse_options
+    from image_restoration_tpu_torch.utils.precision import full_fp32
+
+    cfg = parse_options(["--model", "sfsnid", "--device", "cpu", "--seed",
+                         "0"])
+    m32 = build_model(dict(cfg, bf16=False), device="cpu").eval()
+    x = torch.rand((1, 3, 64, 64),
+                   generator=torch.Generator().manual_seed(3520))
+
+    def encoder(model, a):
+        got = []
+        hook = model.Encoder[1].register_forward_hook(
+            lambda m, i, o: got.append(o))
+        with torch.inference_mode(), full_fp32():
+            model(a)
+        hook.remove()
+        return got[0]
+
+    want = encoder(m32, x)
+    got = encoder(copy.deepcopy(m32).to(cuda), x.to(cuda))
+    assert _rel_l2(got, want) <= 1e-5, _rel_l2(got, want)
+
+
+@pytest.mark.cuda
+def test_sfsnid_block_card_against_cpu(cuda):
+    """One SFSNiD block (64 channels) on a 17x13 map of positive mean, the
+    CPU tests' case: the card's fp32 within 1e-5 relative L2 of the
+    CPU's."""
+    from image_restoration_tpu_torch.models.demo_models import (
+        SFSTransformerBlock,
+    )
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(19)
+        block = SFSTransformerBlock(64).eval()
+    x = 1.0 + torch.randn((2, 64, 17, 13),
+                          generator=torch.Generator().manual_seed(20))
+    with torch.inference_mode():
+        want = block(x)
+        got = block.to(cuda)(x.to(cuda))
+    assert _rel_l2(got, want) <= 1e-5, _rel_l2(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DEMO_MODELS)
+def test_demo_models_finite_on_the_card(cuda, name):
+    """SFSNiD (num_res 3, base 32) and PINN, kernel-free, bf16 on the card:
+    finite outputs of the input's shape, and an L1 loss gives finite
+    gradients, every parameter one (SFSNiD's three deep-supervision
+    outputs with ``train=True``)."""
+    _, m16, x = _demo_pair(name)
+    m16 = m16.to(cuda)
+    xb = torch.cat([x, x.flip(-2)]).to(cuda)
+    out = m16(xb, train=True) if name == "sfsnid" else [m16(xb)]
+    assert out[-1].shape == xb.shape
+    loss = sum((o - torch.nn.functional.interpolate(xb, o.shape[-2:]))
+               .abs().mean() for o in out)
     loss.backward()
     assert torch.isfinite(loss)
     for key, p in m16.named_parameters():

@@ -143,7 +143,9 @@ def test_port_never_imports_jax():
         "          'ops.gla', 'models.vig', 'models.vig_h',\n"
         "          'models.lsnet_dense', 'models.adaptir_ipt',\n"
         "          'models.adaptir_edt', 'models.rectiformer',\n"
-        "          'models.fpn_restormer', 'models.mymodel'):\n"
+        "          'models.fpn_restormer', 'models.mymodel',\n"
+        "          'models.demo_models', 'ops.freq_moe',\n"
+        "          'ops.fusion_blocks', 'eval.niqe', 'eval.fid'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
         "print(len(names))\n")
@@ -158,7 +160,7 @@ def test_port_never_imports_jax():
                                   ["--mefc", "4", "2"],
                                   ["--ska", "2", "4", "--ring", "2"],
                                   ["--phases", "3o", "3f 3o", "5a", "3p",
-                                   "3f 3p", "4p"]],
+                                   "3f 3p", "4p", "3q", "3f 3q", "4q"]],
                          ids=["full", "tail", "front", "msfn", "mefc", "ska",
                               "phases"])
 def test_chip_smoke_refuses_without_cuda(tmp_path, args):

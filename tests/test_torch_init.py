@@ -108,6 +108,9 @@ MODELS = {
     "mymodel": (dict(dim=16, levels=2, heads=(1, 2), num_blocks=(1, 1),
                      num_dec_blocks=(1,), stage_depth=(1,)),
                 (1, 32, 32, 3)),
+    "sfsnid": (dict(num_res=1, base_channel=16), (1, 32, 32, 3)),
+    "hilo": (dict(dim=16, num_heads=4), (1, 8, 8, 16)),
+    "pinn": (dict(), (1, 16, 16, 3)),
 }
 
 

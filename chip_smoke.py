@@ -58,8 +58,9 @@ top-2, aux weight 0.01, lr 1e-3, 2500 steps: the run behind
 ``LEARN_moce_ir_r05.json``), its balance loss's curve beside the others.
 The tenth runs the build, the kernel checks (phases 2-2h) and then only
 the named phases of the ones that follow them (``PHASES``: 3, 3j, 3l,
-3m, 3n, 3o, 3f, "3f family", "3f 3l", "3f 3o", 4, 4m, 4f, 4n, 5, 5v,
-5a), so that a family's phases run on the card without the whole run.
+3m, 3n, 3o, 3p, 3q, 3f, "3f family", "3f 3l", "3f 3o", "3f 3p", "3f 3q",
+4, 4m, 4f, 4n, 4p, 4q, 5, 5v, 5a, 6, 6m, 6d), so that a family's phases
+run on the card without the whole run.
 None of them prints a result line.
 
 Phases, any failure ends the run with a nonzero exit code:
@@ -234,11 +235,11 @@ Phases, any failure ends the run with a nonzero exit code:
    ``cli/train.py`` ``main`` with Restormer-base's port defaults in bf16
    (``fused_block``), batch 8 of 128x128 patches, the five default tasks,
    ``--warmup_epochs 0 --ema_decay 0.999 --lr 2e-4`` (the JAX CLI's lr),
-   30 steps, validation and saves every 10: 44 K1 + 44 K2 launches a
-   forward (the 30 steps' and the 6 validation forwards'), every logged
+   20 steps, validation and saves every 10: 44 K1 + 44 K2 launches a
+   forward (the 20 steps' and the 4 validation forwards'), every logged
    loss finite, the mean of the last five below the first, the
-   checkpoints and ``best`` written; ``--resume`` continues from step 30
-   to 33; ``cli/test.py --ckpt`` scores the final checkpoint on phase
+   checkpoints and ``best`` written; ``--resume`` continues from step 20
+   to 23; ``cli/test.py --ckpt`` scores the final checkpoint on phase
    3f's synthetic tree with a finite PSNR. Gradient rule: on a batch of 2
    at 128x128, the relative L2 error of all parameter gradients of the
    kernel bf16 model against the plain fp32 model within 3x the plain
@@ -247,8 +248,8 @@ Phases, any failure ends the run with a nonzero exit code:
    host syncs of a step that does not log, step ms by CUDA events
    (median of 10 after three warm-up steps), images/s and peak memory,
    for the kernel model and the plain bf16 model. Then DRSformer the same
-   way (its port defaults, ``fused_block``): 12 steps on the same tree,
-   validation and saves every 6: 40 K1 + 40 K7 + 8 K8 launches a forward
+   way (its port defaults, ``fused_block``): 6 steps on the same tree,
+   validation and saves every 3: 40 K1 + 40 K7 + 8 K8 launches a forward
    (the steps' and the validation's), none in a backward, no K2; finite
    losses; the L1 loss on a fixed batch lower with the final
    checkpoint's parameters than with the initial model's; ``cli/test.py
@@ -264,8 +265,8 @@ Phases, any failure ends the run with a nonzero exit code:
    defaults (dim 48, blocks 4/6/6/8, decoder 2/4/4, 4 refinement, top-1
    of 4 experts, ``rank_type="spread"``, the complexity bias,
    ``fused_block``) in bf16 on phase 4's tree, batch 8 of 128x128,
-   ``--aux_loss_weight`` 0.01 (the CLI's default), 12 steps, validation
-   and saves every 6: noisy top-k routing from each step's generator, 28
+   ``--aux_loss_weight`` 0.01 (the CLI's default), 6 steps, validation
+   and saves every 3: noisy top-k routing from each step's generator, 28
    K1 + 28 K2 launches a forward (the steps' and the validation's), the
    balance loss logged and finite at every step, the L1 loss on a fixed
    batch lower with the final checkpoint's parameters than with the
@@ -280,8 +281,8 @@ Phases, any failure ends the run with a nonzero exit code:
 4f. DarkIR-m (``--recipe darkir``: the side head's EnhanceLoss) and
    TransWeather (``--recipe transweather`` with a seeded torchvision-layout
    VGG16 ``.pth`` as ``--vgg_ckpt``) train through ``cli/train.py``
-   ``main`` in bf16 on phase 4's tree, batch 8 of 128x128, 12 steps,
-   validation and saves every 6: no kernel launch, every logged loss term
+   ``main`` in bf16 on phase 4's tree, batch 8 of 128x128, 8 steps,
+   validation and saves every 4: no kernel launch, every logged loss term
    finite (the enhance and perceptual terms too), the L1 loss on a fixed
    batch lower with the final checkpoint's parameters than with the
    initial model's, ``cli/test.py --ckpt`` scoring the final checkpoint
@@ -355,6 +356,25 @@ Phases, any failure ends the run with a nonzero exit code:
    loss below the first, no kernel launch; step ms, images/s, peak
    memory, the bf16 gradients' relative L2 against fp32. ``cli/train.py``
    refuses both, as the JAX CLI cannot train them.
+6. ``--mesh`` training: ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1 -m image_restoration_tpu_torch.cli.train --mesh 1``
+   (``IR_TPU_MULTIHOST=1``, NCCL) trains Restormer-base at its port
+   defaults for MESH_STEPS steps on phase 4's tree; its logged losses and
+   final parameters equal the same steps of ``main`` in this process; then
+   the sharded step on a one-rank NCCL mesh timed against the one-process
+   step (CUDA events, in turns) with its launches (44 + 44).
+6m. Two gloo ranks share the card (``parallel/dryrun.py``): which
+   collectives gloo runs on CUDA tensors; MoCE-IR's full-width step at
+   batch 8 x 128x128 split over a (2, 1) data x expert mesh, held to one
+   process by the 3x rule, 28 + 28 launches a rank; Restormer-base's
+   halo forward of a 640x512 image in two strips with the 312-row halo,
+   the interior within 3x the unsharded bf16 forward's own error and a
+   16-row halo missing that bound, 44 + 44 launches a strip.
+6d. LSNet-B distils LSNet-B (``train/distill.py``, ``freeze_ratio`` 0.5,
+   both on K9) at batch 32 x 224x224: 18 K9 and 9 + 9 K9b launches a
+   step, frozen parameters unchanged; the student exported
+   (``torch.export``, 9 ``ir_torch::ska`` nodes) and reloaded, equal to
+   the live student and launching K9.
 Each phase's seconds are printed.
 Each serving phase sets the launch counts to 0 just before its forwards
 and reads them just after; the kernels line's ``launches_by_path`` lists
@@ -379,7 +399,10 @@ classification steps as ``cls_train``, phases 3m, 3n and 5v's (zeros)
 as ``vig``, ``vig_h``, ``retinanet_lsnet``, ``semanticfpn_lsnet`` and
 ``train_`` each of them, and phases 3o, "3f 3o" and 5a's (zeros) as
 ``ipt``, ``edt``, ``ipt_edt_model_level``, ``eval_ipt``, ``eval_edt``,
-``train_ipt`` and ``train_edt``. Each kernel's row keeps the
+``train_ipt`` and ``train_edt``, and phases 6, 6m and 6d's as
+``mesh_train`` (a sharded step), ``mesh_moce`` (both ranks' sharded
+steps), ``halo`` (both strips' forwards) and ``distill`` (the
+distillation steps). Each kernel's row keeps the
 serving path's per-forward sums; its ``by_path`` holds those of the other
 paths that phase 2 checks it at (K1/K2: MEASNet's, NeRD-Rain's,
 MoCE-IR's, a training step's and MoCE-IR's training step's
@@ -492,15 +515,15 @@ BACKWARD_SHAPES = [(16, 16, 384, 8), (128, 128, 48, 1)]
 # Phase 4's run of cli/train.py: steps, validation and save period, the
 # learning rate (the JAX CLI's default), the steps after the resume, the
 # synthetic tree's images a task (256x256) and validation pairs.
-TRAIN_STEPS, TRAIN_EVERY, TRAIN_LR, RESUME_STEPS = 30, 10, 2e-4, 3
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_LR, RESUME_STEPS = 20, 10, 2e-4, 3
 TRAIN_IMAGES, VAL_IMAGES = 4, 2
 # DRSformer's run in phase 4: steps, and the validation and save period.
-DRS_TRAIN_STEPS, DRS_TRAIN_EVERY = 12, 6
+DRS_TRAIN_STEPS, DRS_TRAIN_EVERY = 6, 3
 # Phase 4m: MoCE-IR's run (steps, validation and save period), its
 # training forward's K1/K2 shapes (batch 8 of 128x128: MOCE_LEVELS at a
 # quarter of the 512x512 side), and the steps of the MoCE family's three
 # kernel-free models.
-MOCE_TRAIN_STEPS, MOCE_TRAIN_EVERY = 12, 6
+MOCE_TRAIN_STEPS, MOCE_TRAIN_EVERY = 6, 3
 MOCE_TRAIN_LEVELS = [(h * TRAIN_PATCH // 512, w * TRAIN_PATCH // 512, c,
                       heads, n) for h, w, c, heads, n in MOCE_LEVELS]
 FAMILY_TRAIN_STEPS = 3
@@ -528,7 +551,7 @@ SR_EVAL_SIZES = [(256, 256), (176, 144)]
 RAINDROP_SIZE, LOL_SIZE = (480, 720), (400, 600)
 # Phase 4f: DarkIR's and TransWeather's runs (steps, validation and save
 # period).
-FAMILY_TRAIN_STEPS_4F, FAMILY_TRAIN_EVERY = 12, 6
+FAMILY_TRAIN_STEPS_4F, FAMILY_TRAIN_EVERY = 6, 3
 # Phases 3l, 3f 3l and 4n: HOGformer (JAX utils/options.py:51: dim 36,
 # blocks 4/4/6/8, heads 1/2/4/8), SFHformer and MWFormer (their field
 # defaults) served at 512x512, scored on a Rain100L-shaped tree (321x481)
@@ -573,7 +596,7 @@ CARD_CPU_GLA = 1e-5
 # named ones.
 PHASES = ("3", "3j", "3l", "3m", "3n", "3o", "3p", "3q", "3f",
           "3f family", "3f 3l", "3f 3o", "3f 3p", "3f 3q", "4", "4m", "4f",
-          "4n", "4p", "4q", "5", "5v", "5a")
+          "4n", "4p", "4q", "5", "5v", "5a", "6", "6m", "6d")
 # Phases 3o, "3f 3o" and 5a: IPT (its field defaults: n_feats 64, task 5,
 # x1) served in 48x48 windows (--tile 48: 121 at 512x512, one batch) and
 # EDT (embed 180, denoise_30) padded to multiples of 96 (576x576), the
@@ -3347,6 +3370,11 @@ def _no_kernels():
           "a plain model launched a kernel")
 
 
+# The step ms of phase 4's timings in this run, by "label tag", for
+# phase 6 to print beside its own.
+STEP_MS = {}
+
+
 def _train_step_times(gpu, cfg, profile_dir, counters, per_forward,
                       label="Restormer-base", warmup=3, reps=10):
     """Step ms by CUDA events (median of ``reps`` after ``warmup`` warm-up
@@ -3400,6 +3428,7 @@ def _train_step_times(gpu, cfg, profile_dir, counters, per_forward,
             end.synchronize()
             times.append(start.elapsed_time(end))
         ms = statistics.median(times)
+        STEP_MS[f"{label} {tag}"] = ms
         peak = torch.cuda.max_memory_allocated() / 2**30
         if tag == "kernel":
             for fn in counters.values():
@@ -5860,6 +5889,469 @@ def phase_serve_slices(gpu, profile_dir=None):
     return by_path
 
 
+# Phase 6: Restormer-base (MODEL_DEFAULTS, the kernel pair, bf16) trains
+# MESH_STEPS steps of batch TRAIN_BATCH x TRAIN_PATCH^2 through
+# cli/train.py --mesh 1 under torch.distributed.run (NCCL), against the same
+# steps in this process; its step is timed (CUDA events, MESH_REPS after
+# MESH_WARMUP) against the one-process step. Phase 6m: two ranks share the
+# card over gloo: MoCE-IR (MODEL_DEFAULTS) at batch TRAIN_BATCH x
+# TRAIN_PATCH^2 on a (2, 1) data x expert mesh, and Restormer-base's halo
+# forward of a HALO_IMAGE image in 2 strips (halo suggest_halo((4, 6, 6,
+# 8), 4, align=8) = 312, so strips of 512 + 2 x 312 rows and an interior
+# of 1024 - 2 x 312 rows; HALO_SMALL must miss the bound). Phase 6d: LSNet-B
+# distils an LSNet-B student (freeze_ratio 0.5) for DISTILL_STEPS steps of
+# DISTILL_BATCH x 224^2, both on K9, then exports and reloads it.
+MESH_STEPS, MESH_WARMUP, MESH_REPS = 3, 1, 3
+HALO_IMAGE, HALO_STRIPS, HALO_SMALL = (1024, 512), 2, 16
+DISTILL_STEPS, DISTILL_BATCH, DISTILL_LR = 2, 32, 1e-4
+
+
+def restormer_levels(h, w):
+    """Restormer-base's block shapes (LEVELS) at an h x w input."""
+    return [(h * lh // 512, w * lw // 512, c, heads, n)
+            for lh, lw, c, heads, n in LEVELS]
+
+
+def halo_geometry():
+    """Phase 6m's halo forward: (halo, rows a strip, padded strip rows)
+    of Restormer-base (MODEL_DEFAULTS) on a HALO_IMAGE image."""
+    from image_restoration_tpu_torch.parallel.halo import suggest_halo
+    from image_restoration_tpu_torch.utils.options import MODEL_DEFAULTS
+
+    rest = MODEL_DEFAULTS["restormer"]
+    halo = suggest_halo(tuple(rest["num_blocks"]),
+                        rest["num_refinement_blocks"], align=8)
+    strip = HALO_IMAGE[0] // HALO_STRIPS
+    return halo, strip, strip + 2 * halo
+
+
+def _release_cached_memory():
+    """The earlier phases leave the caching allocator holding most of the
+    card; ranks and subprocesses of phases 6 and 6m share it, so this
+    process gives its cached blocks back first (without it a 6m rank ran
+    out of the card's memory)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"this process holds {torch.cuda.memory_reserved() / 2**30:.3f} "
+          f"GiB of the card", flush=True)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_step_times(gpu, cfg):
+    """CUDA-event step ms of the sharded step on a one-rank NCCL mesh and
+    of the one-process step, in turns (mesh, one, one, mesh), on one batch,
+    beside the host-clock ms of each step call and phase 4's step in this
+    run; the launches of one mesh step (44 + 44 in its forward)."""
+    import torch
+    import torch.distributed as dist
+
+    from image_restoration_tpu_torch.cli.train import build_model
+    from image_restoration_tpu_torch.core.mesh import make_mesh
+    from image_restoration_tpu_torch.kernels import block as K
+    from image_restoration_tpu_torch.train.trainer import (
+        TrainerConfig, TrainState, make_optimizer, make_train_step,
+    )
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        gen = torch.Generator(device="cuda").manual_seed(2400)
+        shape = (TRAIN_BATCH, 3, TRAIN_PATCH, TRAIN_PATCH)
+        gt = torch.rand(shape, generator=gen, device="cuda")
+        batch = {"gt": gt, "lq": (gt + 0.1 * torch.randn(
+            shape, generator=gen, device="cuda")).clamp(0, 1)}
+        tcfg = TrainerConfig(learning_rate=TRAIN_LR)
+        steps = {}
+        for tag, m in (("mesh", mesh), ("one", None)):
+            model = build_model(cfg).train()
+            tx = make_optimizer(tcfg)
+            state = TrainState.create(model, tx)
+            steps[tag] = (make_train_step(model, tx, tcfg, m), state)
+            for _ in range(MESH_WARMUP):
+                steps[tag][0](state, batch)
+        times = {"mesh": [], "one": []}
+        host = {"mesh": [], "one": []}
+        for tag in ("mesh", "one", "one", "mesh"):
+            step, state = steps[tag]
+            for _ in range(MESH_REPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                step(state, batch)
+                host[tag].append((time.perf_counter() - t0) * 1e3)
+                end.record()
+                end.synchronize()
+                times[tag].append(start.elapsed_time(end))
+        step, state = steps["mesh"]
+        K.block_front.launches = K.block_apply_gdfn.launches = 0
+        step(state, batch)
+        torch.cuda.synchronize()
+        launches = {"block_front": K.block_front.launches,
+                    "block_apply_gdfn": K.block_apply_gdfn.launches}
+    finally:
+        dist.destroy_process_group()
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    hms = {k: statistics.median(v) for k, v in host.items()}
+    p4 = STEP_MS.get("Restormer-base kernel")
+    print(f"mesh train step, Restormer-base bf16 batch {TRAIN_BATCH} x "
+          f"{TRAIN_PATCH}^2 on {gpu}: one-rank NCCL mesh {ms['mesh']:.3f} ms, "
+          f"one process {ms['one']:.3f} ms (CUDA events, medians of "
+          f"{2 * MESH_REPS} in turns mesh/one/one/mesh after {MESH_WARMUP} "
+          f"warm-up steps); phase 4's kernel step in this run "
+          f"{'not run' if p4 is None else f'{p4:.3f} ms'}; host clock of "
+          f"the step call (it reads nothing back, so the call's time near "
+          f"the CUDA events' says the host bounds the step) mesh "
+          f"{hms['mesh']:.3f}, one {hms['one']:.3f} ms; launches of a mesh "
+          f"step {launches}", flush=True)
+    check(launches == dict.fromkeys(launches, BLOCKS_PER_FORWARD),
+          f"6: a mesh step launched {launches}, expected "
+          f"{BLOCKS_PER_FORWARD} each in its forward")
+    return launches
+
+
+def phase_mesh_train(gpu):
+    """Phase 6: ``cli/train.py --mesh 1`` under ``python -m
+    torch.distributed.run --standalone --nproc_per_node 1`` (NCCL,
+    ``IR_TPU_MULTIHOST=1``): Restormer-base at the port defaults (bf16,
+    the kernel pair) on phase 4's seeded tree, MESH_STEPS steps; its logged
+    losses and final checkpoint against the same steps of ``main`` in this
+    process (one loader thread each, so both draw the same crops). Then
+    the sharded step's CUDA-event ms against the one-process step's, and
+    its launches (``_mesh_step_times``). A failed subprocess fails the
+    run. Returns the launches, as ``mesh_train``."""
+    import json
+    import os
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from image_restoration_tpu_torch.cli import train as TR
+    from image_restoration_tpu_torch.utils.options import (
+        build_train_parser, parse_options,
+    )
+
+    _release_cached_memory()
+    with tempfile.TemporaryDirectory(prefix="ir_mesh_") as tmp:
+        data = os.path.join(tmp, "data")
+        _train_tree(data)
+
+        def argv(name):
+            return ["--model", "restormer", "--device", "cuda",
+                    "--data_file_dir", data, "--batch_size", str(TRAIN_BATCH),
+                    "--patch_size", str(TRAIN_PATCH), "--warmup_epochs", "0",
+                    "--lr", str(TRAIN_LR), "--save_every", "0",
+                    "--log_every", "1", "--num_workers", "1",
+                    "--max_steps", str(MESH_STEPS), "--ckpt_dir",
+                    os.path.join(tmp, "exp"), "--name", name]
+
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m",
+               "image_restoration_tpu_torch.cli.train", *argv("mesh"),
+               "--mesh", "1"]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, env={**os.environ, "IR_TPU_MULTIHOST": "1"},
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        tail = "\n".join((run.stdout + run.stderr).splitlines()[-12:])
+        print(f"6: torch.distributed.run ... cli.train --mesh 1: exit "
+              f"{run.returncode} in {wall:.1f} s (process start, build, "
+              f"loading and {MESH_STEPS} steps)\n{tail}", flush=True)
+        check(run.returncode == 0, "6: the --mesh 1 run failed")
+        check("mesh={'data': 1}" in run.stdout, "6: the run built no mesh")
+        cfg = parse_options(argv("one"), build_train_parser())
+        one = TR.main(argv("one"))
+        torch.cuda.synchronize()
+
+        def losses(name):
+            with open(os.path.join(tmp, "exp", name, "metrics.jsonl")) as f:
+                return [json.loads(line)["train/total"] for line in f]
+
+        got, want = losses("mesh"), losses("one")
+        ckpt = torch.load(os.path.join(tmp, "exp", "mesh", "ckpt",
+                                       f"{MESH_STEPS}.pth"),
+                          map_location="cuda", weights_only=False)["params"]
+        ref = one.model.state_dict()
+        init = TR.build_model(cfg).state_dict()
+        moved = sum(float(torch.sum((ref[k].float() - init[k].float()) ** 2))
+                    for k in ref if ref[k].is_floating_point()) ** 0.5
+        diff = sum(float(torch.sum((ckpt[k].float() - ref[k].float()) ** 2))
+                   for k in ref if ref[k].is_floating_point()) ** 0.5
+        print(f"6: losses mesh {[round(v, 6) for v in got]}, one process "
+              f"{[round(v, 6) for v in want]}; final parameters "
+              f"||mesh - one|| = {diff:.3e} against ||one - init|| = "
+              f"{moved:.3e}", flush=True)
+        check(len(got) == len(want) == MESH_STEPS
+              and np.allclose(got, want, rtol=1e-3, atol=0),
+              "6: the mesh run's losses are not the one-process run's")
+        check(diff <= 1e-2 * moved, "6: the mesh run's parameters are not "
+              "the one-process run's (1% of the distance they moved)")
+    return {"mesh_train": _mesh_step_times(gpu, cfg)}
+
+
+# The collectives ProcessGroupGloo runs on CUDA tensors, as the H100
+# machine's torch 2.11 showed (a send of a CUDA tensor hands the device
+# pointer to gloo's TCP transport and breaks the pair): phase 6m's ranks
+# probe them again, and stage only the halo sends through the host.
+GLOO_CUDA_OPS = ("all_reduce", "all_gather")
+
+
+def _probe_gloo_cuda(group):
+    """{op: True where gloo ran it on CUDA tensors over ``group`` and gave
+    the right sum or list, else the error}, for GLOO_CUDA_OPS. Every rank
+    calls it."""
+    import torch
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    out = {}
+    try:
+        t = torch.full((4,), float(r + 1), device="cuda")
+        dist.all_reduce(t, group=group)
+        out["all_reduce"] = bool(torch.all(t == n * (n + 1) / 2))
+    except RuntimeError as e:
+        out["all_reduce"] = str(e).splitlines()[0]
+    try:
+        t = torch.full((3,), float(r + 1), device="cuda")
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        out["all_gather"] = all(bool(torch.all(p == i + 1))
+                                for i, p in enumerate(parts))
+    except RuntimeError as e:
+        out["all_gather"] = str(e).splitlines()[0]
+    return out
+
+
+def _staged_exchange(direct, sends, recvs, group):
+    """``parallel/comm.py`` ``exchange`` (``direct``) of CUDA tensors
+    through pinned host copies, for gloo, which sends no CUDA tensor."""
+    import torch
+
+    bufs = [(t, torch.empty(t.shape, dtype=t.dtype, pin_memory=True), peer)
+            for t, peer in recvs]
+    direct([(t.detach().to("cpu").pin_memory(), peer) for t, peer in sends],
+           [(b, peer) for _, b, peer in bufs], group)
+    for t, b, _ in bufs:
+        t.copy_(b)
+
+
+def gloo_card_rank(rank, n, init_method, checks):
+    """A phase-6m rank: joins the gloo group on the card, probes which
+    collectives gloo runs on CUDA tensors, stages the halo sends through
+    the host, and runs ``parallel/dryrun.py`` ``checks_rank``."""
+    import functools
+
+    import torch.distributed as dist
+
+    from image_restoration_tpu_torch.parallel import comm, dryrun
+
+    dryrun.join_group(rank, n, init_method, "cuda")
+    probe = _probe_gloo_cuda(dist.group.WORLD)
+    comm.exchange = functools.partial(_staged_exchange, comm.exchange)
+    return {"gloo_cuda": probe,
+            **dryrun.checks_rank(rank, n, init_method, checks, "cuda")}
+
+
+def phase_mesh_ranks(gpu):
+    """Phase 6m: two ranks on the one card over gloo (NCCL takes one rank
+    a card), spawned by ``parallel/dryrun.py`` ``spawn_ranks``
+    (``gloo_card_rank``: which collectives gloo runs on CUDA tensors; the
+    halo sends go through pinned host tensors); the dry run's check 1 at
+    MoCE-IR's full width (batch TRAIN_BATCH x TRAIN_PATCH^2, bf16, K1/K2)
+    on a (2, 1) data x expert mesh, so each rank steps on its half of the
+    batch, held to one process by the 3x rule (loss and gradients' distance
+    from the one-process bf16 step within 3x that step's own distance from
+    fp32); check 3 at Restormer-base (bf16, K1/K2, temperatures zeroed):
+    a HALO_IMAGE image in HALO_STRIPS strips with the suggested halo, the
+    interior within 3x the unsharded bf16 forward's own distance from fp32,
+    a halo of HALO_SMALL missing that bound, and the unsharded forward
+    within 3x the plain bf16 forward's distance from fp32. Phase 2 holds
+    K1/K2 at the strips' and the whole image's shapes, and at a rank's
+    batch of TRAIN_BATCH // 2. Returns the ranks' launches (summed), as
+    ``mesh_moce`` and ``halo``."""
+    import tempfile
+
+    import torch
+
+    from image_restoration_tpu_torch.parallel.dryrun import spawn_ranks
+    from image_restoration_tpu_torch.utils.options import MODEL_DEFAULTS
+
+    def defaults(name):
+        return {k: tuple(v) if isinstance(v, list) else v
+                for k, v in MODEL_DEFAULTS[name].items()}
+
+    halo, strip, _ = halo_geometry()
+    checks = [("moce", (2, 1), ("data", "expert"),
+               dict(cfg=defaults("moce_ir"), batch=TRAIN_BATCH,
+                    size=TRAIN_PATCH, dtype=torch.bfloat16)),
+              ("halo", (1, HALO_STRIPS), ("data", "spatial"),
+               dict(cfg=defaults("restormer"), halo=halo, strip=strip,
+                    width=HALO_IMAGE[1], dtype=torch.bfloat16,
+                    bound_halo=HALO_SMALL))]
+    _release_cached_memory()
+    with tempfile.TemporaryDirectory(prefix="ir_ranks_") as tmp:
+        t0 = time.perf_counter()
+        res = spawn_ranks(gloo_card_rank, 2, tmp, 600, threads=4,
+                          checks=checks)
+        wall = time.perf_counter() - t0
+    probe = res[0]["gloo_cuda"]
+    takes = sorted(k for k, v in probe.items() if v is True)
+    print(f"6m: 2 gloo ranks on {gpu} in {wall:.1f} s (spawn included); "
+          f"gloo takes CUDA tensors for {takes} (probe {probe}); halo rows "
+          f"staged through pinned host tensors (gloo sends no CUDA tensor)",
+          flush=True)
+    check(set(GLOO_CUDA_OPS) <= set(takes), f"6m: gloo refused {probe}; "
+          f"the ranks need {GLOO_CUDA_OPS} on CUDA tensors")
+    m, h = res[0]["moce"], res[0]["halo"]
+    print(f"6m moce_ir (2, 1) data x expert, batch {TRAIN_BATCH} x "
+          f"{TRAIN_PATCH}^2 bf16: loss {m['loss']:.6f} vs one process "
+          f"{m['loss_one']:.6f} (fp32 {m['loss_fp32']:.6f}); gradient norm "
+          f"{m['gnorm']:.6f} vs {m['gnorm_one']:.6f}; gradients' relative "
+          f"L2 to one process {m['grad_dist']:.3e} (one-process bf16 vs "
+          f"fp32 {m['grad_dist_fp32']:.3e})", flush=True)
+    print(f"6m halo Restormer-base {HALO_IMAGE[0]}x{HALO_IMAGE[1]} in "
+          f"{HALO_STRIPS} strips of {strip} rows, halo {h['halo']} (padded "
+          f"strips {h['strip_rows']}x{HALO_IMAGE[1]}), bf16: interior rows "
+          f"{h['halo']}..{HALO_IMAGE[0] - h['halo']} max |err| "
+          f"{h['interior_err']:.4e} vs the unsharded forward (its own "
+          f"bf16-vs-fp32 there {h['bf16_vs_fp32']:.4e}, bound 3x); halo "
+          f"{HALO_SMALL}: {h['small_halo_err']:.4e}; the unsharded kernel "
+          f"forward vs fp32 {h['full_vs_fp32']:.4e}, the plain bf16 one "
+          f"{h['plain_vs_fp32']:.4e} (bound 3x)", flush=True)
+    out = {}
+    for path, key in (("mesh_moce", "moce"), ("halo", "halo")):
+        total = {}
+        for r in res:
+            for k, v in r[key]["launches"].items():
+                total[k] = total.get(k, 0) + v
+        out[path] = total
+    want_m = dict.fromkeys(("block_front", "block_apply_gdfn"),
+                           2 * MOCE_BLOCKS_PER_FORWARD)
+    want_h = dict.fromkeys(("block_front", "block_apply_gdfn"),
+                           2 * BLOCKS_PER_FORWARD)
+    print(f"6m launches: {out}", flush=True)
+    check(out["mesh_moce"] == want_m, f"6m: the sharded MoCE-IR step "
+          f"launched {out['mesh_moce']}, expected {want_m} (a forward on "
+          f"each rank)")
+    check(out["halo"] == want_h, f"6m: the halo forward launched "
+          f"{out['halo']}, expected {want_h} (a forward a strip)")
+    return out
+
+
+def phase_distill(gpu):
+    """Phase 6d: LSNet-B (seeded, BatchNorm affines perturbed and statistics
+    calibrated: ``perturb_lsnet``) in eval mode distils a seeded LSNet-B
+    student (``train/distill.py``: ``freeze_mask('freeze_ratio', 0.5)`` on
+    the JAX paths, ``frozen_optimizer`` over AdamW, ``make_distill_step``)
+    for DISTILL_STEPS steps of DISTILL_BATCH x 224^2, both built with
+    ``use_pallas_ska`` in bf16: a forward of each launches K9 9 times, the
+    student's backward K9b's two kernels 9 times each; frozen parameters
+    stay, the loss is finite. Then ``export_program`` of the student (eval,
+    statistics calibrated) holds 9 ``ir_torch::ska`` nodes, and the loaded
+    program, which launches K9, is held to the live student. Returns the
+    steps' launches, as ``distill``."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import ska as KS
+    from image_restoration_tpu_torch.models import get_model
+    from image_restoration_tpu_torch.models.lsnet import lsnet_key_map
+    from image_restoration_tpu_torch.train import distill as D
+    from image_restoration_tpu_torch.train.trainer import (
+        Optimizer, TrainerConfig,
+    )
+
+    counters = {"ska": KS.ska, "ska_bwd_x": KS.ska_bwd_x,
+                "ska_bwd_w": KS.ska_bwd_w}
+
+    def lsnet_b(seed):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            return get_model("lsnet", num_classes=0,
+                             embed_dim=(128, 256, 384, 512),
+                             depth=(4, 6, 8, 10), use_pallas_ska=True,
+                             dtype=torch.bfloat16).cuda()
+
+    gen = torch.Generator(device="cuda").manual_seed(2600)
+    x = torch.rand((DISTILL_BATCH, 3, 224, 224), generator=gen, device="cuda")
+    teacher = lsnet_b(26)
+    perturb_lsnet(teacher, 27, x)
+    teacher.eval()
+    student = lsnet_b(28)
+    mask = D.freeze_mask(student, "freeze_ratio", freeze_ratio=0.5,
+                         key_map=lsnet_key_map)
+    tx = D.frozen_optimizer(Optimizer(TrainerConfig(
+        learning_rate=DISTILL_LR, weight_decay=0.05)), mask)
+    step = D.make_distill_step(student, teacher, tx)
+    before = {k: p.detach().clone() for k, p in student.named_parameters()}
+    for f in counters.values():
+        f.launches = 0
+    times, losses = [], []
+    for _ in range(DISTILL_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logs = step(x)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(logs["total"]))
+    launches = {k: f.launches for k, f in counters.items()}
+    frozen = [k for k, m in mask.items() if not m]
+    kept = all(torch.equal(p.detach(), before[k])
+               for k, p in student.named_parameters() if not mask[k])
+    print(f"6d distill LSNet-B -> LSNet-B, batch {DISTILL_BATCH} x 224^2 "
+          f"bf16 on {gpu}: {len(frozen)} of {len(mask)} parameters frozen "
+          f"(freeze_ratio 0.5), losses {[round(v, 6) for v in losses]}, step "
+          f"ms {[round(t, 3) for t in times]} (CUDA events; the first "
+          f"includes the optimizer's init), launches {launches}", flush=True)
+    check(kept, "6d: a frozen parameter moved")
+    check(np.isfinite(losses).all(), "6d: a non-finite distillation loss")
+    want = {"ska": 2 * SKA_PER_FORWARD * DISTILL_STEPS,
+            "ska_bwd_x": SKA_PER_FORWARD * DISTILL_STEPS,
+            "ska_bwd_w": SKA_PER_FORWARD * DISTILL_STEPS}
+    check(launches == want, f"6d: launches {launches}, expected {want}")
+
+    calibrate_batchnorm(student, x)
+    student.eval()
+    t0 = time.perf_counter()
+    blob = D.export_program(student, (x,))
+    t_export = time.perf_counter() - t0
+    program = torch.export.load(__import__("io").BytesIO(blob))
+    n_ops = sum(str(n.target) == "ir_torch.ska.default"
+                for n in program.graph.nodes)
+    loaded = D.load_program(blob)
+    KS.ska.launches = 0
+    with torch.no_grad():
+        got = loaded(x).float()
+        torch.cuda.synchronize()
+        n_loaded = KS.ska.launches
+        live = student(x).float()
+    err = float((got - live).abs().max())
+    scale = float(live.abs().max())
+    print(f"6d export: {len(blob) / 2**20:.1f} MiB in {t_export:.1f} s "
+          f"(host clock), {n_ops} ir_torch::ska nodes; the loaded program "
+          f"launched K9 {n_loaded} times; max |loaded - live| {err:.3e} "
+          f"(max |live| {scale:.3e})", flush=True)
+    check(n_ops == SKA_PER_FORWARD and n_loaded == SKA_PER_FORWARD,
+          "6d: the exported program does not hold and launch K9 9 times")
+    check(np.isfinite(scale) and err <= 1e-3 * scale,
+          "6d: the loaded program differs from the live student")
+    return {"distill": launches}
+
+
 def timed(name, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, with the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -5949,7 +6441,7 @@ def main(argv=None):
                          "2-2h), only the named phases (3, 3j, 3l, 3m, 3n, "
                          "3o, 3p, 3q, 3f, '3f family', '3f 3l', '3f 3o', "
                          "'3f 3p', '3f 3q', 4, 4m, 4f, 4n, 4p, 4q, 5, 5v, "
-                         "5a); prints no result line")
+                         "5a, 6, 6m, 6d); prints no result line")
     args = ap.parse_args(argv)
     sweeps = {"tail": args.tail, "front": args.front, "msfn": args.msfn}
     warps_of = {"tail": (8, 16), "front": (8, 16), "msfn": (8, 16),
@@ -6065,6 +6557,22 @@ def main(argv=None):
     merge_path(report, timed("2g moce_ir", phase_kernels, MOCE_TRAIN_LEVELS,
                              2200, f"moce_ir train batch {TRAIN_BATCH} ",
                              batch=TRAIN_BATCH, **MOCE_BLOCK), "train_moce")
+    # The ranks' shapes (phases 6m, 6d): a MoCE-IR rank's half batch, the
+    # halo strips and the whole image they are held to, a distillation
+    # step's batch.
+    merge_path(report, timed("2g mesh_moce", phase_kernels, MOCE_TRAIN_LEVELS,
+                             2300, f"mesh_moce rank batch {TRAIN_BATCH // 2} ",
+                             batch=TRAIN_BATCH // 2, **MOCE_BLOCK),
+               "mesh_moce")
+    _, _, strip_rows = halo_geometry()
+    merge_path(report, timed("2g halo", phase_kernels, restormer_levels(
+        strip_rows, HALO_IMAGE[1]), 2400, "halo strip "), "halo")
+    timed("2g halo full", phase_kernels, restormer_levels(*HALO_IMAGE), 2500,
+          "halo full image ")
+    merge_path(report, timed("2c distill", phase_ska_kernels, SKA_SHAPES,
+                             DISTILL_BATCH, "distill "), "distill")
+    merge_path(report, timed("2c distill backward", phase_ska_bwd_kernels,
+                             SKA_SHAPES, DISTILL_BATCH, "distill "), "distill")
     later = {
         "3": lambda: phase_serve_slices(gpu, args.profile),
         "3j": lambda: phase_serve_family(gpu, args.profile),
@@ -6089,6 +6597,9 @@ def main(argv=None):
         "5": lambda: phase_lsnet_grad(gpu),
         "5v": lambda: phase_train_gla(gpu),
         "5a": lambda: phase_train_adaptir(gpu),
+        "6": lambda: phase_mesh_train(gpu),
+        "6m": lambda: phase_mesh_ranks(gpu),
+        "6d": lambda: phase_distill(gpu),
     }
     check(tuple(later) == PHASES, "the phases and their names differ")
     check(set(_every_kernel()) == set(KERNELS), "a kernel without its counter")
@@ -6113,8 +6624,11 @@ def main(argv=None):
                             "holds MEASNet's 40, NeRD-Rain's 78, "
                             "MoCE-IR's 28, the 44 of a training step's "
                             "forward (batch 8 at 128x128), the 40 of a "
-                            "DRSformer training step's and the 28 of a "
-                            "MoCE-IR training step's (train_moce)",
+                            "DRSformer training step's, the 28 of a "
+                            "MoCE-IR training step's (train_moce), the 28 "
+                            "of a MoCE-IR rank's step at batch 4 "
+                            "(mesh_moce) and the 44 of a 1136x512 halo "
+                            "strip (halo)",
              "block_apply_gdfn": "the same, 44 blocks; by_path as "
                                  "block_front's",
              "ln_gdfn": "the same, 44 blocks of the three-kernel variant; "
@@ -6135,7 +6649,8 @@ def main(argv=None):
                     "of 64 at 224x224 of per-call CUDA-event medians, bf16; "
                     "by_path holds LSNet-T's 2 at batch 32 (cls_train) and "
                     "LSNet-B's 9 at batch 16 (robust; its fp32 times, the "
-                    "attack's dtype, are in per_shape)",
+                    "attack's dtype, are in per_shape) and at batch 32 "
+                    "(distill)",
              "ska_bwd_x": "sum over the 9 calls of one LSNet-B backward of a "
                           "batch of 64 at 224x224 of per-call CUDA-event "
                           "medians, bf16; plain_ms is ska_bwd_plain's, which "

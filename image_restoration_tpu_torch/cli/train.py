@@ -7,7 +7,24 @@ Usage:
   python -m image_restoration_tpu_torch.cli.train --model restormer \
       --data_file_dir data/ --de_type derain --patch_size 128 --batch_size 8
 
-One process on one GPU (``--device cpu`` to run on the CPU): degradations
+One process on one GPU (``--device cpu`` to run on the CPU), or one process
+per GPU under ``torch.distributed.run``, which starts the process group
+(``core/distributed.py``; a one-rank run needs ``IR_TPU_MULTIHOST=1``),
+e.g.:
+
+  python -m torch.distributed.run --standalone \
+      --nproc_per_node 4 -m image_restoration_tpu_torch.cli.train \
+      --model moce_ir --mesh 2 2 --batch_size 8 ...
+
+``--mesh d [e [s]]`` is the ("data", "expert", "spatial") mesh
+(``core/mesh.py``), whose size must be the number of ranks; without it
+the data axis is gcd(batch_size, ranks), as the JAX CLI picks it, and the
+other ranks replicate. ``--batch_size`` is the global batch: each rank
+loads its rows (rows ``index::d``, the loader's strided shard), draws the
+global batch's noise and takes its rows, and the step is the one-process
+step on the global batch (``train/trainer.py``). Rank 0 alone writes the
+config, ``metrics.jsonl``, the validation PSNR and the checkpoints; every
+rank validates, so none waits in a collective meanwhile. Degradations
 synthesised on the device, torch checkpoints with auto-resume
 (``train/checkpoint.py``), in-training validation with save-best. On the
 GPU every kernel flag trains, each kernel API differentiating as its JAX
@@ -26,12 +43,11 @@ the noise drawn each step from ``step_generator(seed, step, device, 1)``
 (the JAX loop's ``fold_in(fold_in(rng, step), 1)``). What does not train
 raises: MEASNet, IPT, EDT, FPN-Restormer and MyModel, which the JAX CLI
 cannot train either (it keeps no ``batch_stats``; they train at model
-level, ``model(x, train=True)``), HiLo, an attention layer that no CLI
-serves or trains (:data:`LAYER_MODELS`), and ``--mesh`` (multi-GPU,
-ROADMAP Queue 1 item 6). RectiFormer, which has no BatchNorm, trains here
-as in JAX, and so do SFSNiD (``train=False``: the default recipe's L1 on
-its full-size output, as the JAX CLI applies it) and PINN (the
-reference's loss is ``--loss mse=1.0 grad_smooth=1.0``).
+level, ``model(x, train=True)``), and HiLo, an attention layer that no
+CLI serves or trains (:data:`LAYER_MODELS`). RectiFormer, which has no
+BatchNorm, trains here as in JAX, and so do SFSNiD (``train=False``: the
+default recipe's L1 on its full-size output, as the JAX CLI applies it)
+and PINN (the reference's loss is ``--loss mse=1.0 grad_smooth=1.0``).
 ``--recipe darkir`` supervises DarkIR's side head (``side_loss=True``);
 ``--recipe transweather`` adds the VGG16 perceptual term, from
 ``--vgg_ckpt`` or a random init; ``--recipe hogformer`` is HOGformer's
@@ -293,10 +309,6 @@ def refuse_layers(cfg):
 
 def _refuse_unported(cfg):
     refuse_layers(cfg)
-    if cfg.get("mesh"):
-        raise NotImplementedError("--mesh: multi-GPU training "
-                                  "(torch.distributed/DDP) is ROADMAP Queue "
-                                  "1 item 6")
     if cfg["model"].lower() == "measnet":
         raise NotImplementedError(
             "measnet: the JAX cli/train.py cannot train MEASNet (it keeps "
@@ -356,6 +368,37 @@ def build_validator(cfg, model, pad_multiple: int = 8):
     return validate
 
 
+def build_mesh(cfg):
+    """The training mesh: ``--mesh``'s shape over ("data", "expert",
+    "spatial") (its size must be the number of ranks, as JAX's
+    ``make_mesh`` asks), else a (gcd(batch_size, ranks), rest) ("data",
+    "expert") mesh when there are several ranks; None for one process
+    without ``--mesh`` (or with a one-rank mesh and no process group)."""
+    import math
+
+    from image_restoration_tpu_torch.core.mesh import make_mesh, world_size
+
+    if cfg.get("mesh"):
+        shape = tuple(cfg["mesh"])
+        return make_mesh(shape, ("data", "expert", "spatial")[:len(shape)])
+    n = world_size()
+    if n == 1:
+        return None
+    d = math.gcd(cfg["batch_size"], n)
+    return make_mesh((d, n // d), ("data", "expert"))
+
+
+def start_ranks(cfg) -> None:
+    """Joins the process group the launcher asks for
+    (``core/distributed.py``: torchrun's ``env://`` when its WORLD_SIZE is
+    above 1; NCCL on CUDA devices, gloo with ``--device cpu``)."""
+    from image_restoration_tpu_torch.core.distributed import (
+        maybe_initialize_distributed,
+    )
+
+    maybe_initialize_distributed(device=cfg.get("device") or "cuda")
+
+
 def main(argv=None, max_steps_override: int | None = None):
     """Train as ``argv`` says; returns the final ``TrainState``."""
     from image_restoration_tpu_torch.data.degradations import (
@@ -364,13 +407,16 @@ def main(argv=None, max_steps_override: int | None = None):
     from image_restoration_tpu_torch.data.pipeline import (
         Loader, make_train_iterator,
     )
+    from image_restoration_tpu_torch.core.mesh import (
+        axis_index, axis_size, local_batch_size,
+    )
     from image_restoration_tpu_torch.train.checkpoint import CheckpointManager
     from image_restoration_tpu_torch.train.progressive import (
         ProgressiveSchedule, ReduceLROnPlateau,
     )
     from image_restoration_tpu_torch.train.trainer import (
         TrainerConfig, TrainState, make_optimizer, make_train_step,
-        set_lr_scale,
+        set_lr_scale, step_global_batch,
     )
     from image_restoration_tpu_torch.utils.logging import (
         MessageLogger, count_params,
@@ -381,16 +427,22 @@ def main(argv=None, max_steps_override: int | None = None):
 
     cfg = parse_options(argv, build_train_parser())
     _refuse_unported(cfg)
+    start_ranks(cfg)
+    mesh = build_mesh(cfg)
+    main_rank = mesh is None or torch.distributed.get_rank() == 0
     exp_dir = os.path.join(cfg["ckpt_dir"], cfg["name"])
     os.makedirs(exp_dir, exist_ok=True)
-    dump_effective_config(cfg, os.path.join(exp_dir, "config.yaml"))
+    if main_rank:
+        dump_effective_config(cfg, os.path.join(exp_dir, "config.yaml"))
 
     device = default_device(cfg)
     seed = cfg.get("seed", 0)
     model = load_style_filter(cfg, build_model(cfg, device)).train()
     dataset = build_dataset(cfg)
-    loader = Loader(dataset, cfg["batch_size"], seed=seed,
-                    num_threads=cfg.get("num_workers", 8))
+    d, d_index = axis_size(mesh, "data"), axis_index(mesh, "data")
+    loader = Loader(dataset, local_batch_size(cfg["batch_size"], mesh),
+                    seed=seed, num_threads=cfg.get("num_workers", 8),
+                    rank=d_index, world_size=d)
     steps_per_epoch = max(len(loader), 1)
     lr_sched, total_steps = make_lr_schedule(cfg, steps_per_epoch)
     if max_steps_override:
@@ -411,9 +463,12 @@ def main(argv=None, max_steps_override: int | None = None):
         freeze_prefixes=freeze_prefixes(cfg),
     )
     tx = make_optimizer(tcfg)
-    print(f"model={cfg['model']} params={count_params(model)/1e6:.2f}M "
-          f"total_steps={total_steps} device={device}")
-    if tcfg.freeze_prefixes:
+    if main_rank:
+        shape = ("" if mesh is None else
+                 f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        print(f"model={cfg['model']} params={count_params(model)/1e6:.2f}M "
+              f"total_steps={total_steps} device={device}{shape}")
+    if tcfg.freeze_prefixes and main_rank:
         print(f"frozen param subtrees: {list(tcfg.freeze_prefixes)}")
     state = TrainState.create(model, tx, ema_decay=tcfg.ema_decay)
 
@@ -426,9 +481,10 @@ def main(argv=None, max_steps_override: int | None = None):
             state, start_step = restored, step
             print(f"resumed from step {step}")
 
-    logger = MessageLogger(exp_dir, total_steps, use_tb=cfg.get("tb"),
-                           use_wandb=cfg.get("wandb"))
-    step_fn = make_train_step(model, tx, tcfg)
+    logger = (MessageLogger(exp_dir, total_steps, use_tb=cfg.get("tb"),
+                            use_wandb=cfg.get("wandb")) if main_rank
+              else None)
+    step_fn = make_train_step(model, tx, tcfg, mesh)
 
     # progressive patch/batch schedule (HOGformer/Restormer recipe): a
     # host transform in the prefetch thread
@@ -437,7 +493,15 @@ def main(argv=None, max_steps_override: int | None = None):
         prog = ProgressiveSchedule(cfg["prog_iters"], cfg["prog_gt_sizes"],
                                    cfg["prog_batch_sizes"],
                                    scale=cfg.get("scale", 1))
-        print(f"progressive schedule: {prog.num_buckets()} shape buckets")
+        if d > 1:
+            # global batch sizes a multiple of the data axis, each rank
+            # subsampling its own rows with the shared index draw
+            prog = prog.aligned(d)
+            prog = ProgressiveSchedule(prog.iters, prog.gt_sizes,
+                                       [b // d for b in prog.batch_sizes],
+                                       scale=prog.scale)
+        if main_rank:
+            print(f"progressive schedule: {prog.num_buckets()} shape buckets")
     prog_rng = np.random.default_rng(seed + 7)
     transform = (lambda s, arrays: prog.apply_batch(arrays, s, prog_rng)) if prog else None
 
@@ -458,47 +522,69 @@ def main(argv=None, max_steps_override: int | None = None):
                              transform=transform, start_step=start_step)
     try:
         for step in range(start_step, total_steps):
-            batch = degrade_batch(next(it),
-                                  step_generator(seed, step, device))
+            batch = next(it)
+            gb = step_global_batch(mesh, batch["gt"].shape[0])
+            gen = step_generator(seed, step, device)
+            noise = None
+            if gb is not None and "sigma" in batch:
+                # the global batch's draw, this rank's rows
+                noise = gb.randn(batch["gt"].shape, gen, dtype=batch["gt"].dtype)
+            batch = degrade_batch(batch, gen, noise)
             lq, gt = batch["lq"], batch["gt"]
             if mixup:
-                lq, gt = mixup_device(lq, gt, cfg.get("mixup_beta", 1.2),
+                # one permutation of the global batch: gathered, mixed,
+                # this rank's rows taken back
+                full = (lq, gt) if gb is None else (gb.gather(lq),
+                                                    gb.gather(gt))
+                lq, gt = mixup_device(*full, cfg.get("mixup_beta", 1.2),
                                       bool(cfg.get("mixup_identity")),
                                       step_generator(seed, step, device, 2))
-            noise = (step_generator(seed, step, device, 1) if moe_rng
-                     else None)
+                if gb is not None:
+                    lq, gt = gb.own(lq), gb.own(gt)
+            moe_noise = (step_generator(seed, step, device, 1) if moe_rng
+                         else None)
             step_batch = {"lq": lq, "gt": gt}
             if recipe == "mwformer_style":
                 step_batch["de_id"] = batch["de_id"]  # the SupCon labels
-            state, logs = step_fn(state, step_batch, noise)
-            if step % log_every == 0 or step == total_steps - 1:
+            state, logs = step_fn(state, step_batch, moe_noise)
+            if main_rank and (step % log_every == 0
+                              or step == total_steps - 1):
                 logger.log(step, logs)
             if plateau is not None:
                 new_scale = plateau.push_loss(float(logs["total"]))
                 if new_scale is not None:
                     set_lr_scale(state.opt_state, new_scale)
             if val_every and (step + 1) % val_every == 0 and validate is not None:
+                # every rank validates (the same images), so that none
+                # waits in a collective while rank 0 alone validates
                 val_psnr = validate(state)
-                logger.log(step, {"psnr": val_psnr}, prefix="val")
-                if ckpt.maybe_save_best(step + 1, state, val_psnr):
+                if main_rank:
+                    logger.log(step, {"psnr": val_psnr}, prefix="val")
+                if main_rank and ckpt.maybe_save_best(step + 1, state,
+                                                      val_psnr):
                     best_psnr = val_psnr
                     saved = step + 1
                     print(f"step {step + 1}: new best val PSNR {val_psnr:.3f}")
             # a step's state is written once, whichever save asks first
             if saved != step + 1 and ckpt.should_save(step + 1):
-                ckpt.save(step + 1, state)
+                if main_rank:
+                    ckpt.save(step + 1, state)
                 saved = step + 1
-        if saved != total_steps:
+        if saved != total_steps and main_rank:
             ckpt.save(total_steps, state, force=True)
     finally:
         it.close()
         loader.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     if best_psnr >= 0:
         print(f"best val PSNR: {best_psnr:.3f}")
-    print(f"done: {total_steps} steps; checkpoints in {exp_dir}/ckpt")
+    if main_rank:
+        print(f"done: {total_steps} steps; checkpoints in {exp_dir}/ckpt")
     return state
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

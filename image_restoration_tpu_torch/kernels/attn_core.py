@@ -54,6 +54,7 @@ from image_restoration_tpu_torch.kernels.block import (
     reference_core,
     takes_width,
 )
+from image_restoration_tpu_torch.kernels.build import refuse_export
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
 
 # The head widths csrc/attn_core.cu builds K5 and K6 for (dispatch_ch).
@@ -207,6 +208,7 @@ def attn_acc(qkv, num_heads: int):
 
     qkv: (B, H, W, 3C) bf16 on the GPU from :func:`kernels.mdta.ln_qkv_dwconv`.
     """
+    refuse_export("attn_acc (K5)")
     if qkv.device.type == "cpu":
         return attn_acc_ref(qkv, num_heads)
     from image_restoration_tpu_torch.kernels.build import load_library
@@ -252,6 +254,7 @@ def attn_apply(qkv, x, at, proj_w, proj_b):
     (out, in)) and proj_b as they are and rounds W_proj to bf16 as it
     stages it: nothing is packed on a launch.
     """
+    refuse_export("attn_apply (K6)")
     if x.device.type == "cpu":
         return attn_apply_ref(qkv, x, at, proj_w, proj_b)
     from image_restoration_tpu_torch.kernels.build import load_library

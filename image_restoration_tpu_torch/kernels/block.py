@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from image_restoration_tpu_torch.kernels.build import refuse_export
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
 from image_restoration_tpu_torch.ops.attention import mdta_attention
 from image_restoration_tpu_torch.ops.common import gelu_exact
@@ -463,6 +464,7 @@ def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
     x: (B, H, W, C) bf16 on the GPU, C and C / num_heads multiples of 16.
     p: FrontParams (``BlockParams.front()``, ``DRSBlockParams.front()``).
     """
+    refuse_export("block_front (K1)")
     if x.device.type == "cpu":
         return block_front_ref(x, p, num_heads, eps)
     from image_restoration_tpu_torch.kernels.build import load_library
@@ -545,6 +547,7 @@ def block_apply_gdfn(v, x, atw, p: BlockParams, eps: float = 1e-5):
     v, x: (B, H, W, C) bf16 on the GPU; atw: (B, C, C) bf16 from
     :func:`finalize`.
     """
+    refuse_export("block_apply_gdfn (K2)")
     if x.device.type == "cpu":
         return block_apply_gdfn_ref(v, x, atw, p, eps)
     from image_restoration_tpu_torch.kernels.build import load_library

@@ -71,6 +71,22 @@ class KernelLibrary:
             raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
 
 
+def refuse_export(entry: str) -> None:
+    """Raises while ``torch.export`` traces: a kernel bound through ctypes
+    has no graph node, and tracing its wrapper would record the plain
+    version (the CPU branch it takes on fake tensors) in the kernel's
+    place. SKA (K9) is a ``torch.library`` custom op and exports
+    (``kernels/ska.py``); the other kernels' wrappers call this first."""
+    import torch
+
+    if torch.compiler.is_exporting():
+        raise RuntimeError(
+            f"{entry}: torch.export cannot trace this kernel's ctypes launch "
+            f"and would export its plain version in its place; export a "
+            f"model whose kernels are custom ops (LSNet with "
+            f"use_pallas_ska), or build the model with its kernel flags off")
+
+
 _LIBRARY: KernelLibrary | None = None
 
 

@@ -58,6 +58,7 @@ from image_restoration_tpu_torch.kernels.block import (
     recompute_vjp,
     takes_width,
 )
+from image_restoration_tpu_torch.kernels.build import refuse_export
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
 from image_restoration_tpu_torch.ops.attention import (
     tksa_attention,
@@ -393,6 +394,7 @@ def drs_apply_msfn(v, x, atw, p: DRSBlockParams, eps: float = 1e-5):
     v, x: (B, H, W, C) bf16 on the GPU, C a multiple of 16; atw: (B, C, C)
     bf16 from :func:`tksa_finalize`. Any H and W.
     """
+    refuse_export("drs_apply_msfn (K7)")
     if x.device.type == "cpu":
         return drs_apply_msfn_ref(v, x, atw, p, eps)
     from image_restoration_tpu_torch.kernels.build import load_library

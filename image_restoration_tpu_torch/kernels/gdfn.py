@@ -42,6 +42,7 @@ from image_restoration_tpu_torch.kernels.block import (
     reference_ln_gdfn,
     takes_width,
 )
+from image_restoration_tpu_torch.kernels.build import refuse_export
 
 
 def ln_gdfn_ref(x, p: GDFNParams, eps: float = 1e-5):
@@ -70,6 +71,7 @@ def fused_ln_gdfn(x, p: GDFNParams, eps: float = 1e-5):
 
 
 def _fused_ln_gdfn(x, p: GDFNParams, eps):
+    refuse_export("fused_ln_gdfn (K3)")
     if x.device.type == "cpu":
         return ln_gdfn_ref(x, p, eps)
     from image_restoration_tpu_torch.kernels.build import load_library

@@ -39,6 +39,7 @@ from image_restoration_tpu_torch.kernels.block import (
     reference_front,
     takes_width,
 )
+from image_restoration_tpu_torch.kernels.build import refuse_export
 
 # Tile heights (output rows per block) and warps per block of K4 by channel
 # width, the fastest in ``chip_smoke.py --front 8 4 2 1 --warps 8|16`` on an
@@ -79,6 +80,7 @@ def ln_qkv_dwconv(x, p: FrontParams, eps: float = 1e-5):
 
 
 def _ln_qkv_dwconv(x, p: FrontParams, eps):
+    refuse_export("ln_qkv_dwconv (K4)")
     if x.device.type == "cpu":
         return ln_qkv_dwconv_ref(x, p, eps)
     from image_restoration_tpu_torch.kernels.build import load_library

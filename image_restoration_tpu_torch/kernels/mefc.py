@@ -47,6 +47,7 @@ from image_restoration_tpu_torch.kernels.block import (
     recompute_vjp,
     takes_width,
 )
+from image_restoration_tpu_torch.kernels.build import refuse_export
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
 
 Tensor = torch.Tensor
@@ -211,6 +212,7 @@ def mefc_step(x, sp: StepParams, m):
     x: (B, H, W, C) bf16 on the GPU, C a multiple of 16 up to 128, any H and
     W; m: (B, 8, C, C) bf16 from :func:`fold_step`.
     """
+    refuse_export("mefc_step (K8)")
     if x.device.type == "cpu":
         return mefc_step_ref(x, sp, m)
     from image_restoration_tpu_torch.kernels.build import load_library

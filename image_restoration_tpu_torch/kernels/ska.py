@@ -20,7 +20,9 @@ unaligned views take the kernel's scalar path.
 
 On a CUDA tensor it launches ``csrc/ska.cu`` or raises; on a CPU tensor it
 runs :func:`~image_restoration_tpu_torch.ops.ska.ska_plain`. ``ska.launches``
-counts launches.
+counts launches. The forward is the custom op ``ir_torch::ska``
+(:func:`ska_op`, with a fake implementation for tracing), so
+``torch.export`` keeps the kernel in an exported LSNet.
 
 :func:`ska` differentiates as the JAX ``ska_pallas`` custom VJP does
 (``ska_pallas.py:99-138``): the forward keeps x and w, and the backward
@@ -132,6 +134,20 @@ def _ska(x, w):
     return out
 
 
+@torch.library.custom_op("ir_torch::ska", mutates_args=())
+def ska_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward launch as a ``torch.library`` custom op, so that
+    ``torch.export`` records it as one node (``train/distill.py``
+    ``export_program``) and a loaded program launches the kernel."""
+    return _ska(x, w)
+
+
+@ska_op.register_fake
+def _ska_fake(x, w):
+    ska_shape(x, w)
+    return torch.empty_like(x)
+
+
 class _SKA(torch.autograd.Function):
     """The JAX ``ska_pallas`` custom VJP: ``_ska_fwd`` keeps (x, w),
     ``_ska_bwd`` computes gx and gw from them and the output gradient."""
@@ -139,7 +155,7 @@ class _SKA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return _ska(x, w)
+        return ska_op(x, w)
 
     @staticmethod
     def backward(ctx, go):
@@ -158,7 +174,7 @@ def ska(x, w):
     this is the launch itself."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _SKA.apply(x, w)
-    return _ska(x, w)
+    return ska_op(x, w)
 
 
 ska.launches = 0

@@ -68,6 +68,7 @@ from image_restoration_tpu_torch.ops.layernorm import (
 )
 from image_restoration_tpu_torch.ops import moe as moe_ops
 from image_restoration_tpu_torch.ops.moe import topk_lower_index
+from image_restoration_tpu_torch.parallel.global_batch import batch_sum
 from image_restoration_tpu_torch.ops.resample import (
     Downsample,
     Upsample,
@@ -173,10 +174,10 @@ class TokenMoE(nn.Module):
                 thr_in, thr_out = top[:, k:k + 1], top[:, k - 1:k]
                 p_in = torch.special.ndtr((logits - thr_in) / std)
                 p_out = torch.special.ndtr((logits - thr_out) / std)
-                load = torch.where(noisy > thr_in, p_in, p_out).sum(dim=0)
+                load = batch_sum(torch.where(noisy > thr_in, p_in, p_out))
             else:
-                load = (gates > 0).float().sum(dim=0)
-            loss = _balance(gates.sum(dim=0)) + _balance(load)
+                load = batch_sum((gates > 0).float())
+            loss = _balance(batch_sum(gates)) + _balance(load)
         ensemble = 0.0
         for i, expert in enumerate(self.el):
             ensemble = ensemble + gates[:, i:i + 1] * torch.exp(

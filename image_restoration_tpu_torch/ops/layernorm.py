@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from image_restoration_tpu_torch.parallel import global_batch
+
 
 def layer_norm_f32(x, weight, bias=None, eps: float = 1e-5):
     """LayerNorm over the last axis in fp32, returned in fp32.
@@ -136,7 +138,41 @@ class _Fp32BatchNorm:
     """
 
     def forward(self, x):
+        gb = global_batch.current()
+        if gb is not None and self.training:
+            return _global_batch_norm(self, x, gb, count=True)
         return super().forward(x.float()).to(x.dtype)
+
+
+def _global_batch_norm(bn, x, gb, count: bool):
+    """Train-mode BatchNorm over the global batch of a data-parallel step
+    (``parallel/global_batch.py``), as flax's BatchNorm inside a sharded
+    jit: fp32 statistics from the channel sums and sums of squares,
+    summed over the data ranks (differentiable), the fast variance E[x^2]
+    - E[x]^2 clipped at 0; the running statistics updated as torch's
+    (unbiased variance, ``momentum``); ``count`` ticks
+    ``num_batches_tracked`` as the module's own forward does."""
+    xf = x.float()
+    c = xf.shape[1]
+    dims = [0] + list(range(2, xf.dim()))
+    n = xf.numel() // c * gb.size
+    s = gb.sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims)]))
+    mean = s[:c] / n
+    var = (s[c:] / n - mean * mean).clamp_min(0)
+    if bn.track_running_stats and bn.running_mean is not None:
+        with torch.no_grad():
+            if count:
+                bn.num_batches_tracked.add_(1)
+            m = (bn.momentum if bn.momentum is not None
+                 else 1.0 / float(bn.num_batches_tracked))
+            bn.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+            bn.running_var.mul_(1 - m).add_(
+                var.detach() * (n / max(n - 1, 1)), alpha=m)
+    shape = [1, c] + [1] * (xf.dim() - 2)
+    y = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + bn.eps)
+    if bn.weight is not None:
+        y = y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
+    return y.to(x.dtype)
 
 
 class BatchNorm2d(_Fp32BatchNorm, nn.BatchNorm2d):
@@ -148,7 +184,12 @@ def batch_norm(bn, x, train: bool):
     in the mode of ``train`` rather than of the module, as the JAX
     ``BatchNorm2d`` takes it: with ``train`` from the batch's statistics
     (biased variance), updating the running ones (unbiased variance,
-    ``bn.momentum``); else from the running ones."""
+    ``bn.momentum``); else from the running ones. In training inside a
+    data-parallel step the statistics are the global batch's
+    (:func:`_global_batch_norm`)."""
+    gb = global_batch.current()
+    if gb is not None and train:
+        return _global_batch_norm(bn, x, gb, count=False)
     return torch.nn.functional.batch_norm(
         x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
         train, bn.momentum, bn.eps).to(x.dtype)

@@ -11,12 +11,17 @@ two balance losses: :func:`importance_loss`, the CV^2 of the (optionally
 complexity-weighted) softmax mass per expert, and :func:`load_loss`, the
 CV^2 of the smooth top-k inclusion probability through the normal CDF
 (noisy top-k gating, Shazeer et al.). torch's ``std`` is unbiased, as the
-reference's, and the JAX package's ``ddof=1``.
+reference's, and the JAX package's ``ddof=1``. Inside a data-parallel
+step (``parallel/global_batch.py``) the balance losses' batch sums run over
+the global batch and the noise is the global batch's draw, as under JAX's
+sharded jit.
 """
 
 from __future__ import annotations
 
 import torch
+
+from image_restoration_tpu_torch.parallel import global_batch
 
 
 def topk_lower_index(x, k: int):
@@ -38,6 +43,9 @@ def routing_noise(shape, generator, device=None):
                          "its noise (the step's generator, e.g. "
                          "data/degradations.py step_generator(seed, step, "
                          "device, stream=1))")
+    gb = global_batch.current()
+    if gb is not None:  # the global batch's draw, this rank's rows
+        return gb.randn(shape, generator, device)
     return torch.randn(tuple(shape), generator=generator,
                        device=device or generator.device,
                        dtype=torch.float32)
@@ -63,7 +71,7 @@ def noisy_topk_gates(logits, k: int, noise_std=None, noise=None):
 def importance_loss(softmax_logits, complexity=None, tau: float = 1.0):
     """CV^2 of the per-expert softmax mass over the batch (moce_ir.py:
     713-724), weighted by ``complexity * tau`` when given."""
-    importance = softmax_logits.sum(dim=0)
+    importance = global_batch.batch_sum(softmax_logits)
     if complexity is not None:
         importance = importance * (complexity * tau)
     return (importance.std() / (importance.mean() + 1e-8)) ** 2
@@ -77,7 +85,7 @@ def load_loss(logits, noisy_logits, noise_std: float, k: int):
     kth_idx = topk_lower_index(noisy_logits, k)[1][:, -1:]
     threshold = noisy_logits.gather(-1, kth_idx)
     p = 1.0 - torch.special.ndtr((threshold - logits) / noise_std)
-    p_mean = p.mean(dim=0)
+    p_mean = global_batch.batch_mean(p)
     return (p_mean.std() / (p_mean.mean() + 1e-8)) ** 2
 
 

@@ -33,6 +33,13 @@ models), ``aux`` is the model's auxiliary dict ({} when absent), and
                    labels, then frozen for restoration training). The
                    model's output is the (B, 64) embedding; the labels ride
                    ``batch['de_id']``.
+
+Every recipe but ``mwformer_style`` is a mean of per-row terms over rows of
+one size (so is every loss of ``train/losses.py`` but the two contrastive
+ones), and says so by ``fn.per_row = True`` (:func:`_per_row`): a
+data-parallel step (``train/trainer.py``) runs such a recipe on each rank's
+rows and averages over the ranks. A batch-coupled recipe (SupCon's pairs
+across the batch) sees the gathered global batch instead.
 """
 
 from __future__ import annotations
@@ -51,6 +58,12 @@ def _primary(out):
     return out
 
 
+def _per_row(fn, per_row: bool = True):
+    """Marks recipe ``fn`` as a mean of per-row terms (module docstring)."""
+    fn.per_row = per_row
+    return fn
+
+
 def default_recipe(loss_terms: Mapping[str, float],
                    aux_loss_weight: float = 0.0) -> LossFn:
     pixel = L.weighted_loss(dict(loss_terms))
@@ -62,7 +75,7 @@ def default_recipe(loss_terms: Mapping[str, float],
             logs["aux"] = aux["aux_loss"]
         return total, logs
 
-    return fn
+    return _per_row(fn)
 
 
 def nerd_rain_recipe(char_w: float = 1.0, fft_w: float = 0.01,
@@ -77,7 +90,7 @@ def nerd_rain_recipe(char_w: float = 1.0, fft_w: float = 0.01,
         total = char_w * char + fft_w * fft + edge_w * edge + inr_w * inr
         return total, {"char": char, "fft": fft, "edge": edge, "inr_l1": inr}
 
-    return fn
+    return _per_row(fn)
 
 
 def _nearest_up(x, scale: int):
@@ -106,7 +119,7 @@ def darkir_recipe(loss_terms: Mapping[str, float] | None = None,
             logs["enhance"] = enh
         return total, logs
 
-    return fn
+    return _per_row(fn, vgg_term is None)  # vgg_term: the caller's callable
 
 
 def transweather_recipe(vgg=None, perceptual_w: float = 0.04,
@@ -132,7 +145,7 @@ def transweather_recipe(vgg=None, perceptual_w: float = 0.04,
             logs["perceptual"] = perc
         return total, logs
 
-    return fn
+    return _per_row(fn)
 
 
 def hogformer_recipe(pix_w: float = 1.0, pearson_w: float = 0.5,
@@ -145,7 +158,7 @@ def hogformer_recipe(pix_w: float = 1.0, pearson_w: float = 0.5,
         total = pix_w * l_pix + l_pear + hog_w * l_hog
         return total, {"l_pix": l_pix, "l_pear": l_pear, "l_hog": l_hog}
 
-    return fn
+    return _per_row(fn)
 
 
 def mwformer_style_recipe(temperature: float = 0.1) -> LossFn:
@@ -160,7 +173,7 @@ def mwformer_style_recipe(temperature: float = 0.1) -> LossFn:
         loss = L.supcon_loss(emb, batch["de_id"], temperature=temperature)
         return loss, {"supcon": loss}
 
-    return fn
+    return _per_row(fn, False)
 
 
 RECIPES: dict[str, Callable[..., LossFn]] = {

@@ -5,9 +5,24 @@ One train step for all families: the model's output is normalised by
 :func:`split_model_output`, the named recipe (``train/recipes.py``) makes
 the loss, autograd the gradients, and :class:`Optimizer` applies the JAX
 package's optax chain. EMA is a parameter map updated in the step (BasicSR
-model_ema, image_restoration_model.py:200-222). The mesh, pjit shardings
-and donation of the JAX trainer are not ported: one process, one device
-(multi-GPU is ROADMAP Queue 1 item 6).
+model_ema, image_restoration_model.py:200-222).
+
+On a mesh (``core/mesh.py``) each rank runs the step on its rows of the
+global batch, and the step is the one-process step on the global batch,
+as JAX's sharded jit is the one-device step partitioned
+(``trainer.py:207-219``): the forward runs inside the step's
+:class:`~image_restoration_tpu_torch.parallel.global_batch.GlobalBatch`
+(BatchNorm statistics, the MoE balance sums and the routing noise are the
+global batch's), a recipe of per-row means runs on the rank's rows and
+its terms are averaged over the ranks, a batch-coupled recipe (SupCon)
+sees the model's outputs gathered into the global batch, so every loss
+term is the global one, and the gradient dict is summed over the data
+axis, coalesced, before :meth:`Optimizer.update` (whose global-norm
+clip then sees the global gradient). There is no DDP wrapper: DDP's
+reducer hooks ``AccumulateGrad``, and the step takes its gradients with
+``torch.autograd.grad``, which never runs those hooks. The ``expert`` and
+``spatial`` axes only replicate, as JAX's step shards the batch over
+``data`` alone.
 
 The parameters live in the model and are updated in place, as are the
 optimizer's moments: a step allocates no second copy of either.
@@ -244,18 +259,89 @@ def split_model_output(out):
     return out, {}
 
 
-def loss_and_grads(model, recipe, batch, apply_kwargs=None, params=None):
+def _gathered(value, gb):
+    """The global batch of a model output or a batch entry, for a
+    batch-coupled recipe: per-row tensors (dim 0 the rank's rows) gathered
+    in the one-process order, tuples and dicts entry by entry; anything
+    else (a scalar such as the balance loss, already global) as it is."""
+    if isinstance(value, torch.Tensor):
+        return (gb.gather(value) if value.dim() and value.shape[0] == gb.rows
+                else value)
+    if isinstance(value, (tuple, list)):
+        return type(value)(_gathered(v, gb) for v in value)
+    if isinstance(value, dict):
+        return {k: _gathered(v, gb) for k, v in value.items()}
+    return value
+
+
+def _global_logs(logs, gb):
+    """The global values of a per-row recipe's logs (``total`` among them):
+    each rank's means averaged over the data ranks (one all-reduce; no
+    gradient)."""
+    from image_restoration_tpu_torch.parallel.comm import all_reduce_
+
+    keys, device = list(logs), logs["total"].device
+    flat = torch.stack([torch.as_tensor(logs[k], device=device).detach()
+                        .float() for k in keys])
+    flat = all_reduce_(flat, gb.group) / gb.size
+    return dict(zip(keys, flat.unbind()))
+
+
+def reduce_gradients(grads: Dict[str, Tensor], group) -> Dict[str, Tensor]:
+    """Sums the gradient dict over ``group`` in place, one flat buffer a
+    dtype (coalesced); returns it."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    from image_restoration_tpu_torch.parallel.comm import all_reduce_
+
+    by_dtype: Dict[Any, list] = {}
+    for k, g in grads.items():
+        by_dtype.setdefault(g.dtype, []).append(k)
+    for keys in by_dtype.values():
+        flat = all_reduce_(_flatten_dense_tensors([grads[k] for k in keys]),
+                           group)
+        for k, g in zip(keys, _unflatten_dense_tensors(
+                flat, [grads[k] for k in keys])):
+            grads[k] = g
+    return grads
+
+
+def loss_and_grads(model, recipe, batch, apply_kwargs=None, params=None,
+                   gb=None):
     """(logs, grads) of one batch: the recipe's terms and their ``total``,
     and d total / d param for every parameter (zeros where the loss does
-    not reach one, as ``jax.grad`` gives)."""
+    not reach one, as ``jax.grad`` gives).
+
+    With ``gb`` (a :class:`GlobalBatch`) ``batch`` holds this rank's rows
+    and the forward runs inside ``gb``. A recipe that is a mean of per-row
+    terms (``per_row``, ``train/recipes.py``) runs on the rank's rows: its
+    total, averaged over the data ranks, is the global loss. Any other
+    recipe sees the outputs and the batch gathered into the global batch
+    and computes the global loss on every rank. Either way this rank
+    differentiates its share (total / data size), the gradients are summed
+    over the data ranks, and ``logs`` are the global values."""
+    from image_restoration_tpu_torch.parallel import global_batch
+
     params = dict(model.named_parameters()) if params is None else params
-    out = model(batch["lq"], **dict(apply_kwargs or {}))
+    with global_batch.using(gb):
+        out = model(batch["lq"], **dict(apply_kwargs or {}))
     out, aux = split_model_output(out)
+    per_row = getattr(recipe, "per_row", False)
+    if gb is not None and not per_row:  # the recipes read the targets
+        out, aux, batch = (_gathered(out, gb), _gathered(aux, gb),
+                           _gathered({k: v for k, v in batch.items()
+                                      if k != "lq"}, gb))
     total, logs = recipe(out, aux, batch)
-    grads = torch.autograd.grad(total, list(params.values()),
+    share = total if gb is None else total / gb.size
+    if gb is not None and per_row:
+        logs = _global_logs({**logs, "total": total}, gb)
+        total = logs.pop("total")
+    grads = torch.autograd.grad(share, list(params.values()),
                                 allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(params.items(), grads)}
+    if gb is not None:
+        reduce_gradients(grads, gb.group)
     logs["total"] = total
     return logs, grads
 
@@ -276,7 +362,21 @@ def apply_updates(state: TrainState, params, updates, ema_decay) -> None:
             torch._foreach_add_(ema, plist, alpha=1 - ema_decay)
 
 
-def make_train_step(model, tx: Optimizer, cfg: TrainerConfig) -> Callable:
+def step_global_batch(mesh, rows: int):
+    """The :class:`GlobalBatch` of a step on ``mesh`` whose rank holds
+    ``rows`` rows: the data axis's group, size and this rank's index; None
+    without a mesh."""
+    if mesh is None:
+        return None
+    from image_restoration_tpu_torch.core.mesh import axis_index, axis_size
+    from image_restoration_tpu_torch.parallel.global_batch import GlobalBatch
+
+    return GlobalBatch(mesh.get_group("data"), axis_size(mesh, "data"),
+                       axis_index(mesh, "data"), rows)
+
+
+def make_train_step(model, tx: Optimizer, cfg: TrainerConfig,
+                    mesh=None) -> Callable:
     """The train step ``(state, batch[, generator]) -> (state, logs)``.
 
     The model's forward may return ``pred``, ``(pred, aux)`` with ``aux`` a
@@ -290,6 +390,12 @@ def make_train_step(model, tx: Optimizer, cfg: TrainerConfig) -> Callable:
     model's device is passed to the forward as ``generator`` (the MoE
     families' routing noise under ``apply_kwargs`` ``{"train": True}``; the
     JAX step's ``rngs={"moe": rng}``); None passes nothing.
+
+    On ``mesh`` (a ``DeviceMesh`` with a ``data`` axis) ``batch`` is this
+    rank's rows of the global batch, and the generator the one the
+    one-process step would take: the step is the one-process step on the
+    global batch (module docstring); every rank ends it with the same
+    parameters, optimizer state and logs.
     """
     from image_restoration_tpu_torch.train.recipes import make_recipe
 
@@ -305,7 +411,9 @@ def make_train_step(model, tx: Optimizer, cfg: TrainerConfig) -> Callable:
         model.train()
         kwargs = (apply_kwargs if generator is None
                   else {**apply_kwargs, "generator": generator})
-        logs, grads = loss_and_grads(model, recipe, batch, kwargs, params)
+        gb = step_global_batch(mesh, batch["lq"].shape[0])
+        logs, grads = loss_and_grads(model, recipe, batch, kwargs, params,
+                                     gb)
         updates, state.opt_state = tx.update(grads, state.opt_state, params)
         apply_updates(state, params, updates, cfg.ema_decay)
         state.step += 1

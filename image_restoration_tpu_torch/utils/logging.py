@@ -5,13 +5,15 @@ Replaces the zoo's scattered loggers (BasicSR MessageLogger, W&B/TB Lightning
 loggers, tee stdout logs at 20260104_CG_IR/src/train.py:25-35, NeRD
 get_parameter_number.py, the remaining-time estimator of SRConvNet
 custom/caltime.py). ``metrics.jsonl`` holds the JAX package's records.
-The JAX module's XLA ``cost_analysis``, ``profile_trace`` and its network
-``CloudLog`` are not here (ROADMAP Queue 1 item 6); ``chip_smoke.py
---profile`` traces the card with ``torch.profiler``.
+Profiling: :func:`cost_analysis` counts FLOPs with torch's
+``FlopCounterMode`` in place of XLA's cost analysis, :func:`profile_trace`
+records a ``torch.profiler`` trace in place of ``jax.profiler``'s, and
+:class:`CloudLog` is the JAX module's fire-and-forget HTTP sender.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -88,6 +90,53 @@ def count_params(params) -> int:
     return sum(t.numel() for t in tensors)
 
 
+def cost_analysis(fn, *args) -> dict:
+    """FLOPs of one call ``fn(*args)``, counted by
+    ``torch.utils.flop_counter.FlopCounterMode`` -- the fvcore
+    FlopCountAnalysis / ptflops replacement (moce_ir.py:1086-1088) and the
+    port's counterpart of the JAX module's XLA cost analysis.
+
+    The counter sees the operators torch dispatches and counts matrix
+    products, convolutions and attention at 2 FLOPs a multiply-add, every
+    tap of a padded convolution included (XLA counts only the taps inside
+    the input, so the two agree on unpadded convolutions); elementwise
+    operations, reductions and normalisations count 0, where XLA counts
+    them too. A kernel launched through ctypes is invisible to
+    it, so count on the model as built for the CPU, whose kernel wrappers
+    run their plain versions (the same products). torch has no
+    bytes-accessed figure, so there is no ``bytes_accessed`` key. (JAX's
+    returns ``{}`` where the compiled program has no cost analysis; the
+    counter always has its count.)"""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        fn(*args)
+    return {"flops": float(counter.get_total_flops())}
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str):
+    """``torch.profiler`` over the block, on the CPU and, where there is
+    one, the CUDA device; the Chrome trace goes to
+    ``logdir/trace_<pid>_<ms>.json`` when the block ends (the
+    ``jax.profiler`` trace context's counterpart). Yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    try:
+        with prof:
+            yield prof
+    finally:
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json"))
+
+
 def model_summary(model, max_depth: int = 2) -> str:
     """Per-module parameter table (MoCE-IR-main/src/utils/model_summary.py
     and NeRD-Rain get_parameter_number.py analog): aggregates parameter
@@ -160,3 +209,60 @@ class MessageLogger:
         self.jsonl.close()
         if self.tb:
             self.tb.close()
+
+
+class CloudLog:
+    """Fire-and-forget HTTP log sender (SRConvNet custom/serverLog.py:10-36
+    LogClass analog, gated by the train CLI's --cloudlog flag); a copy of
+    the JAX module's.
+
+    Posts `name`/`content` as URL-quoted query params to `url` from a single
+    daemon worker draining a bounded queue (a slow endpoint can neither pile
+    up threads nor serialize the training loop; overflow drops the oldest
+    pending entry). Network failures are swallowed (the reference prints and
+    continues). Off (or an empty url) makes sendLog a no-op -- the default.
+    """
+
+    def __init__(self, on: bool = False, url: str = "", timeout: float = 5.0,
+                 max_pending: int = 64):
+        self.on = on and bool(url)
+        self.url = url
+        self.timeout = timeout
+        self._q = None
+        if self.on:
+            import queue
+            import threading
+
+            self._q = queue.Queue(maxsize=max_pending)
+            threading.Thread(target=self._worker, daemon=True).start()
+
+    def _worker(self) -> None:
+        from urllib.parse import quote
+        from urllib.request import urlopen
+
+        while True:
+            content, name = self._q.get()
+            try:
+                sep = "&" if "?" in self.url else "?"
+                full = (f"{self.url}{sep}name={quote(name, 'utf-8')}"
+                        f"&content={quote(content, 'utf-8')}")
+                urlopen(full, timeout=self.timeout).read()
+            except Exception:  # the reference prints and goes on
+                print("\nsendLog network error!")
+
+    def sendLog(self, content: str, name: str) -> None:
+        if not self.on:
+            return
+        import queue
+
+        try:
+            self._q.put_nowait((content, name))
+        except queue.Full:  # drop the oldest, keep the newest
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            try:
+                self._q.put_nowait((content, name))
+            except queue.Full:
+                pass

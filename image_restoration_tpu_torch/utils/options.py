@@ -229,8 +229,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_max_images", type=int, default=0,
                    help="cap validation set size (0 = all)")
     p.add_argument("--mesh", nargs="+", type=int, default=None,
-                   help="mesh shape (refused: multi-GPU is ROADMAP Queue 1 "
-                        "item 6)")
+                   help="mesh shape d [e [s]] over ('data', 'expert', "
+                        "'spatial'); its size must be the number of ranks "
+                        "(under torch.distributed.run)")
     # io
     p.add_argument("--ckpt_dir", type=str, default="train_ckpt")
     p.add_argument("--name", type=str, default="exp")

@@ -47,17 +47,18 @@ time of a wrapper call and of its parts are timed apart (the sweep behind
 copied into an older tree it times that tree's K9. The eighth runs
 ``tools/learn_run.py``'s overfit configuration (its synthetic rain set
 and its argv, 2000 steps, the run behind ``LEARN_r03.json``) through the
-port's ``cli/train.py`` at ``model_kwargs.dim`` DIM: 24 is JAX's (plain
-blocks: ``build_model`` turns ``fused_block`` off at head width 24), 48
-puts K1/K2 in every forward; it prints the loss and validation PSNR
-curves as one JSON line. The model starts from the port's seeded init,
-which draws as the JAX package's flax init does (``lecun_normal``
-weights, zero biases). The ninth does the same for
+port's ``cli/train.py`` at ``model_kwargs.dim`` DIM: 24 is the width of
+the JAX run (which sets no kernel flag and so trains plain XLA blocks);
+here K1/K2 run every block at either width, at 24 with each 24-wide head
+padded to 32 (``kernels/widths.py``), at 48 as they are; it prints the
+loss and validation PSNR curves as one JSON line. The model starts
+from the port's seeded init, which draws as the JAX package's flax init
+does (``lecun_normal`` weights, zero biases). The ninth does the same for
 ``tools/learn_run2.py``'s ``moce_ir`` argv (MoCE-IR at dim 24, 4 experts,
 top-2, aux weight 0.01, lr 1e-3, 2500 steps: the run behind
 ``LEARN_moce_ir_r05.json``), its balance loss's curve beside the others.
 The tenth runs the build, the kernel checks (phases 2-2h) and then only
-the named phases of the ones that follow them (``PHASES``: 3, 3j, 3l,
+the named phases of the ones that follow them (``PHASES``: 3, 3w, 3j, 3l,
 3m, 3n, 3o, 3p, 3q, 3f, "3f family", "3f 3l", "3f 3o", "3f 3p", "3f 3q",
 4, 4m, 4f, 4n, 4p, 4q, 5, 5v, 5a, 6, 6m, 6d), so that a family's phases
 run on the card without the whole run.
@@ -122,6 +123,21 @@ Phases, any failure ends the run with a nonzero exit code:
    folded into A^T W_proj, on a batch of two at 128x128 x 192 and 64x64 x
    384, by phase 2's rule against ``reference_block(..., gate=)``, two
    runs bit-equal;
+2w. the kernel APIs at widths the raw kernels do not take, which run
+   them in padded layouts (``kernels/widths.py``: each head padded, LN
+   statistics over the real channels, the finalize at the real width):
+   ``fused_block`` and the three-kernel block's APIs at the 12 blocks of
+   Restormer at dim 24 (tools/learn_run.py's heads 1/2/4/8) serving a
+   512x512 image whose heads are 24 wide (512^2 x 24 in 1 head, 256^2 x
+   48 in 2, 128^2 x 96 in 4, 64^2 x 192 in 8), ``fused_drs_block`` at
+   DRSformer's at dim 24, ``fused_mefc_steps`` at its 24-wide Subnet (4
+   steps at 512^2), and CG-IR's gated pair at batch 2 with heads of 20.
+   Each API is held to its plain composition at the real width by phase
+   2's rule, two runs give the same bits, and every pad channel of each
+   raw launch's output is exactly 0. Times: each API against its plain
+   composition, the raw launches, and of the API's time the activation
+   pad + unpad copies and the weight padding (the kernels line's by_path
+   "dim24" holds the raw launches, bounds at the real width);
 3g. CG-IR, MEASNet and NeRD-Rain served as phase 3 from their serving
    defaults (``fused_block``): 44, 40 and 78 K1 + K2 launches per forward,
    the same agreement rule against each plain fp32 model (NeRD-Rain on its
@@ -170,6 +186,13 @@ Phases, any failure ends the run with a nonzero exit code:
    model that differs from the plain fp32 model's fails the phase. The
    host syncs of one forward are counted (the switched top-1 adapter reads
    each decoder block's pick on the host);
+3w. the dim-24 models served as phase 3 at 512x512 with every kernel
+   flag on and their blocks padded: Restormer at tools/learn_run.py's
+   configuration (16 K1 + 16 K2 a forward), DRSformer at dim 24 (40 K1 +
+   40 K7 + 8 K8) and MoCE-IR at tools/learn_run2.py's moce_ir argv (28 K1
+   + 28 K2). ``build_model`` prints no "off" line; phase 3's agreement
+   rule; the forward's device ms of the kernel model against the plain
+   bf16 model's;
 3i. IGMoCE-IR (its zero-initialised residual scales seeded,
    ``perturb_igmoce``), LumiSenseMoE and the patch-routed MoCE-IR from
    their serving defaults, served the same way without a kernel: every
@@ -433,6 +456,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -594,7 +618,7 @@ DENSE_TRAIN_STEPS, DENSE_LR = 3, 1e-4
 CARD_CPU_GLA = 1e-5
 # The phases after the kernel checks, in their order: ``--phases`` runs the
 # named ones.
-PHASES = ("3", "3j", "3l", "3m", "3n", "3o", "3p", "3q", "3f",
+PHASES = ("3", "3w", "3j", "3l", "3m", "3n", "3o", "3p", "3q", "3f",
           "3f family", "3f 3l", "3f 3o", "3f 3p", "3f 3q", "4", "4m", "4f",
           "4n", "4p", "4q", "5", "5v", "5a", "6", "6m", "6d")
 # Phases 3o, "3f 3o" and 5a: IPT (its field defaults: n_feats 64, task 5,
@@ -645,6 +669,29 @@ FID_IMAGES = 96
 GATED_SHAPES = [(128, 128, 192, 4), (64, 64, 384, 8)]
 MEFC_STEPS = [(512, 512, 48, 4), (512, 512, 96, 4)]  # (H, W, C, steps)
 MEFC_STEPS_PER_FORWARD = sum(lv[-1] for lv in MEFC_STEPS)  # 8
+# Phase 2w: the kernel APIs at widths the raw kernels do not take, which
+# they run in padded layouts (kernels/widths.py). Restormer at
+# tools/learn_run.py's dim 24 (blocks 2/2/2/2, 2 refinement, heads 1/2/4/8:
+# every head 24 wide) serving a 512x512 image, (H, W, C, heads, blocks a
+# forward): its 12 blocks whose heads are 24 wide; decoder level 1 and the
+# refinement (4 blocks, 48 in one head) take K1 as they are. DRSformer at
+# dim 24: DRS_LEVELS' padded blocks at half the width, and its level-0 MEFC
+# Subnet (24 wide, 4 steps; the refinement's is 48 wide). CG-IR's gated
+# pair at batch 2 with heads of 20 (padded to 32).
+DIM24_LEVELS = [(512, 512, 24, 1, 2), (256, 256, 48, 2, 4),
+                (128, 128, 96, 4, 4), (64, 64, 192, 8, 2)]
+DIM24_BLOCKS_PER_FORWARD = 16
+DRS24_LEVELS = [(512, 512, 24, 1, 4), (256, 256, 48, 2, 12),
+                (128, 128, 96, 4, 12), (64, 64, 192, 8, 8)]
+MEFC24_STEPS = (512, 512, 24, 4)
+GATED24_SHAPE = (128, 128, 40, 2)
+# Phase 3w: the dim-24 models serving 512x512 (--set overrides): Restormer
+# at tools/learn_run.py's configuration, DRSformer at dim 24, MoCE-IR at
+# tools/learn_run2.py's moce_ir argv.
+LEARN_RUN_RESTORMER = ("model_kwargs.dim=24",
+                       "model_kwargs.num_blocks=(2,2,2,2)",
+                       "model_kwargs.num_refinement_blocks=2",
+                       "model_kwargs.heads=(1,2,4,8)")
 # DRSformer's training forward (batch 8 of 128x128 patches): its blocks and
 # MEFC steps at a quarter of the 512x512 side.
 DRS_TRAIN_LEVELS = [(h * TRAIN_PATCH // 512, w * TRAIN_PATCH // 512, c, heads,
@@ -999,6 +1046,358 @@ def phase_gated():
                                lambda: K.fused_block(x, p, heads, gate=gate),
                                kern)
         print(f"gated fused_block {shape}: rel err {msg}", flush=True)
+
+
+def _zero_pads(name, shape, t, lay, slots=1):
+    """Checks that every pad channel of ``t``'s last axis in the padded
+    layout ``lay`` is exactly 0."""
+    parts = t.reshape(*t.shape[:-1], slots * lay.heads, lay.chp)
+    n = int(parts[..., lay.ch:].count_nonzero().item())
+    check(n == 0, f"{name} at {shape}: {n} pad values are not 0")
+
+
+def _api_rule(name, shape, api, plain, oracle):
+    """A kernel API at a padded width against its plain composition at the
+    real width: phase 2's rule on each output (``oracle``: the fp32 plain
+    composition) and two bit-equal runs. Returns the API's output, the
+    plain one and the message."""
+    import torch
+
+    kern, pl = api(), plain()
+    torch.cuda.synchronize()
+    msg = "; ".join(_check_rule(name, shape, k, p, o) for k, p, o in zip(
+        _outputs(kern), _outputs(pl), _outputs(oracle())))
+    check_twice_and_batch2(name, shape, api, kern)
+    return kern, pl, msg
+
+
+def _dev_ms(fn):
+    """``time_cuda`` of ``fn`` with the spin's head start at least twice
+    the host time of one call (10 reps after 2): the padded APIs enqueue
+    tens of small launches a call, which a 2 ms head start does not cover
+    on a slow host, and then the events would time the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return time_cuda(fn, reps=10, warmup=2,
+                     head_start_ms=max(2.0, 2.0 * host_ms))
+
+
+def phase_width_kernels():
+    """Phase 2w: the kernel APIs at the widths they run padded
+    (``kernels/widths.py``), on the card. At DIM24_LEVELS, ``fused_block``
+    (K1, the finalize at the real width, K2) and the three-kernel block's
+    ``ln_qkv_dwconv`` (K4), ``fused_mdta_core`` (K5, K6) and
+    ``fused_ln_gdfn`` (K3); at DRS24_LEVELS ``fused_drs_block`` (K1, K7);
+    ``fused_mefc_steps`` (K8) at MEFC24_STEPS; CG-IR's gated pair at
+    GATED24_SHAPE. Each is held to its plain composition at the real width
+    by phase 2's rule, two runs give the same bits, and every pad channel
+    of each raw launch's output in the padded space is exactly 0. Times:
+    each API call against its plain composition, and of the API's time the
+    activation pad + unpad copies and the weight padding (CUDA-event
+    medians, ``_dev_ms``), and the pair's host ms a call. Returns the raw
+    launches' report (real-width bounds)."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_restoration_tpu_torch.kernels import attn_core as KA
+    from image_restoration_tpu_torch.kernels import block as K
+    from image_restoration_tpu_torch.kernels import drs_block as KD
+    from image_restoration_tpu_torch.kernels import gdfn as KG
+    from image_restoration_tpu_torch.kernels import mdta as KQ
+    from image_restoration_tpu_torch.kernels import mefc as KM
+    from image_restoration_tpu_torch.kernels.widths import (
+        flat_layout, pad_channels, pad_square, real_stats, unpad_channels,
+    )
+
+    report = _new_report(("block_front", "block_apply_gdfn", "ln_qkv_dwconv",
+                          "attn_acc", "attn_apply", "ln_gdfn",
+                          "drs_apply_msfn", "mefc_step"))
+    eps = 1e-5
+    per_forward = {k: 0.0 for k in ("pair", "pair plain", "pair copies",
+                                    "pair weights", "3k", "3k plain",
+                                    "3k copies", "3k weights", "pair host",
+                                    "pair host weights", "pair host plain")}
+
+    def plain_pair(x, p, heads, gate=None):
+        v, gram, ss = K.block_front_ref(x, p.front(), heads, eps)
+        atw = K.finalize(gram, ss, p.temperature, p.proj_w, x.dtype, gate)
+        return K.block_apply_gdfn_ref(v, x, atw, p, eps)
+
+    def plain_core(qkv, x, p, heads):
+        gram, ss = KA.attn_acc_ref(qkv, heads)
+        at = KA.finalize_at(gram, ss, p.temperature, x.dtype)
+        return KA.attn_apply_ref(qkv, x, at, p.proj_w, p.proj_b)
+
+    def record(name, hwc, n, t_k, t_p, kern, plain, bound):
+        _record(report, name, hwc, n, t_k, t_p,
+                (kern.float() - plain.float()).abs().max().item(), bound)
+
+    for i, (h, w, c, heads, n) in enumerate(DIM24_LEVELS):
+        p = random_block(c, heads, seed=2600 + i)
+        gen = torch.Generator().manual_seed(2700 + i)
+        x = torch.randn((1, h, w, c), generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        shape, hwc = f"1x{h}x{w}x{c} heads {heads}", [1, h, w, c]
+
+        # the pair, in K1's layout
+        lay = K.front_layout(c, heads)
+        check(lay.padded, f"2w: {shape} is not padded")
+        out, _, msg = _api_rule(
+            "fused_block (padded)", shape, lambda: K.fused_block(x, p, heads),
+            lambda: plain_pair(x, p, heads),
+            lambda: plain_pair(x.float(), p, heads))
+        xp, pp = pad_channels(x, lay), K.pad_block_params(p, lay)
+        v, gram, ss = K.block_front(xp, pp.front(), heads, eps, c)
+        for t in (v, ss):
+            _zero_pads("block_front (padded)", shape, t, lay)
+        check(int(gram[..., lay.ch:, :].count_nonzero().item()) == 0 and int(
+            gram[..., lay.ch:].count_nonzero().item()) == 0,
+              f"block_front (padded) at {shape}: a Gram pad is not 0")
+        atw = pad_square(K.finalize(*real_stats(gram, ss, lay), p.temperature,
+                                    p.proj_w, x.dtype), lay)
+        outp = K.block_apply_gdfn(v, xp, atw, pp, eps, c)
+        _zero_pads("block_apply_gdfn (padded)", shape, outp, lay)
+        vr, gr, sr = K.block_front_ref(x, p.front(), heads, eps)
+        atr = K.finalize(gr, sr, p.temperature, p.proj_w, x.dtype)
+        t_api = _dev_ms(lambda: K.fused_block(x, p, heads))
+        t_plain = _dev_ms(lambda: plain_pair(x, p, heads))
+        t_copies = _dev_ms(lambda: (pad_channels(x, lay),
+                                      unpad_channels(outp, lay)))
+        t_weights = _dev_ms(lambda: K.pad_block_params(p, lay))
+        t_k1 = _dev_ms(lambda: K.block_front(xp, pp.front(), heads, eps, c))
+        t_k2 = _dev_ms(lambda: K.block_apply_gdfn(v, xp, atw, pp, eps, c))
+        # host ms a call, on a 16x16 map so that the card keeps up
+        xs = x[:, :16, :16].contiguous()
+        h_api = _host_ms(lambda: K.fused_block(xs, p, heads), 50)
+        h_weights = _host_ms(lambda: K.pad_block_params(p, lay), 50)
+        h_plain = _host_ms(lambda: plain_pair(xs, p, heads), 50)
+        record("block_front", hwc, n, t_k1,
+               _dev_ms(lambda: K.block_front_ref(x, p.front(), heads, eps)),
+               unpad_channels(v, lay), vr, bound_block_front(h, w, c, heads))
+        record("block_apply_gdfn", hwc, n, t_k2,
+               _dev_ms(lambda: K.block_apply_gdfn_ref(vr, x, atr, p, eps)),
+               out, plain_pair(x, p, heads), bound_block_apply_gdfn(h, w, c))
+        print(f"2w fused_block {shape} padded to {lay.cp} ({lay.heads} x "
+              f"{lay.chp}): rel err {msg}; API {t_api:.4f} ms (K1 {t_k1:.4f},"
+              f" K2 {t_k2:.4f}, x pad + out unpad {t_copies:.4f}, weight "
+              f"padding {t_weights:.4f}), plain {t_plain:.4f} ms; host ms a "
+              f"call: API {h_api:.4f} (weight padding {h_weights:.4f}), "
+              f"plain {h_plain:.4f}", flush=True)
+        for k, t in (("pair", t_api), ("pair plain", t_plain),
+                     ("pair copies", t_copies), ("pair weights", t_weights),
+                     ("pair host", h_api), ("pair host weights", h_weights),
+                     ("pair host plain", h_plain)):
+            per_forward[k] += n * t
+
+        # the three-kernel block: K4 and K3 flat, K5 and K6 in their layout
+        f, g = p.front(), p.gdfn()
+        flat, att = flat_layout(c), KA.attn_layout(c, heads)
+        qkv, qkv_plain, msg4 = _api_rule(
+            "ln_qkv_dwconv (padded)", shape, lambda: KQ.ln_qkv_dwconv(x, f),
+            lambda: KQ.ln_qkv_dwconv_ref(x, f, eps),
+            lambda: KQ.ln_qkv_dwconv_ref(x.float(), f, eps))
+        core, core_plain, msg56 = _api_rule(
+            "fused_mdta_core (padded)", shape,
+            lambda: KA.fused_mdta_core(qkv_plain, x, p.temperature, p.proj_w,
+                                       p.proj_b, heads),
+            lambda: plain_core(qkv_plain, x, p, heads),
+            lambda: plain_core(qkv_plain.float(), x.float(), p, heads))
+        gd, gd_plain, msg3 = _api_rule(
+            "fused_ln_gdfn (padded)", shape, lambda: KG.fused_ln_gdfn(x, g),
+            lambda: KG.ln_gdfn_ref(x, g, eps),
+            lambda: KG.ln_gdfn_ref(x.float(), g, eps))
+        xf, ff = pad_channels(x, flat), K.pad_front_params(f, flat)
+        gf = K.pad_gdfn_params(g, flat)
+        qkv_f = KQ._ln_qkv_dwconv(xf, ff, eps, c)
+        gd_f = KG._fused_ln_gdfn(xf, gf, eps, c)
+        _zero_pads("ln_qkv_dwconv (padded)", shape, qkv_f, flat, 3)
+        _zero_pads("ln_gdfn (padded)", shape, gd_f, flat)
+        qa, xa = pad_channels(qkv_plain, att, 3), pad_channels(x, att)
+        ga, sa = KA.attn_acc(qa, heads)
+        _zero_pads("attn_acc (padded)", shape, sa, att)
+        d = att.chp - att.ch
+        at = F.pad(KA.finalize_at(*real_stats(ga, sa, att), p.temperature,
+                                  x.dtype), (0, d, 0, d))
+        wa = pad_channels(pad_channels(p.proj_w, att, dim=0), att, dim=1)
+        ba = pad_channels(p.proj_b, att, dim=0)
+        core_a = KA.attn_apply(qa, xa, at, wa, ba)
+        _zero_pads("attn_apply (padded)", shape, core_a, att)
+
+        def three(x):
+            qkv = KQ.ln_qkv_dwconv(x, f)
+            x = KA.fused_mdta_core(qkv, x, p.temperature, p.proj_w, p.proj_b,
+                                   heads)
+            return KG.fused_ln_gdfn(x, g)
+
+        def three_plain(x):
+            qkv = KQ.ln_qkv_dwconv_ref(x, f, eps)
+            return KG.ln_gdfn_ref(plain_core(qkv, x, p, heads), g, eps)
+
+        def copies():  # the three APIs' activation pads and unpads
+            pad_channels(x, flat)
+            unpad_channels(qkv_f, flat, 3)
+            pad_channels(qkv, att, 3)
+            pad_channels(x, att)
+            unpad_channels(core_a, att)
+            pad_channels(x, flat)
+            unpad_channels(gd_f, flat)
+
+        def weights():
+            K.pad_front_params(f, flat)
+            pad_channels(pad_channels(p.proj_w, att, dim=0), att, dim=1)
+            K.pad_gdfn_params(g, flat)
+
+        t3 = _dev_ms(lambda: three(x))
+        t3p = _dev_ms(lambda: three_plain(x))
+        t3c, t3w = _dev_ms(copies), _dev_ms(weights)
+        t_k4 = _dev_ms(lambda: KQ._ln_qkv_dwconv(xf, ff, eps, c))
+        t_k5 = _dev_ms(lambda: KA.attn_acc(qa, heads))
+        t_k6 = _dev_ms(lambda: KA.attn_apply(qa, xa, at, wa, ba))
+        t_k3 = _dev_ms(lambda: KG._fused_ln_gdfn(xf, gf, eps, c))
+        record("ln_qkv_dwconv", hwc, n, t_k4,
+               _dev_ms(lambda: KQ.ln_qkv_dwconv_ref(x, f, eps)), qkv,
+               qkv_plain, bound_ln_qkv_dwconv(h, w, c))
+        record("attn_acc", hwc, n, t_k5,
+               _dev_ms(lambda: KA.attn_acc_ref(qkv_plain, heads)),
+               real_stats(ga, sa, att)[1],
+               KA.attn_acc_ref(qkv_plain, heads)[1],
+               bound_attn_acc(h, w, c, heads))
+        record("attn_apply", hwc, n, t_k6,
+               _dev_ms(lambda: plain_core(qkv_plain, x, p, heads)), core,
+               core_plain, bound_attn_apply(h, w, c, heads))
+        record("ln_gdfn", hwc, n, t_k3,
+               _dev_ms(lambda: KG.ln_gdfn_ref(x, g, eps)), gd, gd_plain,
+               bound_ln_gdfn(h, w, c))
+        print(f"2w three-kernel block {shape}: K4 (flat {flat.cp}) rel err "
+              f"{msg4}; K5/K6 ({att.heads} x {att.chp}) {msg56}; K3 (flat "
+              f"{flat.cp}) {msg3}; the block's APIs {t3:.4f} ms (K4 "
+              f"{t_k4:.4f}, K5 {t_k5:.4f}, K6 {t_k6:.4f}, K3 {t_k3:.4f}, pad "
+              f"+ unpad copies {t3c:.4f}, weight padding {t3w:.4f}), plain "
+              f"{t3p:.4f} ms", flush=True)
+        for k, t in (("3k", t3), ("3k plain", t3p), ("3k copies", t3c),
+                     ("3k weights", t3w)):
+            per_forward[k] += n * t
+        del qkv, qkv_plain, core, core_plain, gd, gd_plain, qa, xa, core_a
+
+    for kind in ("pair", "3k"):
+        t = per_forward[kind]
+        print(f"2w Restormer dim 24 {kind} over the "
+              f"{sum(lv[-1] for lv in DIM24_LEVELS)} padded blocks of a "
+              f"512x512 forward: API {t:.4f} ms, plain "
+              f"{per_forward[kind + ' plain']:.4f} ms; activation pad + "
+              f"unpad copies {per_forward[kind + ' copies']:.4f} ms "
+              f"({100 * per_forward[kind + ' copies'] / t:.1f}%), weight "
+              f"padding {per_forward[kind + ' weights']:.4f} ms "
+              f"({100 * per_forward[kind + ' weights'] / t:.1f}%)",
+              flush=True)
+    print(f"2w Restormer dim 24 pair, host ms over the 12 blocks: API "
+          f"{per_forward['pair host']:.4f} (weight padding "
+          f"{per_forward['pair host weights']:.4f}), plain "
+          f"{per_forward['pair host plain']:.4f}", flush=True)
+
+    t_drs = t_drs_plain = t_drs_copies = 0.0
+    for i, (h, w, c, heads, n) in enumerate(DRS24_LEVELS):
+        p = random_drs_block(c, heads, seed=2800 + i)
+        gen = torch.Generator().manual_seed(2900 + i)
+        x = torch.randn((1, h, w, c), generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        shape, hwc = f"1x{h}x{w}x{c} heads {heads}", [1, h, w, c]
+
+        def plain_drs(x):
+            v, gram, ss = K.block_front_ref(x, p.front(), heads, eps)
+            atw = KD.tksa_finalize(gram, ss, p.temperature, p.mix, p.proj_w,
+                                   x.dtype)
+            return KD.drs_apply_msfn_ref(v, x, atw, p, eps)
+
+        out, plain, msg = _api_rule(
+            "fused_drs_block (padded)", shape,
+            lambda: KD.fused_drs_block(x, p, heads), lambda: plain_drs(x),
+            lambda: plain_drs(x.float()))
+        lay = K.front_layout(c, heads)
+        xp, pp = pad_channels(x, lay), KD.pad_drs_params(p, lay)
+        v, gram, ss = K.block_front(xp, pp.front(), heads, eps, c)
+        _zero_pads("block_front (DRSformer, padded)", shape, v, lay)
+        atw = pad_square(KD.tksa_finalize(*real_stats(gram, ss, lay),
+                                          p.temperature, p.mix, p.proj_w,
+                                          x.dtype), lay)
+        vr, gr, sr = K.block_front_ref(x, p.front(), heads, eps)
+        atr = KD.tksa_finalize(gr, sr, p.temperature, p.mix, p.proj_w,
+                               x.dtype)
+        outp = KD.drs_apply_msfn(v, xp, atw, pp, eps, c)
+        _zero_pads("drs_apply_msfn (padded)", shape, outp, lay)
+        t_api = _dev_ms(lambda: KD.fused_drs_block(x, p, heads))
+        t_plain = _dev_ms(lambda: plain_drs(x))
+        t_copies = _dev_ms(lambda: (pad_channels(x, lay),
+                                      unpad_channels(outp, lay)))
+        t_k7 = _dev_ms(lambda: KD.drs_apply_msfn(v, xp, atw, pp, eps, c))
+        record("drs_apply_msfn", hwc, n, t_k7,
+               _dev_ms(lambda: KD.drs_apply_msfn_ref(vr, x, atr, p, eps)),
+               out, plain, bound_drs_apply_msfn(h, w, c))
+        print(f"2w fused_drs_block {shape} padded to {lay.cp}: rel err {msg}"
+              f"; API {t_api:.4f} ms (K7 {t_k7:.4f}, x pad + out unpad "
+              f"{t_copies:.4f}), plain {t_plain:.4f} ms", flush=True)
+        t_drs += n * t_api
+        t_drs_plain += n * t_plain
+        t_drs_copies += n * t_copies
+    print(f"2w DRSformer dim 24 over the {sum(lv[-1] for lv in DRS24_LEVELS)} "
+          f"padded blocks of a 512x512 forward: API {t_drs:.4f} ms, plain "
+          f"{t_drs_plain:.4f} ms; activation pad + unpad copies "
+          f"{t_drs_copies:.4f} ms ({100 * t_drs_copies / t_drs:.1f}%)",
+          flush=True)
+
+    h, w, c, n_steps = MEFC24_STEPS
+    steps, mix = random_mefc_steps(c, n_steps, seed=3000)
+    gen = torch.Generator().manual_seed(3001)
+    x = torch.randn((1, h, w, c), generator=gen).abs().to("cuda",
+                                                          torch.bfloat16)
+    shape = f"1x{h}x{w}x{c}, {n_steps} steps"
+
+    def plain_steps(x, dt):
+        for st, sp in enumerate(steps):
+            x = KM.mefc_step_ref(x, sp, KM.fold_step(sp, mix[:, st], dt))
+        return x
+
+    out, plain, msg = _api_rule(
+        "fused_mefc_steps (padded)", shape,
+        lambda: KM.fused_mefc_steps(x, steps, mix),
+        lambda: plain_steps(x, torch.bfloat16),
+        lambda: plain_steps(x.float(), torch.float32))
+    lay = KM.mefc_layout(c)
+    xp = pad_channels(x, lay)
+    m = pad_square(KM.fold_step(steps[0], mix[:, 0], torch.bfloat16), lay)
+    sp0 = KM.pad_step_params(steps[0], lay)
+    _zero_pads("mefc_step (padded)", shape, KM.mefc_step(xp, sp0, m), lay)
+    t_api = _dev_ms(lambda: KM.fused_mefc_steps(x, steps, mix))
+    t_plain = _dev_ms(lambda: plain_steps(x, torch.bfloat16))
+    m_r = KM.fold_step(steps[0], mix[:, 0], torch.bfloat16)
+    record("mefc_step", [1, h, w, c], n_steps,
+           _dev_ms(lambda: KM.mefc_step(xp, sp0, m)),
+           _dev_ms(lambda: KM.mefc_step_ref(x, steps[0], m_r)), out, plain,
+           bound_mefc_step(h, w, c))
+    print(f"2w fused_mefc_steps {shape} padded to {lay.cp}: rel err {msg}; "
+          f"API {t_api:.4f} ms, plain {t_plain:.4f} ms", flush=True)
+
+    h, w, c, heads = GATED24_SHAPE
+    gen = torch.Generator().manual_seed(3100)
+    temp = torch.exp(0.3 * torch.randn(2, heads, generator=gen)).cuda()
+    gate = torch.sigmoid(torch.randn(2, c, generator=gen)).cuda()
+    p = random_block(c, heads, seed=3101)._replace(temperature=temp)
+    x = torch.randn((2, h, w, c), generator=gen).to("cuda", torch.bfloat16)
+    shape = f"2x{h}x{w}x{c} heads {heads}"
+    _, _, msg = _api_rule(
+        "gated fused_block (padded)", shape,
+        lambda: K.fused_block(x, p, heads, gate=gate),
+        lambda: plain_pair(x, p, heads, gate),
+        lambda: plain_pair(x.float(), p, heads, gate))
+    print(f"2w gated fused_block {shape} padded to "
+          f"{K.front_layout(c, heads).cp}: rel err {msg}", flush=True)
+    return report
 
 
 def merge_path(report, extra, path):
@@ -5801,10 +6200,92 @@ def phase_learn_moce(gpu):
     ``tools/learn_run2.py``'s ``moce_ir`` argv (MoCE-IR at its serving
     defaults with dim 24, 4 experts, top-2, aux weight 0.01, lr 1e-3;
     noisy routing, the balance loss and EMA on), 2500 steps, through
-    :func:`_learn`. At head width 24 ``build_model`` runs the EncoderBlocks
-    plain."""
+    :func:`_learn`. Its EncoderBlocks run K1/K2 with their 24-wide heads
+    padded to 32."""
     args = _load_tool("learn_run2").MODEL_ARGS["moce_ir"]
     _learn(gpu, "moce_ir " + " ".join(args[2:]), args, LEARN_MOCE_STEPS)
+
+
+def phase_serve_widths(gpu, profile_dir=None):
+    """Phase 3w: the dim-24 models serve 512x512 through ``make_restore_fn``
+    with their kernels in the padded layouts (``phase_slice``): Restormer
+    at tools/learn_run.py's configuration (16 K1 + 16 K2 a forward),
+    DRSformer at dim 24 (40 K1 + 40 K7 + 8 K8) and MoCE-IR at
+    tools/learn_run2.py's moce_ir argv (28 K1 + 28 K2). ``build_model``
+    prints no "off" line (it prints one for each flag it turns off); the
+    kernel bf16 model's error against the plain fp32 model stays within 3x
+    the plain bf16 model's; the forward's device ms of the kernel model
+    against the plain bf16 model's, and both on the host clock. Returns
+    the launch counts by path."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import block as KB
+    from image_restoration_tpu_torch.kernels import drs_block as KD
+    from image_restoration_tpu_torch.kernels import mefc as KM
+
+    def forward_ms(tag, model, plain16, plain32, x):
+        """The plain bf16 model's forward timed as ``phase_slice`` times
+        the kernel model's, and both forwards on the host clock (a
+        forward the host cannot enqueue ahead of the card takes its host
+        time)."""
+        host = {}
+        with torch.inference_mode():
+            t_p = time_cuda(lambda: plain16(x), reps=10, head_start_ms=150.0)
+            for name, m in (("kernel", model), ("plain", plain16)):
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m(x)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                host[name] = statistics.median(times)
+        print(f"{tag} forward 512x512 on {gpu}: plain bf16 {t_p:.3f} ms "
+              f"(device, CUDA events, as the kernel model's below); host "
+              f"clock, median of 3: kernel bf16 {host['kernel']:.3f} ms, "
+              f"plain bf16 {host['plain']:.3f} ms", flush=True)
+
+    routes = inspect_routes(strict=False)
+
+    def moce_inspect(*args):
+        routes(*args)
+        forward_ms(*args)
+
+    moce = _load_tool("learn_run2").MODEL_ARGS["moce_ir"]
+    moce_sets = tuple(v for k, v in zip(moce, moce[1:])
+                      if k == "--set" and v.startswith("model_kwargs."))
+    pair = {"block_front": KB.block_front,
+            "block_apply_gdfn": KB.block_apply_gdfn}
+    runs = {
+        "restormer_dim24": ("restormer", LEARN_RUN_RESTORMER, pair,
+                            DIM24_BLOCKS_PER_FORWARD, {}),
+        "drsformer_dim24": (
+            "drsformer", ("model_kwargs.dim=24",),
+            {"block_front": KB.block_front,
+             "drs_apply_msfn": KD.drs_apply_msfn,
+             "mefc_step": KM.mefc_step}, DRS_BLOCKS_PER_FORWARD,
+            {"mefc_step": MEFC_STEPS_PER_FORWARD}),
+        "moce_ir_dim24": ("moce_ir", moce_sets, pair,
+                          MOCE_BLOCKS_PER_FORWARD, {}),
+    }
+    by_path = {}
+    for tag, (name, sets, counters, blocks, other) in runs.items():
+        expected = {k: other.get(k, blocks) for k in counters}
+        said = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(said):
+                by_path[tag] = phase_slice(
+                    gpu, profile_dir, name, counters, expected,
+                    overrides=sets, tag=tag,
+                    inspect=moce_inspect if name == "moce_ir" else forward_ms,
+                    perturb=(lambda m: perturb_biases(m, seed=3200))
+                    if name == "moce_ir" else None)
+        finally:
+            print(said.getvalue(), end="", flush=True)
+        off = [line for line in said.getvalue().splitlines()
+               if line.startswith("build_model:") and " off: " in line]
+        check(not off, f"{tag}: build_model turned a kernel flag off: {off}")
+    return by_path
 
 
 def phase_serve_slices(gpu, profile_dir=None):
@@ -6438,7 +6919,8 @@ def main(argv=None):
     ap.add_argument("--phases", nargs="+", choices=PHASES, default=None,
                     metavar="NAME",
                     help="after the build and the kernel checks (phases "
-                         "2-2h), only the named phases (3, 3j, 3l, 3m, 3n, "
+                         "2-2h), only the named phases (3, 3w, 3j, 3l, 3m, "
+                         "3n, "
                          "3o, 3p, 3q, 3f, '3f family', '3f 3l', '3f 3o', "
                          "'3f 3p', '3f 3q', 4, 4m, 4f, 4n, 4p, 4q, 5, 5v, "
                          "5a, 6, 6m, 6d); prints no result line")
@@ -6530,6 +7012,7 @@ def main(argv=None):
     merge_path(report, timed("2e nerd_rain", phase_kernels, NERD_LEVELS,
                              1100, "nerd_rain "), "nerd_rain")
     timed("2e gated", phase_gated)
+    dim24 = timed("2w", phase_width_kernels)
     merge_path(report, timed("2f", phase_kernels, MOCE_LEVELS, 1300,
                              "moce_ir ", **MOCE_BLOCK), "moce_ir")
     merge_path(report, timed("2g", phase_kernels, TRAIN_LEVELS, 1500,
@@ -6554,6 +7037,7 @@ def main(argv=None):
                              TRAIN_BATCH, f"train_3k batch {TRAIN_BATCH} "),
                "train_3k")
     timed("2h", phase_vjps)
+    merge_path(report, dim24, "dim24")  # every kernel's row is in now
     merge_path(report, timed("2g moce_ir", phase_kernels, MOCE_TRAIN_LEVELS,
                              2200, f"moce_ir train batch {TRAIN_BATCH} ",
                              batch=TRAIN_BATCH, **MOCE_BLOCK), "train_moce")
@@ -6575,6 +7059,7 @@ def main(argv=None):
                              SKA_SHAPES, DISTILL_BATCH, "distill "), "distill")
     later = {
         "3": lambda: phase_serve_slices(gpu, args.profile),
+        "3w": lambda: phase_serve_widths(gpu, args.profile),
         "3j": lambda: phase_serve_family(gpu, args.profile),
         "3l": lambda: phase_serve_family(gpu, args.profile, SERVE_3L),
         "3m": lambda: phase_serve_gla(gpu, args.profile),

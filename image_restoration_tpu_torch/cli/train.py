@@ -100,8 +100,11 @@ def build_model(cfg, device=None):
     A kernel flag (:data:`KERNEL_FLAGS`) the model cannot run on is turned
     off, with one printed line saying which and why: every flag when the
     model does not compute in bf16 (the kernels take bf16), and a flag
-    whose kernels do not take a block's width (what each module that holds
-    a flag reports from its ``kernel_misfits()``, by the wrappers' rules).
+    whose kernels cannot run a block even in the kernel APIs' padded
+    layouts (what each module that holds a flag reports from its
+    ``kernel_misfits()``: a head wider than 128 for K5/K6, an MEFC Subnet
+    wider than 128, a per-head Gram K1 cannot hold). Every other width runs
+    through the kernels, padded (``kernels/widths.py``).
     The model is then built again with the flag off and runs those blocks
     plain.
     """

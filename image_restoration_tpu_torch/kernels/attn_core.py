@@ -23,7 +23,9 @@ bits). K6 reads W_proj as the parameter holds it, (out, in) fp32, and
 rounds it to bf16 as each block stages it, so :func:`attn_apply` packs no
 weights on a launch.
 
-:func:`fused_mdta_core` chains the three, and differentiates as the JAX
+:func:`fused_mdta_core` chains the three at any head width up to 128, in
+:func:`attn_layout`'s padded layout (``kernels/widths.py``) where the
+width is not one of :data:`HEAD_WIDTHS`, and differentiates as the JAX
 ``fused_mdta_core`` custom VJP does (``attn_core_pallas.py:188-218``): the
 forward launches K5 and K6 and keeps only qkv, x, the temperature and
 W_proj, b_proj; the backward recomputes ``kernels/block.py``
@@ -42,6 +44,7 @@ require grad their ``backward()`` raises (``kernels/forward_only.py``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from image_restoration_tpu_torch.kernels.block import (
     RecomputeVJP,
@@ -56,16 +59,33 @@ from image_restoration_tpu_torch.kernels.block import (
 )
 from image_restoration_tpu_torch.kernels.build import refuse_export
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
+from image_restoration_tpu_torch.kernels.widths import (
+    Layout,
+    head_layout,
+    pad_channels,
+    real_stats,
+    unpad_channels,
+)
 
 # The head widths csrc/attn_core.cu builds K5 and K6 for (dispatch_ch).
 HEAD_WIDTHS = (16, 32, 48, 64, 96, 128)
 
 
 def attn_takes(c: int, heads: int) -> bool:
-    """The (C, heads) K5 and K6 take: C a multiple of 16 split into heads
-    of a width in :data:`HEAD_WIDTHS`."""
+    """The (C, heads) the raw launchers K5 and K6 take: C a multiple of 16
+    split into heads of a width in :data:`HEAD_WIDTHS`."""
     return (heads > 0 and c % heads == 0 and takes_width(c)
             and c // heads in HEAD_WIDTHS)
+
+
+def attn_layout(c: int, heads: int) -> Layout:
+    """K5 and K6's padded layout (``kernels/widths.py``): each head padded
+    to the narrowest of :data:`HEAD_WIDTHS` that holds it (24 to 32, 80 to
+    96). A head wider than 128 stays as it is, and the launchers refuse
+    it."""
+    ch = c // heads
+    return head_layout(c, heads, next((w for w in HEAD_WIDTHS if w >= ch),
+                                      ch))
 
 def attn_acc_ref(qkv, num_heads: int):
     """Plain version of :func:`attn_acc`: the per-head Gram q^T k
@@ -107,9 +127,18 @@ class _MdtaCore(RecomputeVJP):
 
 
 def _mdta_core(qkv, x, temperature, proj_w, proj_b, num_heads):
-    gram, ss = attn_acc(qkv, num_heads)
+    """K5, the finalize and K6 in :func:`attn_layout`'s padded space: qkv
+    (per q, k, v slot), x and W_proj are padded once, the finalize runs on
+    the real block of each head's Gram, and the output is unpadded once."""
+    lay = attn_layout(x.shape[-1], num_heads)
+    qkv, xp = pad_channels(qkv, lay, 3), pad_channels(x, lay)
+    gram, ss = real_stats(*attn_acc(qkv, num_heads), lay)
     at = finalize_at(gram, ss, temperature, x.dtype)
-    return attn_apply(qkv, x, at, proj_w, proj_b)
+    d = lay.chp - lay.ch
+    at = F.pad(at, (0, d, 0, d)) if d else at
+    wp = pad_channels(pad_channels(proj_w, lay, dim=0), lay, dim=1)
+    out = attn_apply(qkv, xp, at, wp, pad_channels(proj_b, lay, dim=0))
+    return unpad_channels(out, lay)
 
 
 def fused_mdta_core(qkv, x, temperature, proj_w, proj_b, num_heads: int):
@@ -167,12 +196,20 @@ def _acc_config(c):
     return _ACC_PIXELS.get(c, 64), _ACC_RING.get(c, 2)
 
 
-def _apply_config(c):
+def _apply_config(c, fits=None):
     """K6's (pixels, warps, columns a warp, column groups) at width ``c``;
-    64 pixels, 8 warps, 16 columns and one group where the tables have no
-    entry."""
-    return (_APPLY_PIXELS.get(c, 64), _APPLY_WARPS.get(c, 8),
-            _APPLY_COLS.get(c, 16), _APPLY_GROUPS.get(c, 1))
+    where the tables have no entry (a padded width such as 256 = 8 heads
+    of 32), 64 pixels, 8 warps, 16 columns and the fewest column groups
+    (1, 2, 4) for which ``fits(config)`` holds: each group stages only its
+    share of W_proj, so a wide C fits the card's shared memory."""
+    tables = (_APPLY_PIXELS, _APPLY_WARPS, _APPLY_COLS, _APPLY_GROUPS)
+    if any(c in t for t in tables):
+        return tuple(t.get(c, d) for t, d in zip(tables, (64, 8, 16, 1)))
+    for groups in (1, 2, 4):
+        cfg = (64, 8, 16, groups)
+        if fits is None or fits(cfg):
+            return cfg
+    return cfg
 
 
 def _apply_weights(proj_w, proj_b):
@@ -271,7 +308,8 @@ def attn_apply(qkv, x, at, proj_w, proj_b):
             raise ValueError(f"parameter {name} is on {t.device}, the input "
                              f"on {x.device}")
     lib = load_library()
-    cfg = _apply_config(c)
+    cfg = _apply_config(c, lambda cfg: lib.lib.ir_attn_apply_blocks(
+        c, heads, *cfg) > 0)
     pix, groups = cfg[0], cfg[3]
     grid_x = _grid(lib, "apply", x.device, (c, heads, *cfg),
                    -(-h * w // pix), groups)

@@ -12,7 +12,12 @@ Port of image_restoration_tpu/kernels/block_pallas.py. One block is
 * pass 2, :func:`block_apply_gdfn` (CUDA ``csrc/block_apply_gdfn.cu``):
   x + v @ (A^T W_proj) + b, LN2, the gated-Dconv FFN, and its residual.
 
-Kernel functions take (B, H, W, C) contiguous tensors. On a CUDA tensor a
+Kernel functions take (B, H, W, C) contiguous tensors. The raw launchers
+take C and C / heads multiples of 16; :func:`fused_block` takes every
+width, running the passes in K1's padded layout (``kernels/widths.py``:
+each head padded to a multiple of 16, zero pads, LN statistics over the
+real channels, :func:`finalize` at the real width), as the JAX kernels run
+on their 128-lane canvas. On a CUDA tensor a
 wrapper launches its kernel, or raises if the kernel cannot take the input;
 on a CPU tensor it runs its plain version (``block_front_ref``,
 ``block_apply_gdfn_ref``), which rounds where the kernel rounds when given
@@ -40,6 +45,15 @@ import torch.nn.functional as F
 
 from image_restoration_tpu_torch.kernels.build import refuse_export
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
+from image_restoration_tpu_torch.kernels.widths import (
+    Layout,
+    head_layout,
+    pad_channels,
+    pad_square,
+    real_stats,
+    round16,
+    unpad_channels,
+)
 from image_restoration_tpu_torch.ops.attention import mdta_attention
 from image_restoration_tpu_torch.ops.common import gelu_exact
 from image_restoration_tpu_torch.ops.layernorm import layer_norm_f32
@@ -126,17 +140,19 @@ def _dwconv3(t, w, b):
     return y.permute(0, 2, 3, 1)
 
 
-def front_qkv_f32(x, p: FrontParams, eps: float = 1e-5):
+def front_qkv_f32(x, p: FrontParams, eps: float = 1e-5, c_real=None):
     """dwconv3(qkv1x1(LN1(x))) in fp32, (B, H, W, 3C), rounded where the
     kernels round before it: the LN output and the 1x1 weights to x's
-    dtype; the product and the taps in fp32."""
+    dtype; the product and the taps in fp32. ``c_real``: LN1's statistics
+    over the real channels of a padded x (``kernels/widths.py``)."""
     dt = x.dtype
-    y = layer_norm_f32(x, p.ln1_w, p.ln1_b, eps)
+    y = layer_norm_f32(x, p.ln1_w, p.ln1_b, eps, c_real)
     proj = _matmul_1x1(y.to(dt).float(), p.qkv_w, p.qkv_b, dt)
     return _dwconv3(proj, p.dw_w, p.dw_b)
 
 
-def block_front_ref(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
+def block_front_ref(x, p: FrontParams, num_heads: int, eps: float = 1e-5,
+                    c_real=None):
     """Plain version of :func:`block_front`.
 
     Returns v (B, H, W, C) in x's dtype, the per-head Gram q^T k
@@ -145,7 +161,7 @@ def block_front_ref(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
     """
     dt = x.dtype
     b, h, w, c = x.shape
-    q, k, v = front_qkv_f32(x, p, eps).split(c, dim=-1)
+    q, k, v = front_qkv_f32(x, p, eps, c_real).split(c, dim=-1)
     ch = c // num_heads
     qh = q.to(dt).float().reshape(b, h * w, num_heads, ch)
     kh = k.to(dt).float().reshape(b, h * w, num_heads, ch)
@@ -187,25 +203,27 @@ def finalize(gram, ss, temperature, proj_w, dtype, gate=None):
     return torch.matmul(at, wp).reshape(b, c, c).to(dtype)
 
 
-def gdfn_tail_ref(ao, p: GDFNParams, dt, eps: float = 1e-5):
+def gdfn_tail_ref(ao, p: GDFNParams, dt, eps: float = 1e-5, c_real=None):
     """ao + GDFN(LN2(ao)) on fp32 ``ao``, rounded where K2 and K3 round:
     the LN output, the 1x1 weights and gelu * gate to ``dt``; content and
-    gate stay fp32 between the 1x1 and the depthwise. Output in ``dt``."""
-    y = layer_norm_f32(ao, p.ln_w, p.ln_b, eps)
+    gate stay fp32 between the 1x1 and the depthwise. Output in ``dt``.
+    ``c_real``: LN2's statistics over the real channels of a padded ao."""
+    y = layer_norm_f32(ao, p.ln_w, p.ln_b, eps, c_real)
     cg = _matmul_1x1(y.to(dt).float(), p.in_w, p.in_b, dt)
     cont, gate = _dwconv3(cg, p.dw_w, p.dw_b).chunk(2, dim=-1)
     act = (gelu_exact(cont) * gate).to(dt).float()
     return (_matmul_1x1(act, p.out_w, p.out_b, dt) + ao).to(dt)
 
 
-def block_apply_gdfn_ref(v, x, atw, p: BlockParams, eps: float = 1e-5):
+def block_apply_gdfn_ref(v, x, atw, p: BlockParams, eps: float = 1e-5,
+                         c_real=None):
     """Plain version of :func:`block_apply_gdfn`; output in x's dtype."""
     b, h, w, c = x.shape
     ao = torch.bmm(v.float().reshape(b, h * w, c), atw.float())
     ao = ao.reshape(b, h, w, c) + x.float()
     if p.proj_b is not None:
         ao = ao + p.proj_b.float()
-    return gdfn_tail_ref(ao, p.gdfn(), x.dtype, eps)
+    return gdfn_tail_ref(ao, p.gdfn(), x.dtype, eps, c_real)
 
 
 def _conv_dt(t, wt, bias, dt, groups=1, padding=0):
@@ -322,40 +340,64 @@ def _ptr(t):
 
 
 def takes_width(c: int) -> bool:
-    """The channel widths K1-K4 and K7 take: multiples of 16 (the 16-wide
-    fragments of their products)."""
+    """The channel widths the raw launchers of K1-K4 and K7 take: multiples
+    of 16 (the 16-wide fragments of their products). The kernel APIs take
+    every width, padded (``kernels/widths.py``)."""
     return c > 0 and c % 16 == 0
 
 
 def front_takes(c: int, heads: int) -> bool:
-    """The (C, heads) K1 takes, and so the pair of :func:`fused_block` (K2
-    needs only :func:`takes_width`): C and the head width C / heads
-    multiples of 16."""
+    """The (C, heads) the raw launcher :func:`block_front` (K1) takes: C
+    and the head width C / heads multiples of 16."""
     return (heads > 0 and c % heads == 0 and takes_width(c)
             and takes_width(c // heads))
 
 
+def front_layout(c: int, heads: int) -> Layout:
+    """K1's padded layout for C channels in ``heads`` heads, which the pair
+    and DRSformer's front run in: each head padded to a multiple of 16 (the
+    identity where :func:`front_takes`)."""
+    return head_layout(c, heads, round16(c // heads))
+
+
+# Gram fragments a warp of K1 keeps, by block size (csrc/front.cuh
+# front_frags: 16 warps leave a thread too few registers above 3).
+_FRONT_MAX_FRAGS = {8: 9, 16: 3}
+
+
+def front_gram_fits(c: int, heads: int) -> bool:
+    """Whether K1 holds the per-head Gram of C channels in ``heads`` heads
+    once padded (:func:`front_layout`): heads x (padded head width / 16)^2
+    16 x 16 fragments over the block's warps, at most 9 a warp with 8
+    warps and 3 with 16 (``csrc/front.cuh`` ``front_frags``)."""
+    lay = front_layout(c, heads)
+    warps = _front_warps(lay.cp)
+    units = heads * (lay.chp // 16) ** 2
+    return -(-units // warps) <= _FRONT_MAX_FRAGS[warps]
+
+
 def block_misfits(c: int, heads: int, fused_block: bool = False,
-                  fused_attn: bool = False, fused_gdfn: bool = False) -> dict:
+                  fused_attn: bool = False) -> dict:
     """{flag: why} for each kernel flag that is on for a block of C
-    channels in ``heads`` heads whose kernels do not take that width, by
-    the rules the wrappers check (:func:`front_takes` for K1 and the pair,
-    ``kernels/attn_core.py`` ``attn_takes`` for K4-K6, :func:`takes_width`
-    for K3)."""
-    from image_restoration_tpu_torch.kernels.attn_core import (
-        HEAD_WIDTHS, attn_takes,
-    )
+    channels in ``heads`` heads that its kernels cannot run, padded as the
+    kernel APIs pad (``kernels/widths.py``): the pair when K1 cannot hold
+    the padded per-head Gram (:func:`front_gram_fits`), the three-kernel
+    attention when a head is wider than K5 and K6 are built for (128).
+    Padding takes every other width. A block whose padded tile does not fit
+    the card's shared memory raises at its launch (``_pick_tile_rows``);
+    that limit is the card's and shows only there."""
+    from image_restoration_tpu_torch.kernels.attn_core import HEAD_WIDTHS
 
     shape = f"a block has C {c} in {heads} heads of {c / heads:g}"
     why = {}
-    if fused_block and not front_takes(c, heads):
-        why["fused_block"] = (f"{shape} (K1 takes C and C/heads multiples "
-                              f"of 16)")
-    if fused_attn and not attn_takes(c, heads):
-        why["fused_attn"] = (f"{shape} (K4-K6 take C a multiple of 16 and "
-                             f"C/heads one of {HEAD_WIDTHS})")
-    if fused_gdfn and not takes_width(c):
-        why["fused_gdfn"] = f"{shape} (K3 takes C a multiple of 16)"
+    if fused_block and not front_gram_fits(c, heads):
+        why["fused_block"] = (f"{shape} (K1 keeps heads x (padded head "
+                              f"width / 16)^2 16x16 Gram fragments over its "
+                              f"warps, at most 9 a warp with 8 warps, 3 "
+                              f"with 16)")
+    if fused_attn and c // heads > HEAD_WIDTHS[-1]:
+        why["fused_attn"] = (f"{shape} (K5 and K6 take heads up to "
+                             f"{HEAD_WIDTHS[-1]} wide)")
     return why
 
 
@@ -458,15 +500,18 @@ def _front_blocks(lib, device, c, heads, th, warps) -> int:
     return _FRONT_BLOCKS[key]
 
 
-def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
+def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5,
+                c_real=None):
     """Pass 1: (v, gram, ss) as :func:`block_front_ref` documents.
 
     x: (B, H, W, C) bf16 on the GPU, C and C / num_heads multiples of 16.
     p: FrontParams (``BlockParams.front()``, ``DRSBlockParams.front()``).
+    c_real: the real channels of a padded x (``kernels/widths.py``), which
+    LN1's statistics take; None for all C.
     """
     refuse_export("block_front (K1)")
     if x.device.type == "cpu":
-        return block_front_ref(x, p, num_heads, eps)
+        return block_front_ref(x, p, num_heads, eps, c_real)
     from image_restoration_tpu_torch.kernels.build import load_library
 
     _check_input("x", x, x)
@@ -502,8 +547,8 @@ def block_front(x, p: FrontParams, num_heads: int, eps: float = 1e-5):
                 x.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), wqkv.data_ptr(),
                 _ptr(bqkv), dw.data_ptr(), _ptr(db), v.data_ptr(),
                 gram_part.data_ptr(), ss_part.data_ptr(), gram.data_ptr(),
-                ss.data_ptr(), b, h, w, c, num_heads, th, warps, grid_x,
-                float(eps), stream)
+                ss.data_ptr(), b, h, w, c, c_real or c, num_heads, th,
+                warps, grid_x, float(eps), stream)
         lib.check(code, "block_front")
         block_front.launches += 1
         return v, gram, ss
@@ -541,15 +586,16 @@ def gdfn_weights(p: GDFNParams, c: int, hp: int):
             _f32(p.ln_b))
 
 
-def block_apply_gdfn(v, x, atw, p: BlockParams, eps: float = 1e-5):
+def block_apply_gdfn(v, x, atw, p: BlockParams, eps: float = 1e-5,
+                     c_real=None):
     """Pass 2: the block output (B, H, W, C) in x's dtype.
 
     v, x: (B, H, W, C) bf16 on the GPU; atw: (B, C, C) bf16 from
-    :func:`finalize`.
+    :func:`finalize`; c_real as :func:`block_front` takes it (LN2).
     """
     refuse_export("block_apply_gdfn (K2)")
     if x.device.type == "cpu":
-        return block_apply_gdfn_ref(v, x, atw, p, eps)
+        return block_apply_gdfn_ref(v, x, atw, p, eps, c_real)
     from image_restoration_tpu_torch.kernels.build import load_library
 
     for name, t in (("v", v), ("x", x), ("atw", atw)):
@@ -582,8 +628,8 @@ def block_apply_gdfn(v, x, atw, p: BlockParams, eps: float = 1e-5):
                 v.data_ptr(), x.data_ptr(), atw.data_ptr(), _ptr(bp),
                 ln_w.data_ptr(), _ptr(ln_b), wcg.data_ptr(), _ptr(bcg),
                 dwcg.data_ptr(), _ptr(dbcg), wo.data_ptr(), _ptr(bo),
-                out.data_ptr(), b, h, w, c, hp, th, warps, float(eps),
-                stream)
+                out.data_ptr(), b, h, w, c, c_real or c, hp, th, warps,
+                float(eps), stream)
         lib.check(code, "block_apply_gdfn")
         block_apply_gdfn.launches += 1
         return out
@@ -594,10 +640,48 @@ def block_apply_gdfn(v, x, atw, p: BlockParams, eps: float = 1e-5):
 block_apply_gdfn.launches = 0
 
 
+def pad_front_params(p: FrontParams, lay: Layout) -> FrontParams:
+    """The front's parameters in ``lay``'s padded space: LN1's affine, the
+    qkv 1x1's rows (per q, k, v slot) and columns, the depthwise taps and
+    the biases, zero at the pads."""
+    return FrontParams(
+        pad_channels(p.ln1_w, lay, dim=0), pad_channels(p.ln1_b, lay, dim=0),
+        pad_channels(pad_channels(p.qkv_w, lay, 3, 0), lay, dim=1),
+        pad_channels(p.qkv_b, lay, 3, 0), pad_channels(p.dw_w, lay, 3, 0),
+        pad_channels(p.dw_b, lay, 3, 0))
+
+
+def pad_gdfn_params(p: GDFNParams, lay: Layout) -> GDFNParams:
+    """LN2 + GDFN's parameters in ``lay``'s padded space: LN2's affine, the
+    columns of W_in and the rows of W_out and b_out; the hidden side is
+    unchanged (:func:`gdfn_weights` pads it)."""
+    return GDFNParams(
+        pad_channels(p.ln_w, lay, dim=0), pad_channels(p.ln_b, lay, dim=0),
+        pad_channels(p.in_w, lay, dim=1), p.in_b, p.dw_w, p.dw_b,
+        pad_channels(p.out_w, lay, dim=0), pad_channels(p.out_b, lay, dim=0))
+
+
+def pad_block_params(p: BlockParams, lay: Layout) -> BlockParams:
+    """A block's parameters in ``lay``'s padded space (W_proj on both
+    axes); the temperature is per head and stays."""
+    return BlockParams(
+        *pad_front_params(p.front(), lay), p.temperature,
+        pad_channels(pad_channels(p.proj_w, lay, dim=0), lay, dim=1),
+        pad_channels(p.proj_b, lay, dim=0), *pad_gdfn_params(p.gdfn(), lay))
+
+
 def _block_passes(x, p: BlockParams, num_heads, eps, gate):
-    v, gram, ss = block_front(x, p.front(), num_heads, eps)
-    atw = finalize(gram, ss, p.temperature, p.proj_w, x.dtype, gate)
-    return block_apply_gdfn(v, x, atw, p, eps)
+    """Pass 1, the finalize and pass 2, in K1's padded layout
+    (:func:`front_layout`) where C or the head width is not a multiple of
+    16: x is padded once, the finalize runs at the real width on the real
+    block of each head's Gram, and the output is unpadded once."""
+    lay = front_layout(x.shape[-1], num_heads)
+    xp, pp = pad_channels(x, lay), pad_block_params(p, lay)
+    v, gram, ss = block_front(xp, pp.front(), num_heads, eps, lay.c)
+    gram, ss = real_stats(gram, ss, lay)
+    atw = pad_square(finalize(gram, ss, p.temperature, p.proj_w, x.dtype,
+                              gate), lay)
+    return unpad_channels(block_apply_gdfn(v, xp, atw, pp, eps, lay.c), lay)
 
 
 class _FusedBlock(RecomputeVJP):
@@ -607,9 +691,11 @@ class _FusedBlock(RecomputeVJP):
 
 def fused_block(x, p: BlockParams, num_heads: int, eps: float = 1e-5,
                 gate=None):
-    """One whole TransformerBlock on (B, H, W, C): pass 1, finalize, pass 2.
-    ``p.temperature`` may be per sample (B, heads), and ``gate`` (B, C) an
-    output gate, as :func:`finalize` takes them (CG-IR's CGTB).
+    """One whole TransformerBlock on (B, H, W, C): pass 1, finalize, pass 2,
+    at any C in ``num_heads`` heads (padded where the raw kernels do not
+    take the width, :func:`_block_passes`). ``p.temperature`` may be per
+    sample (B, heads), and ``gate`` (B, C) an output gate, as
+    :func:`finalize` takes them (CG-IR's CGTB).
 
     Differentiable in x, every parameter and ``gate``: the backward is
     that of :func:`reference_block`, recomputed (:class:`_FusedBlock`).

@@ -28,11 +28,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ir_block_front_smem": (_I, [_I] * 4),
     "ir_block_front_blocks": (_I, [_I] * 4),
-    "ir_block_front": (_I, [_P] * 12 + [_I] * 8 + [_F, _P]),
+    "ir_block_front": (_I, [_P] * 12 + [_I] * 9 + [_F, _P]),
     "ir_block_apply_gdfn_smem": (_I, [_I, _I, _I]),
-    "ir_block_apply_gdfn": (_I, [_P] * 13 + [_I] * 7 + [_F, _P]),
+    "ir_block_apply_gdfn": (_I, [_P] * 13 + [_I] * 8 + [_F, _P]),
     "ir_drs_apply_msfn_smem": (_I, [_I] * 4),
-    "ir_drs_apply_msfn": (_I, [_P] * 19 + [_I] * 9 + [_F, _P]),
+    "ir_drs_apply_msfn": (_I, [_P] * 19 + [_I] * 10 + [_F, _P]),
     "ir_mefc_step_smem": (_I, [_I, _I]),
     "ir_mefc_step": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "ir_ska_blocks": (_I, [_I] * 7),
@@ -40,7 +40,7 @@ _SIGNATURES = {
     "ir_ska_bwd_x": (_I, [_P] * 3 + [_I] * 7 + [_P]),
     "ir_ska_bwd_w": (_I, [_P] * 3 + [_I] * 7 + [_P]),
     "ir_ln_qkv_dwconv_smem": (_I, [_I] * 3),
-    "ir_ln_qkv_dwconv": (_I, [_P] * 8 + [_I] * 6 + [_F, _P]),
+    "ir_ln_qkv_dwconv": (_I, [_P] * 8 + [_I] * 7 + [_F, _P]),
     "ir_attn_acc_smem": (_I, [_I] * 4),
     "ir_attn_acc_blocks": (_I, [_I] * 4),
     "ir_attn_acc": (_I, [_P] * 5 + [_I] * 7 + [_P]),
@@ -48,7 +48,7 @@ _SIGNATURES = {
     "ir_attn_apply_blocks": (_I, [_I] * 6),
     "ir_attn_apply": (_I, [_P] * 6 + [_I] * 9 + [_P]),
     "ir_ln_gdfn_smem": (_I, [_I, _I, _I]),
-    "ir_ln_gdfn": (_I, [_P] * 10 + [_I] * 7 + [_F, _P]),
+    "ir_ln_gdfn": (_I, [_P] * 10 + [_I] * 8 + [_F, _P]),
     "ir_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(NW * 32)
       const float* arow = ao + r * L.ldo;
       float* orow = oacc + ((hr - 1) * TILE_W + hc - 1) * L.ldo;
       group8_layernorm(
-          live, C, a.eps, a.ln_w, a.ln_b, lane % 8,
+          live, C, a.c_real, a.eps, a.ln_w, a.ln_b, lane % 8,
           [&](int v, float(&x)[8]) {
             unpack8(*reinterpret_cast<const uint4*>(yrow + v * 8), x);
 #pragma unroll
@@ -170,15 +170,19 @@ int ir_block_apply_gdfn_smem(int C, int th, int warps) {
 // Launches pass 2 on `stream`, one block per output tile and batch image.
 // `hp` is the hidden width padded to a multiple of 32; `warps` (8 or 16) the
 // block size. Returns cudaGetLastError().
+// `c_real` (1 <= c_real <= C) is the number of real channels, those
+// the LayerNorm's statistics take; the other C - c_real are pads that
+// are 0 in every input and weight (kernels/widths.py).
 int ir_block_apply_gdfn(const void* v, const void* x, const void* atw,
                         const void* bp, const void* ln_w, const void* ln_b,
                         const void* wcg, const void* bcg, const void* dwcg,
                         const void* dbcg, const void* wo, const void* bo,
-                        void* out, int B, int H, int W, int C, int hp, int th,
-                        int warps, float eps, void* stream) {
+                        void* out, int B, int H, int W, int C, int c_real,
+                        int hp, int th, int warps, float eps, void* stream) {
   using namespace irk;
   const ApplySmem L(C, th);
-  if (L.total > static_cast<size_t>(SMEM_LIMIT) || hp % NH)
+  if (L.total > static_cast<size_t>(SMEM_LIMIT) || hp % NH || c_real < 1 ||
+      c_real > C)
     return cudaErrorInvalidValue;
   const int tiles_w = (W + TILE_W - 1) / TILE_W;
   const int tiles = ((H + th - 1) / th) * tiles_w;
@@ -188,7 +192,8 @@ int ir_block_apply_gdfn(const void* v, const void* x, const void* atw,
               static_cast<const bf16*>(wcg), static_cast<const float*>(bcg),
               static_cast<const float*>(dwcg), static_cast<const float*>(dbcg),
               static_cast<const bf16*>(wo), static_cast<const float*>(bo),
-              static_cast<bf16*>(out), H, W, C, hp, th, tiles_w, eps};
+              static_cast<bf16*>(out), H, W, C, hp, th, tiles_w, eps,
+              c_real};
   return dispatch_tail(
       C, th, warps,
       LaunchApplyGdfn{a, dim3(tiles, B), L.total,

@@ -125,15 +125,19 @@ int ir_block_front_blocks(int C, int heads, int th, int warps) {
 // Launches pass 1 on `stream`: `grid_x` blocks of `warps` warps per batch
 // image walk the tiles; partial buffers hold B * grid_x entries. Returns
 // cudaGetLastError().
+// `c_real` (1 <= c_real <= C) is the number of real channels, those
+// the LayerNorm's statistics take; the other C - c_real are pads that
+// are 0 in every input and weight (kernels/widths.py).
 int ir_block_front(const void* x, const void* ln_w, const void* ln_b,
                    const void* wqkv, const void* bqkv, const void* dw,
                    const void* db, void* v, void* gram_part, void* ss_part,
                    void* gram, void* ss, int B, int H, int W, int C,
-                   int heads, int th, int warps, int grid_x, float eps,
-                   void* stream) {
+                   int c_real, int heads, int th, int warps, int grid_x,
+                   float eps, void* stream) {
   using namespace irk;
   const FrontSmem L(C, th, true);
-  if (!front_takes(C, heads) || L.total > static_cast<size_t>(SMEM_LIMIT))
+  if (!front_takes(C, heads) || L.total > static_cast<size_t>(SMEM_LIMIT) ||
+      c_real < 1 || c_real > C)
     return cudaErrorInvalidValue;
   const int tiles_w = (W + TILE_W - 1) / TILE_W;
   const int tiles = ((H + th - 1) / th) * tiles_w;
@@ -142,7 +146,7 @@ int ir_block_front(const void* x, const void* ln_w, const void* ln_b,
               static_cast<const float*>(bqkv), static_cast<const float*>(dw),
               static_cast<const float*>(db), static_cast<bf16*>(v),
               static_cast<float*>(gram_part), static_cast<float*>(ss_part),
-              H, W, C, heads, th, tiles_w, tiles, eps};
+              H, W, C, heads, th, tiles_w, tiles, eps, c_real};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = dispatch_front(
       C, heads, warps, LaunchFront{a, dim3(grid_x, B), L.total, s, nullptr});

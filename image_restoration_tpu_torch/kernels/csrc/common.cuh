@@ -137,23 +137,34 @@ struct Halo {
   }
 };
 
+// The variance of a pixel's c_real real channels from the sum s2 of
+// (x - mu)^2 over all C of its channels, whose C - c_real pad channels are
+// exactly 0 and so each add mu^2 to s2. At c_real == C it is s2 / C, bit for
+// bit (the correction is 0 * mu * mu).
+__device__ __forceinline__ float real_variance(float s2, float mu, int C,
+                                               int c_real) {
+  return (s2 - static_cast<float>(C - c_real) * mu * mu) / c_real;
+}
+
 // LayerNorm of one pixel's C channels by one warp: fp32 statistics over the
-// real C (two passes, biased variance), result rounded to bf16. `src(c)`
-// gives the fp32 input of channel c; BiasFree when ln_b is null.
+// c_real real channels (two passes, biased variance), result rounded to
+// bf16. The other C - c_real channels are pads, exactly 0 in the input and
+// in ln_w and ln_b, so they stay 0. `src(c)` gives the fp32 input of
+// channel c; BiasFree when ln_b is null.
 template <typename Src>
-__device__ __forceinline__ void warp_layernorm(Src src, int C, float eps,
-                                               const float* ln_w,
+__device__ __forceinline__ void warp_layernorm(Src src, int C, int c_real,
+                                               float eps, const float* ln_w,
                                                const float* ln_b, bf16* dst,
                                                int lane) {
   float s = 0.f;
   for (int c = lane; c < C; c += 32) s += src(c);
-  const float mu = warp_sum(s) / C;
+  const float mu = warp_sum(s) / c_real;
   float s2 = 0.f;
   for (int c = lane; c < C; c += 32) {
     const float d = src(c) - mu;
     s2 += d * d;
   }
-  const float inv = rsqrtf(warp_sum(s2) / C + eps);
+  const float inv = rsqrtf(real_variance(warp_sum(s2), mu, C, c_real) + eps);
   for (int c = lane; c < C; c += 32) {
     const float xv = src(c);
     const float y = ln_b ? (xv - mu) * inv * ln_w[c] + ln_b[c]
@@ -195,13 +206,14 @@ __device__ __forceinline__ uint2 pack4(const float (&y)[4]) {
 // time (a warp a pixel leaves most lanes idle at C = 48 and serialises 14
 // pixels a warp): lane l of the group takes the 8-channel vectors l, l + 8,
 // ... `load(v, x)` gives vector v's fp32 values, `emit(v, x, y)` takes them
-// back beside the normalised ones. fp32 statistics over C (two passes,
-// biased variance), BiasFree when ln_b is null, as warp_layernorm. Every
-// lane of the warp must call it; a group that is not `live` only takes part
-// in the shuffles.
+// back beside the normalised ones. fp32 statistics over the c_real real
+// channels of C (two passes, biased variance; pads as in warp_layernorm),
+// BiasFree when ln_b is null, as warp_layernorm. Every lane of the warp
+// must call it; a group that is not `live` only takes part in the
+// shuffles.
 template <typename Load, typename Emit>
-__device__ __forceinline__ void group8_layernorm(bool live, int C, float eps,
-                                                 const float* ln_w,
+__device__ __forceinline__ void group8_layernorm(bool live, int C, int c_real,
+                                                 float eps, const float* ln_w,
                                                  const float* ln_b, int l,
                                                  Load load, Emit emit) {
   const int nvec = C / 8;
@@ -218,7 +230,7 @@ __device__ __forceinline__ void group8_layernorm(bool live, int C, float eps,
 #pragma unroll
       for (int e = 0; e < 8; ++e) s += x[e];
     }
-  const float mu = sum8(s) / C;
+  const float mu = sum8(s) / c_real;
   float s2 = 0.f;
   if (live)
     for (int v = l; v < nvec; v += 8) {
@@ -227,7 +239,7 @@ __device__ __forceinline__ void group8_layernorm(bool live, int C, float eps,
 #pragma unroll
       for (int e = 0; e < 8; ++e) s2 += (x[e] - mu) * (x[e] - mu);
     }
-  const float inv = rsqrtf(sum8(s2) / C + eps);
+  const float inv = rsqrtf(real_variance(sum8(s2), mu, C, c_real) + eps);
   if (live)
     for (int v = l; v < nvec; v += 8) {
       float x[8], y[8];

@@ -119,6 +119,8 @@ struct PreArgs {
   float* res;         // (B, HW, C)
   int HW, C, U;
   float eps;
+  int c_real;         // the real channels of C (LN2's statistics); the rest
+                      // are pads, exactly 0 in every input and weight
 };
 
 // The block's PRE_PIX x ns product of the K-deep tile A (smem, row-major)
@@ -225,7 +227,8 @@ __global__ void __launch_bounds__(P_THREADS) msfn_pre_kernel(PreArgs a) {
         for (int c = lane; c < C; c += 32)
           arow[c] += (a.bp ? a.bp[c] : 0.f) + bf2f(a.x[off + c]);
         __syncwarp();
-        warp_layernorm([&](int c) { return arow[c]; }, C, a.eps, a.ln_w,
+        warp_layernorm([&](int c) { return arow[c]; }, C, a.c_real, a.eps,
+                       a.ln_w,
                        a.ln_b, vs + r * L.ldv, lane);
         for (int c = lane; c < C; c += 32)
           a.res[off + c] = arow[c] + (a.bo ? a.bo[c] : 0.f);
@@ -619,20 +622,24 @@ int ir_drs_apply_msfn_smem(int C, int th, int warps, int nch) {
 // (8 or 16), each tile's chunks split
 // over `split` blocks; with split > 1, `part` is (split, B, H, W, C) fp32
 // scratch and a third launch sums it into `out`. Returns cudaGetLastError().
+// `c_real` (1 <= c_real <= C) is the number of real channels, those
+// the LayerNorm's statistics take; the other C - c_real are pads that
+// are 0 in every input and weight (kernels/widths.py).
 int ir_drs_apply_msfn(const void* v, const void* x, const void* atw,
                       const void* bp, const void* ln_w, const void* ln_b,
                       const void* bo, void* u, void* res, const void* win,
                       const void* bin, const void* w1, const void* b1,
                       const void* w2, const void* b2, const void* wout,
                       const void* ctab, void* out, void* part, int B, int H,
-                      int W, int C, int U, int nch, int th, int warps,
-                      int split, float eps, void* stream) {
+                      int W, int C, int c_real, int U, int nch, int th,
+                      int warps, int split, float eps, void* stream) {
   using namespace irk;
   const PreSmem P(C);
   const MainSmem L(C, th, nch);
   if (L.total > static_cast<size_t>(SMEM_LIMIT) ||
       P.total > static_cast<size_t>(SMEM_LIMIT) || C % 16 || U % 16 ||
-      th < 1 || split < 1 || split > nch || (split > 1 && !part))
+      th < 1 || split < 1 || split > nch || (split > 1 && !part) ||
+      c_real < 1 || c_real > C)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaFuncSetAttribute(
@@ -661,7 +668,7 @@ int ir_drs_apply_msfn(const void* v, const void* x, const void* atw,
              static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
              static_cast<const float*>(bo), static_cast<const bf16*>(win),
              static_cast<const float*>(bin), static_cast<bf16*>(u),
-             static_cast<float*>(res), H * W, C, U, eps};
+             static_cast<float*>(res), H * W, C, U, eps, c_real};
   msfn_pre_kernel<<<dim3((H * W + PRE_PIX - 1) / PRE_PIX, B), P_THREADS,
                     P.total, s>>>(pa);
   e = cudaGetLastError();

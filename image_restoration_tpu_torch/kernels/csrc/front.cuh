@@ -97,6 +97,8 @@ struct FrontArgs {
   float* ss_part;     // (B, G, 2, C); K1 only
   int H, W, C, heads, th, tiles_w, tiles;
   float eps;
+  int c_real;         // the real channels of C (LN1's statistics); the rest
+                      // are pads, exactly 0 in x, ln_w and ln_b
 };
 
 // LN1 of the halo tile of `hl` into ys: cp.async stages the x tile, 16
@@ -124,7 +126,7 @@ static __device__ void front_ln_tile(const FrontArgs& a, const FrontSmem& L,
                                            hl.c0 - 1 + p % L.hcols);
     bf16* yrow = ys + p * L.ldy;
     group8_layernorm(
-        live, C, a.eps, a.ln_w, a.ln_b, lane % 8,
+        live, C, a.c_real, a.eps, a.ln_w, a.ln_b, lane % 8,
         [&](int v, float(&x)[8]) {
           unpack8(*reinterpret_cast<const uint4*>(yrow + v * 8), x);
         },

@@ -103,6 +103,8 @@ struct ApplyArgs {
   bf16* out;          // (B, H, W, C)
   int H, W, C, hp, th, tiles_w;
   float eps;
+  int c_real;         // the real channels of C (LN2's statistics); the rest
+                      // are pads, exactly 0 in every input and weight
 };
 
 // Output fragments (16 x 16) one warp owns in the out product, by tile:

@@ -62,13 +62,17 @@ int ir_ln_qkv_dwconv_smem(int C, int th, int warps) {
 // Launches the kernel on `stream`, one block of `warps` (8 or 16) warps per
 // output tile and batch image; `out` is (B, H, W, 3C). Returns
 // cudaGetLastError().
+// `c_real` (1 <= c_real <= C) is the number of real channels, those
+// the LayerNorm's statistics take; the other C - c_real are pads that
+// are 0 in every input and weight (kernels/widths.py).
 int ir_ln_qkv_dwconv(const void* x, const void* ln_w, const void* ln_b,
                      const void* wqkv, const void* bqkv, const void* dw,
                      const void* db, void* out, int B, int H, int W, int C,
-                     int th, int warps, float eps, void* stream) {
+                     int c_real, int th, int warps, float eps, void* stream) {
   using namespace irk;
   const FrontSmem L(C, th, false);
-  if (L.total > static_cast<size_t>(SMEM_LIMIT) || C % 16)
+  if (L.total > static_cast<size_t>(SMEM_LIMIT) || C % 16 || c_real < 1 ||
+      c_real > C)
     return cudaErrorInvalidValue;
   const int tiles_w = (W + TILE_W - 1) / TILE_W;
   const int tiles = ((H + th - 1) / th) * tiles_w;
@@ -76,7 +80,7 @@ int ir_ln_qkv_dwconv(const void* x, const void* ln_w, const void* ln_b,
               static_cast<const float*>(ln_b), static_cast<const bf16*>(wqkv),
               static_cast<const float*>(bqkv), static_cast<const float*>(dw),
               static_cast<const float*>(db), static_cast<bf16*>(out),
-              nullptr, nullptr, H, W, C, 1, th, tiles_w, tiles, eps};
+              nullptr, nullptr, H, W, C, 1, th, tiles_w, tiles, eps, c_real};
   const dim3 grid(tiles, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (warps == 8) return launch_ln_qkv_dwconv<8>(a, grid, L.total, s);

@@ -28,7 +28,10 @@ on a CPU tensor it runs its plain version, which rounds where the kernel
 rounds when given bf16 and does not round at all in fp32. Each wrapper
 counts its launches in ``.launches``.
 
-:func:`fused_drs_block` differentiates as the JAX ``fused_drs_block``
+:func:`fused_drs_block` takes every width, in K1's padded layout
+(``kernels/block.py`` ``front_layout``, :func:`pad_drs_params`; LN2's
+statistics over the real channels, :func:`tksa_finalize` at the real
+width), and differentiates as the JAX ``fused_drs_block``
 custom VJP does (``drs_block_pallas.py:630-659``): the forward launches K1
 and K7 and keeps only the block input and the parameters; the backward
 recomputes :func:`reference_drs_block` (JAX ``_reference_drs_block``) and
@@ -55,11 +58,20 @@ from image_restoration_tpu_torch.kernels.block import (
     _matmul_1x1,
     _ptr,
     block_front,
+    front_layout,
+    pad_front_params,
     recompute_vjp,
     takes_width,
 )
 from image_restoration_tpu_torch.kernels.build import refuse_export
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
+from image_restoration_tpu_torch.kernels.widths import (
+    Layout,
+    pad_channels,
+    pad_square,
+    real_stats,
+    unpad_channels,
+)
 from image_restoration_tpu_torch.ops.attention import (
     tksa_attention,
     topk_mixture,
@@ -139,7 +151,8 @@ def _path_inputs(d3, d5, hidden, path):
     return torch.cat([d3[..., sl], d5[..., sl]], dim=-1)
 
 
-def drs_apply_msfn_ref(v, x, atw, p: DRSBlockParams, eps: float = 1e-5):
+def drs_apply_msfn_ref(v, x, atw, p: DRSBlockParams, eps: float = 1e-5,
+                       c_real=None):
     """Plain version of :func:`drs_apply_msfn`; output in x's dtype.
 
     Rounds to x's dtype where the TPU kernel rounds: y before project_in; u
@@ -153,7 +166,7 @@ def drs_apply_msfn_ref(v, x, atw, p: DRSBlockParams, eps: float = 1e-5):
     ao = ao.reshape(b, h, w, c) + x.float()
     if p.proj_b is not None:
         ao = ao + p.proj_b.float()
-    y = layer_norm_f32(ao, p.ln2_w, p.ln2_b, eps).to(dt).float()
+    y = layer_norm_f32(ao, p.ln2_w, p.ln2_b, eps, c_real).to(dt).float()
     u = _matmul_1x1(y, p.in_w, p.in_b, dt).to(dt).float()
     d3 = torch.relu(_conv(u, p.dw3_w, p.dw3_b, 1, 2 * hidden)).to(dt).float()
     d5 = torch.relu(_conv(u, p.dw5_w, p.dw5_b, 2, 2 * hidden)).to(dt).float()
@@ -388,15 +401,18 @@ def _msfn_launch(b, h, w, c, hidden, device):
                      f"memory")
 
 
-def drs_apply_msfn(v, x, atw, p: DRSBlockParams, eps: float = 1e-5):
+def drs_apply_msfn(v, x, atw, p: DRSBlockParams, eps: float = 1e-5,
+                   c_real=None):
     """Pass 2: the block output (B, H, W, C) in x's dtype.
 
     v, x: (B, H, W, C) bf16 on the GPU, C a multiple of 16; atw: (B, C, C)
-    bf16 from :func:`tksa_finalize`. Any H and W.
+    bf16 from :func:`tksa_finalize`. Any H and W. c_real: the real
+    channels of a padded x (``kernels/widths.py``), which LN2's statistics
+    take; None for all C.
     """
     refuse_export("drs_apply_msfn (K7)")
     if x.device.type == "cpu":
-        return drs_apply_msfn_ref(v, x, atw, p, eps)
+        return drs_apply_msfn_ref(v, x, atw, p, eps, c_real)
     from image_restoration_tpu_torch.kernels.build import load_library
 
     for name, t in (("v", v), ("x", x), ("atw", atw)):
@@ -429,8 +445,8 @@ def drs_apply_msfn(v, x, atw, p: DRSBlockParams, eps: float = 1e-5):
                 res.data_ptr(), pk["win"].data_ptr(), _ptr(pk["bin"]),
                 pk["w1"].data_ptr(), _ptr(pk["b1"]), pk["w2"].data_ptr(),
                 _ptr(pk["b2"]), pk["wout"].data_ptr(), pk["ctab"].data_ptr(),
-                out.data_ptr(), _ptr(part), b, h, w, c, uw, pk["nch"], th,
-                warps, split, float(eps), stream)
+                out.data_ptr(), _ptr(part), b, h, w, c, c_real or c, uw,
+                pk["nch"], th, warps, split, float(eps), stream)
         lib.check(code, "drs_apply_msfn")
         drs_apply_msfn.launches += 1
         return out
@@ -441,10 +457,32 @@ def drs_apply_msfn(v, x, atw, p: DRSBlockParams, eps: float = 1e-5):
 drs_apply_msfn.launches = 0
 
 
+def pad_drs_params(p: DRSBlockParams, lay: Layout) -> DRSBlockParams:
+    """A DRSformer block's parameters in ``lay``'s padded space: the
+    front's (``kernels/block.py`` ``pad_front_params``), W_proj on both
+    axes, b_proj, LN2's affine, project_in's columns, project_out's rows
+    and b_out; the temperature, the mix and MSFN's hidden side stay."""
+    def pad(t, dim=0):
+        return pad_channels(t, lay, dim=dim)
+
+    return DRSBlockParams(
+        *pad_front_params(p.front(), lay), p.temperature, p.mix,
+        pad(pad(p.proj_w), 1), pad(p.proj_b), pad(p.ln2_w), pad(p.ln2_b),
+        pad(p.in_w, 1), p.in_b, p.dw3_w, p.dw3_b, p.dw5_w, p.dw5_b, p.s3_w,
+        p.s3_b, p.s5_w, p.s5_b, pad(p.out_w), pad(p.out_b))
+
+
 def _drs_passes(x, p: DRSBlockParams, num_heads, eps):
-    v, gram, ss = block_front(x, p.front(), num_heads, eps)
-    atw = tksa_finalize(gram, ss, p.temperature, p.mix, p.proj_w, x.dtype)
-    return drs_apply_msfn(v, x, atw, p, eps)
+    """Pass 1, the TKSA finalize and pass 2 in K1's padded layout
+    (``kernels/block.py`` ``front_layout``), as the Restormer pair runs
+    them: the top-k masks see only each head's real channels."""
+    lay = front_layout(x.shape[-1], num_heads)
+    xp, pp = pad_channels(x, lay), pad_drs_params(p, lay)
+    v, gram, ss = block_front(xp, pp.front(), num_heads, eps, lay.c)
+    gram, ss = real_stats(gram, ss, lay)
+    atw = pad_square(tksa_finalize(gram, ss, p.temperature, p.mix, p.proj_w,
+                                   x.dtype), lay)
+    return unpad_channels(drs_apply_msfn(v, xp, atw, pp, eps, lay.c), lay)
 
 
 class _DRSBlock(RecomputeVJP):

@@ -38,16 +38,22 @@ from image_restoration_tpu_torch.kernels.block import (
     _tiles,
     gdfn_tail_ref,
     gdfn_weights,
+    pad_gdfn_params,
     recompute_vjp,
     reference_ln_gdfn,
     takes_width,
 )
 from image_restoration_tpu_torch.kernels.build import refuse_export
+from image_restoration_tpu_torch.kernels.widths import (
+    flat_layout,
+    pad_channels,
+    unpad_channels,
+)
 
 
-def ln_gdfn_ref(x, p: GDFNParams, eps: float = 1e-5):
+def ln_gdfn_ref(x, p: GDFNParams, eps: float = 1e-5, c_real=None):
     """Plain version of :func:`fused_ln_gdfn`; output in x's dtype."""
-    return gdfn_tail_ref(x.float(), p, x.dtype, eps)
+    return gdfn_tail_ref(x.float(), p, x.dtype, eps, c_real)
 
 
 class _LnGdfn(RecomputeVJP):
@@ -58,7 +64,10 @@ class _LnGdfn(RecomputeVJP):
 def fused_ln_gdfn(x, p: GDFNParams, eps: float = 1e-5):
     """x + GDFN(LN2(x)), (B, H, W, C) in x's dtype.
 
-    x: (B, H, W, C) bf16 on the GPU, C a multiple of 16.
+    x: (B, H, W, C) bf16 on the GPU, any C: a C that is not a multiple of
+    16 runs padded to the next one (``kernels/widths.py`` ``flat_layout``:
+    x, LN2's affine, W_in's columns and W_out's rows padded once, LN2's
+    statistics over the real C, the output unpadded once).
     p: GDFNParams (``BlockParams.gdfn()``).
 
     Differentiable in x and every parameter: the backward is that of
@@ -66,14 +75,23 @@ def fused_ln_gdfn(x, p: GDFNParams, eps: float = 1e-5):
     the launch itself.
     """
     return recompute_vjp(
-        _LnGdfn, lambda x, *q: _fused_ln_gdfn(x, GDFNParams(*q), eps),
+        _LnGdfn, lambda x, *q: _padded(x, GDFNParams(*q), eps),
         lambda x, *q: reference_ln_gdfn(x, GDFNParams(*q), eps), (x, *p))
 
 
-def _fused_ln_gdfn(x, p: GDFNParams, eps):
+def _padded(x, p: GDFNParams, eps):
+    lay = flat_layout(x.shape[-1])
+    out = _fused_ln_gdfn(pad_channels(x, lay), pad_gdfn_params(p, lay), eps,
+                         lay.c)
+    return unpad_channels(out, lay)
+
+
+def _fused_ln_gdfn(x, p: GDFNParams, eps, c_real):
+    """The raw K3 launch (its plain version on a CPU tensor): C a multiple
+    of 16, of which ``c_real`` are real."""
     refuse_export("fused_ln_gdfn (K3)")
     if x.device.type == "cpu":
-        return ln_gdfn_ref(x, p, eps)
+        return ln_gdfn_ref(x, p, eps, c_real)
     from image_restoration_tpu_torch.kernels.build import load_library
 
     _check_input("x", x, x)
@@ -99,7 +117,8 @@ def _fused_ln_gdfn(x, p: GDFNParams, eps):
         code = lib.lib.ir_ln_gdfn(
             x.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), wcg.data_ptr(),
             _ptr(bcg), dwcg.data_ptr(), _ptr(dbcg), wo.data_ptr(), _ptr(bo),
-            out.data_ptr(), b, h, w, c, hp, th, warps, float(eps), stream)
+            out.data_ptr(), b, h, w, c, c_real, hp, th, warps, float(eps),
+            stream)
     lib.check(code, "fused_ln_gdfn")
     fused_ln_gdfn.launches += 1
     return out

@@ -35,11 +35,17 @@ from image_restoration_tpu_torch.kernels.block import (
     _tiles,
     front_qkv_f32,
     front_weights,
+    pad_front_params,
     recompute_vjp,
     reference_front,
     takes_width,
 )
 from image_restoration_tpu_torch.kernels.build import refuse_export
+from image_restoration_tpu_torch.kernels.widths import (
+    flat_layout,
+    pad_channels,
+    unpad_channels,
+)
 
 # Tile heights (output rows per block) and warps per block of K4 by channel
 # width, the fastest in ``chip_smoke.py --front 8 4 2 1 --warps 8|16`` on an
@@ -53,9 +59,9 @@ def _qkv_warps(c: int) -> int:
     return _QKV_WARPS.get(c, 8)
 
 
-def ln_qkv_dwconv_ref(x, p: FrontParams, eps: float = 1e-5):
+def ln_qkv_dwconv_ref(x, p: FrontParams, eps: float = 1e-5, c_real=None):
     """Plain version of :func:`ln_qkv_dwconv`: (B, H, W, 3C) in x's dtype."""
-    return front_qkv_f32(x, p, eps).to(x.dtype).contiguous()
+    return front_qkv_f32(x, p, eps, c_real).to(x.dtype).contiguous()
 
 
 class _LnQkvDwconv(RecomputeVJP):
@@ -67,7 +73,10 @@ def ln_qkv_dwconv(x, p: FrontParams, eps: float = 1e-5):
     """dwconv3(qkv1x1(LN1(x))) + biases, (B, H, W, 3C), channels
     [q | k | v].
 
-    x: (B, H, W, C) bf16 on the GPU, C a multiple of 16.
+    x: (B, H, W, C) bf16 on the GPU, any C: a C that is not a multiple of
+    16 runs padded to the next one (``kernels/widths.py`` ``flat_layout``:
+    x, LN1's affine and the qkv weights padded once, LN1's statistics over
+    the real C, the map unpadded once).
     p: FrontParams (``BlockParams.front()``).
 
     Differentiable in x and every parameter: the backward is that of
@@ -75,14 +84,23 @@ def ln_qkv_dwconv(x, p: FrontParams, eps: float = 1e-5):
     the launch itself.
     """
     return recompute_vjp(
-        _LnQkvDwconv, lambda x, *q: _ln_qkv_dwconv(x, FrontParams(*q), eps),
+        _LnQkvDwconv, lambda x, *q: _padded(x, FrontParams(*q), eps),
         lambda x, *q: reference_front(x, FrontParams(*q), eps), (x, *p))
 
 
-def _ln_qkv_dwconv(x, p: FrontParams, eps):
+def _padded(x, p: FrontParams, eps):
+    lay = flat_layout(x.shape[-1])
+    out = _ln_qkv_dwconv(pad_channels(x, lay), pad_front_params(p, lay), eps,
+                         lay.c)
+    return unpad_channels(out, lay, 3)
+
+
+def _ln_qkv_dwconv(x, p: FrontParams, eps, c_real):
+    """The raw K4 launch (its plain version on a CPU tensor): C a multiple
+    of 16, of which ``c_real`` are real."""
     refuse_export("ln_qkv_dwconv (K4)")
     if x.device.type == "cpu":
-        return ln_qkv_dwconv_ref(x, p, eps)
+        return ln_qkv_dwconv_ref(x, p, eps, c_real)
     from image_restoration_tpu_torch.kernels.build import load_library
 
     _check_input("x", x, x)
@@ -106,7 +124,7 @@ def _ln_qkv_dwconv(x, p: FrontParams, eps):
         code = lib.lib.ir_ln_qkv_dwconv(
             x.data_ptr(), ln_w.data_ptr(), _ptr(ln_b), wqkv.data_ptr(),
             _ptr(bqkv), dw.data_ptr(), _ptr(db), out.data_ptr(), b, h, w, c,
-            th, warps, float(eps), stream)
+            c_real, th, warps, float(eps), stream)
     lib.check(code, "ln_qkv_dwconv")
     ln_qkv_dwconv.launches += 1
     return out

@@ -21,7 +21,9 @@ tensor it runs :func:`mefc_step_ref`, which rounds where the kernel rounds
 when given bf16 and does not round at all in fp32. ``mefc_step.launches``
 counts launches.
 
-:func:`fused_mefc_steps` differentiates as the JAX ``fused_mefc_steps``
+:func:`fused_mefc_steps` takes every C up to 128, padded to a multiple of
+16 where K8 does not take it (:func:`mefc_layout`), and differentiates as
+the JAX ``fused_mefc_steps``
 custom VJP does (``mefc_pallas.py:313-335``): the forward launches K8 once
 a step and keeps only x, every step's parameters and the (B, steps, 8)
 weights; the backward recomputes :func:`reference_steps` (JAX
@@ -49,6 +51,13 @@ from image_restoration_tpu_torch.kernels.block import (
 )
 from image_restoration_tpu_torch.kernels.build import refuse_export
 from image_restoration_tpu_torch.kernels.forward_only import forward_only
+from image_restoration_tpu_torch.kernels.widths import (
+    Layout,
+    flat_layout,
+    pad_channels,
+    pad_square,
+    unpad_channels,
+)
 
 Tensor = torch.Tensor
 
@@ -273,10 +282,40 @@ def _unflat(flat) -> List[StepParams]:
     return steps
 
 
+def mefc_layout(c: int) -> Layout:
+    """K8's padded layout: C padded to a multiple of 16
+    (``kernels/widths.py`` ``flat_layout``) where that is at most 128; a
+    wider C stays as it is, and :func:`mefc_step` refuses it."""
+    lay = flat_layout(c)
+    return lay if lay.cp <= 128 else Layout(c, 1, c)
+
+
+def pad_step_params(sp: StepParams, lay: Layout) -> StepParams:
+    """The step's parameters that :func:`mefc_step` reads (the taps and the
+    SepConvs' first 1x1s) in ``lay``'s padded space; the last 1x1s and the
+    concat 1x1 reach it folded into M (:func:`fold_step`, padded with
+    :func:`~image_restoration_tpu_torch.kernels.widths.pad_square`) and
+    stay at the real width."""
+    def taps(ws):
+        return [pad_channels(w, lay, dim=0) for w in ws]
+
+    return sp._replace(
+        sep_dwa=taps(sp.sep_dwa), sep_dwb=taps(sp.sep_dwb),
+        dil_dw=taps(sp.dil_dw),
+        sep_w1=[pad_channels(pad_channels(w, lay, dim=0), lay, dim=1)
+                for w in sp.sep_w1])
+
+
 def _steps(x, weights, *flat):
+    """The steps in :func:`mefc_layout`'s padded space: x is padded once,
+    each step's mixture M is folded at the real width and padded with zero
+    rows and columns, and the output is unpadded once."""
+    lay = mefc_layout(x.shape[-1])
+    x = pad_channels(x, lay)
     for st, sp in enumerate(_unflat(flat)):
-        x = mefc_step(x, sp, fold_step(sp, weights[:, st], x.dtype))
-    return x
+        m = fold_step(sp, weights[:, st], x.dtype)
+        x = mefc_step(x, pad_step_params(sp, lay), pad_square(m, lay))
+    return unpad_channels(x, lay)
 
 
 class _MEFCSteps(RecomputeVJP):

@@ -37,6 +37,7 @@ from image_restoration_tpu_torch.kernels.mefc import (
     StepParams,
     avg_pool3x3_exclude_pad,
     fused_mefc_steps,
+    mefc_layout,
     mefc_takes,
 )
 from image_restoration_tpu_torch.models.registry import register_model
@@ -128,8 +129,9 @@ class TransformerBlock(nn.Module):
         self.ffn = MSFN(dim, expansion, bias, dtype=dtype)
 
     def kernel_misfits(self) -> dict:
-        """The kernel flags on that this block's width rules out (K1's
-        rule; K7 takes every width K1 does)."""
+        """The kernel flags on that this block's width rules out, padded
+        (K1's rule, ``kernels/block.py`` ``block_misfits``; K7 takes every
+        width K1 does)."""
         return block_misfits(self.dim, self.num_heads, self.fused_block)
 
     def block_params(self) -> DRSBlockParams:
@@ -258,11 +260,12 @@ class GroupOLs(nn.Module):
 
     def kernel_misfits(self) -> dict:
         """{"fused_block": why} when the steps are fused at a width K8 does
-        not take (``kernels/mefc.py`` ``mefc_takes``), else {}."""
-        if not self.fused or mefc_takes(self.c):
+        not take even padded (``kernels/mefc.py`` ``mefc_layout``: above
+        128 channels), else {}."""
+        if not self.fused or mefc_takes(mefc_layout(self.c).cp):
             return {}
         return {"fused_block": f"an MEFC Subnet is {self.c} wide (K8 takes "
-                               f"multiples of 16 up to 128)"}
+                               f"up to 128 channels)"}
 
     def forward(self, x, weights):
         s0 = self.preprocess(x)

@@ -63,7 +63,7 @@ class TransformerBlock(nn.Module):
     def kernel_misfits(self) -> dict:
         """The kernel flags on that this block's width rules out."""
         return block_misfits(self.dim, self.num_heads, self.fused_block,
-                             self.fused_attn, self.fused_gdfn)
+                             self.fused_attn)
 
     def block_params(self) -> BlockParams:
         n1, n2, at, ff = self.norm1.body, self.norm2.body, self.attn, self.ffn

@@ -16,19 +16,34 @@ from torch import nn
 from image_restoration_tpu_torch.parallel import global_batch
 
 
-def layer_norm_f32(x, weight, bias=None, eps: float = 1e-5):
+def layer_norm_f32(x, weight, bias=None, eps: float = 1e-5, c_real=None):
     """LayerNorm over the last axis in fp32, returned in fp32.
 
     ``(x - mu) / sqrt(var + eps) * w + b``; with ``bias`` None the BiasFree
     form ``x / sqrt(var + eps) * w``, which rescales and never shifts (x is
     not centered, the variance is still taken around the mean).
+
+    ``c_real`` (the kernels' padded layouts, ``kernels/widths.py``): the
+    statistics are those of the ``c_real`` real channels of the last axis,
+    whose other channels are pads, exactly 0 in x, w and b, as the CUDA
+    kernels take them: the mean is the sum over ``c_real``, and each pad's
+    (0 - mu)^2 comes off the sum of squares. The pads stay 0.
     """
     xf = x.float()
-    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    n = xf.shape[-1]
+    mu = None
+    if c_real is None or c_real == n:
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    else:
+        mu = xf.sum(dim=-1, keepdim=True) / c_real
+        s2 = ((xf - mu) ** 2).sum(dim=-1, keepdim=True)
+        var = (s2 - (n - c_real) * mu * mu) / c_real
     inv = torch.rsqrt(var + eps)
     if bias is None:
         return xf * inv * weight.float()
-    return (xf - xf.mean(dim=-1, keepdim=True)) * inv * weight.float() + bias.float()
+    if mu is None:
+        mu = xf.mean(dim=-1, keepdim=True)
+    return (xf - mu) * inv * weight.float() + bias.float()
 
 
 class BiasFreeLayerNorm(nn.Module):

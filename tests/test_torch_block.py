@@ -14,7 +14,12 @@ The kernels themselves run only on the card: tests/test_torch_block_cuda.py
 holds them to the plain versions tested here.
 
 Inputs and weights are made with numpy from a seed, c in {48, 96}, heads in
-{1, 2}, both LN types, at 24x20 like test_fused_block_pipe.py.
+{1, 2}, both LN types, at 24x20 like test_fused_block_pipe.py. The widths
+K1 does not take raw run through the padded layout of
+``kernels/widths.py`` (each head padded to a multiple of 16, LN over the
+real channels, the finalize at the real width): 48 in 2 heads of 24
+above, and ``WIDE``, C 24 and 40 in one head, against the JAX kernels on
+their 128-lane canvas.
 """
 
 import jax
@@ -29,6 +34,7 @@ from image_restoration_tpu_torch.kernels import block as TK
 H, W, EPS = 24, 20, 1e-5
 CASES = [(c, heads, ln) for c in (48, 96) for heads in (1, 2)
          for ln in ("WithBias", "BiasFree")]
+WIDE = [(c, 1, ln) for c in (24, 40) for ln in ("WithBias", "BiasFree")]
 
 
 def _jax_params(rng, c, heads, ln_type):
@@ -87,7 +93,7 @@ def test_reference_block_matches_jax(c, heads, ln_type):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("c,heads,ln_type", CASES)
+@pytest.mark.parametrize("c,heads,ln_type", CASES + WIDE)
 def test_fused_block_matches_jax_interpret(monkeypatch, c, heads, ln_type):
     rng = np.random.default_rng(10 + c + heads)
     jp = _jax_params(rng, c, heads, ln_type)
@@ -103,7 +109,7 @@ def test_fused_block_matches_jax_interpret(monkeypatch, c, heads, ln_type):
                                atol=5e-2)
 
 
-@pytest.mark.parametrize("c,heads,ln_type", CASES[::3])
+@pytest.mark.parametrize("c,heads,ln_type", CASES[::3] + WIDE[::3])
 def test_fused_block_fp32_equals_reference_block(c, heads, ln_type):
     rng = np.random.default_rng(20 + c)
     p = _port_params(_jax_params(rng, c, heads, ln_type), c)

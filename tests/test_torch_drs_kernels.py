@@ -19,7 +19,10 @@ drs_block) against the JAX package's ``drs_block_pallas``.
 
 Cases cover both LN types and both hidden parities: c 16 with expansion
 2.66 (hidden 42, even) and 2.0 (32), c 24 with 2.66 (hidden 63, odd: one
-stage-2 group pairs d3[62] with d5[0]). The kernels themselves run only on
+stage-2 group pairs d3[62] with d5[0]). C 24 in 2 heads and in one head
+(against the interpret-mode kernels) run in K1's padded layout
+(``kernels/widths.py``: each head padded to 16 or 32, LN over the real
+channels, the top-k at the real width). The kernels themselves run only on
 the card: tests/test_torch_drs_cuda.py holds them to the plain versions.
 """
 
@@ -108,7 +111,8 @@ def test_reference_drs_block_matches_jax(c, heads, expansion, ln_type):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("c,heads,expansion,ln_type", CASES[:2])
+@pytest.mark.parametrize("c,heads,expansion,ln_type",
+                         CASES[:2] + [(24, 1, 2.66, "BiasFree")])
 def test_fused_drs_block_matches_jax_interpret(c, heads, expansion, ln_type):
     rng = np.random.default_rng(10 + c + heads)
     jp = _jax_params(rng, c, heads, expansion, ln_type)

@@ -13,7 +13,9 @@ against the JAX package's ``mefc_pallas``.
   unmasked SepConv t1 halo was one); bf16 tolerances absorb such bugs.
 
 c 8 and 16 at 16x12 (the JAX tests' size) and 8x5, where the 7x7 taps
-reach past the image on every side. The kernel itself runs only on the
+reach past the image on every side; c 8 and 24 run padded to 16 and 32
+(``kernels/mefc.py`` ``mefc_layout``: M folded at the real width, zero
+rows and columns at the pads). The kernel itself runs only on the
 card: tests/test_torch_drs_cuda.py holds it to the plain version.
 """
 
@@ -92,7 +94,22 @@ def test_fused_steps_match_jax_interpret_bf16():
     np.testing.assert_allclose(got.float().numpy(), want, rtol=5e-2, atol=5e-2)
 
 
-@pytest.mark.parametrize("c,h,w", [(8, 16, 12), (16, 8, 5)])
+def test_fused_steps_at_c24_match_jax_interpret_bf16():
+    """C 24, which K8 takes padded to 32, in bf16 against the JAX kernel on
+    its lane-padded canvas."""
+    raw, x, weights = _inputs(24, 8, 5, seed=4)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    wb = jnp.asarray(weights, jnp.bfloat16)
+    want = _jax_forward(xb, raw, wb)
+    got = TK.fused_mefc_steps(
+        torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16),
+        _port_steps(raw),
+        torch.from_numpy(np.asarray(wb, np.float32)).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("c,h,w", [(8, 16, 12), (16, 8, 5), (24, 8, 5)])
 def test_fused_steps_fp32_match_jax_kernel_strictly(monkeypatch, c, h, w):
     raw, x, weights = _inputs(c, h, w, seed=2 + c)
     monkeypatch.setattr(JK, "_F32_MIX", True)

@@ -14,7 +14,10 @@ and inputs.
   ``fused_mdta_core`` on the split map; ``ln_gdfn_ref`` against
   ``fused_ln_gdfn``. C in {16, 32}, heads in {1, 2}, 9x20 (an odd height, a
   width that is not a multiple of 16), WithBias and BiasFree, with and
-  without conv biases. fp32: rtol=1e-4, atol=1e-5 (the same math, sums in
+  without conv biases; and ``WIDTHS``, head widths 24 and 80 (C 24 and 80
+  in one head, 48 in two), which the kernel APIs run padded
+  (``kernels/widths.py``: K3 and K4 to a multiple of 16, K5 and K6 each
+  head to 32 or 96). fp32: rtol=1e-4, atol=1e-5 (the same math, sums in
   other orders).
 * bf16: the JAX compositions round after every conv, the port's plain
   versions where the CUDA kernels round, so the two differ by a few bf16
@@ -45,6 +48,8 @@ from image_restoration_tpu_torch.utils.jax_bridge import state_dict_from_jax
 H, W, EPS = 9, 20, 1e-5
 CASES = [(c, heads, ln, bias) for c in (16, 32) for heads in (1, 2)
          for ln in ("WithBias", "BiasFree") for bias in (False, True)]
+WIDTHS = [(24, 1, "WithBias", True), (80, 1, "BiasFree", False),
+          (48, 2, "WithBias", False)]
 RTOL, ATOL = 1e-4, 1e-5
 
 
@@ -116,7 +121,7 @@ def _close(got, want):
                                atol=ATOL)
 
 
-@pytest.mark.parametrize("c,heads,ln_type,bias", CASES)
+@pytest.mark.parametrize("c,heads,ln_type,bias", CASES + WIDTHS)
 def test_ln_qkv_dwconv_matches_jax(c, heads, ln_type, bias):
     jw, p, xj, xt = _case(c, heads, ln_type, bias, seed=c + heads)
     got = _np(TM.ln_qkv_dwconv(xt, p.front(), EPS))
@@ -128,7 +133,7 @@ def test_ln_qkv_dwconv_matches_jax(c, heads, ln_type, bias):
         _close(got[..., i * c:(i + 1) * c], split[..., i * cps:i * cps + c])
 
 
-@pytest.mark.parametrize("c,heads,ln_type,bias", CASES)
+@pytest.mark.parametrize("c,heads,ln_type,bias", CASES + WIDTHS)
 def test_fused_mdta_core_matches_jax(c, heads, ln_type, bias):
     jw, p, xj, xt = _case(c, heads, ln_type, bias, seed=10 + c + heads)
     params = _j(*jw[:6])
@@ -140,7 +145,7 @@ def test_fused_mdta_core_matches_jax(c, heads, ln_type, bias):
     _close(_np(got), want)
 
 
-@pytest.mark.parametrize("c,heads,ln_type,bias", CASES)
+@pytest.mark.parametrize("c,heads,ln_type,bias", CASES + WIDTHS)
 def test_ln_gdfn_matches_jax(c, heads, ln_type, bias):
     jw, p, xj, xt = _case(c, heads, ln_type, bias, seed=20 + c + heads)
     want = JG.fused_ln_gdfn(xj, _j(*jw[9:]), ln_type, EPS)

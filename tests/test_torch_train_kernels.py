@@ -17,12 +17,15 @@
   CPU); tests/test_torch_vjp.py holds the block's and the steps' VJPs to
   the JAX custom VJPs instead.
 * ``build_model`` turns off a kernel flag the model cannot run on and
-  prints why: every flag with ``--fp32`` (the kernels take bf16), and the
-  flag whose kernels do not take a block's head width at
-  ``model_kwargs.dim=24`` with heads (1, 2, 4, 8) (tools/learn_run.py's
-  configuration), for Restormer and DRSformer; the three-kernel flags at
-  width 80 in one head (K5/K6 are built for head widths 16-128, not 80).
-  Where every block fits, the flags stay.
+  prints why: every flag with ``--fp32`` (the kernels take bf16), and
+  ``fused_attn`` at a head width above 128 (K5/K6 are built for heads up
+  to 128 wide; C 136 in heads 1/2/4/8). Every other width runs through the
+  kernels padded (``kernels/widths.py``), so the flags stay, with no line
+  printed: ``model_kwargs.dim=24`` with heads (1, 2, 4, 8)
+  (tools/learn_run.py's configuration) for Restormer and DRSformer
+  (whose MEFC Subnets are 24 wide), and the three-kernel flags at dim 40
+  in heads 1/2/4/8: heads 40 wide, and 80 in decoder level 1 and the
+  refinement (K5/K6 pad them to 48 and 96).
 """
 
 import jax
@@ -144,17 +147,19 @@ def test_build_model_drops_the_kernel_flags_fp32_and_width_24_rule_out(
     assert ("fused_block", False) not in _flags(fits)
     assert model == "restormer" or ("fused", True) in _flags(fits)
 
-    for extra, why in ((["--fp32"], "float32 and the kernels take bfloat16"),
-                       (["--set", "model_kwargs.dim=24",
-                         "--set", "model_kwargs.heads=(1,2,4,8)"],
-                        "C 24 in 1 heads of 24" if model == "restormer"
-                        else "MEFC Subnet is 24 wide")):
-        built = build_model(parse_options(small + extra))
-        said = capsys.readouterr().out
-        assert said.count("\n") == 1 and said.startswith(
-            "build_model: fused_block off: ") and why in said, said
-        assert ("fused_block", True) not in _flags(built)
-        assert ("fused", True) not in _flags(built)
+    built = build_model(parse_options(small + ["--fp32"]))
+    said = capsys.readouterr().out
+    assert said.count("\n") == 1 and said.startswith(
+        "build_model: fused_block off: ") and (
+        "float32 and the kernels take bfloat16" in said), said
+    assert ("fused_block", True) not in _flags(built)
+    assert ("fused", True) not in _flags(built)
+
+    narrow = build_model(parse_options(
+        small + ["--set", "model_kwargs.dim=24",
+                 "--set", "model_kwargs.heads=(1,2,4,8)"]))
+    assert capsys.readouterr().out == ""
+    assert _flags(narrow) == _flags(fits)
 
 
 def test_build_model_drops_what_the_three_kernel_block_does_not_take(capsys):
@@ -165,11 +170,16 @@ def test_build_model_drops_what_the_three_kernel_block_does_not_take(capsys):
     built = build_model(parse_options(base))
     assert capsys.readouterr().out == ""
     assert ("fused_attn", True) in _flags(built)
+    padded = build_model(parse_options(
+        base + ["--set", "model_kwargs.dim=40",
+                "--set", "model_kwargs.heads=(1,2,4,8)"]))
+    assert capsys.readouterr().out == ""
+    assert _flags(padded) == _flags(built)
     built = build_model(parse_options(
-        base + ["--set", "model_kwargs.dim=80",
-                "--set", "model_kwargs.heads=(1,1,1,1)"]))
+        base + ["--set", "model_kwargs.dim=136",
+                "--set", "model_kwargs.heads=(1,2,4,8)"]))
     said = capsys.readouterr().out.splitlines()
     assert len(said) == 1 and said[0].startswith(
-        "build_model: fused_attn off: a block has C 80 in 1 heads of 80")
+        "build_model: fused_attn off: a block has C 136 in 1 heads of 136")
     assert _flags(built) == {("fused_block", False), ("fused_attn", False),
                              ("fused_gdfn", True)}

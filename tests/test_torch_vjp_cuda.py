@@ -26,7 +26,8 @@ custom VJPs on the CPU):
 * ``build_model``: a ``--fp32`` Restormer restores through
   ``make_restore_fn`` on the card with no kernel launch (the kernels take
   bf16); a Restormer at ``model_kwargs.dim=24`` (head width 24) takes a
-  train step in bf16 on plain blocks.
+  train step in bf16 with every block on K1 and K2, padded to heads of 32
+  (``kernels/widths.py``), one launch each a block.
 """
 
 import numpy as np
@@ -239,13 +240,20 @@ def test_width_24_train_step_on_the_card(cuda, capsys):
 
     cfg = parse_options(["--set", "model_kwargs.dim=24", *SMALL])
     model = build_model(cfg).train()
-    assert "fused_block off" in capsys.readouterr().out
+    assert capsys.readouterr().out == ""  # no flag off: the pair runs padded
+    blocks = sum(getattr(m, "fused_block", None) is True
+                 for m in model.modules())
     tcfg = T.TrainerConfig(learning_rate=1e-3)
     tx = T.make_optimizer(tcfg)
     state = T.TrainState.create(model, tx)
     rng = np.random.default_rng(1)
     gt = torch.from_numpy(rng.random((2, 3, 64, 64), dtype=np.float32))
     batch = {"lq": (gt + 0.05).to(cuda), "gt": gt.to(cuda)}
+    before = (KB.block_front.launches, KB.block_apply_gdfn.launches)
     state, logs = T.make_train_step(model, tx, tcfg)(state, batch)
     torch.cuda.synchronize()
     assert state.step == 1 and torch.isfinite(logs["total"]).item()
+    # one K1 and one K2 a block in the forward; the backward recomputes
+    assert blocks == 8 and (KB.block_front.launches,
+                            KB.block_apply_gdfn.launches) == (
+        before[0] + blocks, before[1] + blocks)

@@ -11,6 +11,7 @@ Run from the root of the repository on a machine with an NVIDIA Hopper GPU:
     python3 chip_smoke.py --attn [PIX ...] [--warps 4|8] [--cols N]
                                  [--groups N] [--ring 2|3] [--walk N]
     python3 chip_smoke.py --ska [TH ...] [--ring 1|2] [--split 1|2|4|8]
+    python3 chip_smoke.py --ska-bwd [TH ...] [--ring 1|2] [--split 1|2|4|8]
     python3 chip_smoke.py --learn DIM
     python3 chip_smoke.py --learn-moce
     python3 chip_smoke.py --phases NAME [NAME ...]
@@ -44,7 +45,15 @@ unit's channel repeats as given; the plain versions, the
 timer's floor (a one-value ``zero_``), copies of x and w, and the host
 time of a wrapper call and of its parts are timed apart (the sweep behind
 ``kernels/ska.py`` ``_SKA_*``). With no option it touches no table, so
-copied into an older tree it times that tree's K9. The eighth runs
+copied into an older tree it times that tree's K9. The eighth does it for
+SKA's two backward kernels (``csrc/ska_bwd.cu``) at the shapes, batches
+and types of the four paths that run them (LSNet-B's backward at batch 64
+in bf16, the attack's at 16 in fp32, LSNet-T's step at 32 in bf16, the
+distillation step's at 32 in bf16): the bits of ``ska_bwd_plain``, two
+equal runs and the times of the simple kernels and of the strip kernels
+at the tables' rows a strip or at each of TH, with strip slots and the
+threads a unit as given, and each path's sums per backward (the sweep behind
+``kernels/ska.py`` ``_BWD_*``). The ninth runs
 ``tools/learn_run.py``'s overfit configuration (its synthetic rain set
 and its argv, 2000 steps, the run behind ``LEARN_r03.json``) through the
 port's ``cli/train.py`` at ``model_kwargs.dim`` DIM: 24 is the width of
@@ -53,11 +62,11 @@ here K1/K2 run every block at either width, at 24 with each 24-wide head
 padded to 32 (``kernels/widths.py``), at 48 as they are; it prints the
 loss and validation PSNR curves as one JSON line. The model starts
 from the port's seeded init, which draws as the JAX package's flax init
-does (``lecun_normal`` weights, zero biases). The ninth does the same for
+does (``lecun_normal`` weights, zero biases). The tenth does the same for
 ``tools/learn_run2.py``'s ``moce_ir`` argv (MoCE-IR at dim 24, 4 experts,
 top-2, aux weight 0.01, lr 1e-3, 2500 steps: the run behind
 ``LEARN_moce_ir_r05.json``), its balance loss's curve beside the others.
-The tenth runs the build, the kernel checks (phases 2-2h) and then only
+The eleventh runs the build, the kernel checks (phases 2-2h) and then only
 the named phases of the ones that follow them (``PHASES``: 3, 3w, 3j, 3l,
 3m, 3n, 3o, 3p, 3q, 3f, "3f family", "3f 3l", "3f 3o", "3f 3p", "3f 3q",
 4, 4m, 4f, 4n, 4p, 4q, 5, 5v, 5a, 6, 6m, 6d), so that a family's phases
@@ -241,10 +250,12 @@ Phases, any failure ends the run with a nonzero exit code:
    a batch of 32, the classification step's, and at LSNet-B's on a batch
    of 16, the attack's.
 2c backward. SKA's two backward kernels (``ska_bwd_x``, ``ska_bwd_w``,
-   ``csrc/ska_bwd.cu``) at phase 2c's shapes, bf16 and fp32: the bits of
-   ``ska_bwd_plain`` (the same products and sums in the same order), phase
-   2c's rule against the fp32 plain version, two runs bit-equal, each
-   image of a batch of two as it is alone; timed, with the plain version;
+   ``csrc/ska_bwd.cu``) at phase 2c's shapes, bf16 and fp32: the strip
+   path at each, the bits of ``ska_bwd_plain`` (the same products and
+   sums in the same order), phase 2c's rule against the fp32 plain
+   version, two runs bit-equal, each image of a batch of two as it is
+   alone; timed beside the simple kernels forced at the same shapes (the
+   same bits), each with its share of the bound, and the plain version;
 2h. the kernel APIs' VJPs: ``ln_qkv_dwconv``, ``fused_mdta_core``,
    ``fused_ln_gdfn`` and ``fused_drs_block`` on a batch of 8 at 16x16 x
    384 (8 heads), ``fused_mefc_steps`` on a batch of 8 at 128x128 x 48
@@ -5589,19 +5600,43 @@ def bound_ska_bwd(b, h, w, c, wc, esize):
     return roofline(esize * (2 * n * c + n * wc * 9), 0.0, 2 * 9 * n * c)
 
 
+@contextlib.contextmanager
+def _bwd_tables(c, esize, th=None, ring=None, split=None):
+    """SKA's backward launch tables at width ``c`` and ``esize`` bytes a
+    value, for both gradients, set while the block runs; None keeps an
+    entry, ``th`` 0 sends both to the simple kernels."""
+    from image_restoration_tpu_torch.kernels import ska as K
+
+    keys = [("x", c, esize), ("w", c, esize)]
+    with contextlib.ExitStack() as stack:
+        for key in keys:
+            stack.enter_context(_kept(key, K._BWD_ROWS, K._BWD_RING,
+                                      K._BWD_SPLIT))
+            for table, v in ((K._BWD_ROWS, th), (K._BWD_RING, ring),
+                             (K._BWD_SPLIT, split)):
+                if v is not None:
+                    table[key] = v
+        yield
+
+
 def phase_ska_bwd_kernels(shapes=SKA_SHAPES, b=LSNET_BATCH, tag=""):
     """SKA's two backward kernels (``csrc/ska_bwd.cu``) at ``shapes``
     (LSNet-B's three SKA shapes by default) on a batch of ``b``, bf16 and
-    fp32: the bits of ``ska_bwd_plain`` (the same products and sums in the
-    same order), K9's rule against the fp32 plain version, two runs
-    bit-equal, each image of a batch of two as it is alone; the times of
-    both against the plain version; printed with ``tag``."""
+    fp32: each takes the strip path; the bits of ``ska_bwd_plain`` (the
+    same products and sums in the same order), K9's rule against the fp32
+    plain version, two runs bit-equal, each image of a batch of two as it
+    is alone; the times of both against the simple kernels forced at the
+    same shapes (which must give the same bits; strip, simple, simple,
+    strip, the two runs of each giving the timer's spread), each with its
+    share of ``bound_ska_bwd``, and against the plain version; printed
+    with ``tag``."""
     import torch
 
     from image_restoration_tpu_torch.kernels import ska as K
     from image_restoration_tpu_torch.ops.ska import ska_bwd_plain
 
     report = _new_report(("ska_bwd_x", "ska_bwd_w"))
+    sums = {}
     for i, (h, w, c, wc, calls) in enumerate(shapes):
         gen = torch.Generator(device="cuda").manual_seed(2000 + i)
         x, wt, go = (torch.randn(s, generator=gen, device="cuda") for s in
@@ -5610,14 +5645,18 @@ def phase_ska_bwd_kernels(shapes=SKA_SHAPES, b=LSNET_BATCH, tag=""):
         where = f"{b}x{h}x{w}x{c} wc {wc}"
         out = {}
         for dt in (torch.bfloat16, torch.float32):
+            esize = 4 if dt == torch.float32 else 2
             xd, wd, gd = x.to(dt), wt.to(dt), go.to(dt)
             plain = ska_bwd_plain(xd, wd, gd)
             for k, (name, fn) in enumerate((("ska_bwd_x", K.ska_bwd_x),
                                             ("ska_bwd_w", K.ska_bwd_w))):
+                what = f"{name} {dt} at {where}"
+                route = K.bwd_route(xd, wd, gd, name[-1])
+                check(route == "strip", f"{what}: the {route} path, not the "
+                      f"strip kernel")
                 kern, again = fn(xd, wd, gd), fn(xd, wd, gd)
                 two = fn(xd[:2], wd[:2], gd[:2])
                 torch.cuda.synchronize()
-                what = f"{name} {dt} at {where}"
                 check(torch.equal(kern, plain[k]), f"{what}: not the bits of "
                       f"ska_bwd_plain (max |diff| "
                       f"{(kern.float() - plain[k].float()).abs().max():.3e})")
@@ -5632,27 +5671,139 @@ def phase_ska_bwd_kernels(shapes=SKA_SHAPES, b=LSNET_BATCH, tag=""):
                     ep = rel_err(plain[k], oracle[k])
                     check(err < _bound(ep), f"{what}: rel err {err:.3e} above "
                           f"max(3 x {ep:.3e}, 4e-3)")
-                out[name, dt] = (err, time_cuda(lambda: fn(xd, wd, gd)))
+                # strip, simple, simple, strip: the two runs of each give
+                # the timer's spread
+                t_k1 = time_cuda(lambda: fn(xd, wd, gd))
+                with _bwd_tables(c, esize, th=0):
+                    check(K.bwd_route(xd, wd, gd, name[-1]) == "simple",
+                          f"{what}: the simple kernel was not forced")
+                    simple = fn(xd, wd, gd)
+                    torch.cuda.synchronize()
+                    check(torch.equal(simple, kern), f"{what}: the simple "
+                          f"kernel's bits differ from the strip kernel's")
+                    t_s1 = time_cuda(lambda: fn(xd, wd, gd))
+                    t_s2 = time_cuda(lambda: fn(xd, wd, gd))
+                t_k2 = time_cuda(lambda: fn(xd, wd, gd))
+                t_k, t_s = (t_k1 + t_k2) / 2, (t_s1 + t_s2) / 2
+                spread = max(abs(t_k1 - t_k2), abs(t_s1 - t_s2))
+                out[name, dt] = (err, t_k, t_s, spread)
+                bound = bound_ska_bwd(b, h, w, c, wc, esize)[0]
+                for key, t in (("strip", t_k), ("simple", t_s),
+                               ("bound", bound)):
+                    sums[name, dt, key] = sums.get((name, dt, key), 0.0) + \
+                        calls * t
             t_p = time_cuda(lambda: ska_bwd_plain(xd, wd, gd))
             out["plain", dt] = t_p
         for name in ("ska_bwd_x", "ska_bwd_w"):
-            (e16, t16), (e32, t32) = (out[name, torch.bfloat16],
-                                      out[name, torch.float32])
+            (e16, t16, s16, d16), (e32, t32, s32, d32) = (
+                out[name, torch.bfloat16], out[name, torch.float32])
             bound = bound_ska_bwd(b, h, w, c, wc, 2)
             bound32 = bound_ska_bwd(b, h, w, c, wc, 4)
-            print(f"{tag}{name} {where}: the bits of ska_bwd_plain, two runs "
-                  f"equal; bf16 rel err {e16:.3e}, kernel {t16:.4f} ms, "
-                  f"bound {bound[0]:.4f} ms ({bound[1]}); fp32 rel err "
-                  f"{e32:.3e}, kernel {t32:.4f} ms, bound {bound32[0]:.4f} "
-                  f"ms; ska_bwd_plain (both gradients) bf16 "
-                  f"{out['plain', torch.bfloat16]:.4f} ms, fp32 "
-                  f"{out['plain', torch.float32]:.4f} ms", flush=True)
+            print(f"{tag}{name} {where}: strip path, the bits of "
+                  f"ska_bwd_plain and of the simple kernel, two runs equal; "
+                  f"bf16 rel err {e16:.3e}, kernel {t16:.4f} ms "
+                  f"({bound[0] / t16:.1%} of the bound), simple kernel "
+                  f"{s16:.4f} ms ({bound[0] / s16:.1%}), timer spread "
+                  f"{d16:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); fp32 "
+                  f"rel err {e32:.3e}, kernel {t32:.4f} ms "
+                  f"({bound32[0] / t32:.1%}), simple kernel {s32:.4f} ms "
+                  f"({bound32[0] / s32:.1%}), timer spread {d32:.4f} ms, "
+                  f"bound {bound32[0]:.4f} ms; ska_bwd_plain (both "
+                  f"gradients) bf16 {out['plain', torch.bfloat16]:.4f} ms, "
+                  f"fp32 {out['plain', torch.float32]:.4f} ms", flush=True)
             _record(report, name, [b, h, w, c, wc], calls, t16,
                     out["plain", torch.bfloat16], 0.0, bound, fp32_ms=t32,
                     fp32_plain_ms=out["plain", torch.float32],
                     fp32_bound_ms=bound32[0], fp32_max_rel_err=e32,
+                    route="strip", simple_ms=s16, fp32_simple_ms=s32,
+                    spread_ms=d16, fp32_spread_ms=d32,
                     plain_is="ska_bwd_plain, both gradients in one call")
+    n_calls = sum(lv[-1] for lv in shapes)
+    for name in ("ska_bwd_x", "ska_bwd_w"):
+        for dt, label in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            strip, simple, bound = (sums[name, dt, key] for key in
+                                    ("strip", "simple", "bound"))
+            print(f"{tag}{name} per backward ({n_calls} calls), {label}: "
+                  f"strip {strip:.4f} ms ({bound / strip:.1%} of the bound), "
+                  f"simple {simple:.4f} ms ({bound / simple:.1%}), bound "
+                  f"{bound:.4f} ms", flush=True)
     return report
+
+
+def ska_bwd_paths():
+    """The training and attack paths' SKA backward shapes: (path, shapes,
+    batch, dtype) of phases 2c backward, 2c robust, 2c cls_train and 2c
+    distill."""
+    return [("lsnet_b", SKA_SHAPES, LSNET_BATCH, "bf16"),
+            ("robust", SKA_SHAPES, ADV_IMAGES, "fp32"),
+            ("cls_train", LSNET_T_SKA_SHAPES, CLS_BATCH, "bf16"),
+            ("distill", SKA_SHAPES, DISTILL_BATCH, "bf16")]
+
+
+def phase_ska_bwd_sweep(rows, ring=None, split=None):
+    """``--ska-bwd``: SKA's two backward kernels alone at the four paths'
+    shapes (:func:`ska_bwd_paths`): the bits of ``ska_bwd_plain`` and two
+    equal runs, and the times, of the simple kernels and of the strip
+    kernels at the tables' rows a strip or at each of ``rows`` that fits,
+    with ``ring`` strip slots and a unit ``split`` over threads (gx's
+    channel repeats, gw's 8 channels) as given (None: the tables'); the
+    sums per backward of each
+    path: the sweep behind ``kernels/ska.py`` ``_BWD_*``."""
+    import torch
+
+    from image_restoration_tpu_torch.kernels import ska as K
+    from image_restoration_tpu_torch.kernels.build import load_library
+    from image_restoration_tpu_torch.ops.ska import ska_bwd_plain
+
+    lib = load_library().lib
+    sums = {}
+    for path, shapes, b, dname in ska_bwd_paths():
+        dt = torch.float32 if dname == "fp32" else torch.bfloat16
+        esize = 4 if dname == "fp32" else 2
+        for i, (h, w, c, wc, calls) in enumerate(shapes):
+            gen = torch.Generator(device="cuda").manual_seed(2000 + i)
+            x, wt, go = (torch.randn(s, generator=gen, device="cuda").to(dt)
+                         for s in ((b, h, w, c), (b, h, w, wc, 9),
+                                   (b, h, w, c)))
+            plain = ska_bwd_plain(x, wt, go)
+            shape = f"{path} {b}x{h}x{w}x{c} wc {wc} {dname}"
+            bound = bound_ska_bwd(b, h, w, c, wc, esize)[0]
+            for k, (g, fn) in enumerate((("x", K.ska_bwd_x),
+                                         ("w", K.ska_bwd_w))):
+                configs = [("simple", {"th": 0})] + [
+                    (f"th {th or 'own'}", {"th": th, "ring": ring,
+                                           "split": split})
+                    for th in rows or [None]]
+                for label, cfg in configs:
+                    with _bwd_tables(c, esize, **cfg):
+                        if label != "simple":
+                            have = K._config(c, esize, g)
+                            if not lib.ir_ska_bwd_blocks(
+                                    w, c, wc, int(esize == 4), *have,
+                                    int(g == "w")):
+                                print(f"ska_bwd_{g} {shape} {label}: does "
+                                      f"not fit", flush=True)
+                                continue
+                            label += f" (rows, ring, split {have})"
+                        got = fn(x, wt, go)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, plain[k]), f"ska_bwd_{g} "
+                              f"{shape} {label}: not the bits of "
+                              f"ska_bwd_plain")
+                        check(torch.equal(got, fn(x, wt, go)),
+                              f"ska_bwd_{g} {shape} {label}: two runs differ")
+                        route = K.bwd_route(x, wt, go, g)
+                        t = time_cuda(lambda: fn(x, wt, go))
+                    print(f"ska_bwd_{g} {shape} {label}: {route} path, "
+                          f"{t:.4f} ms, bound {bound:.4f} ms "
+                          f"({bound / t:.1%})", flush=True)
+                    key = (path, g, label.split(" (")[0])
+                    sums[key] = sums.get(key, []) + [calls * t]
+    n_shapes = {path: len(shapes) for path, shapes, _, _ in ska_bwd_paths()}
+    for (path, g, label), parts in sums.items():
+        if len(parts) == n_shapes[path]:
+            print(f"ska_bwd_{g} {path} {label}: {sum(parts):.4f} ms per "
+                  f"backward", flush=True)
 
 
 def _check_vjp(tag, api, reference, inputs, counters, fwd_expected):
@@ -6586,7 +6737,8 @@ def phase_mesh_train(gpu):
 # The collectives ProcessGroupGloo runs on CUDA tensors, as the H100
 # machine's torch 2.11 showed (a send of a CUDA tensor hands the device
 # pointer to gloo's TCP transport and breaks the pair): phase 6m's ranks
-# probe them again, and stage only the halo sends through the host.
+# probe them again; ``parallel/comm.py`` ``exchange`` sends the halo rows
+# through host copies.
 GLOO_CUDA_OPS = ("all_reduce", "all_gather")
 
 
@@ -6616,32 +6768,16 @@ def _probe_gloo_cuda(group):
     return out
 
 
-def _staged_exchange(direct, sends, recvs, group):
-    """``parallel/comm.py`` ``exchange`` (``direct``) of CUDA tensors
-    through pinned host copies, for gloo, which sends no CUDA tensor."""
-    import torch
-
-    bufs = [(t, torch.empty(t.shape, dtype=t.dtype, pin_memory=True), peer)
-            for t, peer in recvs]
-    direct([(t.detach().to("cpu").pin_memory(), peer) for t, peer in sends],
-           [(b, peer) for _, b, peer in bufs], group)
-    for t, b, _ in bufs:
-        t.copy_(b)
-
-
 def gloo_card_rank(rank, n, init_method, checks):
     """A phase-6m rank: joins the gloo group on the card, probes which
-    collectives gloo runs on CUDA tensors, stages the halo sends through
-    the host, and runs ``parallel/dryrun.py`` ``checks_rank``."""
-    import functools
-
+    collectives gloo runs on CUDA tensors, and runs ``parallel/dryrun.py``
+    ``checks_rank``."""
     import torch.distributed as dist
 
-    from image_restoration_tpu_torch.parallel import comm, dryrun
+    from image_restoration_tpu_torch.parallel import dryrun
 
     dryrun.join_group(rank, n, init_method, "cuda")
     probe = _probe_gloo_cuda(dist.group.WORLD)
-    comm.exchange = functools.partial(_staged_exchange, comm.exchange)
     return {"gloo_cuda": probe,
             **dryrun.checks_rank(rank, n, init_method, checks, "cuda")}
 
@@ -6650,7 +6786,8 @@ def phase_mesh_ranks(gpu):
     """Phase 6m: two ranks on the one card over gloo (NCCL takes one rank
     a card), spawned by ``parallel/dryrun.py`` ``spawn_ranks``
     (``gloo_card_rank``: which collectives gloo runs on CUDA tensors; the
-    halo sends go through pinned host tensors); the dry run's check 1 at
+    halo sends go through host copies, ``parallel/comm.py`` ``exchange``);
+    the dry run's check 1 at
     MoCE-IR's full width (batch TRAIN_BATCH x TRAIN_PATCH^2, bf16, K1/K2)
     on a (2, 1) data x expert mesh, so each rank steps on its half of the
     batch, held to one process by the 3x rule (loss and gradients' distance
@@ -6692,7 +6829,7 @@ def phase_mesh_ranks(gpu):
     takes = sorted(k for k, v in probe.items() if v is True)
     print(f"6m: 2 gloo ranks on {gpu} in {wall:.1f} s (spawn included); "
           f"gloo takes CUDA tensors for {takes} (probe {probe}); halo rows "
-          f"staged through pinned host tensors (gloo sends no CUDA tensor)",
+          f"sent as host copies (gloo sends no CUDA tensor)",
           flush=True)
     check(set(GLOO_CUDA_OPS) <= set(takes), f"6m: gloo refused {probe}; "
           f"the ranks need {GLOO_CUDA_OPS} on CUDA tensors")
@@ -6882,6 +7019,13 @@ def main(argv=None):
                          "wrapper's rows a strip or at each of TH, with the "
                          "host time of a wrapper call and its parts timed "
                          "apart; prints no result line")
+    ap.add_argument("--ska-bwd", nargs="*", type=int, default=None,
+                    metavar="TH",
+                    help="only SKA's two backward kernels at the four "
+                         "paths' shapes: the bits, two equal runs and the "
+                         "times of the simple kernels and of the strip "
+                         "kernels at the tables' rows a strip or at each of "
+                         "TH; prints no result line")
     ap.add_argument("--learn", type=int, default=None, metavar="DIM",
                     help="only the overfit run of tools/learn_run.py (its "
                          "synthetic rain set and its cli/train.py argv, "
@@ -6909,11 +7053,13 @@ def main(argv=None):
                     help="with --attn: K6's column groups (blocks a tile)")
     ap.add_argument("--ring", type=int, default=None, choices=[1, 2, 3],
                     help="with --attn (2 or 3): K5's tile slots (loads "
-                         "ring - 1 tiles ahead); with --ska (1 or 2): K9's "
-                         "strip slots (1: one strip a block)")
+                         "ring - 1 tiles ahead); with --ska or --ska-bwd "
+                         "(1 or 2): K9's or its backward's strip slots (1: "
+                         "one strip a block)")
     ap.add_argument("--split", type=int, default=None, choices=[1, 2, 4, 8],
-                    help="with --ska: threads that share a K9 unit's channel "
-                         "repeats")
+                    help="with --ska or --ska-bwd: threads that share a K9 "
+                         "or a gx unit's channel repeats, or a gw unit's 8 "
+                         "channels")
     ap.add_argument("--walk", type=int, default=None,
                     help="with --attn: the fewest tiles a K5 block walks")
     ap.add_argument("--phases", nargs="+", choices=PHASES, default=None,
@@ -6938,21 +7084,25 @@ def main(argv=None):
                  "with --attn")
     if (args.cols or args.groups or args.walk) and args.attn is None:
         ap.error("--cols, --groups and --walk go with --attn")
-    if args.ring is not None and (args.attn is None) == (args.ska is None):
-        ap.error("--ring goes with one of --attn and --ska")
+    ska_given = (args.ska is not None) + (args.ska_bwd is not None)
+    if args.ring is not None and (args.attn is not None) + ska_given != 1:
+        ap.error("--ring goes with one of --attn, --ska and --ska-bwd")
     if args.ring == (1 if args.attn is not None else 3):
-        ap.error("--ring: 2 or 3 with --attn, 1 or 2 with --ska")
-    if args.split is not None and args.ska is None:
-        ap.error("--split goes with --ska")
+        ap.error("--ring: 2 or 3 with --attn, 1 or 2 with --ska or "
+                 "--ska-bwd")
+    if args.split is not None and ska_given != 1:
+        ap.error("--split goes with one of --ska and --ska-bwd")
     if args.shapes != "restormer" and args.tail is None and \
             args.front is None:
         ap.error("--shapes goes with --tail or --front")
     learn = (args.learn is not None) + args.learn_moce
     if learn and (learn > 1 or args.mefc is not None or any(
-            getattr(args, k) is not None for k in ("attn", "ska", *sweeps))):
+            getattr(args, k) is not None
+            for k in ("attn", "ska", "ska_bwd", *sweeps))):
         ap.error("--learn and --learn-moce run alone")
     if args.phases is not None and (learn or args.mefc is not None or any(
-            getattr(args, k) is not None for k in ("attn", "ska", *sweeps))):
+            getattr(args, k) is not None
+            for k in ("attn", "ska", "ska_bwd", *sweeps))):
         ap.error("--phases goes with no sweep and no --learn")
 
     import torch
@@ -6979,9 +7129,8 @@ def main(argv=None):
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    if args.mefc is not None or args.attn is not None or \
-            args.ska is not None or any(rows is not None
-                                        for rows in sweeps.values()):
+    if args.mefc is not None or args.attn is not None or ska_given or \
+            any(rows is not None for rows in sweeps.values()):
         for group, rows in sweeps.items():
             if rows is not None:
                 phase_sweep(group, rows, args.warps,
@@ -6993,6 +7142,8 @@ def main(argv=None):
                              args.ring, args.walk)
         if args.ska is not None:
             phase_ska_sweep(args.ska, args.ring, args.split)
+        if args.ska_bwd is not None:
+            phase_ska_bwd_sweep(args.ska_bwd, args.ring, args.split)
         print(gpu)
         return 0
 
@@ -7138,8 +7289,12 @@ def main(argv=None):
                     "(distill)",
              "ska_bwd_x": "sum over the 9 calls of one LSNet-B backward of a "
                           "batch of 64 at 224x224 of per-call CUDA-event "
-                          "medians, bf16; plain_ms is ska_bwd_plain's, which "
-                          "computes both gradients; by_path as ska's",
+                          "medians (the strip kernel, two runs' mean), "
+                          "bf16; plain_ms is ska_bwd_plain's, which "
+                          "computes both gradients; per_shape holds the "
+                          "simple kernel's ms at the same shape "
+                          "(simple_ms) and the timer's spread; by_path as "
+                          "ska's",
              "ska_bwd_w": "the same as ska_bwd_x's"}
 
     kernels = []

@@ -1,7 +1,7 @@
 // Shared helpers of the port's CUDA kernels (block_front.cu,
 // block_apply_gdfn.cu, ln_qkv_dwconv.cu, attn_core.cu, ln_gdfn.cu,
 // drs_apply_msfn.cu, mefc_step.cu, ska.cu, ska_bwd.cu; front.cuh and gdfn.cuh hold the
-// device code the Restormer block kernels share). Built for sm_90a with
+// device code the Restormer block kernels share, ska.cuh the SKA kernels'). Built for sm_90a with
 // nvcc into one shared library with a plain C interface; see
 // kernels/build.py.
 #pragma once

@@ -29,7 +29,12 @@ counts launches. The forward is the custom op ``ir_torch::ska``
 (:class:`_SKA`) computes ``_ska_bwd``'s gradients, on CUDA tensors with
 the two kernels of ``csrc/ska_bwd.cu`` (:func:`ska_bwd_x`,
 :func:`ska_bwd_w`, each counting its launches), on CPU tensors with
-:func:`~image_restoration_tpu_torch.ops.ska.ska_bwd_plain`.
+:func:`~image_restoration_tpu_torch.ops.ska.ska_bwd_plain`. Each backward
+kernel has two paths, as the forward: strips of whole rows staged in
+shared memory at k = 3 with wc a multiple of 8 and aligned pointers (their
+rows a strip and slots from the ``_BWD_*`` tables, one-row strips where
+those do not fit), and one thread per output value elsewhere;
+:func:`bwd_route` says which a launch takes.
 """
 
 from __future__ import annotations
@@ -58,33 +63,63 @@ _SKA_RING = {(128, 2): 2, (256, 2): 2, (384, 2): 2,
 _SKA_SPLIT = {(384, 2): 2}
 
 
-def _config(c, esize):
-    """(rows a strip, slots, split) at width ``c``; 2 rows, 2 slots and no
-    split where the tables have no entry."""
-    key = (c, esize)
-    return (_SKA_ROWS.get(key, 2), _SKA_RING.get(key, 2),
-            _SKA_SPLIT.get(key, 1))
+# The backward strip kernels' tables by (gradient "x" or "w", C, bytes a
+# value): rows a strip, strip slots and the threads that share a unit (gx:
+# its channel repeats; gw: its 8 channels, since its repeats are one
+# ordered sum), chosen by ``chip_smoke.py --ska-bwd`` sweeps at the four
+# training and attack paths' shapes on an H100 80GB HBM3 (700 W): the
+# least time summed over the shapes a key serves. 0 rows a strip sends a
+# width to the simple kernels (the yardstick the sweeps time).
+_BWD_ROWS = {("x", 128, 2): 4, ("x", 192, 2): 1, ("x", 256, 2): 4,
+             ("x", 384, 2): 2, ("x", 128, 4): 4, ("x", 256, 4): 2,
+             ("x", 384, 4): 1, ("w", 128, 2): 1, ("w", 192, 2): 1,
+             ("w", 256, 2): 1, ("w", 384, 2): 1, ("w", 128, 4): 4,
+             ("w", 256, 4): 2, ("w", 384, 4): 1}
+_BWD_RING = {("x", 128, 2): 2, ("x", 256, 2): 2}  # 1 elsewhere
+_BWD_SPLIT = {("x", 192, 2): 2, ("x", 384, 4): 4, ("w", 128, 2): 2,
+              ("w", 192, 2): 4, ("w", 256, 2): 2, ("w", 384, 2): 2,
+              ("w", 128, 4): 2, ("w", 384, 4): 2}
+
+
+def _config(c, esize, grad=None):
+    """(rows a strip, slots, split) at width ``c``, of the forward or of
+    gradient ``grad``'s kernel; where the tables have no entry, 2 rows, no
+    split, and 2 slots (the forward) or 1 (the backward)."""
+    if grad is None:
+        return (_SKA_ROWS.get((c, esize), 2), _SKA_RING.get((c, esize), 2),
+                _SKA_SPLIT.get((c, esize), 1))
+    key = (grad, c, esize)
+    return (_BWD_ROWS.get(key, 2), _BWD_RING.get(key, 1),
+            _BWD_SPLIT.get(key, 1))
 
 
 _PLANS = {}
 
 
-def _plan(lib, device, b, h, w, c, wc, fp32):
-    """(rows a strip, slots, split, blocks) of a launch: the tables' strip
-    or, where it does not fit the card, one-row strips one a block, on the
-    SMs times the blocks an SM holds, no more than the strips (0 blocks
-    where neither fits: the scalar path ignores them); cached per shape."""
-    th, ring, split = _config(c, 4 if fp32 else 2)
-    key = (device, b, h, w, c, wc, fp32, th, ring, split)
+def _plan(lib, device, b, h, w, c, wc, fp32, grad=None):
+    """(rows a strip, slots, split, blocks) of a launch of the forward or
+    of gradient ``grad``'s kernel: the tables' strip or, where it does not
+    fit the card, one-row strips one a block, on the SMs times the blocks
+    an SM holds, no more than the strips (0 blocks where neither fits or
+    the table gives 0 rows: the scalar path ignores them); cached per
+    shape."""
+    th, ring, split = _config(c, 4 if fp32 else 2, grad)
+    key = (device, grad, b, h, w, c, wc, fp32, th, ring, split)
     if key not in _PLANS:
+        def blocks(th, ring):
+            if grad is None:
+                return lib.lib.ir_ska_blocks(w, c, wc, fp32, th, ring, split)
+            return lib.lib.ir_ska_bwd_blocks(w, c, wc, fp32, th, ring, split,
+                                             int(grad == "w"))
+
         with torch.cuda.device(device):
-            per_sm = lib.lib.ir_ska_blocks(w, c, wc, fp32, th, ring, split)
-            if not per_sm:
+            per_sm = blocks(th, ring) if th else 0
+            if not per_sm and th:
                 th, ring = 1, 1
-                per_sm = lib.lib.ir_ska_blocks(w, c, wc, fp32, th, ring,
-                                               split)
+                per_sm = blocks(th, ring)
             sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _PLANS[key] = (th, ring, split, min(b * -(-h // th), per_sm * sms))
+        _PLANS[key] = (th, ring, split,
+                       min(b * -(-h // max(th, 1)), per_sm * sms))
     return _PLANS[key]
 
 
@@ -180,25 +215,47 @@ def ska(x, w):
 ska.launches = 0
 
 
-def _bwd_launch(entry, counter, out, operand, go, x, w):
-    """Launches ``ir_<entry>`` on (go, operand) into ``out``."""
+def _bwd_launch(grad, counter, out, go, x, w):
+    """Launches ``ir_ska_bwd_<grad>`` on go and w (gx) or x (gw) into
+    ``out``."""
     from image_restoration_tpu_torch.kernels.build import load_library
 
+    entry = f"ska_bwd_{grad}"
     bsz, h, wd, c, wc, ks = ska_shape(x, w)
     _check(entry, [("go", go), ("x", x), ("w", w)])
     if go.shape != x.shape:
         raise ValueError(f"{entry}: go {tuple(go.shape)} is not x's shape "
                          f"{tuple(x.shape)}")
     lib = load_library()
+    fp32 = int(go.dtype == torch.float32)
+    plan = _plan(lib, go.device, bsz, h, wd, c, wc, fp32, grad)
     idx = go.device.index
+    operand = w if grad == "x" else x
     with _stream(idx):
         code = getattr(lib.lib, f"ir_{entry}")(
             go.data_ptr(), operand.data_ptr(), out.data_ptr(), bsz, h, wd, c,
-            wc, ks, int(go.dtype == torch.float32),
-            torch._C._cuda_getCurrentRawStream(idx))
+            wc, ks, fp32, *plan, torch._C._cuda_getCurrentRawStream(idx))
     lib.check(code, entry)
     counter.launches += 1
     return out
+
+
+def bwd_route(x, w, go, grad):
+    """"strip" or "simple": the path of ``csrc/ska_bwd.cu`` that a launch
+    of gradient ``grad``'s kernel ("x" or "w") on these CUDA tensors takes
+    into a fresh (aligned) output, as the library decides it."""
+    from image_restoration_tpu_torch.kernels.build import load_library
+
+    _, h, wd, c, wc, ks = ska_shape(x, w)
+    lib = load_library()
+    fp32 = int(go.dtype == torch.float32)
+    th, ring, split, _ = _plan(lib, go.device, x.shape[0], h, wd, c, wc,
+                               fp32, grad)
+    operand = w if grad == "x" else x
+    taken = lib.lib.ir_ska_bwd_route(go.data_ptr(), operand.data_ptr(), None,
+                                     h, wd, c, wc, ks, fp32, th, ring, split,
+                                     int(grad == "w"))
+    return "strip" if taken else "simple"
 
 
 def ska_bwd_x(x, w, go):
@@ -207,8 +264,7 @@ def ska_bwd_x(x, w, go):
     shape; the kernel (``csrc/ska_bwd.cu``) reads go and w."""
     if go.device.type == "cpu":
         return ska_bwd_plain(x, w, go)[0]
-    return _bwd_launch("ska_bwd_x", ska_bwd_x, torch.empty_like(go), w, go,
-                       x, w)
+    return _bwd_launch("x", ska_bwd_x, torch.empty_like(go), go, x, w)
 
 
 ska_bwd_x.launches = 0
@@ -219,8 +275,7 @@ def ska_bwd_w(x, w, go):
     under the output gradient ``go``; the kernel reads go and x."""
     if go.device.type == "cpu":
         return ska_bwd_plain(x, w, go)[1]
-    return _bwd_launch("ska_bwd_w", ska_bwd_w, torch.empty_like(w), x, go,
-                       x, w)
+    return _bwd_launch("w", ska_bwd_w, torch.empty_like(w), go, x, w)
 
 
 ska_bwd_w.launches = 0

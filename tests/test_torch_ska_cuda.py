@@ -23,6 +23,17 @@ whose rows do not divide H, to 7x7 x 384 images split over blocks by rows,
 with one strip a block and with persistent blocks, to a batch whose images
 differ (each image's result must not depend on the others), to two
 bit-equal runs, and in fp32 at each LSNet-B shape.
+
+SKA's backward kernels (csrc/ska_bwd.cu) are held here at launch tables
+set by the test, in bf16 and fp32, to the bits of ``ska_bwd_plain``, two
+bit-equal runs and each image's gradients as they are alone: strips whose
+rows do not divide H, with one strip a block and with persistent blocks;
+7x7 x 384 with gx's channel repeats and gw's channels split over
+threads; LSNet-B's three
+shapes and LSNet-T's two at every rows a strip up to 4; one-row strips
+for rows too wide for the tables' strip; the simple kernels for rows too
+wide for even a one-row strip. tests/test_torch_vjp_cuda.py holds them at
+the tables' own configuration.
 """
 
 import numpy as np
@@ -30,7 +41,7 @@ import pytest
 import torch
 
 from image_restoration_tpu_torch.kernels import ska as K
-from image_restoration_tpu_torch.ops.ska import ska_plain
+from image_restoration_tpu_torch.ops.ska import ska_bwd_plain, ska_plain
 
 # (B, H, W, C, wc, ks)
 CASES = [(4, 28, 28, 128, 16, 3), (4, 14, 14, 256, 32, 3),
@@ -253,3 +264,117 @@ def test_rows_too_wide_for_the_tables_strip(cuda, dt, w):
     else:
         assert _rel(got, oracle) < max(3 * _rel(ska_plain(x, wt), oracle),
                                        4e-3)
+
+
+def _set_bwd_config(monkeypatch, c, th, ring, split=1):
+    """Backward launch tables for width ``c`` in bf16 and fp32; ``split``
+    divides gx's channel repeats and, up to 4, gw's 8 channels a unit."""
+    for grad, parts in (("x", split), ("w", min(split, 4))):
+        for esize in (2, 4):
+            monkeypatch.setitem(K._BWD_ROWS, (grad, c, esize), th)
+            monkeypatch.setitem(K._BWD_RING, (grad, c, esize), ring)
+            monkeypatch.setitem(K._BWD_SPLIT, (grad, c, esize), parts)
+
+
+def _check_bwd(case, seed, path="strip"):
+    """Both gradients in bf16 and fp32 take ``path`` and give the bits of
+    ska_bwd_plain, twice, and each image's are those of it alone."""
+    x, w = _inputs(case, "cuda", seed)
+    go = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        x.shape, dtype=np.float32)).cuda()
+    for dt in (torch.bfloat16, torch.float32):
+        xd, wd, gd = x.to(dt), w.to(dt), go.to(dt)
+        plain = ska_bwd_plain(xd, wd, gd)
+        for k, (grad, fn) in enumerate((("x", K.ska_bwd_x),
+                                        ("w", K.ska_bwd_w))):
+            assert K.bwd_route(xd, wd, gd, grad) == path
+            got = fn(xd, wd, gd)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain[k]), (grad, dt)
+            assert torch.equal(got, fn(xd, wd, gd))
+            for i in range(x.shape[0]):
+                one = fn(xd[i:i + 1], wd[i:i + 1], gd[i:i + 1])
+                assert torch.equal(got[i:i + 1], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th", [3, 4, 5])
+@pytest.mark.parametrize("ring", [1, 2])
+def test_bwd_strips_that_do_not_divide_h(cuda, monkeypatch, th, ring):
+    """H = 13 and 14 at 3-5 rows a strip: the last strip of each image is
+    short, and its halo row below the image is zero-filled."""
+    _set_bwd_config(monkeypatch, 64, th, ring)
+    for h in (13, 14):
+        _check_bwd((2, h, 10, 64, 16, 3), seed=10 * h + th)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th", [1, 2, 3, 7])
+@pytest.mark.parametrize("ring", [1, 2])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_bwd_deep_map_split(cuda, monkeypatch, th, ring, split):
+    """LSNet-B's 7x7 x 384 (wc 48) in strips of 1 to 7 rows, one strip a
+    block or persistent blocks, gx's 8 channel repeats of a unit on 1, 2,
+    4 or 8 threads, gw's 8 channels of a unit on 1, 2, 4 and 4 threads."""
+    _set_bwd_config(monkeypatch, 384, th, ring, split=split)
+    _check_bwd((3, 7, 7, 384, 48, 3), seed=th + 10 * ring + split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 28, 28, 128, 16, 3),
+                                  (2, 14, 14, 256, 32, 3),
+                                  (2, 7, 7, 384, 48, 3),
+                                  (2, 14, 14, 128, 16, 3),
+                                  (2, 7, 7, 192, 24, 3)],
+                         ids=["B28x128", "B14x256", "B7x384", "T14x128",
+                              "T7x192"])
+@pytest.mark.parametrize("th", [1, 2, 3, 4])
+def test_bwd_lsnet_shapes_at_every_strip_height(cuda, monkeypatch, case, th):
+    """LSNet-B's and LSNet-T's shapes in strips of 1 to 4 rows, with the
+    tables' slots (one-row strips one a block where they do not fit)."""
+    for grad in ("x", "w"):
+        for esize in (2, 4):
+            monkeypatch.setitem(K._BWD_ROWS, (grad, case[3], esize), th)
+    _check_bwd(case, seed=th)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,w", [(torch.float32, 40), (torch.bfloat16, 100)])
+def test_bwd_rows_too_wide_for_the_tables_strip(cuda, monkeypatch, dt, w):
+    """At C 128, 2-row strips in two slots overflow shared memory for gx
+    from W 24 in fp32 and W 52 in bf16, and for gw from W 37 and W 76: the
+    plan takes one-row strips one a block, by the same rule, on 5 rows
+    that need several."""
+    from image_restoration_tpu_torch.kernels.build import load_library
+
+    _set_bwd_config(monkeypatch, 128, 2, 2)
+    lib = load_library()
+    fp32 = int(dt == torch.float32)
+    for grad in ("x", "w"):
+        assert lib.lib.ir_ska_bwd_blocks(w, 128, 16, fp32, 2, 2, 1,
+                                         int(grad == "w")) == 0
+        plan = K._plan(lib, torch.device("cuda", 0), 2, 5, w, 128, 16, fp32,
+                       grad)
+        assert plan[:2] == (1, 1) and plan[3] > 0
+    x, wt = _inputs((2, 5, w, 128, 16, 3), cuda, seed=w)
+    go = torch.randn(x.shape, generator=torch.Generator().manual_seed(w))
+    x, wt, go = x.to(dt), wt.to(dt), go.to(cuda, dt)
+    plain = ska_bwd_plain(x, wt, go)
+    for k, (grad, fn) in enumerate((("x", K.ska_bwd_x), ("w", K.ska_bwd_w))):
+        assert K.bwd_route(x, wt, go, grad) == "strip"
+        got = fn(x, wt, go)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain[k]) and torch.equal(got, fn(x, wt, go))
+
+
+@pytest.mark.cuda
+def test_bwd_simple_path_for_rows_too_wide_for_a_strip(cuda):
+    """A 1000-pixel row of 256 channels does not fit even a one-row strip:
+    both gradients take the simple kernels, with the plain version's
+    bits."""
+    from image_restoration_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    for grad in (0, 1):
+        assert lib.lib.ir_ska_bwd_blocks(1000, 256, 32, 0, 1, 1, 1, grad) == 0
+    _check_bwd((1, 3, 1000, 256, 32, 3), seed=3, path="simple")

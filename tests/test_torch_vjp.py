@@ -257,9 +257,12 @@ def _port_steps_jax(raw):
             for sp in raw]
 
 
-# (B, H, W, C, wc, ks): C > wc everywhere, so the tile map is exercised
+# (B, H, W, C, wc, ks): C > wc everywhere, so the tile map is exercised;
+# the last two are widths the CUDA backward's strip kernels take (C = 8 wc,
+# LSNet's), with H a multiple of neither 2 nor 4
 SKA_CASES = [(2, 7, 9, 12, 2, 3), (1, 7, 9, 24, 6, 3), (1, 7, 9, 12, 6, 5),
-             (2, 5, 6, 32, 16, 3)]
+             (2, 5, 6, 32, 16, 3), (2, 13, 14, 128, 16, 3),
+             (1, 7, 9, 192, 24, 3)]
 
 
 def _ska_inputs(case, seed):

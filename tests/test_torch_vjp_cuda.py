@@ -17,12 +17,15 @@ custom VJPs on the CPU):
   deterministic algorithms. With nothing to differentiate the call is the
   launch itself.
 * ``ska_bwd_x`` and ``ska_bwd_w`` (``csrc/ska_bwd.cu``) against
-  ``ska_bwd_plain`` at LSNet-B's three SKA shapes (batch 4), a ragged 7x9
-  at C 24 / wc 6 and C 12 / wc 2, and k = 5, in bf16 and fp32: the same
-  fp32 products summed in the same order, each rounded on its own, so the
-  bits are the plain version's; K9's rule against the fp32 oracle too; two
-  runs equal; the images of a batch independent. Through ``ska``'s
-  ``_SKA``: one launch of each backward kernel, no forward launch.
+  ``ska_bwd_plain`` at LSNet-B's three SKA shapes and LSNet-T's two (batch
+  4) and a 13x10 map at C 64 / wc 16, which take the strip kernels, and a
+  ragged 7x9 at C 24 / wc 6 and C 12 / wc 2, and k = 5, which take the
+  simple ones (``bwd_route`` says which), in bf16 and fp32: the same fp32
+  products summed in the same order, each rounded on its own, so the bits
+  are the plain version's; K9's rule against the fp32 oracle too; two runs
+  equal; the images of a batch independent. An unaligned view of go takes
+  the simple kernels, with the same bits. Through ``ska``'s ``_SKA``: one
+  launch of each backward kernel, no forward launch.
 * ``build_model``: a ``--fp32`` Restormer restores through
   ``make_restore_fn`` on the card with no kernel launch (the kernels take
   bf16); a Restormer at ``model_kwargs.dim=24`` (head width 24) takes a
@@ -146,10 +149,19 @@ def test_mefc_steps_vjp(cuda, h, w, c):
                (x, weights, *KF._flat(steps)), {"mefc_step": 4})
 
 
-# (B, H, W, C, wc, ks)
+# (B, H, W, C, wc, ks): LSNet-B's three shapes, the simple path's small
+# widths and k = 5, LSNet-T's two shapes, a map whose H no strip table
+# divides
 SKA_CASES = [(4, 28, 28, 128, 16, 3), (4, 14, 14, 256, 32, 3),
              (4, 7, 7, 384, 48, 3), (2, 7, 9, 24, 6, 3), (2, 7, 9, 12, 2, 3),
-             (1, 7, 9, 24, 6, 5)]
+             (1, 7, 9, 24, 6, 5), (4, 14, 14, 128, 16, 3),
+             (4, 7, 7, 192, 24, 3), (2, 13, 10, 64, 16, 3)]
+
+
+def _bwd_path(case):
+    """The path of csrc/ska_bwd.cu a case takes: the strip kernels at k = 3
+    with wc a multiple of 8."""
+    return "strip" if case[5] == 3 and case[4] % 8 == 0 else "simple"
 
 
 def _ska_inputs(case, device, seed, dtype):
@@ -168,6 +180,8 @@ def _ska_inputs(case, device, seed, dtype):
 @pytest.mark.parametrize("case", SKA_CASES)
 def test_ska_backward_kernels(cuda, case, dtype):
     x, w, go = _ska_inputs(case, cuda, seed=sum(case), dtype=dtype)
+    assert KS.bwd_route(x, w, go, "x") == KS.bwd_route(x, w, go, "w") == \
+        _bwd_path(case)
     before = (KS.ska_bwd_x.launches, KS.ska_bwd_w.launches)
     gx, gw = KS.ska_bwd_x(x, w, go), KS.ska_bwd_w(x, w, go)
     again = KS.ska_bwd_x(x, w, go), KS.ska_bwd_w(x, w, go)
@@ -189,6 +203,26 @@ def test_ska_backward_kernels(cuda, case, dtype):
         one = KS.ska_bwd_x(x[1:2], w[1:2], go[1:2]), \
             KS.ska_bwd_w(x[1:2], w[1:2], go[1:2])
         assert torch.equal(one[0], gx[1:2]) and torch.equal(one[1], gw[1:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ska_backward_unaligned_view_takes_the_simple_kernels(cuda, dtype):
+    """go 2 or 4 bytes past an aligned allocation: both gradients take the
+    simple kernels, which give the strip kernels' bits."""
+    x, w, go = _ska_inputs(SKA_CASES[0], cuda, seed=4, dtype=dtype)
+    base = torch.empty(go.numel() + 1, dtype=dtype, device=cuda)
+    gv = base[1:].view(go.shape)
+    gv.copy_(go)
+    assert gv.is_contiguous() and gv.data_ptr() % 16
+    assert KS.bwd_route(x, w, go, "x") == "strip"
+    assert KS.bwd_route(x, w, gv, "x") == KS.bwd_route(x, w, gv, "w") == \
+        "simple"
+    for k, fn in enumerate((KS.ska_bwd_x, KS.ska_bwd_w)):
+        got, want = fn(x, w, gv), fn(x, w, go)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(got, ska_bwd_plain(x, w, go)[k])
 
 
 @pytest.mark.cuda
